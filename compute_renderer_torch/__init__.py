@@ -1,0 +1,17 @@
+"""compute_renderer_torch — the PyTorch + CUDA port of the JAX package.
+
+The same tile-based software rasterizer (vertex + setup, triangle-to-tile
+binning, fused raster + Phong shade) for an NVIDIA H100: plain tensor code
+is torch, and each Pallas kernel of the JAX package becomes a hand-written
+CUDA kernel (``csrc/``) with a plain torch twin that CPU tensors run. The
+module paths mirror the JAX package's so that each module's
+counterpart is easy to find. This package never imports JAX.
+
+Ported so far: the tile path in base mode (no materials, textures or
+anti-aliasing beyond the box filter). See ROADMAP.md for the rest.
+"""
+
+__version__ = "0.1.0"
+
+from compute_renderer_torch.engine.scene import Scene, SceneConfig, CameraConfig  # noqa: F401
+from compute_renderer_torch.engine.renderer import Renderer  # noqa: F401

@@ -1,0 +1,243 @@
+"""Triangle-to-tile binning (the tile half), in torch ops.
+
+Counterpart of the JAX package's ``backends/binning.py:43-316, 592-608``
+and the replacement for the reference's four binning kernels
+(binning.wgsl: count, two-pass scan, store). A stable sort by tile id (or a
+rank search over the coverage matrix) gives every tile its triangles in
+ascending index order — deterministic, where the reference's atomic slot
+claim is not — and overflow is *reported*, with the capacity a retry needs,
+instead of written out of bounds (gpu_buffers.rs:53-63).
+
+Two layouts, the same contract:
+
+- dense (``bin_triangles_dense``): a (num_tiles, C) row of triangle ids
+  per tile;
+- flat (``bin_triangles_sort``): the tile-sorted pair list plus per-tile
+  (start, count).
+
+Every integer output equals the JAX package's bit for bit. The TPU-only
+padding of the outputs (8-row blocks, 1024-element DMA windows) is not
+carried: the raster kernel here reads exactly ``seg_count`` entries.
+Nothing here synchronises with the host: overflow reports stay tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+I32 = torch.int32
+
+# Above this many rank-search ops (num_tiles * tile_cap * T) the dense
+# layout gives way to the sort. Kept equal to the JAX package's value so
+# both packages pick the same layout; the cost balance on the GPU is not
+# measured yet.
+DENSE_BINNING_OP_LIMIT = 600_000_000
+
+
+def cover_counts(setup):
+    """Per-triangle covered-rect dims and cover-pair counts: (rx, ry, c)
+    with c = rx*ry for alive triangles, 0 otherwise."""
+    rx = (setup["tile_x1"] - setup["tile_x0"]).to(I32)
+    ry = (setup["tile_y1"] - setup["tile_y0"]).to(I32)
+    return rx, ry, torch.where(setup["alive"], rx * ry, 0).to(I32)
+
+
+def setup_from_meta(meta):
+    """The binning's ``triangle_setup`` dict from the front end's meta rows
+    (4, T) = [tile_x0, tile_y0, rx, c]. Exact for alive triangles (c =
+    rx*ry with rx >= 1); dead ones (c == 0) get an empty rect, which every
+    consumer masks by ``alive`` anyway."""
+    x0 = meta[0].to(I32)
+    y0 = meta[1].to(I32)
+    rx = meta[2].to(I32)
+    c = meta[3].to(I32)
+    alive = c > 0
+    ry = torch.div(c, torch.clamp(rx, min=1), rounding_mode="floor")
+    return {
+        "tile_x0": x0,
+        "tile_y0": y0,
+        "tile_x1": x0 + torch.where(alive, rx, 0).to(I32),
+        "tile_y1": y0 + torch.where(alive, ry, 0).to(I32),
+        "alive": alive,
+    }
+
+
+def bin_triangles(setup, ntx: int, nty: int, pair_cap: int, tile_cap: int):
+    """Dispatch to the dense or sort layout by the rank-search op count
+    (the same rule as the JAX package, so both pick the same layout)."""
+    T = setup["alive"].shape[0]
+    if ntx * nty * tile_cap * max(T, 1) <= DENSE_BINNING_OP_LIMIT:
+        return bin_triangles_dense(setup, ntx, nty, pair_cap, tile_cap)
+    return bin_triangles_sort(setup, ntx, nty, pair_cap, tile_cap)
+
+
+def bin_triangles_dense(setup, ntx: int, nty: int, pair_cap: int,
+                        tile_cap: int):
+    """Dense-rank binning: coverage matrix cov (num_tiles, T), per-tile
+    counts by reduction, and the s-th triangle of tile j as the first t
+    with R[j, t] >= s+1, where R = cumsum(cov) along t. The JAX package
+    evaluates that search as a (num_tiles, C, T) compare-and-count; here
+    ``torch.searchsorted`` on the non-decreasing rows of R gives the same
+    integers without the third axis (805 M elements at 16k triangles).
+
+    ``tile_cap`` is rounded up to a multiple of 128, as in the JAX package,
+    so the capacities and the overflow report agree between the two."""
+    num_tiles = ntx * nty
+    T = setup["alive"].shape[0]
+    device = setup["alive"].device
+    tile_cap = (tile_cap + 127) // 128 * 128
+
+    tile_ids = torch.arange(num_tiles, dtype=I32, device=device)
+    jx = (tile_ids % ntx)[:, None]
+    jy = torch.div(tile_ids, ntx, rounding_mode="floor")[:, None]
+    cov = (setup["alive"][None, :]
+           & (jx >= setup["tile_x0"][None, :]) & (jx < setup["tile_x1"][None, :])
+           & (jy >= setup["tile_y0"][None, :]) & (jy < setup["tile_y1"][None, :]))
+
+    counts = cov.sum(dim=1, dtype=I32)
+    seg_start = torch.cumsum(counts, 0, dtype=I32) - counts
+
+    R = torch.cumsum(cov, 1, dtype=I32)  # (num_tiles, T), rows non-decreasing
+    s_plus_1 = torch.arange(1, tile_cap + 1, dtype=I32, device=device)
+    tri_of_slot = torch.searchsorted(
+        R, s_plus_1.expand(num_tiles, tile_cap).contiguous(), side="left",
+        out_int32=True,
+    )
+    tri_of_slot = torch.clamp(tri_of_slot, max=max(T - 1, 0))
+
+    max_count = counts.max() if num_tiles > 0 else torch.zeros(
+        (), dtype=I32, device=device)
+    tile_overflow = max_count > tile_cap
+    return {
+        "bin_rows": tri_of_slot,
+        "seg_start": seg_start,
+        "seg_count": torch.clamp(counts, max=tile_cap),
+        "total_pairs": counts.sum(dtype=I32),
+        "pair_needed": torch.zeros((), dtype=I32, device=device),
+        "tile_needed": torch.where(tile_overflow, max_count, 0).to(I32),
+        "layout": "dense",
+    }
+
+
+def expand_pair_owners(starts, counts, pair_cap: int):
+    """tri_of_pair: the triangle owning each pair slot p (the rightmost t
+    with starts[t] <= p among triangles with counts > 0). Triangles with
+    counts > 0 have strictly increasing starts, so scattering t at
+    starts[t] and taking a running max reconstructs the ownership; slots
+    past the last seed inherit the last live triangle (masked invalid
+    downstream)."""
+    T = starts.shape[0]
+    device = starts.device
+    tpos = torch.where((counts > 0) & (starts < pair_cap), starts, pair_cap)
+    seed = torch.zeros((pair_cap + 1,), dtype=I32, device=device)
+    seed.scatter_(0, tpos.long(), torch.arange(T, dtype=I32, device=device))
+    return torch.cummax(seed[:pair_cap], 0).values
+
+
+def exact_tile_counts(setup, ntx: int, nty: int):
+    """Exact per-tile cover counts without the pair list: +1/-1 at each
+    rect's corners of an (nty+1, ntx+1) grid, then a 2-D prefix sum.
+    Independent of pair_cap, so it stays exact when the pair list
+    overflows."""
+    x0 = setup["tile_x0"].long()
+    x1 = setup["tile_x1"].long()
+    y0 = setup["tile_y0"].long()
+    y1 = setup["tile_y1"].long()
+    w = setup["alive"].to(I32)
+    # Out-of-range corners are dropped, as the JAX scatter's mode="drop"
+    # drops them: route them to a spill slot past the grid.
+    size = (nty + 1) * (ntx + 1)
+    grid = torch.zeros((size + 1,), dtype=I32, device=w.device)
+
+    def add(ys, xs, val):
+        ok = (ys >= 0) & (ys <= nty) & (xs >= 0) & (xs <= ntx)
+        grid.index_add_(0, torch.where(ok, ys * (ntx + 1) + xs, size), val)
+
+    add(y0, x0, w)
+    add(y0, x1, -w)
+    add(y1, x0, -w)
+    add(y1, x1, w)
+    g = grid[:size].reshape(nty + 1, ntx + 1)
+    counts = torch.cumsum(torch.cumsum(g, 0, dtype=I32), 1, dtype=I32)
+    return counts[:nty, :ntx].reshape(-1)
+
+
+def bin_triangles_sort(setup, ntx: int, nty: int, pair_cap: int,
+                       tile_cap: int):
+    """Sorted (tile, triangle) pair list + per-tile segments.
+
+    Returns a dict: ``pair_tri`` (pair_cap,) triangle ids sorted by tile,
+    ``seg_start`` / ``seg_count`` (num_tiles,) (count clamped to
+    tile_cap), ``total_pairs``, and the needed capacities ``pair_needed``
+    / ``tile_needed`` (0 = within capacity), exact even when the pair list
+    overflows."""
+    num_tiles = ntx * nty
+    device = setup["alive"].device
+    rx, _, c = cover_counts(setup)
+
+    starts = torch.cumsum(c, 0, dtype=I32) - c
+    total = (starts[-1] + c[-1]) if c.shape[0] > 0 else torch.zeros(
+        (), dtype=I32, device=device)
+
+    p = torch.arange(pair_cap, dtype=I32, device=device)
+    tri_of_pair = expand_pair_owners(starts, c, pair_cap)
+    valid = p < total
+
+    owner = tri_of_pair.long()
+    local = p - starts[owner]
+    trx = torch.clamp(rx[owner], min=1)
+    tile_of_pair = (
+        (setup["tile_y0"][owner] + torch.div(local, trx, rounding_mode="floor"))
+        * ntx
+        + (setup["tile_x0"][owner] + torch.remainder(local, trx))
+    ).to(I32)
+    tile_of_pair = torch.where(valid, tile_of_pair, num_tiles).to(I32)
+
+    # Stable: pairs are generated in triangle order, so each tile keeps
+    # ascending triangle ids.
+    sorted_tile, order = torch.sort(tile_of_pair, stable=True)
+    sorted_tri = tri_of_pair[order]
+
+    tile_ids = torch.arange(num_tiles, dtype=I32, device=device)
+    seg_start = torch.searchsorted(sorted_tile, tile_ids, side="left",
+                                   out_int32=True)
+    seg_end = torch.searchsorted(sorted_tile, tile_ids, side="right",
+                                 out_int32=True)
+    count = seg_end - seg_start
+
+    pair_overflow = total > pair_cap
+    if num_tiles > 0:
+        # Counts above come from the pair_cap-bounded list and under-report
+        # when it overflows; then the exact corner-scatter counts decide.
+        max_count = torch.where(pair_overflow,
+                                exact_tile_counts(setup, ntx, nty).max(),
+                                count.max())
+    else:
+        max_count = torch.zeros((), dtype=I32, device=device)
+    tile_overflow = max_count > tile_cap
+    return {
+        "pair_tri": sorted_tri,
+        "seg_start": seg_start,
+        "seg_count": torch.clamp(count, max=tile_cap),
+        "total_pairs": total,
+        "pair_needed": torch.where(pair_overflow, total, 0).to(I32),
+        "tile_needed": torch.where(tile_overflow, max_count, 0).to(I32),
+        "layout": "flat",
+    }
+
+
+def default_pair_cap(num_triangles: int, num_tiles: int) -> int:
+    """Static pair capacity heuristic (total pairs; overflow is detected and
+    retried at the reported need)."""
+    return max(2 * num_triangles, num_tiles, 2048)
+
+
+def default_tile_cap(num_triangles: int, width: int, height: int,
+                     tile_h: int, tile_w: int) -> int:
+    """Per-tile capacity C — the reference's heuristic
+    max(2 * tile_area / avg_tri_area, 128) (gpu_buffers.rs:53-63), rounded
+    to a multiple of 8."""
+    avg_tri_area = (width * height) / max(num_triangles, 1)
+    base = int(2.0 * (tile_h * tile_w) / max(avg_tri_area, 1e-6))
+    cap = max(base, 128)
+    return (cap + 7) // 8 * 8

@@ -1,0 +1,222 @@
+"""The GPU engine's tile path: fused front end -> binning -> raster + shade.
+
+Counterpart of the tile half of the JAX package's ``backends/tpu.py``
+(``render_frame`` at tpu.py:511-817 with ``path="tile"``, the capacity
+helpers and the retrying ``render``). Per frame:
+
+1. ``front.front_end`` — vertex stage, setup and the (32, T) coefficient
+   rows in one kernel, at tile granularity;
+2. ``binning.setup_from_meta`` + ``binning.bin_triangles`` (dense at
+   Suzanne scale, the sort above ``DENSE_BINNING_OP_LIMIT``);
+3. ``raster.raster_shade_tiles`` over the occupied tiles;
+4. ``raster.unpack_rgba``.
+
+Nothing in a frame waits for the host: the overflow report stays a device
+tensor, and the occupied-tile count is read by the kernel itself.
+
+The mega-scene micro path is not ported yet: ``path="micro"``, and
+``"auto"`` above ``TILE_PATH_MAX_TRIANGLES``, raise ``NotImplementedError``
+(ROADMAP queue 1, slice 2).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from compute_renderer_torch.backends import binning, common, front, raster
+
+F32 = torch.float32
+
+# Triangle-count split between the tile and micro paths, and the chunk size
+# of the tile path's multi-pass depth merge. Both come from the TPU's 16 MiB
+# VMEM budget for the resident coefficient table (12 MiB / 128 B per
+# triangle = 98,304); they are kept as plain tunables so that the two
+# packages split scenes alike, and are to be decided again by measurement
+# on the card.
+TILE_PATH_MAX_TRIANGLES = 98_304
+
+# Per-tile list cap ceiling. The JAX package's bound is its SMEM window;
+# the raster kernel here streams lists of any length, but the cap is kept
+# so that the overflow and retry behaviour matches the reference.
+MAX_TILE_CAP = 8192
+
+
+def _micro_not_ported():
+    return NotImplementedError(
+        "the micro path (scenes above ~98k triangles, or path='micro') is "
+        "not ported yet — ROADMAP queue 1, item 7 (slice 2)")
+
+
+def choose_tile(num_triangles: int, width: int, height: int) -> tuple:
+    """Framebuffer tile shape: a fixed (16, 256) until the tile shape is
+    measured on the card (the JAX package's engine auto-tunes it per scene
+    on the TPU; that tuning is not ported)."""
+    del num_triangles, width, height
+    return 16, 256
+
+
+def resolve_path(path: str, num_triangles: int, tri_chunk: int = 0) -> str:
+    """'auto' picks the micro path above the tile path's triangle split."""
+    if path != "auto":
+        return path
+    return "micro" if num_triangles > (tri_chunk or TILE_PATH_MAX_TRIANGLES) \
+        else "tile"
+
+
+def default_caps(path: str, num_triangles: int, width: int, height: int,
+                 tile_h: int = 0, tile_w: int = 0) -> dict:
+    """Default binning capacities {"pair_cap", "tile_cap", "tile_h",
+    "tile_w"} — the one starting point the renderer's retry grows from."""
+    if path == "micro":
+        raise _micro_not_ported()
+    T = max(num_triangles, 1)
+    if tile_h == 0 or tile_w == 0:
+        tile_h, tile_w = choose_tile(T, width, height)
+    ntx = (width + tile_w - 1) // tile_w
+    nty = (height + tile_h - 1) // tile_h
+    return {
+        "pair_cap": binning.default_pair_cap(T, ntx * nty),
+        "tile_cap": min(binning.default_tile_cap(T, width, height, tile_h,
+                                                 tile_w), MAX_TILE_CAP),
+        "tile_h": tile_h,
+        "tile_w": tile_w,
+    }
+
+
+def grow_pair_cap(cur: int, needed: int) -> int:
+    """Next pair_cap for a reported need: the need plus 12.5% slack,
+    1024-aligned, never shrinking."""
+    return max((needed + needed // 8 + 1023) // 1024 * 1024, cur)
+
+
+def grow_tile_cap(cur: int, needed: int, tile_h: int, tile_w: int) -> int:
+    """Next tile_cap for a reported need (8-aligned, 12.5% slack); a clear
+    error past ``MAX_TILE_CAP``."""
+    if needed > MAX_TILE_CAP:
+        raise RuntimeError(
+            f"scene needs {needed} triangles in one {tile_h}x{tile_w} tile "
+            f"list; the cap is MAX_TILE_CAP={MAX_TILE_CAP} (the micro path "
+            "that takes such scenes is not ported yet)")
+    grown = (needed + needed // 8 + 7) // 8 * 8
+    return max(min(grown, MAX_TILE_CAP), cur)
+
+
+def corner_soa(vertex_attr, tri):
+    """(N, 3) per-vertex rows + (T, 3) indices -> (3 corners, 3, T)."""
+    return vertex_attr[tri.long()].permute(1, 2, 0).contiguous()
+
+
+def render_frame(positions, normals, tri, view_proj, view_position,
+                 light_world_pos, light_color, light_intensity, effect, *,
+                 width: int, height: int, tile_h: int = 0, tile_w: int = 0,
+                 pair_cap: int = 0, tile_cap: int = 0, tri_chunk: int = 0,
+                 path: str = "auto", pos_soa=None, nrm_soa=None):
+    """Render one frame on the tile path; returns ((H, W, 4) u8 RGBA,
+    depth key (H, W) u32, overflow (2,) i32 = [pair_cap_needed,
+    tile_cap_needed], 0 meaning within capacity).
+
+    Scenes above ``tri_chunk`` triangles (only with ``path="tile"``
+    forced) render in triangle chunks merged by depth key — the same image
+    as one pass (strict < keeps the lowest index on ties). ``pos_soa`` /
+    ``nrm_soa`` are the (3, 3, T) corner-SoA geometry, built from ``tri``
+    when absent."""
+    device = positions.device
+    T = int(tri.shape[0])
+    if T == 0:
+        rgba, key = common.empty_frame(width, height, device)
+        return rgba, key, torch.zeros((2,), dtype=torch.int32, device=device)
+    if resolve_path(path, T, tri_chunk) == "micro":
+        raise _micro_not_ported()
+    tri_chunk = tri_chunk or TILE_PATH_MAX_TRIANGLES
+    if tile_h == 0 or tile_w == 0:
+        tile_h, tile_w = choose_tile(T, width, height)
+    ntx = (width + tile_w - 1) // tile_w
+    nty = (height + tile_h - 1) // tile_h
+
+    if pos_soa is None:
+        pos_soa = corner_soa(positions.to(F32), tri)
+    if nrm_soa is None:
+        nrm_soa = corner_soa(normals.to(F32), tri)
+    view_position = view_position.to(F32)
+    coeff, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
+                                  width=width, height=height, tile_h=tile_h,
+                                  tile_w=tile_w)
+    setup = binning.setup_from_meta(meta)
+    table = coeff.T.contiguous()
+
+    rgba_p = key_p = overflow = best = None
+    for c0 in range(0, T, tri_chunk):
+        c1 = min(c0 + tri_chunk, T)
+        chunk_setup = {k: v[c0:c1] for k, v in setup.items()}
+        pc = pair_cap or binning.default_pair_cap(c1 - c0, ntx * nty)
+        # Per-tile capacity from FULL-scene density: a chunk's triangles are
+        # spatially clustered, so its own average underestimates its peaks.
+        tc = tile_cap or min(
+            binning.default_tile_cap(T, width, height, tile_h, tile_w),
+            MAX_TILE_CAP)
+        bins = binning.bin_triangles(chunk_setup, ntx, nty, pc, tc)
+        pair_data = (bins["bin_rows"] if bins["layout"] == "dense"
+                     else bins["pair_tri"])
+        rgba_c, key_c = raster.raster_shade_tiles(
+            table[c0:c1], pair_data, bins["seg_start"], bins["seg_count"],
+            effect, view_position, light_world_pos, light_color,
+            light_intensity, height_padded=nty * tile_h,
+            width_padded=ntx * tile_w, tile_h=tile_h, tile_w=tile_w,
+            layout=bins["layout"],
+        )
+        flags = torch.stack([bins["pair_needed"], bins["tile_needed"]])
+        kc = key_c.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        if rgba_p is None:
+            rgba_p, key_p, best, overflow = rgba_c, key_c, kc, flags
+        else:
+            win = kc < best
+            rgba_p = torch.where(win, rgba_c.view(torch.int32),
+                                 rgba_p.view(torch.int32)).view(torch.uint32)
+            key_p = torch.where(win, key_c.view(torch.int32),
+                                key_p.view(torch.int32)).view(torch.uint32)
+            best = torch.where(win, kc, best)
+            overflow = torch.maximum(overflow, flags)
+
+    rgba = raster.unpack_rgba(rgba_p[:height, :width])
+    return rgba, key_p[:height, :width], overflow
+
+
+def render(mesh, camera_uniform, lights, effect, width, height, *,
+           device, tile_h: int = 0, tile_w: int = 0, pair_cap: int = 0,
+           tile_cap: int = 0, max_retries: int = 3, path: str = "auto"):
+    """Host-level entry with capacity retry: an overflowing frame is
+    rendered again at the reported need. Returns (H, W, 4) u8 numpy.
+    ``device="cuda"`` runs the kernels, ``device="cpu"`` their twins."""
+    light_world_pos, light_color, light_intensity = lights
+    T = max(mesh.indices.shape[0] // 3, 1)
+    path = resolve_path(path, T)
+    caps = default_caps(path, T, width, height, tile_h, tile_w)
+    pc = pair_cap or caps["pair_cap"]
+    tc = tile_cap or caps["tile_cap"]
+    tile_h, tile_w = caps["tile_h"], caps["tile_w"]
+
+    def dev(a, dtype=F32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    args = (
+        dev(mesh.positions), dev(mesh.normals),
+        dev(mesh.indices.astype(np.int32), torch.int32).reshape(-1, 3),
+        dev(camera_uniform.view_proj), dev(camera_uniform.view_position),
+        dev(light_world_pos), dev(light_color), dev(light_intensity),
+        dev(effect),
+    )
+    for _ in range(max_retries):
+        rgba, _, overflow = render_frame(
+            *args, width=width, height=height, tile_h=tile_h, tile_w=tile_w,
+            pair_cap=pc, tile_cap=tc, path="tile")
+        flags = overflow.cpu().numpy()
+        if not flags.any():
+            return rgba.cpu().numpy()
+        if flags[0]:
+            pc = grow_pair_cap(pc, int(flags[0]))
+        if flags[1]:
+            tc = grow_tile_cap(tc, int(flags[1]), tile_h, tile_w)
+    raise RuntimeError(
+        f"binning capacity overflow after {max_retries} retries "
+        f"(pair_cap={pc}, tile_cap={tc})")

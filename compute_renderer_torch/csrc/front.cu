@@ -1,0 +1,185 @@
+// Fused front end of the tile path: vertex stage + triangle setup +
+// anchored-affine coefficient rows, one thread per triangle.
+//
+// Replaces the TPU kernel of the JAX package's backends/pallas_front.py
+// (_front_kernel, launched by front_end), base mode (32 coefficient rows)
+// at tile granularity.
+//
+// What bounds it on an H100: memory traffic. Each triangle reads 18 floats
+// (corner-SoA positions and normals) and writes 32 coefficient floats and
+// 4 meta ints, about 216 bytes for ~300 float operations — far below the
+// card's compute-to-bandwidth balance, so the kernel is a streaming pass.
+// The design keeps every read and write coalesced: inputs and outputs are
+// row-major (rows, T) with the triangle index as the fastest axis, so a
+// warp touches 32 consecutive floats of each row. At the main path's
+// 1,280 triangles the launch itself dominates.
+//
+// Exactness: the arithmetic is the JAX package's op for op, in the same
+// association: clip sums as (m0*x + m1*y) + (m2*z + m3), IEEE division,
+// floor/ceil of IEEE quotients for the tile rect, a1 = 1 + 0*inv (NaN for
+// degenerate triangles). Built with -fmad=false and without fast math, so
+// no mul+add is contracted and the results equal the eager torch twin's.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr float EFFECT_WAVE = 1.0f;
+constexpr float EFFECT_VOXELIZE = 3.0f;
+constexpr int THREADS = 256;
+
+__global__ void __launch_bounds__(THREADS) front_kernel(
+    const float* __restrict__ pos,   // (3 corners * 3 comps, T)
+    const float* __restrict__ nrm,   // (3 corners * 3 comps, T)
+    const float* __restrict__ scal,  // view_proj row-major (16) + effect (6)
+    float* __restrict__ coeff,       // (32, T)
+    int* __restrict__ meta,          // (4, T): tile_x0, tile_y0, rx, c
+    int T, int width, int height, int tile_h, int tile_w) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+
+  float m[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) m[r] = scal[r];
+  const float etype = scal[16];
+  const float amplitude = scal[17];
+  const float frequency = scal[18];
+  const float phase = scal[19];
+  const float direction = scal[20];
+  const bool is_wave = etype == EFFECT_WAVE;
+  const bool vertical = direction < 0.5f;
+  const bool horizontal = (direction >= 0.5f) && (direction < 1.5f);
+
+  // --- vertex stage (common.vertex_stage) ---------------------------------
+  float sx[3], sy[3], sz[3], sw[3], wld[3][3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float x = pos[(3 * k + 0) * T + t];
+    const float y = pos[(3 * k + 1) * T + t];
+    const float z = pos[(3 * k + 2) * T + t];
+    float wx = x, wy = y, wz = z;
+    if (is_wave) {
+      const float dy = amplitude * sinf(frequency * x + phase);
+      const float dx = amplitude * sinf(frequency * y + phase);
+      const float dist = sqrtf(x * x + y * y);
+      const float dz = amplitude * sinf(frequency * dist + phase);
+      if (horizontal) wx = x + dx;
+      if (vertical) wy = y + dy;
+      if (!(vertical || horizontal)) wz = z + dz;
+    }
+    const float cx = (m[0] * wx + m[1] * wy) + (m[2] * wz + m[3]);
+    const float cy = (m[4] * wx + m[5] * wy) + (m[6] * wz + m[7]);
+    const float cz = (m[8] * wx + m[9] * wy) + (m[10] * wz + m[11]);
+    const float cw = (m[12] * wx + m[13] * wy) + (m[14] * wz + m[15]);
+    const float ndc_x = cx / cw;
+    const float ndc_y = cy / cw;
+    sx[k] = (ndc_x + 1.0f) * 0.5f * (float)width;
+    sy[k] = (1.0f - ndc_y) * 0.5f * (float)height;
+    sz[k] = cz / cw;
+    sw[k] = cw;
+    wld[k][0] = wx;
+    wld[k][1] = wy;
+    wld[k][2] = wz;
+  }
+  const float v1x = sx[0], v1y = sy[0];
+  const float v2x = sx[1], v2y = sy[1];
+  const float v3x = sx[2], v3y = sy[2];
+
+  // --- triangle setup (common.triangle_setup) -----------------------------
+  const bool w_ok = !((sw[0] < 0.0f) || (sw[1] < 0.0f) || (sw[2] < 0.0f));
+  // NaN corners make the triangle dead through `finite` below, and dead
+  // triangles never read the bbox, so fminf/fmaxf dropping a NaN is safe.
+  const float min_x = fminf(fminf(v1x, v2x), v3x);
+  const float max_x = fmaxf(fmaxf(v1x, v2x), v3x);
+  const float min_y = fminf(fminf(v1y, v2y), v3y);
+  const float max_y = fmaxf(fmaxf(v1y, v2y), v3y);
+  const bool on_screen = !((max_x < 0.0f) || (min_x >= (float)width) ||
+                           (max_y < 0.0f) || (min_y >= (float)height));
+  const float ax_e = v2x - v1x;
+  const float ay_e = v2y - v1y;
+  const float bx_e = v3x - v1x;
+  const float by_e = v3y - v1y;
+  const float cross_z = ax_e * by_e - ay_e * bx_e;
+  const bool facing = (etype == EFFECT_VOXELIZE) || (cross_z < 0.0f);
+  const bool finite = isfinite(v1x) && isfinite(v2x) && isfinite(v3x) &&
+                      isfinite(v1y) && isfinite(v2y) && isfinite(v3y);
+  bool alive = w_ok && on_screen && facing && finite;
+
+  const float cb_min_x = alive ? fmaxf(min_x, 0.0f) : 0.0f;
+  const float cb_min_y = alive ? fmaxf(min_y, 0.0f) : 0.0f;
+  const float cb_max_x = alive ? fminf(max_x, (float)width - 1.0f) : 0.0f;
+  const float cb_max_y = alive ? fminf(max_y, (float)height - 1.0f) : 0.0f;
+  const int ntx = (width + tile_w - 1) / tile_w;
+  const int nty = (height + tile_h - 1) / tile_h;
+  const int tile_x0 = (int)fmaxf(floorf(cb_min_x / (float)tile_w), 0.0f);
+  const int tile_y0 = (int)fmaxf(floorf(cb_min_y / (float)tile_h), 0.0f);
+  int tile_x1 = (int)fminf(ceilf(cb_max_x / (float)tile_w), (float)ntx);
+  int tile_y1 = (int)fminf(ceilf(cb_max_y / (float)tile_h), (float)nty);
+  alive = alive && (tile_x1 > tile_x0) && (tile_y1 > tile_y0);
+  if (!alive) {
+    tile_x1 = tile_x0;
+    tile_y1 = tile_y0;
+  }
+  const int rx = tile_x1 - tile_x0;
+  const int ry = tile_y1 - tile_y0;
+  meta[0 * T + t] = tile_x0;
+  meta[1 * T + t] = tile_y0;
+  meta[2 * T + t] = rx;
+  meta[3 * T + t] = alive ? rx * ry : 0;
+
+  // --- anchored-affine coefficients (raster.tri_table_columns) ------------
+  const float bux = v2y - v1y;
+  const float cux = -(v2x - v1x);
+  const float buy = -(v3y - v1y);
+  const float cuy = v3x - v1x;
+  const float uz = (v3x - v1x) * (v2y - v1y) - (v2x - v1x) * (v3y - v1y);
+  const float inv = 1.0f / uz;
+  const float zero = 0.0f;
+  const float a1 = 1.0f + zero * inv;  // NaN for degenerate uz
+  const float b1 = -(bux + buy) * inv;
+  const float c1 = -(cux + cuy) * inv;
+  const float a2 = zero * inv;
+  const float b2 = buy * inv;
+  const float c2 = cuy * inv;
+  const float a3 = zero * inv;
+  const float b3 = bux * inv;
+  const float c3 = cux * inv;
+
+  float* out = coeff + t;
+  int row = 0;
+  auto put = [&](float v) { out[(row++) * T] = v; };
+  auto combine = [&](float w1, float w2, float w3) {
+    put(w1 * a1 + w2 * a2 + w3 * a3);
+    put(w1 * b1 + w2 * b2 + w3 * b3);
+    put(w1 * c1 + w2 * c2 + w3 * c3);
+  };
+  put(a1); put(b1); put(c1);
+  put(a2); put(b2); put(c2);
+  put(a3); put(b3); put(c3);
+  combine(sz[0], sz[1], sz[2]);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)  // normals: rows (corner*3 + ch)
+    combine(nrm[(0 + ch) * T + t], nrm[(3 + ch) * T + t],
+            nrm[(6 + ch) * T + t]);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)  // world positions
+    combine(wld[0][ch], wld[1][ch], wld[2][ch]);
+  put(v1x);
+  put(v1y);
+}
+
+}  // namespace
+
+extern "C" int front_end_base(const void* pos, const void* nrm,
+                              const void* scal, void* coeff, void* meta,
+                              int T, int width, int height, int tile_h,
+                              int tile_w, void* stream) {
+  if (T > 0) {
+    const int blocks = (T + THREADS - 1) / THREADS;
+    front_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)pos, (const float*)nrm, (const float*)scal,
+        (float*)coeff, (int*)meta, T, width, height, tile_h, tile_w);
+  }
+  return (int)cudaGetLastError();
+}
