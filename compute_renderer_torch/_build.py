@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``. The library lands in
 ``build/torch_kernels/`` at the repository root, named by a hash of its
-source and flags: it is built at first use and rebuilt when either
-changes. Nothing here runs at import time.
+source, the shared ``csrc/*.cuh`` headers and the flags: it is built at
+first use and rebuilt when any of them changes. Nothing here runs at
+import time.
 
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` so that no mul+add is
 contracted into an FMA (the JAX package's arithmetic is contraction-free,
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -51,9 +53,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    """The library's path, named by a hash of its source, the shared
+    headers of ``csrc/`` and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        text + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -77,6 +83,13 @@ def build(name: str) -> Path:
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     BUILD_LOG[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
     return out
+
+
+def build_all(names) -> None:
+    """Compile several sources at once, one ``nvcc`` each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for future in [pool.submit(build, name) for name in names]:
+            future.result()
 
 
 def entry(name: str, symbol: str, pointers: int, ints: int):

@@ -1,6 +1,7 @@
-"""Triangle-to-tile binning (the tile half), in torch ops.
+"""Triangle-to-tile and triangle-to-cell binning, in torch ops.
 
-Counterpart of the JAX package's ``backends/binning.py:43-316, 592-608``
+Counterpart of the JAX package's ``backends/binning.py`` (the tile half,
+:43-316 and 592-608, and the micro path's cell half, :324-589)
 and the replacement for the reference's four binning kernels
 (binning.wgsl: count, two-pass scan, store). A stable sort by tile id (or a
 rank search over the coverage matrix) gives every tile its triangles in
@@ -14,6 +15,10 @@ Two layouts, the same contract:
   per tile;
 - flat (``bin_triangles_sort``): the tile-sorted pair list plus per-tile
   (start, count).
+
+The micro path bins at 8x8 cells instead (``bin_cells_sort_meta``): the
+pair expansion is a kernel (``expand.py``), the rest one stable sort and
+searchsorted segments.
 
 Every integer output equals the JAX package's bit for bit. The TPU-only
 padding of the outputs (8-row blocks, 1024-element DMA windows) is not
@@ -230,6 +235,93 @@ def default_pair_cap(num_triangles: int, num_tiles: int) -> int:
     """Static pair capacity heuristic (total pairs; overflow is detected and
     retried at the reported need)."""
     return max(2 * num_triangles, num_tiles, 2048)
+
+
+# ---------------------------------------------------------------------------
+# The micro half: (8x8 cell, triangle) pairs for the mega-scene path
+# ---------------------------------------------------------------------------
+
+def default_pair_cap_micro(num_triangles: int, num_cells: int) -> int:
+    """Micro-path pair capacity: mega scenes cull most triangles and the
+    survivors cover about one cell each, so 3T/8 leaves slack; an
+    underestimate is reported and retried at the exact need."""
+    return max(num_triangles * 3 // 8, num_cells, 32768)
+
+
+def expand_cells_meta(c, rx, x0, y0, ntx_t: int, num_cells: int,
+                      pair_cap: int):
+    """(cell_of_pair, tri_of_pair, total_pairs) from per-triangle cover
+    meta: cover count ``c`` (0 for culled), rect width ``rx`` and rect
+    origin ``x0``/``y0`` in cell coordinates — the front end's meta rows at
+    (8, 8). CPU tensors take ``expand.expand_cells_plain``, CUDA tensors the
+    kernel (``expand.expand_cells``)."""
+    from compute_renderer_torch.backends import expand
+
+    return expand.expand_cells(c, rx, x0, y0, pair_cap=pair_cap,
+                               ntx_t=ntx_t, num_cells=num_cells)
+
+
+def segments_from_sorted_cells(sorted_cell, num_cells: int, num_tiles: int):
+    """Per-cell segments of the cell-sorted pair list: (seg_start,
+    seg_count, tile_count, win_start), from num_cells + 1 searchsorted
+    boundaries (the sentinel tail sorts past every real cell).
+    ``win_start`` is the 16-aligned base of each tile's first segment."""
+    bounds = torch.searchsorted(
+        sorted_cell.contiguous(),
+        torch.arange(num_cells + 1, dtype=I32, device=sorted_cell.device),
+        side="left", out_int32=True)
+    seg_start = bounds[:-1]
+    counts = bounds[1:] - bounds[:-1]
+    tile_count = counts.reshape(num_tiles, 16).sum(dim=1, dtype=I32)
+    first = seg_start.reshape(num_tiles, 16)[:, 0]
+    win_start = torch.div(first, 16, rounding_mode="floor") * 16
+    return seg_start, counts, tile_count, win_start
+
+
+def bin_cells_sort_meta(c, rx, x0, y0, ntx_t: int, nty_t: int,
+                        pair_cap: int):
+    """Cell-granularity binning for the micro path, from cover meta.
+
+    Cells are 8x8 px and an (8, 128) tile holds 16 side by side; cell ids
+    are ``(cy * ntx_t + cx // 16) * 16 + cx % 16`` — which equals the
+    row-major id ``cy * 16 * ntx_t + cx`` — so one tile's 16 segments are
+    contiguous in the sorted list. One stable sort by cell id carries the
+    triangle ids, so each cell keeps ascending triangle order. The only
+    capacity is ``pair_cap``; ``pair_needed`` reports the exact total when
+    it overflows.
+
+    Returns a dict: ``pair_tri`` (pair_cap,) triangle ids sorted by cell
+    (defined on [0, min(total, pair_cap))), ``seg_start`` / ``seg_count``
+    (num_cells,), ``win_start`` / ``tile_count`` (num_tiles,),
+    ``total_pairs``, ``pair_needed`` and ``tile_needed`` (always 0: no
+    per-tile cap)."""
+    num_tiles = ntx_t * nty_t
+    num_cells = num_tiles * 16
+    cell_of_pair, tri_of_pair, total = expand_cells_meta(
+        c, rx, x0, y0, ntx_t, num_cells, pair_cap)
+    sorted_cell, order = torch.sort(cell_of_pair, stable=True)
+    seg_start, counts, tile_count, win_start = segments_from_sorted_cells(
+        sorted_cell, num_cells, num_tiles)
+    return {
+        "pair_tri": tri_of_pair[order],
+        "seg_start": seg_start,
+        "seg_count": counts,
+        "win_start": win_start,
+        "tile_count": tile_count,
+        "total_pairs": total,
+        "pair_needed": torch.where(total > pair_cap, total, 0).to(I32),
+        "tile_needed": torch.zeros((), dtype=I32, device=total.device),
+        "layout": "micro",
+    }
+
+
+def bin_cells_sort(setup, ntx_t: int, nty_t: int, pair_cap: int):
+    """``bin_cells_sort_meta`` from a ``triangle_setup`` dict computed at
+    (8, 8): tile ranges are cell ranges."""
+    rx, _, c = cover_counts(setup)
+    return bin_cells_sort_meta(c, rx, setup["tile_x0"].to(I32),
+                               setup["tile_y0"].to(I32), ntx_t, nty_t,
+                               pair_cap)
 
 
 def default_tile_cap(num_triangles: int, width: int, height: int,

@@ -1,8 +1,10 @@
-"""The GPU engine's tile path: fused front end -> binning -> raster + shade.
+"""The GPU engine: the tile path and the micro (mega-scene) path.
 
-Counterpart of the tile half of the JAX package's ``backends/tpu.py``
-(``render_frame`` at tpu.py:511-817 with ``path="tile"``, the capacity
-helpers and the retrying ``render``). Per frame:
+Counterpart of the JAX package's ``backends/tpu.py`` in base mode
+(``render_frame`` at tpu.py:511-817, ``render_frame_micro`` at :87-417,
+the capacity helpers and the retrying ``render``).
+
+Tile path, per frame:
 
 1. ``front.front_end`` — vertex stage, setup and the (32, T) coefficient
    rows in one kernel, at tile granularity;
@@ -11,12 +13,17 @@ helpers and the retrying ``render``). Per frame:
 3. ``raster.raster_shade_tiles`` over the occupied tiles;
 4. ``raster.unpack_rgba``.
 
-Nothing in a frame waits for the host: the overflow report stays a device
-tensor, and the occupied-tile count is read by the kernel itself.
+Micro path (``render_frame_micro``), for scenes above
+``TILE_PATH_MAX_TRIANGLES``:
 
-The mega-scene micro path is not ported yet: ``path="micro"``, and
-``"auto"`` above ``TILE_PATH_MAX_TRIANGLES``, raise ``NotImplementedError``
-(ROADMAP queue 1, slice 2).
+1. ``front.front_end`` at 8x8-cell granularity;
+2. ``binning.bin_cells_sort_meta`` — the pair-expansion kernel, one
+   stable sort by cell, searchsorted segments;
+3. ``micro.raster_shade_micro`` over the occupied 8x128 tiles;
+4. ``raster.unpack_rgba``.
+
+Nothing in a frame waits for the host: the overflow report stays a device
+tensor, and the occupied-tile count is read by the kernels themselves.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from compute_renderer_torch.backends import binning, common, front, raster
+from compute_renderer_torch.backends import (
+    binning, common, front, micro, raster,
+)
 
 F32 = torch.float32
 
@@ -40,12 +49,6 @@ TILE_PATH_MAX_TRIANGLES = 98_304
 # the raster kernel here streams lists of any length, but the cap is kept
 # so that the overflow and retry behaviour matches the reference.
 MAX_TILE_CAP = 8192
-
-
-def _micro_not_ported():
-    return NotImplementedError(
-        "the micro path (scenes above ~98k triangles, or path='micro') is "
-        "not ported yet — ROADMAP queue 1, item 7 (slice 2)")
 
 
 def choose_tile(num_triangles: int, width: int, height: int) -> tuple:
@@ -67,10 +70,19 @@ def resolve_path(path: str, num_triangles: int, tri_chunk: int = 0) -> str:
 def default_caps(path: str, num_triangles: int, width: int, height: int,
                  tile_h: int = 0, tile_w: int = 0) -> dict:
     """Default binning capacities {"pair_cap", "tile_cap", "tile_h",
-    "tile_w"} — the one starting point the renderer's retry grows from."""
-    if path == "micro":
-        raise _micro_not_ported()
+    "tile_w"} — the one starting point the renderer's retry grows from.
+    The micro path has no per-tile cap (``tile_cap`` None) and a fixed
+    8x128 tile."""
     T = max(num_triangles, 1)
+    if path == "micro":
+        ntx_t = (width + 127) // 128
+        nty_t = (height + 7) // 8
+        return {
+            "pair_cap": binning.default_pair_cap_micro(T, ntx_t * nty_t * 16),
+            "tile_cap": None,
+            "tile_h": 8,
+            "tile_w": 128,
+        }
     if tile_h == 0 or tile_w == 0:
         tile_h, tile_w = choose_tile(T, width, height)
     ntx = (width + tile_w - 1) // tile_w
@@ -96,8 +108,8 @@ def grow_tile_cap(cur: int, needed: int, tile_h: int, tile_w: int) -> int:
     if needed > MAX_TILE_CAP:
         raise RuntimeError(
             f"scene needs {needed} triangles in one {tile_h}x{tile_w} tile "
-            f"list; the cap is MAX_TILE_CAP={MAX_TILE_CAP} (the micro path "
-            "that takes such scenes is not ported yet)")
+            f"list; the cap is MAX_TILE_CAP={MAX_TILE_CAP} (use the micro "
+            "path, path='micro' or 'auto')")
     grown = (needed + needed // 8 + 7) // 8 * 8
     return max(min(grown, MAX_TILE_CAP), cur)
 
@@ -112,7 +124,8 @@ def render_frame(positions, normals, tri, view_proj, view_position,
                  width: int, height: int, tile_h: int = 0, tile_w: int = 0,
                  pair_cap: int = 0, tile_cap: int = 0, tri_chunk: int = 0,
                  path: str = "auto", pos_soa=None, nrm_soa=None):
-    """Render one frame on the tile path; returns ((H, W, 4) u8 RGBA,
+    """Render one frame on the path ``resolve_path`` picks (the micro path
+    is ``render_frame_micro``); returns ((H, W, 4) u8 RGBA,
     depth key (H, W) u32, overflow (2,) i32 = [pair_cap_needed,
     tile_cap_needed], 0 meaning within capacity).
 
@@ -127,7 +140,11 @@ def render_frame(positions, normals, tri, view_proj, view_position,
         rgba, key = common.empty_frame(width, height, device)
         return rgba, key, torch.zeros((2,), dtype=torch.int32, device=device)
     if resolve_path(path, T, tri_chunk) == "micro":
-        raise _micro_not_ported()
+        return render_frame_micro(
+            positions, normals, tri, view_proj, view_position,
+            light_world_pos, light_color, light_intensity, effect,
+            width=width, height=height, pair_cap=pair_cap, pos_soa=pos_soa,
+            nrm_soa=nrm_soa)
     tri_chunk = tri_chunk or TILE_PATH_MAX_TRIANGLES
     if tile_h == 0 or tile_w == 0:
         tile_h, tile_w = choose_tile(T, width, height)
@@ -182,14 +199,50 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     return rgba, key_p[:height, :width], overflow
 
 
+def render_frame_micro(positions, normals, tri, view_proj, view_position,
+                       light_world_pos, light_color, light_intensity, effect,
+                       *, width: int, height: int, pair_cap: int = 0,
+                       pos_soa=None, nrm_soa=None):
+    """Render one nonempty frame on the micro path (``render_frame``
+    dispatches here); the same contract as ``render_frame`` (the overflow
+    report's tile entry is always 0: there is no per-tile cap). Coverage
+    outside a triangle's bbox (voxelize, mirage) clips to the 8x8 cell
+    rectangles."""
+    T = int(tri.shape[0])
+    ntx = (width + 127) // 128
+    nty = (height + 7) // 8
+    pair_cap = pair_cap or binning.default_pair_cap_micro(T, ntx * nty * 16)
+    if pos_soa is None:
+        pos_soa = corner_soa(positions.to(F32), tri)
+    if nrm_soa is None:
+        nrm_soa = corner_soa(normals.to(F32), tri)
+    coeff, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
+                                  width=width, height=height, tile_h=8,
+                                  tile_w=8)
+    bins = binning.bin_cells_sort_meta(meta[3], meta[2], meta[0], meta[1],
+                                       ntx, nty, pair_cap)
+    rgba_p, key_p = micro.raster_shade_micro(
+        coeff.T.contiguous(), bins["pair_tri"], bins["seg_start"],
+        bins["seg_count"], bins["tile_count"], effect,
+        view_position.to(F32), light_world_pos, light_color,
+        light_intensity, height_padded=nty * 8, width_padded=ntx * 128)
+    overflow = torch.stack([bins["pair_needed"], bins["tile_needed"]])
+    rgba = raster.unpack_rgba(rgba_p[:height, :width])
+    return rgba, key_p[:height, :width], overflow
+
+
 def render(mesh, camera_uniform, lights, effect, width, height, *,
            device, tile_h: int = 0, tile_w: int = 0, pair_cap: int = 0,
            tile_cap: int = 0, max_retries: int = 3, path: str = "auto"):
     """Host-level entry with capacity retry: an overflowing frame is
-    rendered again at the reported need. Returns (H, W, 4) u8 numpy.
-    ``device="cuda"`` runs the kernels, ``device="cpu"`` their twins."""
+    rendered again at the reported need (on the micro path only
+    ``pair_cap`` grows). Under ``path="auto"``, a tile list past
+    ``MAX_TILE_CAP`` falls back to the micro path, as tpu.render does.
+    Returns (H, W, 4) u8 numpy. ``device="cuda"`` runs the kernels,
+    ``device="cpu"`` their twins."""
     light_world_pos, light_color, light_intensity = lights
     T = max(mesh.indices.shape[0] // 3, 1)
+    requested_path = path
     path = resolve_path(path, T)
     caps = default_caps(path, T, width, height, tile_h, tile_w)
     pc = pair_cap or caps["pair_cap"]
@@ -209,14 +262,20 @@ def render(mesh, camera_uniform, lights, effect, width, height, *,
     for _ in range(max_retries):
         rgba, _, overflow = render_frame(
             *args, width=width, height=height, tile_h=tile_h, tile_w=tile_w,
-            pair_cap=pc, tile_cap=tc, path="tile")
+            pair_cap=pc, tile_cap=tc, path=path)
         flags = overflow.cpu().numpy()
         if not flags.any():
             return rgba.cpu().numpy()
+        if (flags[1] > MAX_TILE_CAP and path != "micro"
+                and requested_path == "auto"):
+            path = "micro"
+            pc = pair_cap or default_caps("micro", T, width,
+                                          height)["pair_cap"]
+            continue
         if flags[0]:
             pc = grow_pair_cap(pc, int(flags[0]))
         if flags[1]:
             tc = grow_tile_cap(tc, int(flags[1]), tile_h, tile_w)
     raise RuntimeError(
         f"binning capacity overflow after {max_retries} retries "
-        f"(pair_cap={pc}, tile_cap={tc})")
+        f"(path={path}, pair_cap={pc}, tile_cap={tc})")

@@ -39,6 +39,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "shade.cuh"
+
 namespace {
 
 constexpr int THREADS = 512;
@@ -46,25 +48,7 @@ constexpr int PIXELS_PER_THREAD = 8;
 constexpr int MAX_TILE_PIXELS = THREADS * PIXELS_PER_THREAD;  // 16 x 256
 constexpr int ROW = 32;    // coefficient floats per triangle
 constexpr int CHUNK = 64;  // triangles staged in shared memory per round
-constexpr uint32_t KEY_CLEAR = 0xFFFFFFFFu;
-constexpr uint32_t BACKGROUND = 0xFFFF0000u;  // blue, alpha 1
-
-__device__ __forceinline__ float clip01(float x) {
-  // jnp.clip keeps a NaN; fminf/fmaxf alone would turn it into 0 or 1.
-  return x != x ? x : fminf(fmaxf(x, 0.0f), 1.0f);
-}
-
-__device__ __forceinline__ float pow32(float s) {
-  const float s2 = s * s;
-  const float s4 = s2 * s2;
-  const float s8 = s4 * s4;
-  const float s16 = s8 * s8;
-  return s16 * s16;
-}
-
-__device__ __forceinline__ uint32_t to_byte(float c, float gamma) {
-  return (uint32_t)(int)rintf(powf(clip01(c), gamma) * 255.0f);
-}
+constexpr uint32_t KEY_CLEAR = shade::KEY_CLEAR;
 
 __global__ void __launch_bounds__(THREADS) raster_kernel(
     const float* __restrict__ table,    // (T, 32)
@@ -93,9 +77,7 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(
 
   const float threshold = params[0];
   const float melt = params[1];
-  const float cov_min =
-      (threshold != threshold || melt != melt) ? threshold + melt
-                                               : fmaxf(threshold, melt);
+  const float cov_min = shade::coverage_min(threshold, melt);
   const bool mirage = params[2] > 0.5f;
   const float amplitude = params[3];
   const float frequency = params[4];
@@ -156,9 +138,7 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(
     }
   }
 
-  // --- shading epilogue (fragment.wgsl:50-93) -------------------------------
-  const float eye_x = params[8], eye_y = params[9], eye_z = params[10];
-  const float gamma = (float)(1.0 / 2.2);
+  // --- shading epilogue (fragment.wgsl:50-93, shade.cuh) ------------------
 #pragma unroll
   for (int j = 0; j < PIXELS_PER_THREAD; ++j) {
     const int p = threadIdx.x + j * THREADS;
@@ -167,45 +147,11 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(
     const size_t o = (size_t)(ti * tile_h + r) * width_padded +
                      (size_t)(tj * tile_w + (p - r * tile_w));
     key[o] = best[j];
-    if (best[j] == KEY_CLEAR) {
-      rgba[o] = BACKGROUND;
-      continue;
-    }
-    const float nx = attr[j][0], ny = attr[j][1], nz = attr[j][2];
-    const float wx = attr[j][3], wy = attr[j][4], wz = attr[j][5];
-    float cr = 0.1f, cg = 0.1f, cb = 0.1f;
-    float vdx = eye_x - wx;
-    float vdy = eye_y - wy;
-    float vdz = eye_z - wz;
-    const float vnorm = sqrtf(vdx * vdx + vdy * vdy + vdz * vdz);
-    vdx = vdx / vnorm;
-    vdy = vdy / vnorm;
-    vdz = vdz / vnorm;
-    for (int li = 0; li < num_lights; ++li) {
-      const float* L = lights + li * 8;
-      float ldx = L[0] - wx;
-      float ldy = L[1] - wy;
-      float ldz = L[2] - wz;
-      const float lnorm = sqrtf(ldx * ldx + ldy * ldy + ldz * ldz);
-      ldx = ldx / lnorm;
-      ldy = ldy / lnorm;
-      ldz = ldz / lnorm;
-      const float d = nx * ldx + ny * ldy + nz * ldz;
-      const float diff = d > 0.0f ? d : 0.0f;
-      // reflect(-l, n) = -l - 2*dot(-l, n)*n (WGSL reflect)
-      const float edotn = -(ldx * nx + ldy * ny + ldz * nz);
-      const float rdx = -ldx - 2.0f * edotn * nx;
-      const float rdy = -ldy - 2.0f * edotn * ny;
-      const float rdz = -ldz - 2.0f * edotn * nz;
-      float s = vdx * rdx + vdy * rdy + vdz * rdz;
-      s = s > 0.0f ? s : 0.0f;
-      const float contrib = diff + pow32(s) * 0.5f;
-      cr = cr + contrib * L[3] * L[6];
-      cg = cg + contrib * L[4] * L[6];
-      cb = cb + contrib * L[5] * L[6];
-    }
-    rgba[o] = to_byte(cr, gamma) | (to_byte(cg, gamma) << 8) |
-              (to_byte(cb, gamma) << 16) | 0xFF000000u;
+    rgba[o] = best[j] == KEY_CLEAR
+                  ? shade::BACKGROUND
+                  : shade::shade_rgba(attr[j][0], attr[j][1], attr[j][2],
+                                      attr[j][3], attr[j][4], attr[j][5],
+                                      params, lights, num_lights);
   }
 }
 

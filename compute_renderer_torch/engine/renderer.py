@@ -1,18 +1,22 @@
 """Renderer: geometry upload + the per-frame render step, in torch.
 
 Counterpart of the JAX package's ``engine/renderer.py`` (the reference's
-CustomRenderer orchestration, src/custom_pipeline/renderer.rs:105-157) for
-the tile path in base mode. Geometry is uploaded once, corner-SoA included;
-a frame is one packed uniform buffer in, ``cuda.render_frame`` on the
-renderer's device, and the frame's overflow report out. PyTorch runs
-eagerly, so there is no compiled step to cache: the JAX package's
+CustomRenderer orchestration, src/custom_pipeline/renderer.rs:105-157) in
+base mode, tile and micro paths. Geometry is uploaded once, corner-SoA
+included; a frame is one packed uniform buffer in, ``cuda.render_frame``
+on the renderer's device, and the frame's overflow report out. PyTorch
+runs eagerly, so there is no compiled step to cache: the JAX package's
 ``jit``/``lax.scan`` batch becomes a frame loop whose overflow flags
 accumulate in a device tensor.
 
-Not ported yet (ROADMAP): the micro path and its capacity calibration, the
-material and texture extensions, the comparator backends, and the TPU
-engine's measured tile-shape auto-tune (this renderer keeps the fixed
-16x256 of ``cuda.choose_tile``).
+On the micro path the pair capacity settles to the first checked frame's
+measured need (``_maybe_calibrate``), and a tile path whose per-tile list
+outgrows ``cuda.MAX_TILE_CAP`` falls back to the micro path
+(``_switch_to_micro``), as in the JAX engine.
+
+Not ported yet (ROADMAP): the material and texture extensions, the
+comparator backends, and the TPU engine's measured tile-shape auto-tune
+(this renderer keeps the fixed 16x256 of ``cuda.choose_tile``).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from compute_renderer_torch.backends import cuda
+from compute_renderer_torch.backends import cuda, front
 from compute_renderer_torch.engine.scene import FrameUniforms
 
 _TILE_OPTIONS = ("tile_h", "tile_w", "pair_cap", "tile_cap", "tri_chunk",
@@ -54,9 +58,10 @@ def box_downsample(rgba, s: int):
 
 class Renderer:
     """``Renderer(mesh, width, height, device="cuda")`` renders ``Mesh``
-    geometry with the tile path on ``device``: ``"cuda"`` runs the
-    hand-written kernels, ``"cpu"`` their plain torch twins. ``backend``
-    is "cuda", the one engine ported so far."""
+    geometry on ``device``: ``"cuda"`` runs the hand-written kernels,
+    ``"cpu"`` their plain torch twins. The path (tile or micro) follows
+    ``cuda.resolve_path``. ``backend`` is "cuda", the one engine ported so
+    far."""
 
     def __init__(self, mesh, width: int, height: int, backend: str = "cuda",
                  *, device, **options):
@@ -76,11 +81,11 @@ class Renderer:
             raise NotImplementedError(
                 f"renderer options {sorted(unknown)} are not ported yet "
                 "(ROADMAP queue 1, item 8: material and texture extensions)")
-        if cuda.resolve_path(options.get("path", "auto"),
-                             mesh.num_triangles,
-                             options.get("tri_chunk", 0)) == "micro":
-            raise cuda._micro_not_ported()
         self.options = options
+        # Settle-to-need pair capacity (micro path): once per scene and
+        # size, unless the caller pinned pair_cap.
+        self._user_pair_cap = "pair_cap" in options
+        self._calibrate_pair_cap = not self._user_pair_cap
         self._pending_overflow = None
         self._upload(mesh)
 
@@ -105,6 +110,11 @@ class Renderer:
         # contiguous rows with no gather.
         self.pos_soa = cuda.corner_soa(self.positions, self.tri)
         self.nrm_soa = cuda.corner_soa(self.normals, self.tri)
+
+    def _path(self) -> str:
+        return cuda.resolve_path(self.options.get("path", "auto"),
+                                 self.num_triangles,
+                                 self.options.get("tri_chunk", 0))
 
     @property
     def rw(self) -> int:
@@ -157,6 +167,8 @@ class Renderer:
         """Render, read the overflow report (one device->host copy), and
         retry at the reported capacities until the frame fits."""
         for _ in range(max_retries):
+            # Inside the loop: a tile->micro fallback re-arms calibration.
+            self._maybe_calibrate(uniforms)
             out = self.render_device(uniforms)
             flags = out[2].cpu().numpy()
             if not flags.any():
@@ -167,25 +179,65 @@ class Renderer:
             f"binning capacity overflow after {max_retries} retries "
             f"(options={self.options})")
 
+    def _maybe_calibrate(self, uniforms: FrameUniforms) -> None:
+        """Settle the micro path's pair capacity to the frame's measured
+        need (+12.5%, ``cuda.grow_pair_cap``) instead of the 3T/8
+        heuristic: the front end at 8x8 cells, its cover counts (meta row
+        3) summed on the device, one read. Overflow detection grows the
+        capacity later if the camera moves into denser coverage. Once per
+        scene; skipped when the caller pinned pair_cap."""
+        if not self._calibrate_pair_cap or self._path() != "micro":
+            return
+        self._calibrate_pair_cap = False
+        packed, L = self.pack_uniforms(uniforms)
+        vpos, vp, eff, *_ = unpack_uniforms(
+            torch.from_numpy(packed).to(self.device), L)
+        _, meta = front.front_end(self.pos_soa, self.nrm_soa, vp, eff,
+                                  width=self.rw, height=self.rh, tile_h=8,
+                                  tile_w=8)
+        total = int(meta[3].sum(dtype=torch.int64))
+        # Keep the cell-count floor of default_pair_cap_micro.
+        num_cells = ((self.rw + 127) // 128) * ((self.rh + 7) // 8) * 16
+        self.options["pair_cap"] = cuda.grow_pair_cap(
+            0, max(total, num_cells, 1024))
+
     def _grow_caps(self, pair_needed: int = 0, tile_needed: int = 0) -> None:
-        """Grow the binning capacities to the reported need (0 = leave)."""
-        if (tile_needed > cuda.MAX_TILE_CAP
+        """Grow the binning capacities to the reported need (0 = leave);
+        on the micro path only ``pair_cap`` exists."""
+        path = self._path()
+        if (path != "micro" and tile_needed > cuda.MAX_TILE_CAP
                 and self.options.get("path", "auto") == "auto"):
-            # The JAX engine falls back to the micro path here.
-            raise cuda._micro_not_ported()
-        caps = cuda.default_caps("tile", max(self.num_triangles, 1),
+            # The tile kernel's list cap is exceeded at any legal tile_cap
+            # (the triangle-count split cannot see screen density).
+            self._switch_to_micro()
+            return
+        caps = cuda.default_caps(path, max(self.num_triangles, 1),
                                  self.rw, self.rh,
                                  self.options.get("tile_h", 0),
                                  self.options.get("tile_w", 0))
         pc = self.options.get("pair_cap") or caps["pair_cap"]
         if pair_needed:
             pc = cuda.grow_pair_cap(pc, pair_needed)
+        self.options["pair_cap"] = pc
+        if path == "micro":
+            return
         tc = self.options.get("tile_cap") or caps["tile_cap"]
         if tile_needed:
             tc = cuda.grow_tile_cap(tc, tile_needed, caps["tile_h"],
                                     caps["tile_w"])
-        self.options["pair_cap"] = pc
         self.options["tile_cap"] = tc
+
+    def _switch_to_micro(self) -> None:
+        """Tile->micro fallback for over-dense scenes (see _grow_caps).
+        Tile-path capacities are dropped (micro pairs count 8x8 cells, not
+        tiles) and calibration re-arms, so the next checked render measures
+        the micro pair need."""
+        self.options["path"] = "micro"
+        for k in ("tile_cap", "tile_h", "tile_w"):
+            self.options.pop(k, None)
+        if not self._user_pair_cap:
+            self.options.pop("pair_cap", None)
+            self._calibrate_pair_cap = True
 
     def render_batch_device(self, uniforms_seq, max_retries: int = 3,
                             check: bool = True):
@@ -206,6 +258,8 @@ class Renderer:
         stack = torch.from_numpy(np.stack([p for p, _ in packs])).to(
             self.device)
         for _ in range(max_retries):
+            if check:
+                self._maybe_calibrate(uniforms_seq[0])
             frames = torch.empty((len(packs), self.height, self.width, 4),
                                  dtype=torch.uint8, device=self.device)
             overflow = torch.zeros((2,), dtype=torch.int32,

@@ -125,6 +125,26 @@ def test_twin_vs_xla_chain(port, tpu, name, effect):
     assert alive.any()
 
 
+@pytest.mark.parametrize("name,effect", [
+    ("icosphere", "none"), ("soup+bad", "voxelize"),
+    ("san_miguel_small", "none"),
+])
+def test_twin_vs_xla_chain_at_cells(port, tpu, name, effect):
+    # The micro path runs the front end at 8x8-cell granularity: meta and
+    # coefficients bitwise there too.
+    inputs = _inputs(tpu, name, effect)
+    ca, ma = _xla_chain(tpu, inputs, tile=(8, 8))
+    cb, mb = _port_front(port, inputs, tile=(8, 8))
+    nan = np.isnan(ca)
+    np.testing.assert_array_equal(nan, np.isnan(cb))
+    np.testing.assert_array_equal(ca.view(np.int32)[~nan],
+                                  cb.view(np.int32)[~nan])
+    alive = ma[3] > 0
+    np.testing.assert_array_equal(alive, mb[3] > 0)
+    np.testing.assert_array_equal(ma[:, alive], mb[:, alive])
+    assert alive.any()
+
+
 # "soup+bad" is left out here: under voxelize its zero-area triangles are
 # alive, and a contracted cross product gives them a tiny nonzero area —
 # finite coefficients where the contraction-free arithmetic has NaN.

@@ -13,17 +13,19 @@ from tests.torch_parity import port, tpu  # noqa: F401 (fixtures)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The procedural stand-ins the tile path renders (the ~1M-triangle mega
-# stand-ins take the micro path, which is not ported yet).
-TILE_PATH_MODELS = (
+# The procedural stand-ins: the tile path renders the first four, the
+# micro path the ~1M-triangle mega stand-ins.
+MODELS = (
     "suzanne.obj",
     "san_miguel_small.obj",
     "vokselia_spawn_small.obj",
     "exterior/Exterior.obj",
+    "San_Miguel/san-miguel-low-poly.obj",
+    "vokselia_spawn/vokselia_spawn.obj",
 )
 
 
-@pytest.mark.parametrize("name", TILE_PATH_MODELS)
+@pytest.mark.parametrize("name", MODELS)
 def test_procedural_mesh_arrays(port, tpu, name):
     a = tpu.procedural.make_model(name)
     b = port.procedural.make_model(name)
@@ -119,7 +121,8 @@ def test_port_never_imports_jax():
     code = (
         "import sys\n"
         "import compute_renderer_torch\n"
-        "from compute_renderer_torch.backends import cuda, front, raster\n"
+        "from compute_renderer_torch.backends import (cuda, expand, front,"
+        " micro, raster)\n"
         "from compute_renderer_torch import convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('compute_renderer_tpu')]\n"
@@ -136,7 +139,7 @@ def test_port_sources_name_no_jax():
     offenders = []
     for dirpath, _, files in os.walk(pkg):
         for f in files:
-            if not f.endswith((".py", ".cu")):
+            if not f.endswith((".py", ".cu", ".cuh")):
                 continue
             text = open(os.path.join(dirpath, f)).read()
             for needle in ("import jax", "from jax", "compute_renderer_tpu"):

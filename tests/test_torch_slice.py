@@ -211,8 +211,18 @@ def test_empty_mesh_renders_background(port, tpu):
 
 def test_unported_paths_raise(port):
     mesh = port.procedural.make_model("suzanne.obj")
-    with pytest.raises(NotImplementedError, match="micro"):
-        port.renderer.Renderer(mesh, 64, 64, device="cpu", path="micro")
+    # The micro path is ported: forcing it renders the same frame as the
+    # tile path within the pixel contract.
+    cam = port.camera.Camera.first_person([0, 0, 3.0], aspect=1.0).uniform()
+    uniforms = port.convert.uniforms_from_arrays(
+        cam.view_position, cam.view_proj, [[0.0, 0.0, 5.0]],
+        [[1.0, 0.9, 0.8]], [1.0], [0, 0, 0, 0, 0, 0])
+    micro = port.renderer.Renderer(mesh, 64, 64, device="cpu", path="micro")
+    tile = port.renderer.Renderer(mesh, 64, 64, device="cpu")
+    img = micro.render(uniforms)
+    assert (img != np.array([0, 0, 255, 255], np.uint8)).any(axis=-1).sum() \
+        > 300
+    assert_frames_match(tile.render(uniforms), img)
     for backend in ("xla", "tpu"):
         with pytest.raises(NotImplementedError):
             port.renderer.Renderer(mesh, 64, 64, backend, device="cpu")

@@ -24,7 +24,7 @@ def port():
     import compute_renderer_torch
     from compute_renderer_torch import convert
     from compute_renderer_torch.backends import (
-        binning, common, cuda, front, raster,
+        binning, common, cuda, expand, front, micro, raster,
     )
     from compute_renderer_torch.core import camera, effects
     from compute_renderer_torch.engine import renderer, scene
@@ -32,9 +32,10 @@ def port():
 
     return SimpleNamespace(
         torch=torch, pkg=compute_renderer_torch, convert=convert,
-        binning=binning, common=common, cuda=cuda, front=front,
-        raster=raster, camera=camera, effects=effects, renderer=renderer,
-        scene=scene, procedural=procedural,
+        binning=binning, common=common, cuda=cuda, expand=expand,
+        front=front, micro=micro, raster=raster, camera=camera,
+        effects=effects, renderer=renderer, scene=scene,
+        procedural=procedural,
     )
 
 
@@ -46,7 +47,8 @@ def tpu():
 
     import compute_renderer_tpu
     from compute_renderer_tpu.backends import (
-        binning, common, pallas_front, pallas_raster, tpu as tpu_backend,
+        binning, common, pallas_expand, pallas_front, pallas_micro,
+        pallas_raster, tpu as tpu_backend,
     )
     from compute_renderer_tpu.core import camera, effects
     from compute_renderer_tpu.engine import renderer, scene
@@ -54,7 +56,8 @@ def tpu():
 
     return SimpleNamespace(
         jax=jax, jnp=jnp, pkg=compute_renderer_tpu, binning=binning,
-        common=common, pallas_front=pallas_front,
+        common=common, pallas_expand=pallas_expand,
+        pallas_front=pallas_front, pallas_micro=pallas_micro,
         pallas_raster=pallas_raster, backend=tpu_backend, camera=camera,
         effects=effects, renderer=renderer, scene=scene,
         procedural=procedural,
