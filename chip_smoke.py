@@ -33,12 +33,37 @@ Phases, each fatal on failure (nonzero exit, no result line):
    expand and micro launch counts advance and the tile raster's stays 0,
    no overflow; the batch slope and one profiled batch split into front /
    expand / sort+segments / micro / other;
-7. san_miguel_small on the tile path against the CPU twin path.
+7. san_miguel_small on the tile path against the CPU twin path;
+8. the structured scenes of the reference suite's extension rows
+   (bench/suite.py:101-144), synthesized (io/objgen.py) and parsed from
+   disk once each (structured_scene.obj, 1,023,442 triangles, and
+   structured_scene_tex.obj, 36,322), with textures; the materials rows
+   drop the atlas (the Kd rows are the same); the seconds printed;
+9. kernel vs twin, material and fused-texture modes — the front end at
+   8x8 and 16x256 (meta bitwise, coefficients 0 ULP), the tile raster on
+   structured_scene_tex and a mirage frame of it (both layouts) and the
+   micro raster on structured_scene.obj and the mirage frame: keys
+   bitwise, RGBA within 1 LSB (mat), the G-buffer bitwise (texf; the
+   max ULP is printed if not); each mode
+   kernel's time beside its twin's at its main path's shapes, and the
+   (R, T) -> (T, R) table copy at 35 and 44 rows;
+10. main paths, extension rows — through Scene -> Renderer ->
+   render_batch_device: structured_scene.obj +materials and +textures
+   (micro path, three frames each), structured_scene_tex.obj +textures
+   (tile path, three frames), + bilinear and SSAA 2 (one frame) and
+   +materials (the tile raster's material mode, three frames), each frame
+   within the pixel contract of
+   tests/golden_data/torch_ext_structured_1024x768.npz, no overflow, and
+   each mode kernel of the row's path launched (per-mode counts); the
+   batch slope and a profiled batch of the two micro rows.
 
-Prints the kernels' JSON record and the card line before the last line,
-and as the last line {"ok": true, "device": {...}}.
+Prints the kernels' JSON record (one entry per kernel and mode) and the
+card line before the last line, and as the last line
+{"ok": true, "device": {...}}.
 """
 
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -53,8 +78,11 @@ GOLDEN = os.path.join(ROOT, "tests", "golden_data",
                       "torch_slice_suzanne_1024x768.npz")
 GOLDEN_MICRO = os.path.join(ROOT, "tests", "golden_data",
                             "torch_micro_san_miguel_1024x768.npz")
+GOLDEN_EXT = os.path.join(ROOT, "tests", "golden_data",
+                          "torch_ext_structured_1024x768.npz")
 SAN_MIGUEL = "San_Miguel/san-miguel-low-poly.obj"
 SAN_MIGUEL_EYE = (13.566635, 2.6288567, 10.243919)  # bench/suite.py
+STRUCTURED_EYE = (13.566635, 4.0, 24.0)  # bench/suite.py:98
 # The card's peaks for the bounds (H100 SXM data sheet):
 # HBM bytes/s and float32 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -67,6 +95,10 @@ PEAK_OPS = 67e12
 FRONT_OPS = 300
 SAMPLE_OPS = 30
 EXPAND_OPS = 60
+# Table columns a raster's walk tests for every pair: the barycentric
+# (9) and depth (3) triples and the anchor (2). The rest of a row is read
+# only for a triangle that wins a pixel.
+WALK_COLUMNS = 14
 KERNELS = {
     "front_end": {
         "source": "compute_renderer_torch/csrc/front.cu",
@@ -89,6 +121,19 @@ KERNELS = {
         "symbol": "micro_kernel",
     },
 }
+# The material and fused-texture modes of three kernels: one record each,
+# "<kernel>.<mode>", the same source and TPU kernel as the base record.
+MODES = ("mat", "texf")
+MODE_KERNELS = ("front_end", "raster_shade_tiles", "raster_shade_micro")
+for _name in MODE_KERNELS:
+    for _mode in MODES:
+        KERNELS[f"{_name}.{_mode}"] = KERNELS[_name]
+
+
+def record(name, mode):
+    """The JSON record of a kernel's mode: the base record is the kernel's
+    own name."""
+    return name if mode == "base" else f"{name}.{mode}"
 
 
 def tpu_kernel_location(filename, function):
@@ -189,6 +234,37 @@ def kernel_device_ms(fn, iters, symbol):
     return None
 
 
+def ptxas_report(log):
+    """{kernel<mode>: "R registers, S/L B spill stores/loads, M B smem"}
+    from nvcc's -Xptxas -v output; the mode is the template argument
+    (0 base, 1 mat, 2 texf)."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            sym = next((k["symbol"] for k in KERNELS.values()
+                        if k["symbol"] in m.group(1)), m.group(1))
+            mode = re.search(r"ILi(\d+)E", m.group(1))
+            cur = f"{sym}<{mode.group(1)}>" if mode else sym
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur]["spill"] = f"{m.group(1)}/{m.group(2)} B spill"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["regs"] = f"{m.group(1)} registers"
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem"] = f"{sm.group(1) if sm else 0} B smem"
+    return {k: ", ".join(v.get(f, "?") for f in ("regs", "spill", "smem"))
+            for k, v in out.items()}
+
+
 def ulps(a, b):
     """Per-element ULP distance of two f32 tensors (same-sign lattice)."""
     import torch
@@ -220,16 +296,58 @@ def frame_inputs(scene, device):
         "pos_soa": cuda.corner_soa(pos, tri), "nrm_soa": cuda.corner_soa(
             nrm, tri), "vp": vp, "vpos": vpos, "eff": eff, "lwp": lwp,
         "lc": lc, "li": li, "T": int(tri.shape[0]),
+        # The mesh's kd / texture inputs, as the renderer uploads them.
+        "ext": cuda.mesh_ext_tensors(mesh, tri, device),
     }
 
 
-def check_front(name, x, wave, report, tile=(16, 256)):
-    """Front kernel vs twin on one frame's inputs; returns (coeff, meta)."""
+def front_modes(x, mode):
+    """The front end's mode inputs: none (base), kd rows (mat), or kd, uv
+    corners and TextureInfo rows (texf)."""
+    e = x["ext"]
+    if mode == "base":
+        return {}
+    if mode == "mat":
+        return {"kd_rows": e["face_kd"]}
+    return {"kd_rows": e.get("face_kd"), "uv_soa": e["uv_soa"],
+            "tex_rows": e["tex_rows"]}
+
+
+def compare_outputs(tag, mode, out_k, key_k, out_p, key_p):
+    """A raster kernel's outputs against its twin's: keys bitwise; RGBA
+    within 1 LSB, or in texf mode the G-buffer bitwise (covered pixels
+    and the cleared zeros of the rest; the max ULP per channel is printed
+    if not). Returns (max abs error, covered pixels)."""
+    import torch
+
+    from compute_renderer_torch.backends import raster
+
+    kk = key_k.view(torch.int32)
+    require(torch.equal(kk, key_p.view(torch.int32)),
+            f"{tag}: depth keys differ from the twin")
+    covered = kk != -1
+    if mode != "texf":
+        bk = raster.unpack_rgba(out_k.view(torch.uint32)).to(torch.int32)
+        bp = raster.unpack_rgba(out_p.view(torch.uint32)).to(torch.int32)
+        diff = int((bk - bp).abs().max())
+        require(diff <= 1, f"{tag}: RGBA differs by {diff}")
+        return float(diff), int(covered.sum())
+    if not torch.equal(out_k.view(torch.int32), out_p.view(torch.int32)):
+        per_channel = [int(ulps(a, b).max()) for a, b in zip(out_k, out_p)]
+        raise SmokeFailure(f"{tag}: G-buffer differs from the twin: max ULP "
+                           f"per channel {per_channel}")
+    return 0.0, int(covered.sum())
+
+
+def check_front(name, x, wave, report, tile=(16, 256), mode="base"):
+    """Front kernel vs twin on one frame's inputs, in ``mode``; returns
+    (coeff, meta)."""
     import torch
 
     from compute_renderer_torch.backends import front
 
-    kw = dict(width=W, height=H, tile_h=tile[0], tile_w=tile[1])
+    kw = dict(width=W, height=H, tile_h=tile[0], tile_w=tile[1],
+              **front_modes(x, mode))
     args = (x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"])
     ck, mk = front.front_end(*args, **kw)  # the public wrapper's card route
     cp, mp = front.front_end_plain(*args, **kw)
@@ -246,16 +364,17 @@ def check_front(name, x, wave, report, tile=(16, 256)):
     limit = 1 if wave else 0
     require(worst_ulp <= limit,
             f"front {name}: coeff differs by {worst_ulp} ULP (limit {limit})")
-    print(f"[check] front {name} {tile[0]}x{tile[1]}: T={x['T']} meta "
-          f"bitwise, coeff worst "
+    print(f"[check] front {name} {mode} {tile[0]}x{tile[1]}: T={x['T']} "
+          f"rows {ck.shape[0]}, meta bitwise, coeff worst "
           f"{worst_ulp} ULP (limit {limit}), max abs {max_abs:g}")
     report["max_abs_err"] = max(report.get("max_abs_err", 0.0), max_abs)
     return ck, mk
 
 
-def check_raster(name, x, coeff, meta, caps, report):
-    """Raster kernel vs twin on one frame, both layouts; returns each
-    layout's inputs for the timing runs."""
+def check_raster(name, x, coeff, meta, caps, report, mode="base"):
+    """Raster kernel vs twin on one frame, both layouts, in ``mode`` (which
+    the table's width selects); returns each layout's inputs for the
+    timing runs."""
     import torch
 
     from compute_renderer_torch.backends import binning, raster
@@ -283,22 +402,17 @@ def check_raster(name, x, coeff, meta, caps, report):
             x["vpos"], x["lwp"], x["lc"], x["li"], layout=layout, **kw)
         rp, kp = raster.raster_shade_tiles_plain(
             table, data, bins["seg_start"], bins["seg_count"], params,
-            lights, layout=layout, **kw)
+            lights, layout=layout, mode=mode, **kw)
         torch.cuda.synchronize()
-        kk = kk.view(torch.int32)
-        require(torch.equal(kk, kp), f"raster {name} {layout}: depth keys "
-                "differ from the twin")
-        bk = raster.unpack_rgba(rk).to(torch.int32)
-        bp = raster.unpack_rgba(rp.view(torch.uint32)).to(torch.int32)
-        diff = int((bk - bp).abs().max())
-        require(diff <= 1, f"raster {name} {layout}: RGBA differs by {diff}")
-        covered = int((kk != -1).sum())
-        print(f"[check] raster {name} {layout}: keys bitwise, RGBA max diff "
-              f"{diff} LSB, covered {covered}, pairs "
+        diff, covered = compare_outputs(f"raster {name} {mode} {layout}",
+                                        mode, rk, kk, rp, kp)
+        what = ("G-buffer bitwise" if mode == "texf"
+                else f"RGBA max diff {diff:g} LSB")
+        print(f"[check] raster {name} {mode} {layout}: keys bitwise, {what}, "
+              f"covered {covered}, pairs "
               f"{int(bins['total_pairs'])}, occupied tiles "
               f"{int((bins['seg_count'] > 0).sum())}")
-        report["max_abs_err"] = max(report.get("max_abs_err", 0.0),
-                                    float(diff))
+        report["max_abs_err"] = max(report.get("max_abs_err", 0.0), diff)
         inputs[layout] = (table, data, bins, params, lights, kw, layout)
     return inputs
 
@@ -332,7 +446,7 @@ def phase_kernels(device, reports):
         for layout, args in check_raster(
                 name, x, coeff, meta, caps,
                 reports["raster_shade_tiles"]).items():
-            timing[f"{name}/{layout}"] = args
+            timing[f"{name}/{layout}"] = (x, args)
 
     # Times at the main path's shapes: Suzanne 1024x768, dense layout.
     scene = bench_scene()
@@ -351,7 +465,7 @@ def phase_kernels(device, reports):
     rep_r = reports["raster_shade_tiles"]
 
     def runners(key):
-        table, data, bins, params, lights, rkw, layout = timing[key]
+        table, data, bins, params, lights, rkw, layout = timing[key][1]
         common = (table, data, bins["seg_start"], bins["seg_count"], params,
                   lights)
         return (lambda: raster._raster_cuda(*common, layout=layout, **rkw),
@@ -363,9 +477,11 @@ def phase_kernels(device, reports):
     rep_r["ms"] = kernel_device_ms(run_kernel, 50, symbol)
     rep_r["ms_events"] = event_ms(run_kernel, 200)
     rep_r["plain_ms"] = event_ms(run_plain, 10)
-    table, data, bins = timing["suzanne/dense"][:3]
+    rx, (table, data, bins, params, lights, rkw, _) = timing["suzanne/dense"]
     rep_r["bound_ms"], rep_r["bound_by"] = raster_bound(
-        table, bins, 16 * 256, len(bins["seg_count"]), W * H)
+        "raster_shade_tiles (suzanne dense)", rx, table, bins,
+        tile_twin(data, bins, params, lights, rkw), (16, 256, W // 256),
+        W * H)
     # The san_miguel_small flat layout, for the record.
     run_kernel, run_plain = runners("san_miguel_small/flat")
     rep_r["ms_san_miguel_small_flat"] = kernel_device_ms(run_kernel, 20,
@@ -385,22 +501,100 @@ def print_time(name, rep, where="suzanne"):
           f"{rep['bound_ms']:.6f} ms ({rep['bound_by']})")
 
 
-def raster_bound(table, bins, pixels_per_pair, segments, frame_pixels):
-    """Least time of a raster launch: the binned triangles' 128-byte rows,
-    the pair ids, the segments and the two u32 outputs, against
-    SAMPLE_OPS per (pair, pixel)."""
+def listed_pairs(bins):
+    """(triangle id, tile or cell id) of each binned pair, in list order:
+    the dense rows' first ``seg_count`` entries, or the flat / micro
+    ``pair_tri`` segments."""
     import torch
 
-    pairs = int(bins["total_pairs"])
-    if "pair_tri" in bins:
-        listed = bins["pair_tri"][:pairs]
-    else:  # dense rows: the first seg_count entries of each
-        rows = bins["bin_rows"]
-        slot = torch.arange(rows.shape[1], device=rows.device)
-        listed = rows[slot[None, :] < bins["seg_count"][:, None]]
-    binned = int(torch.unique(listed).numel())
-    nbytes = binned * 128 + pairs * 4 + segments * 8 + frame_pixels * 8
-    return bound_ms(nbytes, pairs * pixels_per_pair * SAMPLE_OPS)
+    counts = bins["seg_count"].long()
+    device = counts.device
+    tile = torch.repeat_interleave(torch.arange(counts.numel(),
+                                                device=device), counts)
+    slot = (torch.arange(tile.numel(), device=device)
+            - (torch.cumsum(counts, 0) - counts)[tile])
+    if bins["layout"] == "dense":
+        tri = bins["bin_rows"][tile, slot]
+    else:
+        tri = bins["pair_tri"][bins["seg_start"].long()[tile] + slot]
+    return tri.long(), tile
+
+
+def tile_twin(data, bins, params, lights, rkw):
+    """The tile raster's twin on these bins, as a function of the table
+    (its mode follows the table's width)."""
+    from compute_renderer_torch.backends import raster
+
+    return lambda table: raster.raster_shade_tiles_plain(
+        table, data, bins["seg_start"], bins["seg_count"], params, lights,
+        layout=bins["layout"], mode=raster.table_mode(table), **rkw)
+
+
+def micro_twin(bins, params, lights, mkw):
+    """The micro raster's twin on these bins, as a function of the table."""
+    from compute_renderer_torch.backends import micro, raster
+
+    return lambda table: micro.raster_shade_micro_plain(
+        table, bins["pair_tri"], bins["seg_start"], bins["seg_count"],
+        params, lights, mode=raster.table_mode(table), **mkw)
+
+
+def raster_bound(tag, x, table, bins, twin, grid, frame_pixels,
+                 pixel_bytes=8):
+    """Least time of a raster launch on this run's data.
+
+    Operations: SAMPLE_OPS for each (pair, pixel sample inside the
+    triangle's bounding box and the pair's tile or cell); no other sample
+    can be covered. Bytes: the WALK_COLUMNS of each binned triangle's row,
+    the rest of the row only for the triangles that win a pixel, 4 B a
+    pair, the segments, and the outputs (``pixel_bytes`` a pixel: RGBA and
+    key, or the texf G-buffer's planes and the key). ``grid`` is (tile
+    height, tile width, tiles a row) of the pairs' tiles or cells. The
+    winners come from ``twin`` (the raster's twin as a function of the
+    table) run on a texf table whose TextureInfo offset column holds the
+    triangle id, which the G-buffer copies from each pixel's winner."""
+    import torch
+
+    from compute_renderer_torch.backends import common, raster
+
+    th, tw, cols = grid
+    tri, tile = listed_pairs(bins)
+    T = x["T"]
+    corners = x["pos_soa"].to(torch.float32).permute(0, 2, 1).reshape(
+        3 * T, 3)
+    _, screen = common.vertex_stage(corners, x["vp"], x["eff"], W, H)
+    sx = screen[:, 0].reshape(3, T)[:, tri]
+    sy = screen[:, 1].reshape(3, T)[:, tri]
+    x0 = ((tile % cols) * tw).to(torch.float32)
+    y0 = (torch.div(tile, cols, rounding_mode="floor") * th).to(
+        torch.float32)
+
+    def extent(lo, hi, origin, size):
+        first = torch.maximum(torch.ceil(lo), origin)
+        last = torch.minimum(torch.floor(hi), origin + (size - 1))
+        return torch.clamp(last - first + 1, min=0).to(torch.int64)
+
+    samples = int((extent(sx.min(0).values, sx.max(0).values, x0, tw)
+                   * extent(sy.min(0).values, sy.max(0).values, y0, th)
+                   ).sum())
+    tagged = torch.zeros((table.shape[0], raster.TEX_TRI_TABLE_WIDTH),
+                         dtype=torch.float32, device=table.device)
+    tagged[:, :32] = table[:, :32]
+    tagged[:, 41] = torch.arange(table.shape[0], device=table.device,
+                                 dtype=torch.float32)
+    gbuf, key = twin(tagged)
+    winners = int(torch.unique(gbuf[5][key.view(torch.int32) != -1]).numel())
+    binned = int(torch.unique(tri).numel())
+    pairs = int(tri.numel())
+    row = table.shape[1]
+    nbytes = (binned * WALK_COLUMNS * 4 + winners * (row - WALK_COLUMNS) * 4
+              + pairs * 4 + bins["seg_count"].numel() * 8
+              + frame_pixels * pixel_bytes)
+    ms, by = bound_ms(nbytes, samples * SAMPLE_OPS)
+    print(f"[bound] {tag}: {pairs} pairs, {samples} bbox samples, {binned} "
+          f"binned and {winners} winning triangles of {row} columns, "
+          f"{nbytes} B -> {ms:.6f} ms ({by})")
+    return ms, by
 
 
 def micro_cases():
@@ -443,8 +637,9 @@ def check_expand(name, meta, pair_cap, ntx, num_cells, report):
     return ck, tk, nk
 
 
-def check_micro(name, x, table, bins, ntx, nty, report):
-    """Micro raster kernel vs twin: keys bitwise, RGBA within 1 LSB."""
+def check_micro(name, x, table, bins, ntx, nty, report, mode="base"):
+    """Micro raster kernel vs twin in ``mode``: keys bitwise, RGBA within
+    1 LSB or the G-buffer bitwise."""
     import torch
 
     from compute_renderer_torch.backends import micro, raster
@@ -456,24 +651,22 @@ def check_micro(name, x, table, bins, ntx, nty, report):
                                       **kw)
     params, lights = raster.shading_inputs(x["eff"], x["vpos"], x["lwp"],
                                            x["lc"], x["li"])
-    rp, kp = micro.raster_shade_micro_plain(*args, params, lights, **kw)
+    rp, kp = micro.raster_shade_micro_plain(*args, params, lights, mode=mode,
+                                            **kw)
     torch.cuda.synchronize()
-    kk = kk.view(torch.int32)
-    require(torch.equal(kk, kp), f"micro {name}: depth keys differ from "
-            "the twin")
-    bk = raster.unpack_rgba(rk).to(torch.int32)
-    bp = raster.unpack_rgba(rp.view(torch.uint32)).to(torch.int32)
-    diff = int((bk - bp).abs().max())
-    require(diff <= 1, f"micro {name}: RGBA differs by {diff}")
+    diff, covered = compare_outputs(f"micro {name} {mode}", mode, rk, kk, rp,
+                                    kp)
+    what = ("G-buffer bitwise" if mode == "texf"
+            else f"RGBA max diff {diff:g} LSB")
     counts = bins["seg_count"]
-    print(f"[check] micro {name}: keys bitwise, RGBA max diff {diff} LSB, "
-          f"covered {int((kk != -1).sum())}, pairs "
+    print(f"[check] micro {name} {mode}: keys bitwise, {what}, "
+          f"covered {covered}, pairs "
           f"{int(bins['total_pairs'])}, occupied tiles "
           f"{int((bins['tile_count'] > 0).sum())} of "
           f"{bins['tile_count'].numel()}, densest cell {int(counts.max())} "
           f"pairs, mean occupied cell "
           f"{float(counts[counts > 0].float().mean()):.1f}")
-    report["max_abs_err"] = max(report.get("max_abs_err", 0.0), float(diff))
+    report["max_abs_err"] = max(report.get("max_abs_err", 0.0), diff)
     return params, lights
 
 
@@ -553,7 +746,9 @@ def phase_micro_kernels(device, reports):
         lambda: micro.raster_shade_micro_plain(*margs, params, lights,
                                                **mkw), 3)
     rep["bound_ms"], rep["bound_by"] = raster_bound(
-        table, bins, 64, num_cells, nty * 8 * ntx * 128)
+        "raster_shade_micro (san_miguel)", x, table, bins,
+        micro_twin(bins, params, lights, mkw), (8, 8, ntx * 16),
+        nty * 8 * ntx * 128)
     print_time("raster_shade_micro", rep, "san_miguel")
 
 
@@ -677,10 +872,13 @@ def profile_batch(renderer, scene, slope_ms, layers):
                       if any(k in key.lower() for k in keys)), "other")
         by_layer[layer] += ms / n
     split = ", ".join(f"{k} {v:.6f}" for k, v in by_layer.items())
-    print(f"[profile] {n} frames (profiler on, wall {wall:.3f} ms): device "
-          f"busy {busy:.6f} ms/frame in {launches:.1f} kernels/frame "
-          f"({split}); idle share against the unprofiled slope "
-          f"{1 - busy / slope_ms:.4f}")
+    # Idle share against this batch's own wall time (the profiler's cost
+    # included), and against the unprofiled slope of another batch.
+    print(f"[profile] {n} frames (profiler on, wall {wall:.3f} ms, "
+          f"{wall / n:.6f} ms/frame): device busy {busy:.6f} ms/frame in "
+          f"{launches:.1f} kernels/frame ({split}); idle share against "
+          f"this batch's wall {1 - busy / (wall / n):.4f}, against the "
+          f"unprofiled slope {1 - busy / slope_ms:.4f}")
     for ms, count, key in rows[:12]:
         print(f"[profile]   {ms / n:9.6f} ms/frame  x{count // n:<3d} "
               f"{key[:80]}")
@@ -769,6 +967,309 @@ def phase_san_miguel(device):
           f"twin path (max {int(d.max())} LSB), caps {gpu.options}")
 
 
+def counters():
+    """The launch-counted wrappers by record name."""
+    from compute_renderer_torch.backends import expand, front, micro, raster
+
+    return {"front_end": front.front_end,
+            "raster_shade_tiles": raster.raster_shade_tiles,
+            "expand_cells": expand.expand_cells,
+            "raster_shade_micro": micro.raster_shade_micro}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+        if hasattr(fn, "mode_launches"):
+            fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
+
+
+def read_counts():
+    """{record name: launches since reset_counts()}, per mode for the
+    kernels that have modes."""
+    out = {}
+    for name, fn in counters().items():
+        if hasattr(fn, "mode_launches"):
+            for mode, n in fn.mode_launches.items():
+                out[record(name, mode)] = n
+        else:
+            out[name] = fn.launches
+    return out
+
+
+def load_ext_scenes():
+    """The scenes of the extension rows, each OBJ synthesized and parsed
+    once, with textures; the materials scenes share that parse and drop
+    the atlas (their Kd rows are the MTL's either way). Returns {name:
+    Scene}."""
+    from compute_renderer_torch import CameraConfig, Scene, SceneConfig
+    from compute_renderer_torch.io import objgen
+    from compute_renderer_torch.io.model import Model
+
+    scenes = {}
+    for tag, model, ensure, count in (
+            ("structured", objgen.STRUCTURED_NAME,
+             objgen.ensure_structured_scene, 1_023_442),
+            ("structured_tex", objgen.STRUCTURED_TEX_NAME,
+             objgen.ensure_textured_scene, 36_322)):
+        t0 = time.perf_counter()
+        ensure()
+        t_synth = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tex = Scene.from_config(SceneConfig(
+            model_path=model, enable_textures=True,
+            camera_config=CameraConfig.first_person(STRUCTURED_EYE)), W, H)
+        t_parse = time.perf_counter() - t0
+        mesh = tex.mesh
+        require(mesh.num_triangles == count, f"{model}: "
+                f"{mesh.num_triangles} triangles, expected {count}")
+        require(mesh.face_kd is not None and mesh.has_textures,
+                f"{model}: no face_kd or textures after the load")
+        print(f"[load] {model}: synthesis {t_synth:.3f} s, parse with "
+              f"textures {t_parse:.3f} s; T={mesh.num_triangles}, "
+              f"{mesh.positions.shape[0]} vertices, atlas "
+              f"{mesh.texels.shape[0]} texels in {mesh.tex_table.shape[0]} "
+              f"textures, {int((mesh.face_tex >= 0).sum())} textured faces")
+
+        plain = dataclasses.replace(mesh, face_tex=None, texels=None,
+                                    tex_table=None)
+        scenes[f"{tag}+textures"] = tex
+        scenes[f"{tag}+materials"] = scene_copy(
+            tex, models=[Model(mesh=plain, source=f"{model} (materials)")])
+        if tag == "structured_tex":
+            scenes[f"{tag}+bilinear+ssaa2"] = scene_copy(
+                tex, texture_filter="bilinear", ssaa=2)
+    return scenes
+
+
+def scene_copy(scene, **attrs):
+    """A scene that shares ``scene``'s models (unless ``attrs`` replaces
+    them) and animates apart from it: its own time, camera and lights."""
+    out = copy.copy(scene)
+    out.cameras = copy.deepcopy(scene.cameras)
+    out.lights = copy.deepcopy(scene.lights)
+    for k, v in attrs.items():
+        setattr(out, k, v)
+    return out
+
+
+def mode_cases(scenes):
+    """(name, scene, mode, micro) of the mode kernel phase: the structured
+    scenes and a mirage frame of structured_scene_tex, on the path each
+    main row takes (the mirage frame on both)."""
+    from compute_renderer_torch.core.effects import Effect
+
+    small = scene_copy(scenes["structured_tex+textures"])
+    mirage = scene_copy(small, effect=Effect.mirage(0.6, 0.7, 0.3))
+    big = scene_copy(scenes["structured+textures"])
+    return [(name, scene, mode, path)
+            for mode in MODES
+            for name, scene, path in (
+                ("structured", big, "micro"),
+                ("structured_tex", small, "tile"),
+                ("structured_tex+mirage", mirage, "tile"),
+                ("structured_tex+mirage", mirage, "micro"))]
+
+
+def phase_mode_kernels(device, reports, scenes):
+    """The material and fused-texture modes of the front, tile raster and
+    micro kernels against their twins, then each mode kernel's time at its
+    main path's shapes."""
+    from compute_renderer_torch.backends import binning, cuda, front, micro
+    from compute_renderer_torch.backends import common, raster
+
+    timing = {}
+    for name, scene, mode, path in mode_cases(scenes):
+        x = frame_inputs(scene, device)
+        if path == "micro":
+            ntx, nty = (W + 127) // 128, (H + 7) // 8
+            coeff, meta = check_front(name, x, False,
+                                      reports[record("front_end", mode)],
+                                      tile=(8, 8), mode=mode)
+            pair_cap = cuda.grow_pair_cap(0, max(int(meta[3].sum()),
+                                                 ntx * nty * 16, 1024))
+            bins = binning.bin_cells_sort_meta(meta[3], meta[2], meta[0],
+                                               meta[1], ntx, nty, pair_cap)
+            require(int(bins["pair_needed"]) == 0, f"micro {name}: overflow")
+            table = coeff.T.contiguous()
+            params, lights = check_micro(
+                name, x, table, bins, ntx, nty,
+                reports[record("raster_shade_micro", mode)], mode=mode)
+            timing.setdefault(("micro", mode), (x, coeff, bins, params,
+                                                lights))
+            continue
+        coeff, meta = check_front(name, x, False,
+                                  reports[record("front_end", mode)],
+                                  mode=mode)
+        caps = cuda.default_caps("tile", x["T"], W, H)
+        setup = binning.setup_from_meta(meta)
+        ntx, nty = (W + 255) // 256, (H + 15) // 16
+        need = binning.exact_tile_counts(setup, ntx, nty)
+        caps["tile_cap"] = max(caps["tile_cap"], int(need.max()))
+        caps["pair_cap"] = max(caps["pair_cap"], int(need.sum()))
+        inputs = check_raster(name, x, coeff, meta, caps,
+                              reports[record("raster_shade_tiles", mode)],
+                              mode=mode)
+        # The layout the main path's binning picks for this scene.
+        layout = binning.bin_triangles(setup, ntx, nty, caps["pair_cap"],
+                                       caps["tile_cap"])["layout"]
+        timing.setdefault(("tile", mode), (x, coeff, inputs[layout]))
+
+    for mode in MODES:
+        # Front and micro raster at the micro rows' shapes (structured
+        # scene, 8x8 cells); the front at 16x256 on structured_scene_tex
+        # is printed beside it.
+        x, coeff, bins, params, lights = timing[("micro", mode)]
+        rep = reports[record("front_end", mode)]
+        fkw = dict(width=W, height=H, tile_h=8, tile_w=8,
+                   **front_modes(x, mode))
+        args = (x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"])
+        rep["ms"] = kernel_device_ms(
+            lambda: front._front_end_cuda(*args, **fkw), 20,
+            KERNELS["front_end"]["symbol"])
+        rep["ms_events"] = event_ms(
+            lambda: front._front_end_cuda(*args, **fkw), 50)
+        rep["plain_ms"] = event_ms(lambda: front.front_end_plain(*args,
+                                                                 **fkw), 5)
+        # Per triangle: 18 corner floats and the mode's inputs (kd 3; uv 6,
+        # kd 3, TextureInfo 3) in, the rows and 4 meta ints out.
+        per_tri = {"mat": 72 + 12 + 35 * 4 + 16,
+                   "texf": 72 + 48 + 44 * 4 + 16}[mode]
+        rep["bound_ms"], rep["bound_by"] = bound_ms(x["T"] * per_tri,
+                                                    x["T"] * FRONT_OPS)
+        print_time(record("front_end", mode), rep, "structured 8x8")
+        t_copy = event_ms(lambda: cuda.coeff_table(coeff), 20)
+        print(f"[time] (R, T) -> (T, R) table copy, R={coeff.shape[0]}, "
+              f"T={x['T']}: {t_copy:.6f} ms (events)")
+
+        table = coeff.T.contiguous()
+        ntx, nty = (W + 127) // 128, (H + 7) // 8
+        margs = (table, bins["pair_tri"], bins["seg_start"],
+                 bins["seg_count"], bins["tile_count"], params, lights)
+        mkw = dict(height_padded=nty * 8, width_padded=ntx * 128, mode=mode)
+        rep = reports[record("raster_shade_micro", mode)]
+        rep["ms"] = kernel_device_ms(lambda: micro._micro_cuda(*margs, **mkw),
+                                     20, KERNELS["raster_shade_micro"]
+                                     ["symbol"])
+        rep["ms_events"] = event_ms(lambda: micro._micro_cuda(*margs, **mkw),
+                                    50)
+        rep["plain_ms"] = event_ms(
+            lambda: micro.raster_shade_micro_plain(*margs[:4], params,
+                                                   lights, **mkw), 3)
+        pixel_bytes = (8 if mode == "mat" else
+                       (common.texf_channels(lights.shape[0]) + 1) * 4)
+        rep["bound_ms"], rep["bound_by"] = raster_bound(
+            f"{record('raster_shade_micro', mode)} (structured)", x, table,
+            bins, micro_twin(bins, params, lights,
+                             dict(height_padded=nty * 8,
+                                  width_padded=ntx * 128)),
+            (8, 8, ntx * 16), nty * 8 * ntx * 128, pixel_bytes)
+        print_time(record("raster_shade_micro", mode), rep, "structured")
+
+        # The tile raster at structured_scene_tex's shapes.
+        x, coeff, (table, data, tbins, params, lights, rkw, layout) = \
+            timing[("tile", mode)]
+        common_args = (table, data, tbins["seg_start"], tbins["seg_count"],
+                       params, lights)
+        rep = reports[record("raster_shade_tiles", mode)]
+        run = lambda: raster._raster_cuda(*common_args, layout=layout,
+                                          mode=mode, **rkw)
+        rep["ms"] = kernel_device_ms(run, 50,
+                                     KERNELS["raster_shade_tiles"]["symbol"])
+        rep["ms_events"] = event_ms(run, 100)
+        rep["plain_ms"] = event_ms(
+            lambda: raster.raster_shade_tiles_plain(
+                *common_args, layout=layout, mode=mode, **rkw), 5)
+        rep["bound_ms"], rep["bound_by"] = raster_bound(
+            f"{record('raster_shade_tiles', mode)} (structured_tex)", x,
+            table, tbins, tile_twin(data, tbins, params, lights, rkw),
+            (16, 256, W // 256), W * H, pixel_bytes)
+        print_time(record("raster_shade_tiles", mode), rep,
+                   f"structured_tex {layout}")
+        fkw = dict(width=W, height=H, tile_h=16, tile_w=256,
+                   **front_modes(x, mode))
+        args = (x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"])
+        t_front = kernel_device_ms(lambda: front._front_end_cuda(*args,
+                                                                 **fkw),
+                                   50, KERNELS["front_end"]["symbol"])
+        print(f"[time] {record('front_end', mode)} (structured_tex 16x256, "
+              f"T={x['T']}): kernel {t_front} ms")
+
+
+# (golden row, scene, frames, path, mode): the suite's extension rows
+# (bench/suite.py:101-144) and the tile raster's material mode.
+EXT_ROWS = (
+    ("materials", "structured+materials", 3, "micro", "mat"),
+    ("textures", "structured+textures", 3, "micro", "texf"),
+    ("tex_textures", "structured_tex+textures", 3, "tile", "texf"),
+    ("tex_bilinear_ssaa2", "structured_tex+bilinear+ssaa2", 1, "tile",
+     "texf"),
+    ("tex_materials", "structured_tex+materials", 3, "tile", "mat"),
+)
+
+
+def phase_ext_main_paths(device, card, reports, scenes):
+    """Each extension row through Scene -> Renderer ->
+    render_batch_device against the JAX package's golden frames, with the
+    per-mode launch counts; then the micro rows' batch slope and
+    profile."""
+    import numpy as np
+
+    from compute_renderer_torch import Renderer
+    from compute_renderer_torch.backends import cuda
+
+    golden = np.load(GOLDEN_EXT)
+    renderers = {}
+    for row, key, frames, path, mode in EXT_ROWS:
+        scene = scenes[key]
+        require(cuda.resolve_path("auto", scene.total_tris) == path,
+                f"{row} does not take the {path} path")
+        renderer = Renderer(scene.mesh, W, H, device=device,
+                            **scene.renderer_options())
+        reset_counts()
+        imgs = renderer.render_batch_device(
+            [scene.update(DT) for _ in range(frames)]).cpu().numpy()
+        launches = read_counts()
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"[ext] {row} ({key}, {path} path, {frames} frames): "
+              f"launches {ran}")
+        raster_name = ("raster_shade_micro" if path == "micro"
+                       else "raster_shade_tiles")
+        for name in ("front_end", raster_name):
+            n = launches[record(name, mode)]
+            require(n >= frames, f"{row}: the {record(name, mode)} kernel "
+                    f"launched {n} times in {frames} frames")
+            reports[record(name, mode)]["launches"] = (
+                reports[record(name, mode)].get("launches", 0) + n)
+        other = ("raster_shade_tiles" if path == "micro"
+                 else "raster_shade_micro")
+        require(not any(launches[record(other, m)]
+                        for m in ("base",) + MODES),
+                f"{row}: the {path} path launched {other}")
+        if path == "micro":
+            require(launches["expand_cells"] >= frames,
+                    f"{row}: the expansion kernel did not run every frame")
+        require(not renderer.flush_overflow(), f"{row}: overflow")
+        require(golden[row].shape[0] == frames,
+                f"{row}: {golden[row].shape[0]} golden frames")
+        check_golden(f"ext {row}", imgs, golden[row])
+        renderers[row] = (renderer, scene)
+
+    for row in ("materials", "textures"):
+        renderer, scene = renderers[row]
+        slope_ms, wall_ms = batch_slope(renderer, scene)
+        print(f"[bench] ms/frame 1024x768 structured_scene +{row} (cuda, "
+              f"micro path, batch slope {BATCH_SMALL}->{BATCH_LARGE}, best "
+              f"of {ROUNDS}): {slope_ms:.6f} ; wall ms/frame at "
+              f"{BATCH_LARGE}: {wall_ms:.6f} ; card: {card}")
+        profile_batch(renderer, scene, slope_ms, {
+            "front": ("front_kernel",),
+            "expand": ("expand_kernel",),
+            "sort+segments": ("sort", "searchsorted"),
+            "micro": ("micro_kernel",),
+        })
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "compute_renderer_torch")):
         print("chip_smoke: compute_renderer_torch/ is not beside this script",
@@ -794,9 +1295,8 @@ def main() -> int:
     _build.build_all(["front", "raster", "expand", "micro"])
     print(f"[build] {time.perf_counter() - t0:.2f} s (in parallel)")
     for name, (secs, log) in _build.BUILD_LOG.items():
-        info = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln or "smem" in ln]
-        print(f"[build] {name}.cu {secs:.2f} s: " + " | ".join(info))
+        print(f"[build] {name}.cu {secs:.2f} s: " + "; ".join(
+            f"{k} {v}" for k, v in ptxas_report(log).items()))
 
     reports = {name: {} for name in KERNELS}
     phase_kernels(device, reports)
@@ -804,6 +1304,9 @@ def main() -> int:
     phase_main_path(device, card, reports)
     phase_micro_main_path(device, card, reports)
     phase_san_miguel(device)
+    scenes = load_ext_scenes()
+    phase_mode_kernels(device, reports, scenes)
+    phase_ext_main_paths(device, card, reports, scenes)
 
     kernels = [{
         "name": name, "route": "cuda", "source": meta["source"],

@@ -7,8 +7,9 @@ CUDA kernel (``csrc/``) with a plain torch twin that CPU tensors run. The
 module paths mirror the JAX package's so that each module's
 counterpart is easy to find. This package never imports JAX.
 
-Ported so far: the tile path in base mode (no materials, textures or
-anti-aliasing beyond the box filter). See ROADMAP.md for the rest.
+Ported so far: the tile and micro paths, in base mode, with the material
+extension and fused (nearest / bilinear) texturing, OBJ files loaded from
+disk, and box-filter SSAA. See ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

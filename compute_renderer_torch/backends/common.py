@@ -243,3 +243,124 @@ def depth_key(z):
     atomic comparison on raw float bits, rasteriser.wgsl:84-90), held in
     int64 so that keys compare unsigned. -0.0 keys as 0x80000000."""
     return z.to(F32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Fused texturing: the G-buffer the raster kernels' texf mode writes, and
+# the tail that samples the atlas and shades it
+# ---------------------------------------------------------------------------
+#
+# G-buffer channels (C, H, W) f32, C = texf_channels(L):
+#   0: u      1: v          interpolated texcoord (affine)
+#   2: kd.r   3: kd.g   4: kd.b   winner's per-triangle diffuse (1s if none)
+#   5: off    6: tw     7: th     winner's TextureInfo row as exact f32
+#                                 ints (custom_pipeline/util.rs:75-85);
+#                                 tw == 0 marks an untextured face
+#   8+2i: diff_i   9+2i: spec_i  per-light Lambert and pow32 Phong scalars,
+#                                 the shading epilogue's op chain
+TEXF_BASE_CHANNELS = 8
+# TextureInfo offsets travel as f32 in the texf table: exact below 2^24.
+TEXF_MAX_OFFSET = 1 << 24
+
+
+def texf_channels(num_lights: int) -> int:
+    return TEXF_BASE_CHANNELS + 2 * num_lights
+
+
+def tex_rows_f32(face_tex, tex_table):
+    """Per-triangle TextureInfo rows (off, tw, th) as (T, 3) exact f32 for
+    the texf coefficient table; untextured faces (slot -1) become all-zero
+    rows (tw == 0 is the tail's 'untextured' mark). Offsets must stay below
+    2^24 (``cuda.texf_eligible``)."""
+    face_tex = face_tex.to(torch.int32)
+    t0 = torch.clamp(face_tex, min=0).long()
+    rows = tex_table.to(torch.int32)[t0].to(F32)  # (T, 3)
+    return torch.where((face_tex >= 0)[:, None], rows,
+                       torch.zeros((), dtype=F32, device=rows.device))
+
+
+def fused_texture_tail(gbuf, best_key, texels, light_color, light_intensity,
+                       tex_filter: str = "nearest"):
+    """Shade a texf G-buffer: the texel fetch plus elementwise math.
+
+    ``gbuf`` (C, H, W) f32 in the layout above; ``best_key`` (H, W) u32
+    (or int holding the u32 pattern; DEPTH_CLEAR = background);
+    ``texels`` (P, 3) f32 flat atlas. Nearest or bilinear repeat-wrap
+    sampling, then the material shading with the winner's kd times the
+    texel. Returns (H, W, 4) u8 RGBA. The JAX package's op order."""
+    if tex_filter not in ("nearest", "bilinear"):
+        raise NotImplementedError(
+            f"the fused texture tail samples nearest or bilinear, not "
+            f"{tex_filter!r}; mip filters (TEXF_MIP) are not ported yet "
+            "(ROADMAP queue 2)")
+    i32 = torch.int32
+    flag = best_key.view(i32) != -1
+    u = gbuf[0]
+    v = gbuf[1]
+    kd = torch.stack([gbuf[2], gbuf[3], gbuf[4]], dim=-1)  # (H, W, 3)
+    off = gbuf[5].to(i32)
+    tw = gbuf[6].to(i32)
+    th = gbuf[7].to(i32)
+    has = flag & (tw > 0)
+    # Background and untextured lanes carry zeros: size 1 keeps the index
+    # math finite; their kd is masked below.
+    one_i = torch.ones((), dtype=i32, device=gbuf.device)
+    tws = torch.where(has, tw, one_i)
+    ths = torch.where(has, th, one_i)
+    twf = tws.to(F32)
+    thf = ths.to(F32)
+
+    def fetch(idx):
+        return texels[torch.where(has, idx, 0).long()]
+
+    fu = u - torch.floor(u)
+    fv = v - torch.floor(v)
+    if tex_filter == "nearest":
+        tx = torch.minimum((fu * twf).to(i32), tws - 1)
+        ty = torch.minimum((fv * thf).to(i32), ths - 1)
+        texel = fetch(off + ty * tws + tx)
+    else:
+        pu = fu * twf - 0.5
+        pv = fv * thf - 0.5
+        x0f = torch.floor(pu)
+        y0f = torch.floor(pv)
+        wx = (pu - x0f)[..., None]
+        wy = (pv - y0f)[..., None]
+        x0 = torch.remainder(x0f.to(i32), tws)
+        y0 = torch.remainder(y0f.to(i32), ths)
+        x1 = torch.remainder(x0 + 1, tws)
+        y1 = torch.remainder(y0 + 1, ths)
+        t00 = fetch(off + y0 * tws + x0)
+        t10 = fetch(off + y0 * tws + x1)
+        t01 = fetch(off + y1 * tws + x0)
+        t11 = fetch(off + y1 * tws + x1)
+        top = t00 * (1.0 - wx) + t10 * wx
+        bot = t01 * (1.0 - wx) + t11 * wx
+        texel = top * (1.0 - wy) + bot * wy
+    kdt = torch.where(has[..., None], kd * texel, kd)
+    return _texf_shade_epilogue(kdt, flag, gbuf, TEXF_BASE_CHANNELS,
+                                light_color, light_intensity)
+
+
+def _texf_shade_epilogue(kdt, flag, gbuf, base, light_color,
+                         light_intensity):
+    """The material shading with the per-light diff/spec read from the
+    G-buffer (channels ``base``..): ambient 0.1 kd, per light
+    (diff kd + 0.5 spec) * color * intensity, clip, gamma, round."""
+    final = 0.1 * kdt
+    num_lights = (gbuf.shape[0] - base) // 2
+    for li in range(num_lights):
+        diff = gbuf[base + 2 * li]
+        spec = gbuf[base + 2 * li + 1]
+        contrib = diff[..., None] * kdt + (spec * 0.5)[..., None]
+        final = final + contrib * light_color[li].to(F32) \
+            * light_intensity[li].to(F32)
+    final = torch.clamp(final, 0.0, 1.0)
+    gamma = torch.tensor(1.0 / 2.2, dtype=F32, device=final.device)
+    shaded = torch.round(torch.pow(final, gamma) * 255.0).to(torch.uint8)
+    background = torch.tensor([0, 0, 255], dtype=torch.uint8,
+                              device=final.device)
+    rgb = torch.where(flag[..., None], shaded, background)
+    alpha = torch.full(flag.shape + (1,), 255, dtype=torch.uint8,
+                       device=final.device)
+    return torch.cat([rgb, alpha], dim=-1)

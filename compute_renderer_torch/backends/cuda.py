@@ -1,8 +1,15 @@
 """The GPU engine: the tile path and the micro (mega-scene) path.
 
-Counterpart of the JAX package's ``backends/tpu.py`` in base mode
-(``render_frame`` at tpu.py:511-817, ``render_frame_micro`` at :87-417,
-the capacity helpers and the retrying ``render``).
+Counterpart of the JAX package's ``backends/tpu.py`` (``render_frame`` at
+tpu.py:511-817, ``render_frame_micro`` at :87-417, the capacity helpers,
+``texf_eligible`` and the retrying ``render``) in three modes: base, the
+material extension (``face_kd``: 35-column table, kd-modulated shading)
+and fused texturing (``face_tex`` + atlas: 44-column table, the raster
+kernels write a G-buffer and ``common.fused_texture_tail`` samples the
+atlas, nearest or bilinear, and shades). The deferred (visibility) and
+mip-filtered texture modes are not ported yet and raise
+``NotImplementedError``: trilinear / anisotropic filters,
+``tex_mode="deferred"`` and atlases of 2^24 texels or more.
 
 Tile path, per frame:
 
@@ -11,7 +18,8 @@ Tile path, per frame:
 2. ``binning.setup_from_meta`` + ``binning.bin_triangles`` (dense at
    Suzanne scale, the sort above ``DENSE_BINNING_OP_LIMIT``);
 3. ``raster.raster_shade_tiles`` over the occupied tiles;
-4. ``raster.unpack_rgba``.
+4. ``raster.unpack_rgba``, or ``common.fused_texture_tail`` on the texf
+   G-buffer.
 
 Micro path (``render_frame_micro``), for scenes above
 ``TILE_PATH_MAX_TRIANGLES``:
@@ -20,7 +28,7 @@ Micro path (``render_frame_micro``), for scenes above
 2. ``binning.bin_cells_sort_meta`` — the pair-expansion kernel, one
    stable sort by cell, searchsorted segments;
 3. ``micro.raster_shade_micro`` over the occupied 8x128 tiles;
-4. ``raster.unpack_rgba``.
+4. as on the tile path.
 
 Nothing in a frame waits for the host: the overflow report stays a device
 tensor, and the occupied-tile count is read by the kernels themselves.
@@ -40,10 +48,11 @@ F32 = torch.float32
 # Triangle-count split between the tile and micro paths, and the chunk size
 # of the tile path's multi-pass depth merge. Both come from the TPU's 16 MiB
 # VMEM budget for the resident coefficient table (12 MiB / 128 B per
-# triangle = 98,304); they are kept as plain tunables so that the two
-# packages split scenes alike, and are to be decided again by measurement
-# on the card.
-TILE_PATH_MAX_TRIANGLES = 98_304
+# triangle = 98,304; a 44-column table chunks at 71,493); they are kept as
+# plain tunables so that the two packages split scenes and chunks alike,
+# and are to be decided again by measurement on the card.
+MAX_TRI_TABLE_BYTES = 12 * 1024 * 1024
+TILE_PATH_MAX_TRIANGLES = MAX_TRI_TABLE_BYTES // (raster.TRI_TABLE_WIDTH * 4)
 
 # Per-tile list cap ceiling. The JAX package's bound is its SMEM window;
 # the raster kernel here streams lists of any length, but the cap is kept
@@ -115,37 +124,102 @@ def grow_tile_cap(cur: int, needed: int, tile_h: int, tile_w: int) -> int:
 
 
 def corner_soa(vertex_attr, tri):
-    """(N, 3) per-vertex rows + (T, 3) indices -> (3 corners, 3, T)."""
+    """(N, C) per-vertex rows + (T, 3) indices -> (3 corners, C, T)."""
     return vertex_attr[tri.long()].permute(1, 2, 0).contiguous()
+
+
+def texf_eligible(tex_table) -> bool:
+    """Fused texturing carries TextureInfo offsets as f32 columns of the
+    coefficient table: exact only below 2^24 texels (tpu.py:485-490)."""
+    t = np.asarray(tex_table)
+    return t.size == 0 or int(t[:, 0].max()) < common.TEXF_MAX_OFFSET
+
+
+TEX_FILTERS = ("nearest", "bilinear", "trilinear", "anisotropic")
+
+
+def check_texture_options(tex_filter: str, tex_mode: str,
+                          tex_table=None) -> None:
+    """The one check of the texture options. An unknown filter raises
+    ``ValueError``. For a textured mesh (``tex_table`` given) the modes not
+    ported yet raise ``NotImplementedError``: ``tex_mode="deferred"``,
+    the trilinear / anisotropic filters and atlases of 2^24 texels or
+    more."""
+    if tex_filter not in TEX_FILTERS:
+        raise ValueError(f"unknown tex_filter {tex_filter!r}")
+    if tex_table is None:
+        return
+    if tex_mode != "fused":
+        raise NotImplementedError(
+            f"tex_mode={tex_mode!r}: the deferred (vis) texture mode is not "
+            "ported yet (ROADMAP queue 2)")
+    if tex_filter not in ("nearest", "bilinear"):
+        raise NotImplementedError(
+            f"tex_filter={tex_filter!r} takes the mip-filtered (TEXF_MIP) or "
+            "deferred (vis) texture mode, not ported yet (ROADMAP queue 2)")
+    if not texf_eligible(tex_table):
+        raise NotImplementedError(
+            "atlases of 2^24 texels or more take the deferred (vis) texture "
+            "mode, not ported yet (ROADMAP queue 2)")
+
+
+def _ext_mode(face_kd, uv_soa, tex_rows):
+    """The frame's mode ("base", "mat" or "texf") and its front-end
+    inputs (``front.front_end`` refuses tex_rows without uv_soa)."""
+    if tex_rows is None:
+        return ("mat" if face_kd is not None else "base"), {
+            "kd_rows": face_kd}
+    return "texf", {"kd_rows": face_kd, "uv_soa": uv_soa,
+                    "tex_rows": tex_rows}
+
+
+def coeff_table(coeff):
+    """The front end's (R, T) coefficient rows as the (T, R) table the
+    raster kernels read, in one copy: row stride R rounded up to a multiple
+    of 4 floats (``raster.kernel_table``)."""
+    return raster.kernel_table(coeff.T)[0]
 
 
 def render_frame(positions, normals, tri, view_proj, view_position,
                  light_world_pos, light_color, light_intensity, effect, *,
                  width: int, height: int, tile_h: int = 0, tile_w: int = 0,
                  pair_cap: int = 0, tile_cap: int = 0, tri_chunk: int = 0,
-                 path: str = "auto", pos_soa=None, nrm_soa=None):
+                 path: str = "auto", pos_soa=None, nrm_soa=None,
+                 face_kd=None, texels=None, tex_filter: str = "nearest",
+                 uv_soa=None, tex_rows=None):
     """Render one frame on the path ``resolve_path`` picks (the micro path
     is ``render_frame_micro``); returns ((H, W, 4) u8 RGBA,
     depth key (H, W) u32, overflow (2,) i32 = [pair_cap_needed,
     tile_cap_needed], 0 meaning within capacity).
 
+    ``face_kd`` (T, 3) selects the material mode; ``tex_rows`` (T, 3)
+    with ``texels`` (P, 3) and ``uv_soa`` (3 corners, 2, T) the
+    fused-texture mode, filtered by ``tex_filter``. ``mesh_ext_tensors``
+    builds and checks these from a mesh.
+
     Scenes above ``tri_chunk`` triangles (only with ``path="tile"``
-    forced) render in triangle chunks merged by depth key — the same image
-    as one pass (strict < keeps the lowest index on ties). ``pos_soa`` /
-    ``nrm_soa`` are the (3, 3, T) corner-SoA geometry, built from ``tri``
-    when absent."""
+    forced; 0 sizes the chunk for the mode's table width) render in
+    triangle chunks merged by depth key — the same image as one pass
+    (strict < keeps the lowest index on ties; a texf G-buffer merges
+    channel-wise). ``pos_soa`` / ``nrm_soa`` are the (3, 3, T) corner-SoA
+    geometry, built from ``tri`` when absent."""
     device = positions.device
     T = int(tri.shape[0])
     if T == 0:
         rgba, key = common.empty_frame(width, height, device)
         return rgba, key, torch.zeros((2,), dtype=torch.int32, device=device)
+    ext = dict(face_kd=face_kd, texels=texels, tex_filter=tex_filter,
+               uv_soa=uv_soa, tex_rows=tex_rows)
     if resolve_path(path, T, tri_chunk) == "micro":
         return render_frame_micro(
             positions, normals, tri, view_proj, view_position,
             light_world_pos, light_color, light_intensity, effect,
             width=width, height=height, pair_cap=pair_cap, pos_soa=pos_soa,
-            nrm_soa=nrm_soa)
-    tri_chunk = tri_chunk or TILE_PATH_MAX_TRIANGLES
+            nrm_soa=nrm_soa, **ext)
+    mode, front_kw = _ext_mode(face_kd, uv_soa, tex_rows)
+    if tri_chunk == 0:
+        # Chunks sized for the table this mode builds (tpu.py:628-641).
+        tri_chunk = MAX_TRI_TABLE_BYTES // (raster.MODE_WIDTHS[mode] * 4)
     if tile_h == 0 or tile_w == 0:
         tile_h, tile_w = choose_tile(T, width, height)
     ntx = (width + tile_w - 1) // tile_w
@@ -158,11 +232,11 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     view_position = view_position.to(F32)
     coeff, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
                                   width=width, height=height, tile_h=tile_h,
-                                  tile_w=tile_w)
+                                  tile_w=tile_w, **front_kw)
     setup = binning.setup_from_meta(meta)
-    table = coeff.T.contiguous()
+    table = coeff_table(coeff)
 
-    rgba_p = key_p = overflow = best = None
+    out_p = key_p = overflow = best = None
     for c0 in range(0, T, tri_chunk):
         c1 = min(c0 + tri_chunk, T)
         chunk_setup = {k: v[c0:c1] for k, v in setup.items()}
@@ -175,7 +249,7 @@ def render_frame(positions, normals, tri, view_proj, view_position,
         bins = binning.bin_triangles(chunk_setup, ntx, nty, pc, tc)
         pair_data = (bins["bin_rows"] if bins["layout"] == "dense"
                      else bins["pair_tri"])
-        rgba_c, key_c = raster.raster_shade_tiles(
+        out_c, key_c = raster.raster_shade_tiles(
             table[c0:c1], pair_data, bins["seg_start"], bins["seg_count"],
             effect, view_position, light_world_pos, light_color,
             light_intensity, height_padded=nty * tile_h,
@@ -184,30 +258,51 @@ def render_frame(positions, normals, tri, view_proj, view_position,
         )
         flags = torch.stack([bins["pair_needed"], bins["tile_needed"]])
         kc = key_c.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-        if rgba_p is None:
-            rgba_p, key_p, best, overflow = rgba_c, key_c, kc, flags
+        if out_p is None:
+            out_p, key_p, best, overflow = out_c, key_c, kc, flags
         else:
             win = kc < best
-            rgba_p = torch.where(win, rgba_c.view(torch.int32),
-                                 rgba_p.view(torch.int32)).view(torch.uint32)
+            if mode == "texf":  # the G-buffer merges channel-wise
+                out_p = torch.where(win, out_c, out_p)
+            else:
+                out_p = torch.where(win, out_c.view(torch.int32),
+                                    out_p.view(torch.int32)
+                                    ).view(torch.uint32)
             key_p = torch.where(win, key_c.view(torch.int32),
                                 key_p.view(torch.int32)).view(torch.uint32)
             best = torch.where(win, kc, best)
             overflow = torch.maximum(overflow, flags)
+    return _finish(mode, out_p, key_p, overflow, width, height, texels,
+                   light_color, light_intensity, tex_filter)
 
-    rgba = raster.unpack_rgba(rgba_p[:height, :width])
-    return rgba, key_p[:height, :width], overflow
+
+def _finish(mode, out_p, key_p, overflow, width, height, texels,
+            light_color, light_intensity, tex_filter):
+    """Crop the padded outputs and resolve the frame: unpack RGBA, or shade
+    the texf G-buffer through ``common.fused_texture_tail``."""
+    key = key_p[:height, :width]
+    if mode == "texf":
+        rgba = common.fused_texture_tail(
+            out_p[:, :height, :width], key, texels.to(F32),
+            light_color.to(F32), light_intensity.to(F32),
+            tex_filter=tex_filter)
+    else:
+        rgba = raster.unpack_rgba(out_p[:height, :width])
+    return rgba, key, overflow
 
 
 def render_frame_micro(positions, normals, tri, view_proj, view_position,
                        light_world_pos, light_color, light_intensity, effect,
                        *, width: int, height: int, pair_cap: int = 0,
-                       pos_soa=None, nrm_soa=None):
+                       pos_soa=None, nrm_soa=None, face_kd=None,
+                       texels=None, tex_filter: str = "nearest", uv_soa=None,
+                       tex_rows=None):
     """Render one nonempty frame on the micro path (``render_frame``
-    dispatches here); the same contract as ``render_frame`` (the overflow
-    report's tile entry is always 0: there is no per-tile cap). Coverage
-    outside a triangle's bbox (voxelize, mirage) clips to the 8x8 cell
-    rectangles."""
+    dispatches here); the same contract and modes as ``render_frame``
+    (the overflow report's tile entry is always 0: there is no per-tile
+    cap). Coverage outside a triangle's bbox (voxelize, mirage) clips to
+    the 8x8 cell rectangles."""
+    mode, front_kw = _ext_mode(face_kd, uv_soa, tex_rows)
     T = int(tri.shape[0])
     ntx = (width + 127) // 128
     nty = (height + 7) // 8
@@ -218,28 +313,59 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
         nrm_soa = corner_soa(normals.to(F32), tri)
     coeff, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
                                   width=width, height=height, tile_h=8,
-                                  tile_w=8)
+                                  tile_w=8, **front_kw)
     bins = binning.bin_cells_sort_meta(meta[3], meta[2], meta[0], meta[1],
                                        ntx, nty, pair_cap)
-    rgba_p, key_p = micro.raster_shade_micro(
-        coeff.T.contiguous(), bins["pair_tri"], bins["seg_start"],
+    out_p, key_p = micro.raster_shade_micro(
+        coeff_table(coeff), bins["pair_tri"], bins["seg_start"],
         bins["seg_count"], bins["tile_count"], effect,
         view_position.to(F32), light_world_pos, light_color,
         light_intensity, height_padded=nty * 8, width_padded=ntx * 128)
     overflow = torch.stack([bins["pair_needed"], bins["tile_needed"]])
-    rgba = raster.unpack_rgba(rgba_p[:height, :width])
-    return rgba, key_p[:height, :width], overflow
+    return _finish(mode, out_p, key_p, overflow, width, height, texels,
+                   light_color, light_intensity, tex_filter)
+
+
+def mesh_ext_tensors(mesh, tri, device, *, tex_filter: str = "nearest",
+                     tex_mode: str = "fused"):
+    """The mesh's material / texture inputs of ``render_frame`` on
+    ``device``, uploaded once: ``face_kd``, and for a textured mesh
+    ``texels``, ``uv_soa``, ``tex_rows`` (its TextureInfo rows by face,
+    ``common.tex_rows_f32``) and ``tex_filter``. Checks the options
+    (``check_texture_options``)."""
+    def dev(a, dtype=F32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    check_texture_options(tex_filter, tex_mode,
+                          mesh.tex_table if mesh.has_textures else None)
+    ext = {}
+    if mesh.face_kd is not None:
+        ext["face_kd"] = dev(mesh.face_kd)
+    if not mesh.has_textures:
+        return ext
+    ext["texels"] = dev(mesh.texels)
+    ext["uv_soa"] = corner_soa(dev(mesh.uvs), tri)
+    ext["tex_rows"] = common.tex_rows_f32(dev(mesh.face_tex, torch.int32),
+                                          dev(mesh.tex_table, torch.int32))
+    ext["tex_filter"] = tex_filter
+    return ext
 
 
 def render(mesh, camera_uniform, lights, effect, width, height, *,
-           device, tile_h: int = 0, tile_w: int = 0, pair_cap: int = 0,
-           tile_cap: int = 0, max_retries: int = 3, path: str = "auto"):
+           device="cuda", tile_h: int = 0, tile_w: int = 0,
+           pair_cap: int = 0, tile_cap: int = 0, max_retries: int = 3,
+           path: str = "auto", tex_filter: str = "nearest",
+           tex_mode: str = "fused"):
     """Host-level entry with capacity retry: an overflowing frame is
     rendered again at the reported need (on the micro path only
     ``pair_cap`` grows). Under ``path="auto"``, a tile list past
     ``MAX_TILE_CAP`` falls back to the micro path, as tpu.render does.
-    Returns (H, W, 4) u8 numpy. ``device="cuda"`` runs the kernels,
+    The mesh's ``face_kd`` and textures select the mode. Returns (H, W, 4)
+    u8 numpy. ``device="cuda"`` (the default) runs the kernels,
     ``device="cpu"`` their twins."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("cuda.render(device='cuda') needs an NVIDIA GPU "
+                           "with CUDA; pass device='cpu' for the twins")
     light_world_pos, light_color, light_intensity = lights
     T = max(mesh.indices.shape[0] // 3, 1)
     requested_path = path
@@ -252,17 +378,19 @@ def render(mesh, camera_uniform, lights, effect, width, height, *,
     def dev(a, dtype=F32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    tri = dev(mesh.indices.astype(np.int32), torch.int32).reshape(-1, 3)
     args = (
-        dev(mesh.positions), dev(mesh.normals),
-        dev(mesh.indices.astype(np.int32), torch.int32).reshape(-1, 3),
+        dev(mesh.positions), dev(mesh.normals), tri,
         dev(camera_uniform.view_proj), dev(camera_uniform.view_position),
         dev(light_world_pos), dev(light_color), dev(light_intensity),
         dev(effect),
     )
+    ext = mesh_ext_tensors(mesh, tri, device, tex_filter=tex_filter,
+                           tex_mode=tex_mode)
     for _ in range(max_retries):
         rgba, _, overflow = render_frame(
             *args, width=width, height=height, tile_h=tile_h, tile_w=tile_w,
-            pair_cap=pc, tile_cap=tc, path=path)
+            pair_cap=pc, tile_cap=tc, path=path, **ext)
         flags = overflow.cpu().numpy()
         if not flags.any():
             return rgba.cpu().numpy()

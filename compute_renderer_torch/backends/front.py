@@ -1,11 +1,13 @@
 """Fused front end: vertex stage + triangle setup + coefficient rows.
 
-Counterpart of the JAX package's ``backends/pallas_front.py`` in base
-mode at tile granularity. ``front_end`` takes corner-SoA geometry
+Counterpart of the JAX package's ``backends/pallas_front.py``, at tile or
+8x8-cell granularity. ``front_end`` takes corner-SoA geometry
 (``pos_soa``/``nrm_soa`` (3 corners, 3 components, T)) and returns
 
-- ``coeff`` (32, T) f32: the raster table's columns in
-  ``raster.TRI_TABLE_WIDTH`` order (rows = coefficients);
+- ``coeff`` (R, T) f32: the raster table's columns in ``raster.py`` order
+  (rows = coefficients), R = 32 in base mode, 35 with ``kd_rows`` (the
+  material columns) and 44 with ``uv_soa`` + ``tex_rows`` (the
+  fused-texture columns; kd is ``kd_rows`` or ones);
 - ``meta`` (4, T) i32: tile_x0, tile_y0, rect width rx, cover count c
   (0 for culled triangles) — what ``binning.setup_from_meta`` reads.
 
@@ -24,7 +26,8 @@ F32 = torch.float32
 
 
 def front_end_plain(pos_soa, nrm_soa, view_proj, effect, *, width: int,
-                    height: int, tile_h: int, tile_w: int):
+                    height: int, tile_h: int, tile_w: int, kd_rows=None,
+                    uv_soa=None, tex_rows=None):
     """The twin: ``common.vertex_stage`` -> ``common.triangle_setup`` ->
     ``raster.tri_table_columns`` on the corner vertices, reduced to the
     kernel's (coeff, meta)."""
@@ -48,50 +51,82 @@ def front_end_plain(pos_soa, nrm_soa, view_proj, effect, *, width: int,
         tuple(world[k * T:(k + 1) * T, ch] for ch in range(3))
         for k in range(3)
     )
-    cols = raster.tri_table_columns(screen_soa, nrm_soa.to(F32), world_soa)
+    cols = raster.tri_table_columns(screen_soa, nrm_soa.to(F32), world_soa,
+                                    face_kd=kd_rows, uv_soa=uv_soa,
+                                    tex_rows=tex_rows)
     return torch.stack(cols), meta.to(torch.int32)
 
 
+def _mode(kd_rows, uv_soa, tex_rows) -> str:
+    if tex_rows is not None:
+        if uv_soa is None:
+            raise ValueError("the texf front end needs uv_soa with tex_rows")
+        return "texf"
+    return "mat" if kd_rows is not None else "base"
+
+
 def _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, *, width, height,
-                    tile_h, tile_w):
+                    tile_h, tile_w, kd_rows=None, uv_soa=None,
+                    tex_rows=None):
     from compute_renderer_torch import _build
 
     T = pos_soa.shape[2]
     device = pos_soa.device
+    mode = _mode(kd_rows, uv_soa, tex_rows)
     pos = pos_soa.to(F32).contiguous()
     nrm = nrm_soa.to(F32).contiguous()
     if nrm.shape != pos.shape:
         raise ValueError(f"nrm_soa {tuple(nrm.shape)} != pos_soa "
                          f"{tuple(pos.shape)}")
+
+    def rows(a, shape, what):
+        if a is None:
+            return None
+        a = a.to(device=device, dtype=F32).contiguous()
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{what} {tuple(a.shape)}, expected {shape}")
+        return a
+
+    kd = rows(kd_rows, (T, 3), "kd_rows")
+    uv = rows(uv_soa, (3, 2, T), "uv_soa") if mode == "texf" else None
+    tex = rows(tex_rows, (T, 3), "tex_rows") if mode == "texf" else None
     scal = torch.cat([view_proj.to(device=device, dtype=F32).reshape(16),
                       effect.to(device=device, dtype=F32).reshape(-1)[:6]])
-    coeff = torch.empty((raster.TRI_TABLE_WIDTH, T), dtype=F32,
+    coeff = torch.empty((raster.MODE_WIDTHS[mode], T), dtype=F32,
                         device=device)
     meta = torch.empty((4, T), dtype=torch.int32, device=device)
-    fn = _build.entry("front", "front_end_base", pointers=5, ints=5)
+    ptr = lambda a: None if a is None else a.data_ptr()
+    fn = _build.entry("front", "front_end", pointers=8, ints=6)
     front_end.launches += 1
+    front_end.mode_launches[mode] += 1
     _build.check(
-        fn(pos.data_ptr(), nrm.data_ptr(), scal.data_ptr(),
-           coeff.data_ptr(), meta.data_ptr(), T, width, height, tile_h,
-           tile_w, torch.cuda.current_stream(device).cuda_stream),
+        fn(pos.data_ptr(), nrm.data_ptr(), scal.data_ptr(), ptr(kd), ptr(uv),
+           ptr(tex), coeff.data_ptr(), meta.data_ptr(),
+           raster.MODES[mode], T, width, height, tile_h, tile_w,
+           torch.cuda.current_stream(device).cuda_stream),
         "front_end",
     )
     return coeff, meta
 
 
 def front_end(pos_soa, nrm_soa, view_proj, effect, *, width: int,
-              height: int, tile_h: int, tile_w: int):
-    """Fused vertex + setup + coefficient rows; returns (coeff (32, T) f32,
-    meta (4, T) i32). CPU tensors take the plain twin, CUDA tensors the
-    kernel (``front_end.launches`` counts its launches)."""
+              height: int, tile_h: int, tile_w: int, kd_rows=None,
+              uv_soa=None, tex_rows=None):
+    """Fused vertex + setup + coefficient rows; returns (coeff (R, T) f32,
+    meta (4, T) i32). ``kd_rows`` (T, 3) selects the material rows,
+    ``uv_soa`` (3 corners, 2, T) with ``tex_rows`` (T, 3) the
+    fused-texture rows. CPU tensors take the plain twin, CUDA tensors the
+    kernel (``front_end.launches`` counts its launches,
+    ``front_end.mode_launches`` per mode)."""
+    kw = dict(width=width, height=height, tile_h=tile_h, tile_w=tile_w,
+              kd_rows=kd_rows, uv_soa=uv_soa, tex_rows=tex_rows)
+    _mode(kd_rows, uv_soa, tex_rows)
     if pos_soa.device.type == "cpu":
-        return front_end_plain(pos_soa, nrm_soa, view_proj, effect,
-                               width=width, height=height, tile_h=tile_h,
-                               tile_w=tile_w)
+        return front_end_plain(pos_soa, nrm_soa, view_proj, effect, **kw)
     if pos_soa.device.type != "cuda":
         raise ValueError(f"front_end: no kernel for device {pos_soa.device}")
-    return _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, width=width,
-                           height=height, tile_h=tile_h, tile_w=tile_w)
+    return _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, **kw)
 
 
 front_end.launches = 0
+front_end.mode_launches = dict.fromkeys(raster.MODES, 0)

@@ -1,20 +1,29 @@
 """Raster + shade over framebuffer tiles: the coefficient table, the
 occupied-tile work list, the kernel wrapper and its twin, the RGBA unpack.
 
-Counterpart of the JAX package's ``backends/pallas_raster.py`` in base
-mode (32-column table). Per occupied tile, the tile's triangle list is
-walked in ascending triangle order; each pixel evaluates the anchored
-affine barycentrics and depth, keeps a strict-< running minimum of the u32
-depth key (the lowest triangle wins ties), and carries the winner's six
-attributes [nx, ny, nz, wx, wy, wz]. The epilogue is ambient 0.1 plus, per
-light, a Lambert term and a pow32 x 0.5 Phong term, then clip, gamma
-1/2.2, round-half-even and a packed RGBA write; uncovered pixels are the
-blue background 0xFFFF0000 (fragment.wgsl:50-93).
+Counterpart of the JAX package's ``backends/pallas_raster.py``. Per
+occupied tile, the tile's triangle list is walked in ascending triangle
+order; each pixel evaluates the anchored affine barycentrics and depth and
+keeps a strict-< running minimum of the u32 depth key (the lowest triangle
+wins ties). The winner's attributes — [nx, ny, nz, wx, wy, wz], evaluated
+from its row at the pixel — feed one of three epilogues, by mode:
+
+- ``base`` (32-column table): ambient 0.1 plus, per light, a Lambert term
+  and a pow32 x 0.5 Phong term, then clip, gamma 1/2.2, round-half-even
+  and a packed RGBA write; uncovered pixels are the blue background
+  0xFFFF0000 (fragment.wgsl:50-93);
+- ``mat`` (35 columns, kd at 32:35): the same with ambient and diffuse
+  modulated by the winner's kd, specular not;
+- ``texf`` (44 columns): no shading — the (C, Hp, Wp) f32 G-buffer of
+  ``common.TEXF_BASE_CHANNELS`` (interpolated uv, the winner's kd and
+  TextureInfo row, per-light diff/spec), which
+  ``common.fused_texture_tail`` samples and shades.
 
 A CUDA tensor runs the hand-written kernel ``csrc/raster.cu``; a CPU
 tensor runs ``raster_shade_tiles_plain``, the same arithmetic vectorized in
-eager torch. The material (35-column), visibility and fused-texture modes
-are not ported yet (ROADMAP) and raise ``NotImplementedError``.
+eager torch. The visibility mode (deferred texturing) and the mip-filtered
+texture mode (a 46-wide table, which raises ``NotImplementedError``) are
+not ported yet (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -33,26 +42,31 @@ I32 = torch.int32
 #   0:3 bc1   3:6 bc2   6:9 bc3   9:12 depth z
 #   12:30 six attribute channels [nx, ny, nz, wx, wy, wz]
 #   30:32 anchor (v1x, v1y)
+# Material mode appends 32:35 kd (r, g, b), copied on a win. Fused-texture
+# mode appends 32:38 the uv affine triples (u then v), 38:41 kd (ones when
+# the mesh has none) and 41:44 the TextureInfo row {off, tw, th} as exact
+# f32 ints; the kd and TextureInfo columns are copied, not interpolated.
 TRI_TABLE_WIDTH = 32
+MAT_TRI_TABLE_WIDTH = 35
+TEX_TRI_TABLE_WIDTH = 44
+MODES = {"base": 0, "mat": 1, "texf": 2}  # the kernels' MODE argument
+MODE_WIDTHS = {"base": TRI_TABLE_WIDTH, "mat": MAT_TRI_TABLE_WIDTH,
+               "texf": TEX_TRI_TABLE_WIDTH}
+TEX_MIP_TRI_TABLE_WIDTH = 46  # the mip-filtered texture mode, not ported
 
 # Elements of one (pairs, pixels) block the twin evaluates at a time:
 # bounds its memory at a few hundred MB.
 _PLAIN_BLOCK = 1 << 21
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item 8: material and "
-        "texture extensions)")
-
-
 def tri_table_columns(screen_soa, nrm_soa, wld_soa, face_kd=None,
                       uv_soa=None, tex_rows=None):
-    """The 32 per-triangle coefficient columns as a list of (T,) tensors,
-    from corner-SoA inputs: ``screen_soa[k][c]`` is component c (x, y, z,
-    w) of corner k; ``nrm_soa`` / ``wld_soa`` likewise with 3 components."""
-    if face_kd is not None or uv_soa is not None or tex_rows is not None:
-        raise _not_ported("the material / texture table columns")
+    """The per-triangle coefficient columns as a list of (T,) tensors, from
+    corner-SoA inputs: ``screen_soa[k][c]`` is component c (x, y, z, w) of
+    corner k; ``nrm_soa`` / ``wld_soa`` likewise with 3 components. With
+    ``face_kd`` (T, 3) the three kd columns append (35); with ``uv_soa``
+    (3 corners, 2, T) and ``tex_rows`` (T, 3) together, the fused-texture
+    columns append (44)."""
     v1, v2, v3 = screen_soa
     co = common.barycentric_coefficients(v1[0], v1[1], v2[0], v2[1],
                                          v3[0], v3[1])
@@ -65,22 +79,75 @@ def tri_table_columns(screen_soa, nrm_soa, wld_soa, face_kd=None,
             cols += list(common.affine_combine(co, src[0][ch], src[1][ch],
                                                src[2][ch]))
     cols += [co["ax"], co["ay"]]
+    if tex_rows is not None:
+        if uv_soa is None:
+            raise ValueError("the texf table needs uv corner data (uv_soa)")
+        for ch in range(2):
+            cols += list(common.affine_combine(
+                co, uv_soa[0][ch].to(F32), uv_soa[1][ch].to(F32),
+                uv_soa[2][ch].to(F32)))
+        if face_kd is not None:
+            kd = face_kd.to(F32)
+            cols += [kd[:, 0], kd[:, 1], kd[:, 2]]
+        else:
+            cols += [torch.ones_like(cols[0]) for _ in range(3)]
+        tr = tex_rows.to(F32)
+        cols += [tr[:, c] for c in range(3)]
+    elif face_kd is not None:
+        kd = face_kd.to(F32)
+        cols += [kd[:, 0], kd[:, 1], kd[:, 2]]
     return cols
 
 
-def build_tri_table(screen, tri, normals, world, face_kd=None):
-    """(T, 32) f32 coefficient table from per-vertex screen (N, 4), normals
-    (N, 3) and world (N, 3) and (T, 3) triangle indices."""
-    if face_kd is not None:
-        raise _not_ported("the material table")
+def build_tri_table(screen, tri, normals, world, face_kd=None, uvs=None,
+                    tex_rows=None):
+    """(T, 32 | 35 | 44) f32 coefficient table from per-vertex screen
+    (N, 4), normals (N, 3) and world (N, 3), (T, 3) triangle indices and
+    the mode inputs of ``tri_table_columns`` (``uvs`` (N, 2) per vertex)."""
     tri = tri.long()
     soa = lambda a, n: tuple(tuple(a[tri[:, k], c] for c in range(n))
                              for k in range(3))
     return torch.stack(
         tri_table_columns(soa(screen, 4), soa(normals.to(F32), 3),
-                          soa(world, 3)),
+                          soa(world, 3), face_kd=face_kd,
+                          uv_soa=None if uvs is None else soa(uvs.to(F32), 2),
+                          tex_rows=tex_rows),
         dim=1,
     )
+
+
+def table_mode(tri_table) -> str:
+    """The mode a table's width selects: 32 columns base, 35 material, 44
+    fused-texture. The 46-wide mip-filtered texture table is not ported
+    yet."""
+    width = tri_table.shape[1]
+    for mode, w in MODE_WIDTHS.items():
+        if width == w:
+            return mode
+    if width == TEX_MIP_TRI_TABLE_WIDTH:
+        raise NotImplementedError(
+            "the mip-filtered texture raster mode (a 46-wide table) is not "
+            "ported yet (ROADMAP queue 2)")
+    raise ValueError(f"a {width}-wide table selects no raster mode (widths "
+                     f"{sorted(MODE_WIDTHS.values())})")
+
+
+def kernel_table(tri_table):
+    """The (T, R) f32 table as the CUDA kernels read it: unit column
+    stride, a row stride of R rounded up to a multiple of 4 floats (35 ->
+    36) and a 16-byte aligned base, so that rows load as float4. Returns
+    the table itself when it already has that layout (as
+    ``cuda.coeff_table`` builds it), else a padded copy. No kernel reads
+    the pad column, so it is left unwritten."""
+    T, R = tri_table.shape
+    stride = (R + 3) // 4 * 4
+    if (tri_table.dtype == F32 and tri_table.stride(1) == 1
+            and (T <= 1 or tri_table.stride(0) == stride)
+            and tri_table.data_ptr() % 16 == 0):
+        return tri_table, stride
+    out = torch.empty((T, stride), dtype=F32, device=tri_table.device)
+    out[:, :R].copy_(tri_table)
+    return out[:, :R], stride
 
 
 def occupied_worklist(seg_count):
@@ -124,13 +191,10 @@ def shading_inputs(effect, view_position, light_world_pos, light_color,
     return params, lights
 
 
-def _shade(nx, ny, nz, wx, wy, wz, params, lights):
-    """The epilogue on (..., pixels) attribute tensors -> packed RGBA as
-    int64 holding the u32 pattern (the kernel's op order)."""
+def _light_terms(nx, ny, nz, wx, wy, wz, params, lights):
+    """Per light: (light row, Lambert diff, pow32 Phong spec) on (...,
+    pixels) attribute tensors, in the kernels' op order (shade.cuh)."""
     eye_x, eye_y, eye_z = params[8], params[9], params[10]
-    r = torch.full_like(nx, 0.1)
-    g = torch.full_like(nx, 0.1)
-    b = torch.full_like(nx, 0.1)
     vdx = eye_x - wx
     vdy = eye_y - wy
     vdz = eye_z - wz
@@ -160,10 +224,31 @@ def _shade(nx, ny, nz, wx, wy, wz, params, lights):
         s4 = s2 * s2
         s8 = s4 * s4
         s16 = s8 * s8
-        contrib = diff + (s16 * s16) * 0.5
-        r = r + contrib * lp[3] * lp[6]
-        g = g + contrib * lp[4] * lp[6]
-        b = b + contrib * lp[5] * lp[6]
+        yield lp, diff, s16 * s16
+
+
+def shade_pixels(attrs, params, lights, kd=None):
+    """The shading epilogue on (..., pixels) tensors -> packed RGBA as int64
+    holding the u32 pattern. ``attrs`` = [nx, ny, nz, wx, wy, wz]; ``kd``
+    (r, g, b) selects the material form (ambient and diffuse modulated)."""
+    nx = attrs[0]
+    if kd is None:
+        r = torch.full_like(nx, 0.1)
+        g = torch.full_like(nx, 0.1)
+        b = torch.full_like(nx, 0.1)
+    else:
+        r, g, b = 0.1 * kd[0], 0.1 * kd[1], 0.1 * kd[2]
+    for lp, diff, spec in _light_terms(*attrs, params, lights):
+        if kd is None:
+            contrib = diff + spec * 0.5
+            r = r + contrib * lp[3] * lp[6]
+            g = g + contrib * lp[4] * lp[6]
+            b = b + contrib * lp[5] * lp[6]
+        else:
+            half = spec * 0.5
+            r = r + (diff * kd[0] + half) * lp[3] * lp[6]
+            g = g + (diff * kd[1] + half) * lp[4] * lp[6]
+            b = b + (diff * kd[2] + half) * lp[5] * lp[6]
     gamma = torch.tensor(1.0 / 2.2, dtype=F32)  # f32 constant, as the kernel
 
     def byte(c):
@@ -173,27 +258,44 @@ def _shade(nx, ny, nz, wx, wy, wz, params, lights):
     return byte(r) | (byte(g) << 8) | (byte(b) << 16) | 0xFF000000
 
 
+def texf_planes(attrs, params, lights):
+    """The texf G-buffer channels (common.TEXF_BASE_CHANNELS layout) from
+    the winner's 14 attributes [nx, ny, nz, wx, wy, wz, u, v, kd (3),
+    off, tw, th]: uv, kd and the TextureInfo row, then per light the
+    shading epilogue's diff and spec."""
+    planes = list(attrs[6:14])
+    for _, diff, spec in _light_terms(*attrs[:6], params, lights):
+        planes += [diff, spec]
+    return planes
+
+
 def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
                              params, lights, *, height_padded: int,
                              width_padded: int, tile_h: int, tile_w: int,
-                             layout: str):
+                             layout: str, mode: str = "base"):
     """The twin of the kernel, vectorized over (tile, list entry) pairs:
     the occupied tiles' lists are flattened into one pair list in tile
     order (each tile's entries in list order), each block of pairs is
     evaluated over (pairs, pixels), and per tile and pixel the minimum key
     and the first pair that reaches it are merged into the running minimum
-    with a strict < — the sequential walk's winner. Returns (rgba, key) as
-    (Hp, Wp) int32 holding u32 patterns."""
+    with a strict < — the sequential walk's winner. Returns (out, key) as
+    (Hp, Wp) int32 holding u32 patterns, ``out`` the packed RGBA — or, in
+    texf mode, the (C, Hp, Wp) f32 G-buffer (zeros where no triangle
+    covers, as in the kernel)."""
     device = tri_table.device
     ntx = width_padded // tile_w
     nty = height_padded // tile_h
     num_tiles = ntx * nty
     P = tile_h * tile_w
     i64 = torch.int64
-    rgba = torch.full((num_tiles, P), common.BACKGROUND_RGBA, dtype=i64,
-                      device=device)
     key = torch.full((num_tiles, P), common.DEPTH_CLEAR, dtype=i64,
                      device=device)
+    if mode == "texf":
+        out = torch.zeros((common.texf_channels(lights.shape[0]), num_tiles,
+                           P), dtype=F32, device=device)
+    else:
+        out = torch.full((num_tiles, P), common.BACKGROUND_RGBA, dtype=i64,
+                         device=device)
 
     tiles = torch.nonzero(seg_count > 0).flatten()
     G = tiles.shape[0]
@@ -229,7 +331,7 @@ def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
     step = max(1, _PLAIN_BLOCK // P)
     for p0 in range(0, pair_tile.shape[0], step):
         pt = pair_tile[p0:p0 + step]
-        rows = tri_table[pair_tri[p0:p0 + step]]  # (n, 32)
+        rows = tri_table[pair_tri[p0:p0 + step]]  # (n, R)
         rc = lambda c: rows[:, c:c + 1]
         dx = px[pt] - rc(30)
         dy = py[pt] - rc(31)
@@ -252,90 +354,115 @@ def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
         best_pair = torch.where(win, first_pair, best_pair)
 
     if G:
-        # The winner's attributes, evaluated as in the walk.
-        wrow = tri_table[pair_tri[best_pair]]  # (G, P, 32)
+        # The winner's attributes, evaluated from its row at the pixel.
+        wrow = tri_table[pair_tri[best_pair]]  # (G, P, R)
         dx = px - wrow[..., 30]
         dy = py - wrow[..., 31]
-        attrs = [wrow[..., 12 + 3 * c] + wrow[..., 13 + 3 * c] * dx
-                 + wrow[..., 14 + 3 * c] * dy for c in range(6)]
-        shaded = _shade(*attrs, params, lights)
-        rgba[tiles] = torch.where(best != common.DEPTH_CLEAR, shaded,
-                                  common.BACKGROUND_RGBA)
+        affine = lambda c: wrow[..., c] + wrow[..., c + 1] * dx \
+            + wrow[..., c + 2] * dy
+        attrs = [affine(12 + 3 * c) for c in range(6)]
+        hit = best != common.DEPTH_CLEAR
+        if mode == "texf":
+            attrs += [affine(32), affine(35)]
+            attrs += [wrow[..., 38 + c] for c in range(6)]
+            out[:, tiles] = torch.where(
+                hit, torch.stack(texf_planes(attrs, params, lights)), 0.0)
+        else:
+            kd = ([wrow[..., 32 + c] for c in range(3)] if mode == "mat"
+                  else None)
+            shaded = shade_pixels(attrs, params, lights, kd)
+            out[tiles] = torch.where(hit, shaded, common.BACKGROUND_RGBA)
         key[tiles] = best
 
     def frame(a):
         return (a.reshape(nty, ntx, tile_h, tile_w).permute(0, 2, 1, 3)
-                .reshape(height_padded, width_padded).to(I32))
+                .reshape(height_padded, width_padded))
 
-    return frame(rgba), frame(key)
+    if mode == "texf":
+        out = torch.stack([frame(c) for c in out])
+    else:
+        out = frame(out).to(I32)
+    return out, frame(key).to(I32)
 
 
 def _raster_cuda(tri_table, pair_data, seg_start, seg_count, params, lights,
-                 *, height_padded, width_padded, tile_h, tile_w, layout):
+                 *, height_padded, width_padded, tile_h, tile_w, layout,
+                 mode="base"):
     from compute_renderer_torch import _build
 
     device = tri_table.device
     ntx = width_padded // tile_w
     num_tiles = ntx * (height_padded // tile_h)
-    table = tri_table.to(F32).contiguous()
+    table, row_stride = kernel_table(tri_table)
     pairs = pair_data.to(I32).contiguous()
     starts = seg_start.to(I32).contiguous()
     counts = seg_count.to(I32).contiguous()
     wl, k = occupied_worklist(counts)
     k = k.reshape(1).contiguous()
-    rgba = torch.full((height_padded, width_padded), common.BACKGROUND_RGBA
-                      - (1 << 32), dtype=I32, device=device)
+    if mode == "texf":
+        out = torch.zeros((common.texf_channels(lights.shape[0]),
+                           height_padded, width_padded), dtype=F32,
+                          device=device)
+    else:
+        out = torch.full((height_padded, width_padded),
+                         common.BACKGROUND_RGBA - (1 << 32), dtype=I32,
+                         device=device)
     key = torch.full((height_padded, width_padded), -1, dtype=I32,
                      device=device)
-    fn = _build.entry("raster", "raster_shade_tiles_base", pointers=10,
-                      ints=8)
+    fn = _build.entry("raster", "raster_shade_tiles", pointers=10, ints=10)
     raster_shade_tiles.launches += 1
+    raster_shade_tiles.mode_launches[mode] += 1
     _build.check(
         fn(table.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
            counts.data_ptr(), wl.data_ptr(), k.data_ptr(), params.data_ptr(),
-           lights.data_ptr(), rgba.data_ptr(), key.data_ptr(), num_tiles,
-           lights.shape[0], ntx, tile_h, tile_w, width_padded,
-           int(layout == "dense"), pairs.shape[-1] if layout == "dense" else 0,
+           lights.data_ptr(), out.data_ptr(), key.data_ptr(), MODES[mode],
+           row_stride, num_tiles, lights.shape[0], ntx, tile_h, tile_w,
+           width_padded, int(layout == "dense"),
+           pairs.shape[-1] if layout == "dense" else 0,
            torch.cuda.current_stream(device).cuda_stream),
         "raster_shade_tiles",
     )
-    return rgba, key
+    return out, key
 
 
 def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
                        view_position, light_world_pos, light_color,
                        light_intensity, *, height_padded: int,
                        width_padded: int, tile_h: int, tile_w: int,
-                       layout: str = "flat", vis: bool = False,
-                       texf: bool = False):
+                       layout: str = "flat"):
     """Raster + shade the padded framebuffer. ``pair_data`` is the dense
-    (num_tiles, C) ``bin_rows`` or the flat tile-sorted ``pair_tri``.
-    Returns (rgba_packed (Hp, Wp) u32, best_key (Hp, Wp) u32).
+    (num_tiles, C) ``bin_rows`` or the flat tile-sorted ``pair_tri``; the
+    table's width picks the mode (``table_mode``: 32 base, 35 material, 44
+    fused-texture). Returns (rgba_packed (Hp, Wp) u32, best_key
+    (Hp, Wp) u32) — in texf mode (gbuf (C, Hp, Wp) f32, best_key).
 
     CPU tensors take the twin, CUDA tensors the kernel
-    (``raster_shade_tiles.launches`` counts its launches), launched over
-    the occupied-tile work list."""
-    if vis or texf or tri_table.shape[1] != TRI_TABLE_WIDTH:
-        raise _not_ported("the visibility / texture / material raster mode")
+    (``raster_shade_tiles.launches`` counts its launches,
+    ``mode_launches`` per mode), launched over the occupied-tile work
+    list."""
+    mode = table_mode(tri_table)
     if layout not in ("dense", "flat"):
         raise ValueError(f"unknown layout {layout!r}")
     params, lights = shading_inputs(effect, view_position, light_world_pos,
                                     light_color, light_intensity)
     kw = dict(height_padded=height_padded, width_padded=width_padded,
-              tile_h=tile_h, tile_w=tile_w, layout=layout)
+              tile_h=tile_h, tile_w=tile_w, layout=layout, mode=mode)
     device = tri_table.device
     if device.type == "cpu":
-        rgba, key = raster_shade_tiles_plain(
+        out, key = raster_shade_tiles_plain(
             tri_table, pair_data, seg_start, seg_count, params, lights, **kw)
     elif device.type == "cuda":
-        rgba, key = _raster_cuda(tri_table, pair_data, seg_start, seg_count,
-                                 params, lights, **kw)
+        out, key = _raster_cuda(tri_table, pair_data, seg_start, seg_count,
+                                params, lights, **kw)
     else:
         raise ValueError(f"raster_shade_tiles: no kernel for device {device}")
-    return rgba.view(torch.uint32), key.view(torch.uint32)
+    if mode != "texf":
+        out = out.view(torch.uint32)
+    return out, key.view(torch.uint32)
 
 
 raster_shade_tiles.launches = 0
+raster_shade_tiles.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def unpack_rgba(packed):

@@ -1,10 +1,12 @@
 """Renderer: geometry upload + the per-frame render step, in torch.
 
 Counterpart of the JAX package's ``engine/renderer.py`` (the reference's
-CustomRenderer orchestration, src/custom_pipeline/renderer.rs:105-157) in
-base mode, tile and micro paths. Geometry is uploaded once, corner-SoA
-included; a frame is one packed uniform buffer in, ``cuda.render_frame``
-on the renderer's device, and the frame's overflow report out. PyTorch
+CustomRenderer orchestration, src/custom_pipeline/renderer.rs:105-157),
+tile and micro paths, with the material and fused-texture extensions.
+Geometry is uploaded once — corner-SoA, and a mesh's kd, texture slots,
+atlas, uv corners and TextureInfo rows included; a frame is one packed
+uniform buffer in, ``cuda.render_frame`` on the renderer's device, and the
+frame's overflow report out. PyTorch
 runs eagerly, so there is no compiled step to cache: the JAX package's
 ``jit``/``lax.scan`` batch becomes a frame loop whose overflow flags
 accumulate in a device tensor.
@@ -14,9 +16,10 @@ measured need (``_maybe_calibrate``), and a tile path whose per-tile list
 outgrows ``cuda.MAX_TILE_CAP`` falls back to the micro path
 (``_switch_to_micro``), as in the JAX engine.
 
-Not ported yet (ROADMAP): the material and texture extensions, the
-comparator backends, and the TPU engine's measured tile-shape auto-tune
-(this renderer keeps the fixed 16x256 of ``cuda.choose_tile``).
+Not ported yet (ROADMAP): the deferred and mip-filtered texture modes
+(``tex_filter`` "trilinear" / "anisotropic", ``tex_mode="deferred"``
+raise), the comparator backends, and the TPU engine's measured tile-shape
+auto-tune (this renderer keeps the fixed 16x256 of ``cuda.choose_tile``).
 """
 
 from __future__ import annotations
@@ -57,30 +60,41 @@ def box_downsample(rgba, s: int):
 
 
 class Renderer:
-    """``Renderer(mesh, width, height, device="cuda")`` renders ``Mesh``
-    geometry on ``device``: ``"cuda"`` runs the hand-written kernels,
-    ``"cpu"`` their plain torch twins. The path (tile or micro) follows
-    ``cuda.resolve_path``. ``backend`` is "cuda", the one engine ported so
-    far."""
+    """``Renderer(mesh, width, height)`` renders ``Mesh`` geometry on
+    ``device``: ``"cuda"`` (the default) runs the hand-written kernels and
+    raises where there is no card; ``device="cpu"`` runs their plain torch
+    twins. The path (tile or micro) follows ``cuda.resolve_path``; a mesh's
+    ``face_kd`` selects the material mode and its textures the
+    fused-texture mode (``tex_filter`` "nearest" or "bilinear").
+    ``backend`` is "cuda", the one engine ported so far."""
 
     def __init__(self, mesh, width: int, height: int, backend: str = "cuda",
-                 *, device, **options):
+                 *, device="cuda", **options):
         if backend != "cuda":
             raise NotImplementedError(
                 f"backend {backend!r} is not ported yet (ROADMAP queue 1, "
                 "item 9: comparator backends); use 'cuda'")
         self.backend_name = backend
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Renderer(device='cuda') needs an NVIDIA GPU with CUDA; pass "
+                "device='cpu' to run the plain torch twins")
         self.width = int(width)
         self.height = int(height)
         self.ssaa = int(options.pop("ssaa", 1))
         if self.ssaa < 1:
             raise ValueError(f"ssaa must be >= 1, got {self.ssaa}")
+        # Checked once, where the mesh's texture inputs are built.
+        self._tex_options = {"tex_filter": options.pop("tex_filter",
+                                                       "nearest"),
+                             "tex_mode": options.pop("tex_mode", "fused")}
         unknown = set(options) - set(_TILE_OPTIONS)
         if unknown:
             raise NotImplementedError(
-                f"renderer options {sorted(unknown)} are not ported yet "
-                "(ROADMAP queue 1, item 8: material and texture extensions)")
+                f"renderer options {sorted(unknown)} are not ported (the "
+                "JAX engine's tile auto-tune and effect specialisation; "
+                "ROADMAP queue 1)")
         self.options = options
         # Settle-to-need pair capacity (micro path): once per scene and
         # size, unless the caller pinned pair_cap.
@@ -90,10 +104,6 @@ class Renderer:
         self._upload(mesh)
 
     def _upload(self, mesh) -> None:
-        if mesh.face_kd is not None or mesh.has_textures:
-            raise NotImplementedError(
-                "meshes with materials or textures are not ported yet "
-                "(ROADMAP queue 1, item 8: material and texture extensions)")
         self.mesh = mesh
 
         def dev(a, dtype=torch.float32):
@@ -110,6 +120,10 @@ class Renderer:
         # contiguous rows with no gather.
         self.pos_soa = cuda.corner_soa(self.positions, self.tri)
         self.nrm_soa = cuda.corner_soa(self.normals, self.tri)
+        # Material / texture inputs, static per mesh like the corner SoA
+        # (raises for a texture mode that is not ported yet).
+        self.ext = cuda.mesh_ext_tensors(mesh, self.tri, self.device,
+                                         **self._tex_options)
 
     def _path(self) -> str:
         return cuda.resolve_path(self.options.get("path", "auto"),
@@ -150,7 +164,7 @@ class Renderer:
         rgba, key, overflow = cuda.render_frame(
             self.positions, self.normals, self.tri, vp, vpos, lwp, lc, li,
             eff, width=self.rw, height=self.rh, pos_soa=self.pos_soa,
-            nrm_soa=self.nrm_soa, **self.options,
+            nrm_soa=self.nrm_soa, **self.ext, **self.options,
         )
         if self.ssaa > 1:
             rgba = box_downsample(rgba, self.ssaa)

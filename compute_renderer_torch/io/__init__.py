@@ -1,8 +1,10 @@
-"""Asset IO: asset path resolution and procedural test meshes.
+"""Asset IO: asset path resolution, the OBJ / MTL / texture loaders, the
+synthesized structured scenes and procedural test meshes.
 
-Mirrors the reference's model layer (src/model.rs, src/util.rs). The OBJ
-loaders are not ported yet; ``Model.load`` resolves the registered
-procedural stand-ins.
+Mirrors the reference's model layer (src/model.rs, src/util.rs).
+``Model.load`` reads OBJ files with the pure-Python loader (the native
+parser is not ported yet) and falls back to the registered procedural
+stand-ins.
 """
 
 from compute_renderer_torch.io.assets import get_asset_path  # noqa: F401

@@ -2,10 +2,13 @@
 
 Resolution order for a model path:
 
-1. a real file on disk (via asset search paths) -> the OBJ loader, which
-   this package does not have yet (``NotImplementedError``);
+1. a real file on disk (via asset search paths) -> the pure-Python OBJ
+   loader (``io/obj.py``); the synthesized structured scenes are written
+   on first use (``io/objgen.py``);
 2. a registered procedural stand-in (the reference's LFS benchmark assets are
    not shipped; see io/procedural.py).
+
+The JAX package's native C++ parser is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -25,22 +28,38 @@ class Model:
     @staticmethod
     def load(path: str, materials: bool = False,
              textures: bool = False) -> "Model":
-        """Resolve ``path`` to a procedural stand-in. ``materials`` and
-        ``textures`` are accepted for signature parity; the stand-ins carry
-        neither, so both leave the mesh plain."""
-        del materials, textures
+        """``materials=True`` (extension) resolves MTL diffuse colors into
+        ``Mesh.face_kd``; ``textures=True`` (implies materials)
+        additionally decodes map_Kd images into the flat atlas
+        (``Mesh.face_tex``/``texels``/``tex_table``)."""
+        materials = materials or textures
+        from compute_renderer_torch.io import objgen
+
+        ensure = {
+            objgen.STRUCTURED_NAME: objgen.ensure_structured_scene,
+            objgen.STRUCTURED_TEX_NAME: objgen.ensure_textured_scene,
+        }.get(path)
         try:
             resolved = get_asset_path(path)
+            if ensure is not None:
+                # A synthesized asset found on disk: run ensure_* against
+                # its directory anyway, so that companion MTL / map_Kd
+                # files an older synthesis lacks are refreshed.
+                resolved = ensure(resolved.parent)
         except FileNotFoundError:
-            if path in procedural.PROCEDURAL_MODELS:
+            if ensure is not None:
+                # Synthesized on first use and cached on disk.
+                resolved = ensure()
+            elif path in procedural.PROCEDURAL_MODELS:
                 return Model(mesh=procedural.make_model(path),
                              source=f"procedural:{path}")
-            raise
-        raise NotImplementedError(
-            f"'{resolved}' is an OBJ file on disk; the OBJ loaders "
-            "(io/obj.py, io/native.py) are not ported yet — ROADMAP queue 1, "
-            "item 8"
-        )
+            else:
+                raise
+        from compute_renderer_torch.io.obj import load_obj
+
+        return Model(mesh=load_obj(resolved, materials=materials,
+                                   textures=textures),
+                     source=str(resolved))
 
     @property
     def num_triangles(self) -> int:

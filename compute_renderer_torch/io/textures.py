@@ -1,0 +1,141 @@
+"""Texture images and the flat texel atlas.
+
+The reference defines atlas-style ``TextureInfo{offset, width, height}``
+records pointing into a flat texel pool but never binds them to a pipeline
+(custom_pipeline/util.rs:75-85, materials discarded at model.rs:24). This
+module makes that exact layout live: every ``map_Kd`` image referenced by a
+loaded MTL library is decoded to linear-indexed RGB rows and packed
+back-to-back into one flat ``(P, 3) f32`` pool, so per-pixel texture
+sampling is a single 1-D gather however many textures a scene uses.
+
+Conventions (the reference has no sampling stage to match):
+- texels are stored row-major with the image's TOP row first, values in
+  [0, 1]; no color-space conversion is applied;
+- the OBJ loader already flips V at load (``1 - v``, reference
+  model.rs:64), so a flipped v of 0 addresses the image's top row.
+
+A copy of the JAX package's ``io/textures.py`` (``load_image``,
+``build_atlas``, ``write_ppm``). PPM (P6/P3) is decoded in numpy; other
+formats go through Pillow, imported when such a file is loaded. The mip
+helpers (``build_mips``, ``trilinear_tex_arrays``) and the u8-packed pool
+wait for the mip-filtered texture mode (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+from compute_renderer_torch.core.maths import F32
+
+
+def _load_ppm(data: bytes) -> np.ndarray:
+    """Decode a P6 (binary) or P3 (ascii) PPM into (H, W, 3) f32 [0, 1]."""
+    # Header tokens: magic, width, height, maxval — whitespace/comment
+    # separated. For P6 exactly one whitespace byte follows maxval, then
+    # raster bytes.
+    tokens = []
+    i = 0
+    n = len(data)
+    while len(tokens) < 4 and i < n:
+        c = data[i:i + 1]
+        if c == b"#":
+            while i < n and data[i:i + 1] not in (b"\n", b"\r"):
+                i += 1
+        elif c.isspace():
+            i += 1
+        else:
+            j = i
+            while j < n and not data[j:j + 1].isspace() and data[j:j + 1] != b"#":
+                j += 1
+            tokens.append(data[i:j])
+            i = j
+    if len(tokens) < 4 or tokens[0] not in (b"P6", b"P3"):
+        raise ValueError("not a P6/P3 PPM")
+    width, height, maxval = int(tokens[1]), int(tokens[2]), int(tokens[3])
+    if maxval <= 0 or maxval > 65535:
+        raise ValueError(f"bad PPM maxval {maxval}")
+    if tokens[0] == b"P6":
+        i += 1  # single whitespace after maxval
+        dtype = np.dtype(">u2") if maxval > 255 else np.uint8
+        count = width * height * 3
+        raster = np.frombuffer(data, dtype=dtype, count=count, offset=i)
+    else:
+        raster = np.array(data[i:].split()[: width * height * 3], dtype=np.int64)
+    img = raster.reshape(height, width, 3).astype(F32) / F32(maxval)
+    return img
+
+
+def load_image(path) -> np.ndarray:
+    """Load a texture image file to (H, W, 3) f32 in [0, 1], top row first.
+
+    PPM is decoded here; other formats need Pillow, and without it the
+    ImportError names the file and its format."""
+    path = Path(path)
+    data = path.read_bytes()
+    if data[:2] in (b"P6", b"P3"):
+        return _load_ppm(data)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        kind = path.suffix.lstrip(".").upper() or "non-PPM"
+        raise ImportError(
+            f"loading '{path.name}' ({kind} image) requires Pillow; only PPM "
+            "is decoded without it"
+        ) from e
+    import io as _io
+
+    with Image.open(_io.BytesIO(data)) as im:
+        arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
+    return arr.astype(F32) / F32(255.0)
+
+
+def build_atlas(paths: list) -> tuple:
+    """Pack texture image files into the reference's flat-atlas layout.
+
+    ``paths``: ordered texture file paths (one per texture slot; duplicates
+    allowed — each occurrence gets its own slot, callers dedup upstream).
+
+    Returns ``(texels, table)``:
+      texels: (P, 3) f32 — all images' rows back-to-back
+      table:  (N, 3) i32 — per-slot {offset, width, height}, exactly the
+              reference's TextureInfo fields (custom_pipeline/util.rs:75-85)
+    An unreadable/undecodable file degrades to a 1x1 white texel (renders
+    as the untextured material color), with a warning."""
+    texels = []
+    table = np.zeros((len(paths), 3), dtype=np.int32)
+    offset = 0
+    for slot, p in enumerate(paths):
+        try:
+            img = load_image(p)
+        except (OSError, ValueError, ImportError) as e:
+            import warnings
+
+            warnings.warn(
+                f"texture {p!r} unusable ({type(e).__name__}: {e}); "
+                "degrading to 1x1 white texel",
+                stacklevel=2,
+            )
+            img = np.ones((1, 1, 3), dtype=F32)
+        h, w = img.shape[:2]
+        table[slot] = (offset, w, h)
+        texels.append(img.reshape(h * w, 3))
+        offset += h * w
+    pool = (
+        np.concatenate(texels, axis=0)
+        if texels else np.zeros((0, 3), dtype=F32)
+    )
+    return np.ascontiguousarray(pool, dtype=F32), table
+
+
+def write_ppm(path, img: np.ndarray) -> None:
+    """Write (H, W, 3) u8 (or f32 in [0,1]) as binary P6 — the procedural
+    texture asset writer (tests + objgen's generated scenes)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(img[:, :, :3].tobytes())

@@ -106,12 +106,17 @@ def test_convert_carries_jax_state(port, tpu):
 
 
 def test_model_load_obj_on_disk_not_ported(port, tmp_path):
+    # An OBJ file on disk now loads through the port's pure-Python loader
+    # (the native parser is what stays unported); unknown names still
+    # raise and the procedural stand-ins still resolve.
     from compute_renderer_torch.io.model import Model
 
     obj = tmp_path / "tri.obj"
     obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model.load(str(obj))
+    model = Model.load(str(obj))
+    assert model.source == str(obj) and model.num_triangles == 1
+    np.testing.assert_array_equal(model.mesh.indices, [0, 1, 2])
+    assert model.mesh.face_kd is None and not model.mesh.has_textures
     with pytest.raises(FileNotFoundError):
         Model.load("no_such_model.obj")
     assert Model.load("suzanne.obj").num_triangles == 1280

@@ -343,14 +343,18 @@ def test_san_miguel_golden_frames(port):
 
 
 def test_unported_micro_modes_raise(port):
+    # The table's width picks the mode: the 46-wide mip-filtered texture
+    # table is not ported, and a width that names no mode is refused.
     t = port.torch
     z = t.zeros((NTX * NTY * 16,), dtype=t.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.micro.raster_shade_micro(
-            t.zeros((4, 35)), t.zeros((8,), dtype=t.int32), z, z,
+    args = (t.zeros((8,), dtype=t.int32), z, z,
             t.zeros((NTX * NTY,), dtype=t.int32), t.zeros(6), t.zeros(4),
-            t.zeros((1, 3)), t.zeros((1, 3)), t.zeros(1),
-            height_padded=NTY * 8, width_padded=NTX * 128)
+            t.zeros((1, 3)), t.zeros((1, 3)), t.zeros(1))
+    kw = dict(height_padded=NTY * 8, width_padded=NTX * 128)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.micro.raster_shade_micro(t.zeros((4, 46)), *args, **kw)
+    with pytest.raises(ValueError, match="44"):
+        port.micro.raster_shade_micro(t.zeros((4, 36)), *args, **kw)
 
 
 @pytest.mark.cuda

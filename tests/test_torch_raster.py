@@ -200,6 +200,9 @@ def test_degenerate_triangles_cover_nothing(port):
 
 
 def test_unported_modes_raise(port, tpu):
+    # The table's width picks the mode: the 46-wide mip-filtered texture
+    # table is not ported, and a width that names no mode is refused. The
+    # material (35) and texf (44) tables are accepted.
     s = _scene(tpu, "icosphere", "none", "dense")
     t = port.torch
     args = [t.from_numpy(np.ascontiguousarray(a)) for a in (
@@ -207,14 +210,19 @@ def test_unported_modes_raise(port, tpu):
         s["effect"], s["view_position"], *s["lights"])]
     kw = dict(height_padded=s["padded"][0], width_padded=s["padded"][1],
               tile_h=16, tile_w=256, layout="dense")
-    for extra in ({"vis": True}, {"texf": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.raster.raster_shade_tiles(*args, **kw, **extra)
-    wide = t.zeros((s["table"].shape[0], 35))
-    with pytest.raises(NotImplementedError):
-        port.raster.raster_shade_tiles(wide, *args[1:], **kw)
-    with pytest.raises(NotImplementedError):
-        port.raster.tri_table_columns(None, None, None, face_kd=object())
+    T = s["table"].shape[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.raster.raster_shade_tiles(t.zeros((T, 46)), *args[1:], **kw)
+    with pytest.raises(ValueError, match="44"):
+        port.raster.raster_shade_tiles(t.zeros((T, 33)), *args[1:], **kw)
+    mat = t.cat([args[0], t.ones((T, 3))], dim=1)
+    rgba, key = port.raster.raster_shade_tiles(mat, *args[1:], **kw)
+    base_rgba, base_key = port.raster.raster_shade_tiles(*args, **kw)
+    assert t.equal(key, base_key) and t.equal(rgba, base_rgba)  # kd = 1
+    cols = port.raster.tri_table_columns(
+        *[tuple(tuple(t.ones(4) for _ in range(4)) for _ in range(3))] * 3,
+        face_kd=t.ones((4, 3)))
+    assert len(cols) == port.raster.MAT_TRI_TABLE_WIDTH
 
 
 def _port_scene(port, name, effect, layout, tile=TILE, num_lights=2):

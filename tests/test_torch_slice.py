@@ -226,21 +226,43 @@ def test_unported_paths_raise(port):
     for backend in ("xla", "tpu"):
         with pytest.raises(NotImplementedError):
             port.renderer.Renderer(mesh, 64, 64, backend, device="cpu")
-    with pytest.raises(NotImplementedError):
-        port.renderer.Renderer(mesh, 64, 64, device="cpu",
-                               tex_filter="bilinear")
-    kd = port.convert.mesh_from_arrays(mesh.positions, mesh.normals,
-                                       mesh.uvs, mesh.indices)
-    kd.face_kd = np.ones((kd.num_triangles, 3), np.float32)
-    with pytest.raises(NotImplementedError):
-        port.renderer.Renderer(kd, 64, 64, device="cpu")
+    # The material and fused-texture modes are ported; the deferred and
+    # mip-filtered texture modes are not, and say so.
+    kd = port.convert.mesh_from_arrays(
+        mesh.positions, mesh.normals, mesh.uvs, mesh.indices,
+        face_kd=np.ones((mesh.num_triangles, 3), np.float32))
+    assert_frames_match(tile.render(uniforms), port.renderer.Renderer(
+        kd, 64, 64, device="cpu").render(uniforms))
+    textured = port.convert.mesh_from_arrays(
+        mesh.positions, mesh.normals, mesh.uvs, mesh.indices,
+        face_tex=np.zeros(mesh.num_triangles, np.int32),
+        texels=np.ones((1, 3), np.float32), tex_table=[[0, 1, 1]])
+    for opts in ({"tex_filter": "trilinear"}, {"tex_filter": "anisotropic"},
+                 {"tex_mode": "deferred"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port.renderer.Renderer(textured, 64, 64, device="cpu", **opts)
+    with pytest.raises(ValueError):
+        port.renderer.Renderer(mesh, 64, 64, device="cpu", tex_filter="cubic")
 
 
-def test_device_is_explicit(port):
-    # The twin path is chosen at the call site, never by a default.
+def test_device_is_explicit(port, monkeypatch):
+    # The entry points run on the card unless the caller asks for the CPU:
+    # the default is "cuda", which raises on a machine without a card
+    # instead of running the twins; device="cpu" selects the twins.
+    import inspect
+
     mesh = port.procedural.make_model("suzanne.obj")
-    with pytest.raises(TypeError, match="device"):
-        port.renderer.Renderer(mesh, 64, 64)
+    for fn in (port.renderer.Renderer.__init__, port.cuda.render):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(port.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.renderer.Renderer(mesh, 64, 48)
+    cam = port.camera.Camera.first_person([0, 0, 3.0], aspect=64 / 48)
+    lights = (np.zeros((1, 3), np.float32), np.ones((1, 3), np.float32),
+              np.ones(1, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.cuda.render(mesh, cam.uniform(), lights, np.zeros(6, np.float32),
+                         64, 48)
     r = port.renderer.Renderer(mesh, 64, 48, device="cpu")
     assert r.device.type == "cpu" and r.pos_soa.device.type == "cpu"
 
