@@ -55,7 +55,26 @@ Phases, each fatal on failure (nonzero exit, no result line):
    within the pixel contract of
    tests/golden_data/torch_ext_structured_1024x768.npz, no overflow, and
    each mode kernel of the row's path launched (per-mode counts); the
-   batch slope and a profiled batch of the two micro rows.
+   batch slope and a profiled batch of the two micro rows;
+11. kernel vs twin, visibility (vis) and mip-filtered texture (texf_mip)
+   modes — the front end's texf_mip at 8x8 and 16x256 (meta bitwise,
+   coefficients 0 ULP), the tile raster on structured_scene_tex and its
+   mirage frame (both layouts) and the micro raster on
+   structured_scene.obj and the mirage frame: keys and vis ids / pair
+   indices bitwise, the texf_mip G-buffer bitwise; each mode kernel's
+   time beside its twin's at its main path's shapes;
+12. main paths, mip and deferred rows — the six rows of
+   tests/golden_data/torch_mip_structured_1024x768.npz (trilinear,
+   anisotropic and tex_mode="deferred" on structured_scene_tex.obj, tile
+   path; trilinear, anisotropic and deferred trilinear on
+   structured_scene.obj, micro path) through Scene -> Renderer ->
+   render_batch_device, each within the pixel contract, no overflow, its
+   mode kernels launched every frame and the other path's raster never;
+   then the fused and deferred images of one frame bitwise equal
+   (micro: trilinear and anisotropic; tile: trilinear, else at most 1
+   LSB, the differing pixels printed), and the batch slope and a profiled
+   batch (the texture work split out) of the micro trilinear,
+   anisotropic and deferred rows.
 
 Prints the kernels' JSON record (one entry per kernel and mode) and the
 card line before the last line, and as the last line
@@ -80,6 +99,8 @@ GOLDEN_MICRO = os.path.join(ROOT, "tests", "golden_data",
                             "torch_micro_san_miguel_1024x768.npz")
 GOLDEN_EXT = os.path.join(ROOT, "tests", "golden_data",
                           "torch_ext_structured_1024x768.npz")
+GOLDEN_MIP = os.path.join(ROOT, "tests", "golden_data",
+                          "torch_mip_structured_1024x768.npz")
 SAN_MIGUEL = "San_Miguel/san-miguel-low-poly.obj"
 SAN_MIGUEL_EYE = (13.566635, 2.6288567, 10.243919)  # bench/suite.py
 STRUCTURED_EYE = (13.566635, 4.0, 24.0)  # bench/suite.py:98
@@ -121,12 +142,16 @@ KERNELS = {
         "symbol": "micro_kernel",
     },
 }
-# The material and fused-texture modes of three kernels: one record each,
-# "<kernel>.<mode>", the same source and TPU kernel as the base record.
+# The modes of three kernels: one record each, "<kernel>.<mode>", the same
+# source and TPU kernel as the base record. The front has no vis mode
+# (the vis table is the base one).
 MODES = ("mat", "texf")
-MODE_KERNELS = ("front_end", "raster_shade_tiles", "raster_shade_micro")
-for _name in MODE_KERNELS:
-    for _mode in MODES:
+NEW_MODES = ("vis", "texf_mip")
+MODE_KERNELS = {"front_end": MODES + ("texf_mip",),
+                "raster_shade_tiles": MODES + NEW_MODES,
+                "raster_shade_micro": MODES + NEW_MODES}
+for _name, _modes in MODE_KERNELS.items():
+    for _mode in _modes:
         KERNELS[f"{_name}.{_mode}"] = KERNELS[_name]
 
 
@@ -237,7 +262,7 @@ def kernel_device_ms(fn, iters, symbol):
 def ptxas_report(log):
     """{kernel<mode>: "R registers, S/L B spill stores/loads, M B smem"}
     from nvcc's -Xptxas -v output; the mode is the template argument
-    (0 base, 1 mat, 2 texf)."""
+    (0 base, 1 mat, 2 texf, 3 vis, 4 texf_mip)."""
     import re
 
     out, cur = {}, None
@@ -276,8 +301,9 @@ def ulps(a, b):
     return (ia - ib).abs()
 
 
-def frame_inputs(scene, device):
-    """The main path's per-frame tensors for the scene's next frame."""
+def frame_inputs(scene, device, **tex_options):
+    """The main path's per-frame tensors for the scene's next frame;
+    ``tex_options`` (tex_filter, tex_mode) as the Renderer takes them."""
     import numpy as np
     import torch
 
@@ -295,29 +321,37 @@ def frame_inputs(scene, device):
     return {
         "pos_soa": cuda.corner_soa(pos, tri), "nrm_soa": cuda.corner_soa(
             nrm, tri), "vp": vp, "vpos": vpos, "eff": eff, "lwp": lwp,
-        "lc": lc, "li": li, "T": int(tri.shape[0]),
+        "lc": lc, "li": li, "T": int(tri.shape[0]), "positions": pos,
+        "tri": tri,
         # The mesh's kd / texture inputs, as the renderer uploads them.
-        "ext": cuda.mesh_ext_tensors(mesh, tri, device),
+        "ext": cuda.mesh_ext_tensors(mesh, tri, device, **tex_options),
     }
 
 
 def front_modes(x, mode):
-    """The front end's mode inputs: none (base), kd rows (mat), or kd, uv
-    corners and TextureInfo rows (texf)."""
+    """The front end's mode inputs as the engine builds them: none (base,
+    vis), kd rows (mat), kd, uv corners and TextureInfo rows (texf), or
+    kd, uv corners and the frame's mip rows (texf_mip)."""
+    from compute_renderer_torch.backends import cuda
+
     e = x["ext"]
-    if mode == "base":
-        return {}
-    if mode == "mat":
-        return {"kd_rows": e["face_kd"]}
-    return {"kd_rows": e.get("face_kd"), "uv_soa": e["uv_soa"],
-            "tex_rows": e["tex_rows"]}
+    _, kw = cuda._frame_texture(
+        mode, x["positions"], x["tri"], x["vp"], x["eff"], W, H,
+        e.get("face_kd"), e.get("uvs"), e.get("uv_soa"), e.get("tex_rows"),
+        e.get("face_tex"), e.get("tex_mips"), e.get("tex_filter"))
+    return kw
+
+
+def gbuffer_mode(mode):
+    return mode in ("texf", "texf_mip")
 
 
 def compare_outputs(tag, mode, out_k, key_k, out_p, key_p):
     """A raster kernel's outputs against its twin's: keys bitwise; RGBA
-    within 1 LSB, or in texf mode the G-buffer bitwise (covered pixels
-    and the cleared zeros of the rest; the max ULP per channel is printed
-    if not). Returns (max abs error, covered pixels)."""
+    within 1 LSB, vis ids (triangle or pair) bitwise, or in the texf modes
+    the G-buffer bitwise (covered pixels and the cleared zeros of the
+    rest; the max ULP per channel is printed if not). Returns (max abs
+    error, covered pixels)."""
     import torch
 
     from compute_renderer_torch.backends import raster
@@ -326,7 +360,11 @@ def compare_outputs(tag, mode, out_k, key_k, out_p, key_p):
     require(torch.equal(kk, key_p.view(torch.int32)),
             f"{tag}: depth keys differ from the twin")
     covered = kk != -1
-    if mode != "texf":
+    if mode == "vis":
+        require(out_k.dtype == torch.int32 and torch.equal(out_k, out_p),
+                f"{tag}: vis ids differ from the twin")
+        return 0.0, int(covered.sum())
+    if not gbuffer_mode(mode):
         bk = raster.unpack_rgba(out_k.view(torch.uint32)).to(torch.int32)
         bp = raster.unpack_rgba(out_p.view(torch.uint32)).to(torch.int32)
         diff = int((bk - bp).abs().max())
@@ -399,15 +437,15 @@ def check_raster(name, x, coeff, meta, caps, report, mode="base"):
         # outputs) against the twin on the same inputs.
         rk, kk = raster.raster_shade_tiles(
             table, data, bins["seg_start"], bins["seg_count"], x["eff"],
-            x["vpos"], x["lwp"], x["lc"], x["li"], layout=layout, **kw)
+            x["vpos"], x["lwp"], x["lc"], x["li"], layout=layout, mode=mode,
+            **kw)
         rp, kp = raster.raster_shade_tiles_plain(
             table, data, bins["seg_start"], bins["seg_count"], params,
             lights, layout=layout, mode=mode, **kw)
         torch.cuda.synchronize()
         diff, covered = compare_outputs(f"raster {name} {mode} {layout}",
                                         mode, rk, kk, rp, kp)
-        what = ("G-buffer bitwise" if mode == "texf"
-                else f"RGBA max diff {diff:g} LSB")
+        what = mode_check_text(mode, diff)
         print(f"[check] raster {name} {mode} {layout}: keys bitwise, {what}, "
               f"covered {covered}, pairs "
               f"{int(bins['total_pairs'])}, occupied tiles "
@@ -520,27 +558,34 @@ def listed_pairs(bins):
     return tri.long(), tile
 
 
+def mode_check_text(mode, diff):
+    if mode == "vis":
+        return "ids bitwise"
+    return ("G-buffer bitwise" if gbuffer_mode(mode)
+            else f"RGBA max diff {diff:g} LSB")
+
+
 def tile_twin(data, bins, params, lights, rkw):
-    """The tile raster's twin on these bins, as a function of the table
-    (its mode follows the table's width)."""
+    """The tile raster's twin on these bins in texf mode, as a function of
+    a 44-column table (``raster_bound``'s winner count)."""
     from compute_renderer_torch.backends import raster
 
     return lambda table: raster.raster_shade_tiles_plain(
         table, data, bins["seg_start"], bins["seg_count"], params, lights,
-        layout=bins["layout"], mode=raster.table_mode(table), **rkw)
+        layout=bins["layout"], mode="texf", **rkw)
 
 
 def micro_twin(bins, params, lights, mkw):
-    """The micro raster's twin on these bins, as a function of the table."""
-    from compute_renderer_torch.backends import micro, raster
+    """The micro raster's twin in texf mode, as ``tile_twin``."""
+    from compute_renderer_torch.backends import micro
 
     return lambda table: micro.raster_shade_micro_plain(
         table, bins["pair_tri"], bins["seg_start"], bins["seg_count"],
-        params, lights, mode=raster.table_mode(table), **mkw)
+        params, lights, mode="texf", **mkw)
 
 
 def raster_bound(tag, x, table, bins, twin, grid, frame_pixels,
-                 pixel_bytes=8):
+                 pixel_bytes=8, winner_rows=True):
     """Least time of a raster launch on this run's data.
 
     Operations: SAMPLE_OPS for each (pair, pixel sample inside the
@@ -548,7 +593,9 @@ def raster_bound(tag, x, table, bins, twin, grid, frame_pixels,
     can be covered. Bytes: the WALK_COLUMNS of each binned triangle's row,
     the rest of the row only for the triangles that win a pixel, 4 B a
     pair, the segments, and the outputs (``pixel_bytes`` a pixel: RGBA and
-    key, or the texf G-buffer's planes and the key). ``grid`` is (tile
+    key, or the texf G-buffer's planes and the key). The vis mode reads no
+    winner's row (``winner_rows`` False): it writes the id the walk
+    carries. ``grid`` is (tile
     height, tile width, tiles a row) of the pairs' tiles or cells. The
     winners come from ``twin`` (the raster's twin as a function of the
     table) run on a texf table whose TextureInfo offset column holds the
@@ -587,7 +634,8 @@ def raster_bound(tag, x, table, bins, twin, grid, frame_pixels,
     binned = int(torch.unique(tri).numel())
     pairs = int(tri.numel())
     row = table.shape[1]
-    nbytes = (binned * WALK_COLUMNS * 4 + winners * (row - WALK_COLUMNS) * 4
+    rest = (row - WALK_COLUMNS) * 4 if winner_rows else 0
+    nbytes = (binned * WALK_COLUMNS * 4 + winners * rest
               + pairs * 4 + bins["seg_count"].numel() * 8
               + frame_pixels * pixel_bytes)
     ms, by = bound_ms(nbytes, samples * SAMPLE_OPS)
@@ -648,7 +696,7 @@ def check_micro(name, x, table, bins, ntx, nty, report, mode="base"):
     kw = dict(height_padded=nty * 8, width_padded=ntx * 128)
     rk, kk = micro.raster_shade_micro(*args, bins["tile_count"], x["eff"],
                                       x["vpos"], x["lwp"], x["lc"], x["li"],
-                                      **kw)
+                                      mode=mode, **kw)
     params, lights = raster.shading_inputs(x["eff"], x["vpos"], x["lwp"],
                                            x["lc"], x["li"])
     rp, kp = micro.raster_shade_micro_plain(*args, params, lights, mode=mode,
@@ -656,8 +704,7 @@ def check_micro(name, x, table, bins, ntx, nty, report, mode="base"):
     torch.cuda.synchronize()
     diff, covered = compare_outputs(f"micro {name} {mode}", mode, rk, kk, rp,
                                     kp)
-    what = ("G-buffer bitwise" if mode == "texf"
-            else f"RGBA max diff {diff:g} LSB")
+    what = mode_check_text(mode, diff)
     counts = bins["seg_count"]
     print(f"[check] micro {name} {mode}: keys bitwise, {what}, "
           f"covered {covered}, pairs "
@@ -831,31 +878,59 @@ def batch_slope(renderer, scene):
     return slope_ms, best_large / BATCH_LARGE * 1e3
 
 
+def range_device_ms(events, name):
+    """(device ms, kernels) of every kernel launched inside the
+    torch.profiler ranges named ``name``, summed over ``events``
+    (prof.events()): the kernels each range's ops launched, found through
+    their CPU children."""
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    total_us, count = 0.0, 0
+    stack = [e for e in events
+             if e.name == name and getattr(e, "device_type", cpu) == cpu]
+    while stack:
+        e = stack.pop()
+        for k in getattr(e, "kernels", ()):
+            total_us += k.duration
+            count += 1
+        stack.extend(e.cpu_children)
+    return total_us / 1e3, count
+
+
 def profile_batch(renderer, scene, slope_ms, layers):
     """Where the time goes: one profiled 16-frame batch, device time per
     frame split by layer (``layers`` maps a layer to substrings of its
-    kernels' names; the rest is "other")."""
+    kernels' names; the rest is "other"), with the device time and
+    kernel count of the texture work (cuda.TEXTURE_RANGES) split out of
+    "other"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from compute_renderer_torch.backends import cuda
 
     batch = [scene.update(DT) for _ in range(16)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    events = []
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             renderer.render_batch_device(batch, check=False)
             renderer.fence_pending()
         averages = prof.key_averages()
+        events = prof.events()
     except (RuntimeError, AssertionError) as e:  # informational only
         print(f"[profile] unavailable: {e!r}")
         averages = []
     wall = (time.perf_counter() - t0) * 1e3
-    # Device kernels only: the aten rows repeat their kernels' time.
+    # Device kernels only: the aten rows repeat their kernels' time, and
+    # a range's device row (its annotation) spans its kernels.
     cuda_type = torch.autograd.DeviceType.CUDA
     rows = []
     for ev in averages:
-        if getattr(ev, "device_type", None) != cuda_type:
+        if (getattr(ev, "device_type", None) != cuda_type
+                or ev.key in cuda.TEXTURE_RANGES):
             continue
         dev = getattr(ev, "self_device_time_total", None)
         if dev is None:
@@ -871,14 +946,22 @@ def profile_batch(renderer, scene, slope_ms, layers):
         layer = next((name for name, keys in layers.items()
                       if any(k in key.lower() for k in keys)), "other")
         by_layer[layer] += ms / n
+    texture = []
+    for name in cuda.TEXTURE_RANGES:
+        ms, count = range_device_ms(events, name)
+        if count:
+            by_layer[name.replace("_", " ")] = ms / n
+            by_layer["other"] -= ms / n
+            texture.append(f"{name} {count / n:.1f} kernels/frame")
     split = ", ".join(f"{k} {v:.6f}" for k, v in by_layer.items())
     # Idle share against this batch's own wall time (the profiler's cost
     # included), and against the unprofiled slope of another batch.
     print(f"[profile] {n} frames (profiler on, wall {wall:.3f} ms, "
           f"{wall / n:.6f} ms/frame): device busy {busy:.6f} ms/frame in "
-          f"{launches:.1f} kernels/frame ({split}); idle share against "
-          f"this batch's wall {1 - busy / (wall / n):.4f}, against the "
-          f"unprofiled slope {1 - busy / slope_ms:.4f}")
+          f"{launches:.1f} kernels/frame ({split}"
+          f"{'; ' + ', '.join(texture) if texture else ''}); idle share "
+          f"against this batch's wall {1 - busy / (wall / n):.4f}, against "
+          f"the unprofiled slope {1 - busy / slope_ms:.4f}")
     for ms, count, key in rows[:12]:
         print(f"[profile]   {ms / n:9.6f} ms/frame  x{count // n:<3d} "
               f"{key[:80]}")
@@ -1053,8 +1136,8 @@ def scene_copy(scene, **attrs):
     return out
 
 
-def mode_cases(scenes):
-    """(name, scene, mode, micro) of the mode kernel phase: the structured
+def mode_cases(scenes, modes):
+    """(name, scene, mode, path) of a mode kernel phase: the structured
     scenes and a mirage frame of structured_scene_tex, on the path each
     main row takes (the mirage frame on both)."""
     from compute_renderer_torch.core.effects import Effect
@@ -1063,7 +1146,7 @@ def mode_cases(scenes):
     mirage = scene_copy(small, effect=Effect.mirage(0.6, 0.7, 0.3))
     big = scene_copy(scenes["structured+textures"])
     return [(name, scene, mode, path)
-            for mode in MODES
+            for mode in modes
             for name, scene, path in (
                 ("structured", big, "micro"),
                 ("structured_tex", small, "tile"),
@@ -1071,21 +1154,42 @@ def mode_cases(scenes):
                 ("structured_tex+mirage", mirage, "micro"))]
 
 
-def phase_mode_kernels(device, reports, scenes):
-    """The material and fused-texture modes of the front, tile raster and
-    micro kernels against their twins, then each mode kernel's time at its
-    main path's shapes."""
+# The renderer options each mode's kernel checks take: the mip rows of the
+# anisotropic filter fill every column the texf_mip G-buffer copies.
+MODE_OPTIONS = {"mat": {}, "texf": {},
+                "vis": {"tex_mode": "deferred"},
+                "texf_mip": {"tex_filter": "anisotropic"}}
+# Bytes a pixel the rasters write: RGBA or the vis id, and the key; the
+# G-buffers' planes (two lights) and the key.
+PIXEL_BYTES = {"mat": 8, "vis": 8, "texf": (8 + 4 + 1) * 4,
+               "texf_mip": (10 + 4 + 1) * 4}
+# The front's bytes a triangle: 18 corner floats in, and the mode's inputs
+# (kd 3; uv 6, kd 3 and TextureInfo 3 or mip rows 5), the rows and 4 meta
+# ints out.
+FRONT_BYTES = {"mat": 72 + 12 + 35 * 4 + 16, "texf": 72 + 48 + 44 * 4 + 16,
+               "texf_mip": 72 + 56 + 46 * 4 + 16}
+
+
+def front_record(mode):
+    """The front's record of a raster mode (vis runs the base front)."""
+    return "front_end" if mode == "vis" else record("front_end", mode)
+
+
+def phase_mode_kernels(device, reports, scenes, modes):
+    """The ``modes`` of the front, tile raster and micro kernels against
+    their twins, then each mode kernel's time at its main path's shapes."""
     from compute_renderer_torch.backends import binning, cuda, front, micro
-    from compute_renderer_torch.backends import common, raster
+    from compute_renderer_torch.backends import raster
 
     timing = {}
-    for name, scene, mode, path in mode_cases(scenes):
-        x = frame_inputs(scene, device)
+    for name, scene, mode, path in mode_cases(scenes, modes):
+        x = frame_inputs(scene, device, **MODE_OPTIONS[mode])
+        fmode = "base" if mode == "vis" else mode
         if path == "micro":
             ntx, nty = (W + 127) // 128, (H + 7) // 8
             coeff, meta = check_front(name, x, False,
-                                      reports[record("front_end", mode)],
-                                      tile=(8, 8), mode=mode)
+                                      reports[front_record(mode)],
+                                      tile=(8, 8), mode=fmode)
             pair_cap = cuda.grow_pair_cap(0, max(int(meta[3].sum()),
                                                  ntx * nty * 16, 1024))
             bins = binning.bin_cells_sort_meta(meta[3], meta[2], meta[0],
@@ -1099,8 +1203,7 @@ def phase_mode_kernels(device, reports, scenes):
                                                 lights))
             continue
         coeff, meta = check_front(name, x, False,
-                                  reports[record("front_end", mode)],
-                                  mode=mode)
+                                  reports[front_record(mode)], mode=fmode)
         caps = cuda.default_caps("tile", x["T"], W, H)
         setup = binning.setup_from_meta(meta)
         ntx, nty = (W + 255) // 256, (H + 15) // 16
@@ -1115,29 +1218,26 @@ def phase_mode_kernels(device, reports, scenes):
                                        caps["tile_cap"])["layout"]
         timing.setdefault(("tile", mode), (x, coeff, inputs[layout]))
 
-    for mode in MODES:
+    for mode in modes:
         # Front and micro raster at the micro rows' shapes (structured
         # scene, 8x8 cells); the front at 16x256 on structured_scene_tex
         # is printed beside it.
         x, coeff, bins, params, lights = timing[("micro", mode)]
-        rep = reports[record("front_end", mode)]
-        fkw = dict(width=W, height=H, tile_h=8, tile_w=8,
-                   **front_modes(x, mode))
         args = (x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"])
-        rep["ms"] = kernel_device_ms(
-            lambda: front._front_end_cuda(*args, **fkw), 20,
-            KERNELS["front_end"]["symbol"])
-        rep["ms_events"] = event_ms(
-            lambda: front._front_end_cuda(*args, **fkw), 50)
-        rep["plain_ms"] = event_ms(lambda: front.front_end_plain(*args,
-                                                                 **fkw), 5)
-        # Per triangle: 18 corner floats and the mode's inputs (kd 3; uv 6,
-        # kd 3, TextureInfo 3) in, the rows and 4 meta ints out.
-        per_tri = {"mat": 72 + 12 + 35 * 4 + 16,
-                   "texf": 72 + 48 + 44 * 4 + 16}[mode]
-        rep["bound_ms"], rep["bound_by"] = bound_ms(x["T"] * per_tri,
-                                                    x["T"] * FRONT_OPS)
-        print_time(record("front_end", mode), rep, "structured 8x8")
+        if mode != "vis":
+            rep = reports[record("front_end", mode)]
+            fkw = dict(width=W, height=H, tile_h=8, tile_w=8,
+                       **front_modes(x, mode))
+            rep["ms"] = kernel_device_ms(
+                lambda: front._front_end_cuda(*args, **fkw), 20,
+                KERNELS["front_end"]["symbol"])
+            rep["ms_events"] = event_ms(
+                lambda: front._front_end_cuda(*args, **fkw), 50)
+            rep["plain_ms"] = event_ms(
+                lambda: front.front_end_plain(*args, **fkw), 5)
+            rep["bound_ms"], rep["bound_by"] = bound_ms(
+                x["T"] * FRONT_BYTES[mode], x["T"] * FRONT_OPS)
+            print_time(record("front_end", mode), rep, "structured 8x8")
         t_copy = event_ms(lambda: cuda.coeff_table(coeff), 20)
         print(f"[time] (R, T) -> (T, R) table copy, R={coeff.shape[0]}, "
               f"T={x['T']}: {t_copy:.6f} ms (events)")
@@ -1156,14 +1256,13 @@ def phase_mode_kernels(device, reports, scenes):
         rep["plain_ms"] = event_ms(
             lambda: micro.raster_shade_micro_plain(*margs[:4], params,
                                                    lights, **mkw), 3)
-        pixel_bytes = (8 if mode == "mat" else
-                       (common.texf_channels(lights.shape[0]) + 1) * 4)
         rep["bound_ms"], rep["bound_by"] = raster_bound(
             f"{record('raster_shade_micro', mode)} (structured)", x, table,
             bins, micro_twin(bins, params, lights,
                              dict(height_padded=nty * 8,
                                   width_padded=ntx * 128)),
-            (8, 8, ntx * 16), nty * 8 * ntx * 128, pixel_bytes)
+            (8, 8, ntx * 16), nty * 8 * ntx * 128, PIXEL_BYTES[mode],
+            winner_rows=mode != "vis")
         print_time(record("raster_shade_micro", mode), rep, "structured")
 
         # The tile raster at structured_scene_tex's shapes.
@@ -1183,17 +1282,19 @@ def phase_mode_kernels(device, reports, scenes):
         rep["bound_ms"], rep["bound_by"] = raster_bound(
             f"{record('raster_shade_tiles', mode)} (structured_tex)", x,
             table, tbins, tile_twin(data, tbins, params, lights, rkw),
-            (16, 256, W // 256), W * H, pixel_bytes)
+            (16, 256, W // 256), W * H, PIXEL_BYTES[mode],
+            winner_rows=mode != "vis")
         print_time(record("raster_shade_tiles", mode), rep,
                    f"structured_tex {layout}")
-        fkw = dict(width=W, height=H, tile_h=16, tile_w=256,
-                   **front_modes(x, mode))
-        args = (x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"])
-        t_front = kernel_device_ms(lambda: front._front_end_cuda(*args,
-                                                                 **fkw),
-                                   50, KERNELS["front_end"]["symbol"])
-        print(f"[time] {record('front_end', mode)} (structured_tex 16x256, "
-              f"T={x['T']}): kernel {t_front} ms")
+        if mode != "vis":
+            fkw = dict(width=W, height=H, tile_h=16, tile_w=256,
+                       **front_modes(x, mode))
+            args = (x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"])
+            t_front = kernel_device_ms(
+                lambda: front._front_end_cuda(*args, **fkw), 50,
+                KERNELS["front_end"]["symbol"])
+            print(f"[time] {record('front_end', mode)} (structured_tex "
+                  f"16x256, T={x['T']}): kernel {t_front} ms")
 
 
 # (golden row, scene, frames, path, mode): the suite's extension rows
@@ -1244,7 +1345,7 @@ def phase_ext_main_paths(device, card, reports, scenes):
         other = ("raster_shade_tiles" if path == "micro"
                  else "raster_shade_micro")
         require(not any(launches[record(other, m)]
-                        for m in ("base",) + MODES),
+                        for m in ("base",) + MODE_KERNELS[other]),
                 f"{row}: the {path} path launched {other}")
         if path == "micro":
             require(launches["expand_cells"] >= frames,
@@ -1262,12 +1363,126 @@ def phase_ext_main_paths(device, card, reports, scenes):
               f"micro path, batch slope {BATCH_SMALL}->{BATCH_LARGE}, best "
               f"of {ROUNDS}): {slope_ms:.6f} ; wall ms/frame at "
               f"{BATCH_LARGE}: {wall_ms:.6f} ; card: {card}")
-        profile_batch(renderer, scene, slope_ms, {
-            "front": ("front_kernel",),
-            "expand": ("expand_kernel",),
-            "sort+segments": ("sort", "searchsorted"),
-            "micro": ("micro_kernel",),
-        })
+        profile_batch(renderer, scene, slope_ms, MICRO_LAYERS)
+
+
+# (golden row, scene, tex_filter, tex_mode, frames, path, mode): the rows
+# of scripts/make_torch_mip_golden.py.
+MIP_ROWS = (
+    ("tex_trilinear", "structured_tex+textures", "trilinear", "fused", 3,
+     "tile", "texf_mip"),
+    ("tex_anisotropic", "structured_tex+textures", "anisotropic", "fused",
+     3, "tile", "texf_mip"),
+    ("tex_deferred", "structured_tex+textures", "nearest", "deferred", 3,
+     "tile", "vis"),
+    ("textures_trilinear", "structured+textures", "trilinear", "fused", 3,
+     "micro", "texf_mip"),
+    ("textures_anisotropic", "structured+textures", "anisotropic", "fused",
+     1, "micro", "texf_mip"),
+    ("textures_deferred_trilinear", "structured+textures", "trilinear",
+     "deferred", 1, "micro", "vis"),
+)
+MICRO_LAYERS = {
+    "front": ("front_kernel",),
+    "expand": ("expand_kernel",),
+    "sort+segments": ("sort", "searchsorted"),
+    "micro": ("micro_kernel",),
+}
+
+
+def render_row(device, scene, frames, **options):
+    """A fresh renderer of ``scene`` (a copy that animates from its start)
+    and its first ``frames`` frames, rendered through
+    render_batch_device, as a numpy stack and the launch counts."""
+    from compute_renderer_torch import Renderer
+
+    scene = scene_copy(scene)
+    renderer = Renderer(scene.mesh, W, H, device=device,
+                        **scene.renderer_options(), **options)
+    reset_counts()
+    imgs = renderer.render_batch_device(
+        [scene.update(DT) for _ in range(frames)]).cpu().numpy()
+    require(not renderer.flush_overflow(), "overflow")
+    return renderer, scene, imgs, read_counts()
+
+
+def phase_mip_main_paths(device, card, reports, scenes):
+    """The mip and deferred rows through Scene -> Renderer ->
+    render_batch_device against the JAX package's golden frames, with the
+    per-mode launch counts; the fused == deferred contract on one frame;
+    then the micro rows' batch slope and profile, beside the nearest
+    +textures row of phase 10."""
+    import numpy as np
+
+    from compute_renderer_torch.backends import cuda
+
+    golden = np.load(GOLDEN_MIP)
+    renderers, first = {}, {}
+    for row, key, tex_filter, tex_mode, frames, path, mode in MIP_ROWS:
+        scene = scene_copy(scenes[key], texture_filter=tex_filter)
+        require(cuda.resolve_path("auto", scene.total_tris) == path,
+                f"{row} does not take the {path} path")
+        renderer, scene, imgs, launches = render_row(
+            device, scene, frames, tex_mode=tex_mode)
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"[mip] {row} ({key}, {tex_filter}, {tex_mode}, {path} path, "
+              f"{frames} frames): launches {ran}")
+        raster_name = ("raster_shade_micro" if path == "micro"
+                       else "raster_shade_tiles")
+        for name in (front_record(mode), record(raster_name, mode)):
+            n = launches[name]
+            require(n >= frames, f"{row}: the {name} kernel launched {n} "
+                    f"times in {frames} frames")
+            if name != "front_end":  # the base front keeps its own count
+                reports[name]["launches"] = (
+                    reports[name].get("launches", 0) + n)
+        other = ("raster_shade_tiles" if path == "micro"
+                 else "raster_shade_micro")
+        require(not any(launches[record(other, m)]
+                        for m in ("base",) + MODE_KERNELS[other]),
+                f"{row}: the {path} path launched {other}")
+        if path == "micro":
+            require(launches["expand_cells"] >= frames,
+                    f"{row}: the expansion kernel did not run every frame")
+        require(golden[row].shape[0] == frames,
+                f"{row}: {golden[row].shape[0]} golden frames")
+        check_golden(f"mip {row}", imgs, golden[row])
+        renderers[row] = (renderer, scene)
+        first[row] = imgs[0]
+
+    # Fused == deferred on one frame: the deferred tail samples through
+    # the fused tail's _sample_mip_px on the same mip rows.
+    pairs = (("textures_trilinear", first["textures_deferred_trilinear"]),
+             ("textures_anisotropic", None), ("tex_trilinear", None))
+    for row, deferred in pairs:
+        _, key, tex_filter, _, _, path, _ = next(r for r in MIP_ROWS
+                                                 if r[0] == row)
+        if deferred is None:
+            scene = scene_copy(scenes[key], texture_filter=tex_filter)
+            _, _, imgs, launches = render_row(device, scene, 1,
+                                              tex_mode="deferred")
+            raster_name = ("raster_shade_micro" if path == "micro"
+                           else "raster_shade_tiles")
+            require(launches[record(raster_name, "vis")] >= 1,
+                    f"{row} deferred: no vis launch")
+            deferred = imgs[0]
+        d = np.abs(first[row].astype(np.int32) - deferred.astype(np.int32))
+        ndiff = int((d > 0).any(axis=-1).sum())
+        print(f"[mip] {row}: fused vs deferred, {ndiff} px differ, max "
+              f"{int(d.max())} LSB ({path} path)")
+        limit = 0 if path == "micro" else 1
+        require(int(d.max()) <= limit, f"{row}: fused and deferred differ "
+                f"by {int(d.max())} LSB (limit {limit})")
+
+    for row in ("textures_trilinear", "textures_anisotropic",
+                "textures_deferred_trilinear"):
+        renderer, scene = renderers[row]
+        slope_ms, wall_ms = batch_slope(renderer, scene)
+        print(f"[bench] ms/frame 1024x768 structured_scene {row} (cuda, "
+              f"micro path, batch slope {BATCH_SMALL}->{BATCH_LARGE}, best "
+              f"of {ROUNDS}): {slope_ms:.6f} ; wall ms/frame at "
+              f"{BATCH_LARGE}: {wall_ms:.6f} ; card: {card}")
+        profile_batch(renderer, scene, slope_ms, MICRO_LAYERS)
 
 
 def main() -> int:
@@ -1305,8 +1520,10 @@ def main() -> int:
     phase_micro_main_path(device, card, reports)
     phase_san_miguel(device)
     scenes = load_ext_scenes()
-    phase_mode_kernels(device, reports, scenes)
+    phase_mode_kernels(device, reports, scenes, MODES)
     phase_ext_main_paths(device, card, reports, scenes)
+    phase_mode_kernels(device, reports, scenes, NEW_MODES)
+    phase_mip_main_paths(device, card, reports, scenes)
 
     kernels = [{
         "name": name, "route": "cuda", "source": meta["source"],

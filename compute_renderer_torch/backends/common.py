@@ -9,7 +9,14 @@ WGSL device stages):
   form every raster evaluates (rasteriser.wgsl:71-81, reformulated);
 - ``coverage_thresholds`` <- the voxelize / edge-melt inside tests
   (rasteriser.wgsl:127-145);
-- ``depth_key`` <- the bitcast-u32 depth comparison (rasteriser.wgsl:84-90).
+- ``depth_key`` <- the bitcast-u32 depth comparison (rasteriser.wgsl:84-90);
+- ``light_terms`` <- the per-light Lambert and Phong terms of
+  fragment.wgsl:50-93, in the kernels' op order (shared by the twins'
+  epilogues and ``shade``);
+- the fused texture tails (``fused_texture_tail``,
+  ``fused_texture_tail_mip``) and the deferred one (``resolve_attributes``,
+  ``textured_shade``), with one mip sampler ``_sample_mip_px`` shared by
+  the fused and the deferred tail.
 
 Every expression keeps the JAX package's operation order and association.
 Eager torch runs one op per kernel, so nothing is contracted into an FMA
@@ -23,17 +30,21 @@ only at the public boundary (``render_frame``'s outputs).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from compute_renderer_torch.core.effects import (
     EFFECT_EDGE_MELT,
+    EFFECT_MIRAGE,
     EFFECT_VOXELIZE,
     EFFECT_WAVE,
 )
+from compute_renderer_torch.core.maths import MAX_ANISO
 
 F32 = torch.float32
 DEPTH_CLEAR = 0xFFFFFFFF  # cleared depth key (u32 bit pattern)
 BACKGROUND_RGBA = 0xFFFF0000  # blue, alpha 1 (fragment.wgsl:58-62)
+NO_TRI = -1  # winner id of a pixel no triangle covers (the tile raster's vis)
 
 
 def empty_frame(width: int, height: int, device):
@@ -245,6 +256,387 @@ def depth_key(z):
     return z.to(F32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
+def light_terms(normal, world, eye, light_pos):
+    """Per light li: (li, Lambert diff, pow32 Phong spec) at world position
+    ``world`` = (wx, wy, wz) with the unnormalized normal ``normal`` =
+    (nx, ny, nz), all (...)-shaped tensors; ``eye`` (3,) the view
+    position, ``light_pos`` (L, >= 3) the lights' rows, position first.
+    The kernels' op order (csrc/shade.cuh ``light_terms``): eager torch
+    contracts nothing, so these are the kernels' floats."""
+    nx, ny, nz = normal
+    wx, wy, wz = world
+    vdx = eye[0] - wx
+    vdy = eye[1] - wy
+    vdz = eye[2] - wz
+    vnorm = torch.sqrt(vdx * vdx + vdy * vdy + vdz * vdz)
+    vdx = vdx / vnorm
+    vdy = vdy / vnorm
+    vdz = vdz / vnorm
+    zero = torch.zeros((), dtype=F32, device=nx.device)
+    for li in range(light_pos.shape[0]):
+        lp = light_pos[li]
+        ldx = lp[0] - wx
+        ldy = lp[1] - wy
+        ldz = lp[2] - wz
+        lnorm = torch.sqrt(ldx * ldx + ldy * ldy + ldz * ldz)
+        ldx = ldx / lnorm
+        ldy = ldy / lnorm
+        ldz = ldz / lnorm
+        d = nx * ldx + ny * ldy + nz * ldz
+        diff = torch.where(d > 0.0, d, zero)
+        # reflect(-l, n) = -l - 2*dot(-l, n)*n (WGSL reflect)
+        edotn = -(ldx * nx + ldy * ny + ldz * nz)
+        rdx = -ldx - 2.0 * edotn * nx
+        rdy = -ldy - 2.0 * edotn * ny
+        rdz = -ldz - 2.0 * edotn * nz
+        s = vdx * rdx + vdy * rdy + vdz * rdz
+        s = torch.where(s > 0.0, s, zero)
+        s2 = s * s
+        s4 = s2 * s2
+        s8 = s4 * s4
+        s16 = s8 * s8
+        yield li, diff, s16 * s16
+
+
+# ---------------------------------------------------------------------------
+# Deferred texturing: the winner's attributes, resolved after the raster
+# ---------------------------------------------------------------------------
+
+def warp_positions(xs, ys, effect):
+    """The mirage sample warp on (...)-shaped f32 pixel coordinates
+    (rasteriser.wgsl:110-118), in the rasters' op order."""
+    amplitude, frequency, phase, time = (effect[1], effect[2], effect[3],
+                                         effect[5])
+    off_x = amplitude * torch.sin(frequency * xs + time + phase)
+    off_y = amplitude * torch.cos(frequency * ys + time + phase)
+    is_mirage = effect[0] == EFFECT_MIRAGE
+    return (torch.where(is_mirage, xs + off_x, xs),
+            torch.where(is_mirage, ys + off_y, ys))
+
+
+def pixel_grid(effect, width: int, height: int):
+    """(H, W) sample positions, warped under mirage. (The JAX package's
+    stripe offsets serve its sharded renders, which are not ported.)"""
+    device = effect.device
+    xs = torch.arange(width, dtype=F32, device=device)[None, :].expand(
+        height, width)
+    ys = torch.arange(height, dtype=F32, device=device)[:, None].expand(
+        height, width)
+    return warp_positions(xs, ys, effect)
+
+
+def resolve_attributes(best_tri, tri, screen, world, normals, uvs, effect,
+                       width: int, height: int):
+    """The winner's interpolated {uv, normal, world_pos} per pixel: its
+    barycentrics recomputed from the vertices in the rasters' anchored
+    affine form, so each value is the float the raster kernels evaluate
+    from the coefficient table.
+
+    ``best_tri`` (H, W) i32 winner or ``NO_TRI``; ``tri`` (T, 3); per
+    vertex ``screen`` (N, 4), ``world`` / ``normals`` (N, 3), ``uvs``
+    (N, 2). Returns a dict of (H, W, c) f32 (zeros where uncovered) and
+    'flag' (H, W) bool."""
+    flag = best_tri != NO_TRI
+    idx = tri.long()[torch.where(flag, best_tri, 0).long()]  # (H, W, 3)
+    corners = [idx[..., k] for k in range(3)]
+    v1, v2, v3 = (screen[i] for i in corners)
+    px, py = pixel_grid(effect, width, height)
+    co = barycentric_coefficients(v1[..., 0], v1[..., 1], v2[..., 0],
+                                  v2[..., 1], v3[..., 0], v3[..., 1])
+    dx = px - co["ax"]
+    dy = py - co["ay"]
+
+    def interp(src, n):
+        w1, w2, w3 = (src[i] for i in corners)
+        chans = []
+        for ch in range(n):
+            a, b, c = affine_combine(co, w1[..., ch], w2[..., ch],
+                                     w3[..., ch])
+            chans.append(a + b * dx + c * dy)
+        return torch.where(flag[..., None], torch.stack(chans, dim=-1), 0.0)
+
+    return {"flag": flag, "uv": interp(uvs.to(F32), 2),
+            "normal": interp(normals.to(F32), 3),
+            "world_pos": interp(world, 3)}
+
+
+def shade(gbuffer, view_position, light_world_pos, light_color,
+          light_intensity):
+    """fragment_main (fragment.wgsl:50-93) on a resolved G-buffer carrying
+    the per-pixel diffuse ``kd`` (H, W, 3): ambient 0.1 kd, per light
+    (diff kd + 0.5 spec) * color * intensity, clip, gamma 1/2.2, round,
+    the blue background. The material epilogue of the fused tails, with
+    diff and spec from ``light_terms`` on the resolved attributes.
+    Returns (H, W, 4) u8 RGBA."""
+    n, w = gbuffer["normal"], gbuffer["world_pos"]
+    planes = []
+    for _, diff, spec in light_terms(
+            (n[..., 0], n[..., 1], n[..., 2]),
+            (w[..., 0], w[..., 1], w[..., 2]), view_position.to(F32),
+            light_world_pos.to(F32)):
+        planes += [diff, spec]
+    return _texf_shade_epilogue(gbuffer["kd"], gbuffer["flag"],
+                                torch.stack(planes), 0, light_color,
+                                light_intensity)
+
+
+# ---------------------------------------------------------------------------
+# Texture sampling: nearest, bilinear and the mip filters
+# ---------------------------------------------------------------------------
+
+def _bilinear_level_fetch(fetch, off, tw, th, fu, fv, safe_idx):
+    """One bilinear tap at an {offset, width, height} level: GL half-texel
+    convention, repeat wrap (``torch.remainder`` takes the divisor's sign,
+    as jnp.mod does), the JAX package's lerp order."""
+    pu = fu * tw.to(F32) - 0.5
+    pv = fv * th.to(F32) - 0.5
+    x0f = torch.floor(pu)
+    y0f = torch.floor(pv)
+    wx = (pu - x0f)[..., None]
+    wy = (pv - y0f)[..., None]
+    i32 = torch.int32
+    x0 = torch.remainder(x0f.to(i32), tw)
+    y0 = torch.remainder(y0f.to(i32), th)
+    x1 = torch.remainder(x0 + 1, tw)
+    y1 = torch.remainder(y0 + 1, th)
+    t00 = fetch(safe_idx(off + y0 * tw + x0))
+    t10 = fetch(safe_idx(off + y0 * tw + x1))
+    t01 = fetch(safe_idx(off + y1 * tw + x0))
+    t11 = fetch(safe_idx(off + y1 * tw + x1))
+    top = t00 * (1.0 - wx) + t10 * wx
+    bot = t01 * (1.0 - wx) + t11 * wx
+    return top * (1.0 - wy) + bot * wy
+
+
+def sample_atlas(texels, tex_table, face_tex, best_tri, flag, uv,
+                 bilinear: bool = False):
+    """Nearest (default) or bilinear repeat-wrap sample of the flat atlas
+    for the deferred tail: ``tex_table`` (M, 3) i32 {offset, width,
+    height}, ``face_tex`` (T,) i32 slot per triangle (-1 untextured),
+    ``uv`` the resolved (H, W, 2) texcoord. Returns (texel (H, W, 3) f32,
+    white where ``has`` is False, has (H, W) bool)."""
+    tid = face_tex[torch.where(flag, best_tri, 0).long()]
+    has = flag & (tid >= 0)
+    t0 = torch.where(has, tid, 0).long()
+    off = tex_table[t0, 0]
+    tw = tex_table[t0, 1]
+    th = tex_table[t0, 2]
+    fu = uv[..., 0] - torch.floor(uv[..., 0])
+    fv = uv[..., 1] - torch.floor(uv[..., 1])
+
+    def safe_idx(i):
+        return torch.where(has, i, 0)
+
+    def fetch(i):
+        return texels[i.long()]
+
+    if bilinear:
+        texel = _bilinear_level_fetch(fetch, off, tw, th, fu, fv, safe_idx)
+    else:
+        i32 = torch.int32
+        tx = torch.minimum((fu * tw.to(F32)).to(i32), tw - 1)
+        ty = torch.minimum((fv * th.to(F32)).to(i32), th - 1)
+        texel = fetch(safe_idx(off + ty * tw + tx))
+    return torch.where(has[..., None], texel, 1.0), has
+
+
+def _uv_gradients_comps(v1x, v1y, v2x, v2y, v3x, v3y, e2u, e2v, e3u, e3v):
+    """The screen-space uv gradients (T, 4) [du/dx, dv/dx, du/dy, dv/dy]
+    from (T,) screen corners and uv edges; degenerate triangles (|uz| <=
+    1e-20) get 0 (mip level 0). The JAX package's op order."""
+    uz = (v3x - v1x) * (v2y - v1y) - (v2x - v1x) * (v3y - v1y)
+    big = torch.abs(uz) > 1e-20
+    safe = torch.where(big, uz, 1.0)
+    inv = torch.where(big, 1.0 / safe, 0.0)
+    db2_dx = -(v3y - v1y) * inv
+    db3_dx = (v2y - v1y) * inv
+    db2_dy = (v3x - v1x) * inv
+    db3_dy = -(v2x - v1x) * inv
+    cols = []
+    for grad_b2, grad_b3 in ((db2_dx, db3_dx), (db2_dy, db3_dy)):
+        for e2, e3 in ((e2u, e3u), (e2v, e3v)):
+            cols.append(e2 * grad_b2 + e3 * grad_b3)
+    return torch.stack(cols, dim=1)
+
+
+def uv_gradients(tri, screen, uvs):
+    """Per-triangle screen-space uv gradients (T, 4) [du/dx, dv/dx, du/dy,
+    dv/dy] from per-vertex ``screen`` (N, 4) and ``uvs`` (N, 2): constant
+    per triangle, since the barycentrics are affine in the pixel
+    position."""
+    tri = tri.long()
+    v1, v2, v3 = (screen[tri[:, k]] for k in range(3))
+    uv1, uv2, uv3 = (uvs[tri[:, k]].to(F32) for k in range(3))
+    e2 = uv2 - uv1
+    e3 = uv3 - uv1
+    return _uv_gradients_comps(v1[:, 0], v1[:, 1], v2[:, 0], v2[:, 1],
+                               v3[:, 0], v3[:, 1], e2[:, 0], e2[:, 1],
+                               e3[:, 0], e3[:, 1])
+
+
+def uv_gradients_soa(screen_soa, uv_c):
+    """``uv_gradients`` on corner-SoA inputs: ``screen_soa[k][c]`` the (T,)
+    component c of corner k, ``uv_c`` (3, 2, T). The same ops on the same
+    floats: bitwise ``uv_gradients`` over the equivalent vertices."""
+    v1, v2, v3 = screen_soa
+    return _uv_gradients_comps(
+        v1[0], v1[1], v2[0], v2[1], v3[0], v3[1],
+        uv_c[1][0] - uv_c[0][0], uv_c[1][1] - uv_c[0][1],
+        uv_c[2][0] - uv_c[0][0], uv_c[2][1] - uv_c[0][1])
+
+
+MIP_FILTERS = ("trilinear", "anisotropic")
+
+
+def mip_tri_rows(face_tex, mip_table, guv, tex_filter: str,
+                 max_aniso: int = MAX_ANISO):
+    """Per-triangle mip-sampling constants (T, 5) f32 [tid, lod, mu, mv,
+    spread], per frame (the gradients follow the screen transform).
+
+    Every input is constant per triangle, so the LOD / footprint formulas
+    are evaluated here once: the fused kernels carry these rows as flat
+    table columns and the deferred tail gathers them by winner, and both
+    sample through ``_sample_mip_px`` on the same floats, which keeps the
+    two images bitwise equal. LOD follows the GL footprint rule,
+    log2(max(|d(uv)/dx * dims|, |d(uv)/dy * dims|)) clipped to [0, L-1];
+    anisotropic divides the major footprint by the tap count n_eff <=
+    ``max_aniso`` and spreads the taps along the major axis (mu, mv) over
+    ``spread`` = 1 - 1/n_eff."""
+    L = mip_table.shape[1]
+    tid = face_tex.to(torch.int32)
+    base = mip_table[torch.where(tid >= 0, tid, 0).long(), 0]
+    tw0 = base[:, 1].to(F32)
+    th0 = base[:, 2].to(F32)
+    gx_u = guv[:, 0] * tw0
+    gx_v = guv[:, 1] * th0
+    gy_u = guv[:, 2] * tw0
+    gy_v = guv[:, 3] * th0
+    tiny = torch.tensor(1e-12, dtype=F32, device=guv.device)
+    rx = torch.sqrt(gx_u * gx_u + gx_v * gx_v)
+    ry = torch.sqrt(gy_u * gy_u + gy_v * gy_v)
+    if tex_filter == "trilinear":
+        rho = torch.maximum(torch.maximum(rx, ry), tiny)
+        lod = torch.clamp(torch.log2(rho), 0.0, float(L - 1))
+        mu = mv = spread = torch.zeros_like(tw0)
+    elif tex_filter == "anisotropic":
+        pmax = torch.maximum(torch.maximum(rx, ry), tiny)
+        pmin = torch.maximum(torch.minimum(rx, ry), tiny)
+        n_eff = torch.clamp(pmax / pmin, 1.0, float(max_aniso))
+        lod = torch.clamp(torch.log2(pmax / n_eff), 0.0, float(L - 1))
+        x_major = rx >= ry
+        mu = torch.where(x_major, guv[:, 0], guv[:, 2])
+        mv = torch.where(x_major, guv[:, 1], guv[:, 3])
+        spread = 1.0 - 1.0 / n_eff
+    else:
+        raise ValueError(f"mip_tri_rows: not a mip filter: {tex_filter!r}")
+    return torch.stack([tid.to(F32), lod, mu, mv, spread], dim=1)
+
+
+def _sample_mip_px(texels, mip_table, tid, lod, mu, mv, spread, u, v, flag,
+                   tex_filter: str, max_aniso: int = MAX_ANISO):
+    """The one per-pixel mip sampler, over per-triangle ``mip_tri_rows``
+    columns at pixel rank (gathered by winner in the deferred tail, copied
+    by the kernels into the TEXF_MIP G-buffer): the fused and the deferred
+    tail sample through this function on the same floats.
+
+    Trilinear: two bilinear taps at the levels around lod, lerped by its
+    fraction. Anisotropic: ``max_aniso`` such taps along (mu, mv), spread
+    over ``spread``, averaged (with zero spread every tap is the centre's
+    and the mean is exact). Returns (texel (..., 3), white where ``has``
+    is False, has)."""
+    has = flag & (tid >= 0)
+    t0 = torch.where(has, tid, 0).long()
+    # Masked pixels may carry a NaN lod (the deferred tail gathers
+    # triangle 0's row there), whose int conversion is undefined in torch:
+    # level 0 keeps their gathers in range; their texel is replaced below.
+    lod = torch.where(has, lod, 0.0)
+    L = mip_table.shape[1]
+    l0 = lod.to(torch.int32)
+    l1 = torch.clamp(l0 + 1, max=L - 1)
+    frac = (lod - l0.to(F32))[..., None]
+    row0 = mip_table[t0, l0.long()]
+    row1 = mip_table[t0, l1.long()]
+
+    def safe_idx(i):
+        return torch.where(has, i, 0)
+
+    def fetch(i):
+        return texels[i.long()]
+
+    def tap(ui, vi):
+        fu = ui - torch.floor(ui)
+        fv = vi - torch.floor(vi)
+        return (_bilinear_level_fetch(fetch, row0[..., 0], row0[..., 1],
+                                      row0[..., 2], fu, fv, safe_idx)
+                * (1.0 - frac)
+                + _bilinear_level_fetch(fetch, row1[..., 0], row1[..., 1],
+                                        row1[..., 2], fu, fv, safe_idx)
+                * frac)
+
+    if tex_filter == "trilinear":
+        texel = tap(u, v)
+    elif tex_filter == "anisotropic":
+        texel = None
+        for i in range(max_aniso):
+            # An f32 constant, as the JAX package's F32(...) - F32(0.5).
+            c = float(np.float32((i + 0.5) / max_aniso) - np.float32(0.5))
+            s = c * spread
+            t = tap(u + mu * s, v + mv * s)
+            texel = t if texel is None else texel + t
+        texel = texel / float(max_aniso)
+    else:
+        raise ValueError(
+            f"mip sampler needs trilinear/anisotropic, not {tex_filter!r}")
+    return torch.where(has[..., None], texel, 1.0), has
+
+
+def sample_atlas_mip(texels, mip_table, face_tex, best_tri, flag, uv,
+                     guv_rows, tex_filter: str, max_aniso: int = MAX_ANISO):
+    """Trilinear / anisotropic sample of the mip-extended atlas for the
+    deferred tail: ``mip_table`` (M, L, 3) i32 from ``io.textures.
+    build_mips``, ``guv_rows`` the (T, 4) ``uv_gradients``; the
+    ``mip_tri_rows`` of the winner feed ``_sample_mip_px``."""
+    rows = mip_tri_rows(face_tex, mip_table, guv_rows, tex_filter,
+                        max_aniso=max_aniso)
+    r = rows[torch.where(flag, best_tri, 0).long()]  # (H, W, 5)
+    return _sample_mip_px(texels, mip_table, r[..., 0].to(torch.int32),
+                          r[..., 1], r[..., 2], r[..., 3], r[..., 4],
+                          uv[..., 0], uv[..., 1], flag, tex_filter,
+                          max_aniso=max_aniso)
+
+
+def textured_shade(gbuffer, best_tri, face_kd, face_tex, texels, tex_table,
+                   view_position, light_world_pos, light_color,
+                   light_intensity, tex_filter: str = "nearest",
+                   tex_mips=None, guv=None):
+    """The deferred texture tail after ``resolve_attributes``: the winner's
+    kd (ones without materials), the atlas sampled at the resolved uv
+    (``sample_atlas``, or ``sample_atlas_mip`` with ``texels`` the
+    mip-extended pool, ``tex_mips`` its level table and ``guv`` the (T, 4)
+    ``uv_gradients``), kd modulated, then ``shade``. Returns (H, W, 4) u8
+    RGBA."""
+    flag = gbuffer["flag"]
+    if face_kd is not None:
+        kd = face_kd.to(F32)[torch.where(flag, best_tri, 0).long()]
+        kd = torch.where(flag[..., None], kd, 1.0)
+    else:
+        kd = torch.ones(flag.shape + (3,), dtype=F32, device=flag.device)
+    face_tex = face_tex.to(torch.int32)
+    if tex_filter in MIP_FILTERS:
+        if tex_mips is None or guv is None:
+            raise ValueError(f"tex_filter={tex_filter!r} needs the "
+                             "mip-extended pool, tex_mips and guv")
+        texel, has = sample_atlas_mip(texels, tex_mips, face_tex, best_tri,
+                                      flag, gbuffer["uv"], guv, tex_filter)
+    else:
+        texel, has = sample_atlas(texels, tex_table, face_tex, best_tri,
+                                  flag, gbuffer["uv"],
+                                  bilinear=tex_filter == "bilinear")
+    gbuffer = dict(gbuffer, kd=torch.where(has[..., None], kd * texel, kd))
+    return shade(gbuffer, view_position, light_world_pos, light_color,
+                 light_intensity)
+
+
 # ---------------------------------------------------------------------------
 # Fused texturing: the G-buffer the raster kernels' texf mode writes, and
 # the tail that samples the atlas and shades it
@@ -261,10 +653,23 @@ def depth_key(z):
 TEXF_BASE_CHANNELS = 8
 # TextureInfo offsets travel as f32 in the texf table: exact below 2^24.
 TEXF_MAX_OFFSET = 1 << 24
+# The mip-filtered (TEXF_MIP) G-buffer, written by the kernels' texf_mip
+# mode from the 46-column table (kd at 38:41, mip_tri_rows at 41:46):
+#   0: u      1: v
+#   2: kd.r   3: kd.g   4: kd.b
+#   5: tid    the winner's texture slot as an exact f32 int (-1 untextured;
+#             the tail indexes the i32 mip table, so no 2^24 bound)
+#   6: lod    7: mu   8: mv   9: spread   (mip_tri_rows)
+#   10+2i: diff_i   11+2i: spec_i
+TEXF_MIP_BASE_CHANNELS = 10
 
 
 def texf_channels(num_lights: int) -> int:
     return TEXF_BASE_CHANNELS + 2 * num_lights
+
+
+def texf_mip_channels(num_lights: int) -> int:
+    return TEXF_MIP_BASE_CHANNELS + 2 * num_lights
 
 
 def tex_rows_f32(face_tex, tex_table):
@@ -289,10 +694,9 @@ def fused_texture_tail(gbuf, best_key, texels, light_color, light_intensity,
     sampling, then the material shading with the winner's kd times the
     texel. Returns (H, W, 4) u8 RGBA. The JAX package's op order."""
     if tex_filter not in ("nearest", "bilinear"):
-        raise NotImplementedError(
+        raise ValueError(
             f"the fused texture tail samples nearest or bilinear, not "
-            f"{tex_filter!r}; mip filters (TEXF_MIP) are not ported yet "
-            "(ROADMAP queue 2)")
+            f"{tex_filter!r} (the mip filters take fused_texture_tail_mip)")
     i32 = torch.int32
     flag = best_key.view(i32) != -1
     u = gbuf[0]
@@ -339,6 +743,25 @@ def fused_texture_tail(gbuf, best_key, texels, light_color, light_intensity,
         texel = top * (1.0 - wy) + bot * wy
     kdt = torch.where(has[..., None], kd * texel, kd)
     return _texf_shade_epilogue(kdt, flag, gbuf, TEXF_BASE_CHANNELS,
+                                light_color, light_intensity)
+
+
+def fused_texture_tail_mip(gbuf, best_key, texels, mip_table, light_color,
+                           light_intensity, tex_filter: str = "trilinear",
+                           max_aniso: int = MAX_ANISO):
+    """Shade a TEXF_MIP G-buffer: ``_sample_mip_px`` on the carried tid /
+    lod / mu / mv / spread (the deferred tail's sampler on the same
+    floats), kd modulated, the material epilogue. ``texels`` is the
+    mip-extended pool, ``mip_table`` its (M, L, 3) i32 level table
+    (``io.textures.build_mips``). Returns (H, W, 4) u8 RGBA."""
+    flag = best_key.view(torch.int32) != -1
+    kd = torch.stack([gbuf[2], gbuf[3], gbuf[4]], dim=-1)
+    texel, has = _sample_mip_px(
+        texels, mip_table, gbuf[5].to(torch.int32), gbuf[6], gbuf[7],
+        gbuf[8], gbuf[9], gbuf[0], gbuf[1], flag, tex_filter,
+        max_aniso=max_aniso)
+    kdt = torch.where(has[..., None], kd * texel, kd)
+    return _texf_shade_epilogue(kdt, flag, gbuf, TEXF_MIP_BASE_CHANNELS,
                                 light_color, light_intensity)
 
 

@@ -1,25 +1,34 @@
 """The GPU engine: the tile path and the micro (mega-scene) path.
 
 Counterpart of the JAX package's ``backends/tpu.py`` (``render_frame`` at
-tpu.py:511-817, ``render_frame_micro`` at :87-417, the capacity helpers,
-``texf_eligible`` and the retrying ``render``) in three modes: base, the
-material extension (``face_kd``: 35-column table, kd-modulated shading)
-and fused texturing (``face_tex`` + atlas: 44-column table, the raster
-kernels write a G-buffer and ``common.fused_texture_tail`` samples the
-atlas, nearest or bilinear, and shades). The deferred (visibility) and
-mip-filtered texture modes are not ported yet and raise
-``NotImplementedError``: trilinear / anisotropic filters,
-``tex_mode="deferred"`` and atlases of 2^24 texels or more.
+tpu.py:511-817, ``render_frame_micro`` at :87-417 with ``micro_vis_tail``
+at :448-482, the capacity helpers, ``texf_eligible`` and the retrying
+``render``) in every mode of its kernels (``frame_mode``, as
+tpu.py:196-206 and :618-627 pick it):
+
+- ``base`` and ``mat`` (``face_kd``: 35-column table, kd-modulated
+  shading): the raster kernels shade;
+- ``texf`` (a textured mesh, nearest or bilinear filter, fused texturing:
+  44-column table): the kernels write a G-buffer and
+  ``common.fused_texture_tail`` samples the atlas and shades;
+- ``texf_mip`` (trilinear or anisotropic, fused): the frame's
+  ``common.mip_tri_rows`` ride a 46-column table and
+  ``common.fused_texture_tail_mip`` samples the mip pool;
+- ``vis`` (``tex_mode="deferred"``, which ``mesh_ext_tensors`` also picks
+  for atlases of 2^24 texels or more): the kernels write the winner's id
+  on the base table, and the deferred tail (``common.resolve_attributes``,
+  ``common.textured_shade``) resolves, samples and shades it.
 
 Tile path, per frame:
 
-1. ``front.front_end`` — vertex stage, setup and the (32, T) coefficient
-   rows in one kernel, at tile granularity;
+1. ``front.front_end`` — vertex stage, setup and the coefficient rows in
+   one kernel, at tile granularity (texf_mip and vis also run the torch
+   ``common.vertex_stage`` for the per-vertex screen and world the mip
+   rows and the deferred tail read);
 2. ``binning.setup_from_meta`` + ``binning.bin_triangles`` (dense at
    Suzanne scale, the sort above ``DENSE_BINNING_OP_LIMIT``);
 3. ``raster.raster_shade_tiles`` over the occupied tiles;
-4. ``raster.unpack_rgba``, or ``common.fused_texture_tail`` on the texf
-   G-buffer.
+4. ``raster.unpack_rgba``, or the mode's texture tail.
 
 Micro path (``render_frame_micro``), for scenes above
 ``TILE_PATH_MAX_TRIANGLES``:
@@ -28,10 +37,13 @@ Micro path (``render_frame_micro``), for scenes above
 2. ``binning.bin_cells_sort_meta`` — the pair-expansion kernel, one
    stable sort by cell, searchsorted segments;
 3. ``micro.raster_shade_micro`` over the occupied 8x128 tiles;
-4. as on the tile path.
+4. as on the tile path (vis maps the winner's pair index to its triangle
+   through the sorted pair list first).
 
 Nothing in a frame waits for the host: the overflow report stays a device
 tensor, and the occupied-tile count is read by the kernels themselves.
+The texture work of a frame runs inside ``torch.profiler`` ranges named
+``TEXTURE_RANGES``, so that a profile can split it out.
 """
 
 from __future__ import annotations
@@ -135,42 +147,32 @@ def texf_eligible(tex_table) -> bool:
     return t.size == 0 or int(t[:, 0].max()) < common.TEXF_MAX_OFFSET
 
 
-TEX_FILTERS = ("nearest", "bilinear", "trilinear", "anisotropic")
+TEX_FILTERS = ("nearest", "bilinear") + common.MIP_FILTERS
+TEX_MODES = ("fused", "deferred")
+# torch.profiler ranges around a frame's texture work: the per-frame
+# vertex stage and mip rows before the raster, the tail after it.
+TEXTURE_RANGES = ("texture_setup", "texture_tail")
 
 
-def check_texture_options(tex_filter: str, tex_mode: str,
-                          tex_table=None) -> None:
-    """The one check of the texture options. An unknown filter raises
-    ``ValueError``. For a textured mesh (``tex_table`` given) the modes not
-    ported yet raise ``NotImplementedError``: ``tex_mode="deferred"``,
-    the trilinear / anisotropic filters and atlases of 2^24 texels or
-    more."""
+def check_texture_options(tex_filter: str, tex_mode: str) -> None:
+    """The one check of the texture options: an unknown filter or mode
+    raises ``ValueError``."""
     if tex_filter not in TEX_FILTERS:
         raise ValueError(f"unknown tex_filter {tex_filter!r}")
-    if tex_table is None:
-        return
-    if tex_mode != "fused":
-        raise NotImplementedError(
-            f"tex_mode={tex_mode!r}: the deferred (vis) texture mode is not "
-            "ported yet (ROADMAP queue 2)")
-    if tex_filter not in ("nearest", "bilinear"):
-        raise NotImplementedError(
-            f"tex_filter={tex_filter!r} takes the mip-filtered (TEXF_MIP) or "
-            "deferred (vis) texture mode, not ported yet (ROADMAP queue 2)")
-    if not texf_eligible(tex_table):
-        raise NotImplementedError(
-            "atlases of 2^24 texels or more take the deferred (vis) texture "
-            "mode, not ported yet (ROADMAP queue 2)")
+    if tex_mode not in TEX_MODES:
+        raise ValueError(f"unknown tex_mode {tex_mode!r}")
 
 
-def _ext_mode(face_kd, uv_soa, tex_rows):
-    """The frame's mode ("base", "mat" or "texf") and its front-end
-    inputs (``front.front_end`` refuses tex_rows without uv_soa)."""
-    if tex_rows is None:
-        return ("mat" if face_kd is not None else "base"), {
-            "kd_rows": face_kd}
-    return "texf", {"kd_rows": face_kd, "uv_soa": uv_soa,
-                    "tex_rows": tex_rows}
+def frame_mode(face_kd, texels, tex_filter: str, tex_mode: str) -> str:
+    """The kernels' mode for a frame (tpu.py:196-206, :618-627): a textured
+    frame (``texels`` given) is fused — ``texf``, or ``texf_mip`` under a
+    mip filter — unless ``tex_mode`` is "deferred" (``vis``); an
+    untextured one is ``mat`` with ``face_kd``, else ``base``."""
+    if texels is None:
+        return "mat" if face_kd is not None else "base"
+    if tex_mode == "deferred":
+        return "vis"
+    return "texf_mip" if tex_filter in common.MIP_FILTERS else "texf"
 
 
 def coeff_table(coeff):
@@ -180,43 +182,75 @@ def coeff_table(coeff):
     return raster.kernel_table(coeff.T)[0]
 
 
+def _frame_texture(mode, positions, tri, view_proj, effect, width, height,
+                   face_kd, uvs, uv_soa, tex_rows, face_tex, tex_mips,
+                   tex_filter):
+    """A frame's per-vertex (world, screen) (vis and texf_mip only; None
+    otherwise) and the front end's mode inputs: kd rows, uv corners and
+    the TextureInfo rows (texf) or the frame's ``common.mip_tri_rows``
+    (texf_mip), built from ``common.uv_gradients`` over the screen
+    vertices. The vis table is the base one (kd applies in the tail)."""
+    if mode == "mat":
+        return None, {"kd_rows": face_kd}
+    if mode == "texf":
+        return None, {"kd_rows": face_kd, "uv_soa": uv_soa,
+                      "tex_rows": tex_rows}
+    if mode == "base":
+        return None, {}
+    with torch.profiler.record_function(TEXTURE_RANGES[0]):
+        vertex = common.vertex_stage(positions, view_proj, effect, width,
+                                     height)
+        if mode == "vis":
+            return vertex, {}
+        guv = common.uv_gradients(tri, vertex[1], uvs)
+        return vertex, {"kd_rows": face_kd, "uv_soa": uv_soa,
+                        "mip_rows": common.mip_tri_rows(face_tex, tex_mips,
+                                                        guv, tex_filter)}
+
+
 def render_frame(positions, normals, tri, view_proj, view_position,
                  light_world_pos, light_color, light_intensity, effect, *,
                  width: int, height: int, tile_h: int = 0, tile_w: int = 0,
                  pair_cap: int = 0, tile_cap: int = 0, tri_chunk: int = 0,
                  path: str = "auto", pos_soa=None, nrm_soa=None,
                  face_kd=None, texels=None, tex_filter: str = "nearest",
-                 uv_soa=None, tex_rows=None):
+                 tex_mode: str = "fused", uv_soa=None, tex_rows=None,
+                 uvs=None, face_tex=None, tex_table=None, tex_mips=None):
     """Render one frame on the path ``resolve_path`` picks (the micro path
     is ``render_frame_micro``); returns ((H, W, 4) u8 RGBA,
     depth key (H, W) u32, overflow (2,) i32 = [pair_cap_needed,
     tile_cap_needed], 0 meaning within capacity).
 
-    ``face_kd`` (T, 3) selects the material mode; ``tex_rows`` (T, 3)
-    with ``texels`` (P, 3) and ``uv_soa`` (3 corners, 2, T) the
-    fused-texture mode, filtered by ``tex_filter``. ``mesh_ext_tensors``
+    ``face_kd`` (T, 3) selects the material mode; ``texels`` a texture
+    mode (``frame_mode``) filtered by ``tex_filter``, with what that mode
+    reads: ``uv_soa`` (3 corners, 2, T) and ``tex_rows`` (T, 3) (texf);
+    ``uv_soa``, ``uvs`` (N, 2), ``face_tex`` (T,) and ``tex_mips`` (M, L,
+    3) with ``texels`` the mip pool (texf_mip); ``uvs``, ``face_tex`` and
+    ``tex_table`` (M, 3) or ``tex_mips`` (vis). ``mesh_ext_tensors``
     builds and checks these from a mesh.
 
     Scenes above ``tri_chunk`` triangles (only with ``path="tile"``
     forced; 0 sizes the chunk for the mode's table width) render in
     triangle chunks merged by depth key — the same image as one pass
-    (strict < keeps the lowest index on ties; a texf G-buffer merges
-    channel-wise). ``pos_soa`` / ``nrm_soa`` are the (3, 3, T) corner-SoA
-    geometry, built from ``tri`` when absent."""
+    (strict < keeps the lowest index on ties; a G-buffer merges
+    channel-wise, vis ids are offset by the chunk first). ``pos_soa`` /
+    ``nrm_soa`` are the (3, 3, T) corner-SoA geometry, built from ``tri``
+    when absent."""
     device = positions.device
     T = int(tri.shape[0])
     if T == 0:
         rgba, key = common.empty_frame(width, height, device)
         return rgba, key, torch.zeros((2,), dtype=torch.int32, device=device)
-    ext = dict(face_kd=face_kd, texels=texels, tex_filter=tex_filter,
-               uv_soa=uv_soa, tex_rows=tex_rows)
+    tex = dict(face_kd=face_kd, texels=texels, tex_filter=tex_filter,
+               tex_mode=tex_mode, uv_soa=uv_soa, tex_rows=tex_rows, uvs=uvs,
+               face_tex=face_tex, tex_table=tex_table, tex_mips=tex_mips)
     if resolve_path(path, T, tri_chunk) == "micro":
         return render_frame_micro(
             positions, normals, tri, view_proj, view_position,
             light_world_pos, light_color, light_intensity, effect,
             width=width, height=height, pair_cap=pair_cap, pos_soa=pos_soa,
-            nrm_soa=nrm_soa, **ext)
-    mode, front_kw = _ext_mode(face_kd, uv_soa, tex_rows)
+            nrm_soa=nrm_soa, **tex)
+    mode = frame_mode(face_kd, texels, tex_filter, tex_mode)
     if tri_chunk == 0:
         # Chunks sized for the table this mode builds (tpu.py:628-641).
         tri_chunk = MAX_TRI_TABLE_BYTES // (raster.MODE_WIDTHS[mode] * 4)
@@ -230,6 +264,9 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     if nrm_soa is None:
         nrm_soa = corner_soa(normals.to(F32), tri)
     view_position = view_position.to(F32)
+    vertex, front_kw = _frame_texture(
+        mode, positions, tri, view_proj, effect, width, height, face_kd,
+        uvs, uv_soa, tex_rows, face_tex, tex_mips, tex_filter)
     coeff, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
                                   width=width, height=height, tile_h=tile_h,
                                   tile_w=tile_w, **front_kw)
@@ -254,55 +291,88 @@ def render_frame(positions, normals, tri, view_proj, view_position,
             effect, view_position, light_world_pos, light_color,
             light_intensity, height_padded=nty * tile_h,
             width_padded=ntx * tile_w, tile_h=tile_h, tile_w=tile_w,
-            layout=bins["layout"],
+            layout=bins["layout"], mode=mode,
         )
+        if out_c.dtype == torch.uint32:  # packed RGBA merges as int32
+            out_c = out_c.view(torch.int32)
+        if mode == "vis" and c0:
+            # Chunk-local winner ids -> global triangle ids (tpu.py:767-769).
+            out_c = torch.where(out_c >= 0, out_c + c0, out_c)
         flags = torch.stack([bins["pair_needed"], bins["tile_needed"]])
         kc = key_c.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
         if out_p is None:
             out_p, key_p, best, overflow = out_c, key_c, kc, flags
         else:
-            win = kc < best
-            if mode == "texf":  # the G-buffer merges channel-wise
-                out_p = torch.where(win, out_c, out_p)
-            else:
-                out_p = torch.where(win, out_c.view(torch.int32),
-                                    out_p.view(torch.int32)
-                                    ).view(torch.uint32)
+            win = kc < best  # a G-buffer merges channel-wise
+            out_p = torch.where(win, out_c, out_p)
             key_p = torch.where(win, key_c.view(torch.int32),
                                 key_p.view(torch.int32)).view(torch.uint32)
             best = torch.where(win, kc, best)
             overflow = torch.maximum(overflow, flags)
-    return _finish(mode, out_p, key_p, overflow, width, height, texels,
-                   light_color, light_intensity, tex_filter)
-
-
-def _finish(mode, out_p, key_p, overflow, width, height, texels,
-            light_color, light_intensity, tex_filter):
-    """Crop the padded outputs and resolve the frame: unpack RGBA, or shade
-    the texf G-buffer through ``common.fused_texture_tail``."""
     key = key_p[:height, :width]
-    if mode == "texf":
-        rgba = common.fused_texture_tail(
-            out_p[:, :height, :width], key, texels.to(F32),
-            light_color.to(F32), light_intensity.to(F32),
-            tex_filter=tex_filter)
-    else:
-        rgba = raster.unpack_rgba(out_p[:height, :width])
+    rgba = _finish(mode, out_p[..., :height, :width], key, tex, vertex, tri,
+                   normals, effect, view_position, light_world_pos,
+                   light_color, light_intensity)
     return rgba, key, overflow
+
+
+def _finish(mode, out, key, tex, vertex, tri, normals, effect,
+            view_position, light_world_pos, light_color, light_intensity,
+            pair_tri=None):
+    """Resolve the cropped raster output: unpack RGBA, shade a G-buffer
+    through its fused tail, or run the deferred tail on the winners (vis
+    ids are pair indices when ``pair_tri`` is given: the micro path's)."""
+    if mode in ("base", "mat"):
+        return raster.unpack_rgba(out)
+    with torch.profiler.record_function(TEXTURE_RANGES[1]):
+        lc, li = light_color.to(F32), light_intensity.to(F32)
+        if mode == "texf":
+            return common.fused_texture_tail(
+                out, key, tex["texels"], lc, li,
+                tex_filter=tex["tex_filter"])
+        if mode == "texf_mip":
+            return common.fused_texture_tail_mip(
+                out, key, tex["texels"], tex["tex_mips"], lc, li,
+                tex_filter=tex["tex_filter"])
+        # The deferred tail (tpu.py:801-817; the micro path's is
+        # tpu.micro_vis_tail, whose 3T virtual corner vertices hold the
+        # floats the per-vertex arrays give through ``tri``).
+        best_tri = out
+        if pair_tri is not None:  # the winner's pair index -> its triangle
+            flag = key.view(torch.int32) != -1
+            best_tri = torch.where(
+                flag, pair_tri[torch.where(flag, out, 0).long()],
+                common.NO_TRI)
+        world, screen = vertex
+        height, width = best_tri.shape
+        gbuffer = common.resolve_attributes(best_tri, tri, screen, world,
+                                            normals, tex["uvs"], effect,
+                                            width, height)
+        mip = tex["tex_filter"] in common.MIP_FILTERS
+        return common.textured_shade(
+            gbuffer, best_tri, tex["face_kd"], tex["face_tex"],
+            tex["texels"], tex["tex_table"], view_position, light_world_pos,
+            lc, li, tex_filter=tex["tex_filter"], tex_mips=tex["tex_mips"],
+            guv=common.uv_gradients(tri, screen, tex["uvs"]) if mip else None)
 
 
 def render_frame_micro(positions, normals, tri, view_proj, view_position,
                        light_world_pos, light_color, light_intensity, effect,
                        *, width: int, height: int, pair_cap: int = 0,
                        pos_soa=None, nrm_soa=None, face_kd=None,
-                       texels=None, tex_filter: str = "nearest", uv_soa=None,
-                       tex_rows=None):
+                       texels=None, tex_filter: str = "nearest",
+                       tex_mode: str = "fused", uv_soa=None, tex_rows=None,
+                       uvs=None, face_tex=None, tex_table=None,
+                       tex_mips=None):
     """Render one nonempty frame on the micro path (``render_frame``
     dispatches here); the same contract and modes as ``render_frame``
     (the overflow report's tile entry is always 0: there is no per-tile
     cap). Coverage outside a triangle's bbox (voxelize, mirage) clips to
     the 8x8 cell rectangles."""
-    mode, front_kw = _ext_mode(face_kd, uv_soa, tex_rows)
+    tex = dict(face_kd=face_kd, texels=texels, tex_filter=tex_filter,
+               tex_mode=tex_mode, uv_soa=uv_soa, tex_rows=tex_rows, uvs=uvs,
+               face_tex=face_tex, tex_table=tex_table, tex_mips=tex_mips)
+    mode = frame_mode(face_kd, texels, tex_filter, tex_mode)
     T = int(tri.shape[0])
     ntx = (width + 127) // 128
     nty = (height + 7) // 8
@@ -311,6 +381,9 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
         pos_soa = corner_soa(positions.to(F32), tri)
     if nrm_soa is None:
         nrm_soa = corner_soa(normals.to(F32), tri)
+    vertex, front_kw = _frame_texture(
+        mode, positions, tri, view_proj, effect, width, height, face_kd,
+        uvs, uv_soa, tex_rows, face_tex, tex_mips, tex_filter)
     coeff, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
                                   width=width, height=height, tile_h=8,
                                   tile_w=8, **front_kw)
@@ -320,34 +393,55 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
         coeff_table(coeff), bins["pair_tri"], bins["seg_start"],
         bins["seg_count"], bins["tile_count"], effect,
         view_position.to(F32), light_world_pos, light_color,
-        light_intensity, height_padded=nty * 8, width_padded=ntx * 128)
+        light_intensity, height_padded=nty * 8, width_padded=ntx * 128,
+        mode=mode)
     overflow = torch.stack([bins["pair_needed"], bins["tile_needed"]])
-    return _finish(mode, out_p, key_p, overflow, width, height, texels,
-                   light_color, light_intensity, tex_filter)
+    key = key_p[:height, :width]
+    rgba = _finish(mode, out_p[..., :height, :width], key, tex, vertex, tri,
+                   normals, effect, view_position.to(F32), light_world_pos,
+                   light_color, light_intensity, pair_tri=bins["pair_tri"])
+    return rgba, key, overflow
 
 
 def mesh_ext_tensors(mesh, tri, device, *, tex_filter: str = "nearest",
                      tex_mode: str = "fused"):
     """The mesh's material / texture inputs of ``render_frame`` on
-    ``device``, uploaded once: ``face_kd``, and for a textured mesh
-    ``texels``, ``uv_soa``, ``tex_rows`` (its TextureInfo rows by face,
-    ``common.tex_rows_f32``) and ``tex_filter``. Checks the options
-    (``check_texture_options``)."""
+    ``device``, uploaded once, with the JAX engine's decisions
+    (tpu.py:886-927, engine/renderer.py:122-191): ``face_kd``; for a
+    textured mesh ``texels``, ``tex_filter``, ``tex_mode``, ``uvs``,
+    ``face_tex`` and ``tex_table``, plus what its mode reads — the uv
+    corners and TextureInfo rows (``common.tex_rows_f32``) for texf, the
+    uv corners for texf_mip. The mip filters replace ``texels`` by the
+    mip pool and add its level table ``tex_mips``, both built here on the
+    host (``io.textures.trilinear_tex_arrays``); nearest and bilinear
+    take the deferred mode for atlases of 2^24 texels or more
+    (``texf_eligible``). Checks the options (``check_texture_options``)."""
     def dev(a, dtype=F32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    check_texture_options(tex_filter, tex_mode,
-                          mesh.tex_table if mesh.has_textures else None)
+    check_texture_options(tex_filter, tex_mode)
     ext = {}
     if mesh.face_kd is not None:
         ext["face_kd"] = dev(mesh.face_kd)
     if not mesh.has_textures:
         return ext
-    ext["texels"] = dev(mesh.texels)
-    ext["uv_soa"] = corner_soa(dev(mesh.uvs), tri)
-    ext["tex_rows"] = common.tex_rows_f32(dev(mesh.face_tex, torch.int32),
-                                          dev(mesh.tex_table, torch.int32))
-    ext["tex_filter"] = tex_filter
+    mip = tex_filter in common.MIP_FILTERS
+    if not (mip or texf_eligible(mesh.tex_table)):
+        tex_mode = "deferred"
+    texels = mesh.texels
+    if mip:
+        from compute_renderer_torch.io.textures import trilinear_tex_arrays
+
+        texels, mips = trilinear_tex_arrays(mesh.texels, mesh.tex_table)
+        ext["tex_mips"] = dev(mips, torch.int32)
+    face_tex = dev(mesh.face_tex, torch.int32)
+    tex_table = dev(mesh.tex_table, torch.int32)
+    ext.update(texels=dev(texels), tex_filter=tex_filter, tex_mode=tex_mode,
+               uvs=dev(mesh.uvs), face_tex=face_tex, tex_table=tex_table)
+    if tex_mode == "fused":
+        ext["uv_soa"] = corner_soa(ext["uvs"], tri)
+        if not mip:
+            ext["tex_rows"] = common.tex_rows_f32(face_tex, tex_table)
     return ext
 
 

@@ -6,8 +6,10 @@ Counterpart of the JAX package's ``backends/pallas_front.py``, at tile or
 
 - ``coeff`` (R, T) f32: the raster table's columns in ``raster.py`` order
   (rows = coefficients), R = 32 in base mode, 35 with ``kd_rows`` (the
-  material columns) and 44 with ``uv_soa`` + ``tex_rows`` (the
-  fused-texture columns; kd is ``kd_rows`` or ones);
+  material columns), 44 with ``uv_soa`` + ``tex_rows`` (the fused-texture
+  columns; kd is ``kd_rows`` or ones) and 46 with ``uv_soa`` +
+  ``mip_rows`` (the mip-filtered texture columns: the frame's (T, 5)
+  ``common.mip_tri_rows`` in place of the TextureInfo rows);
 - ``meta`` (4, T) i32: tile_x0, tile_y0, rect width rx, cover count c
   (0 for culled triangles) — what ``binning.setup_from_meta`` reads.
 
@@ -25,12 +27,17 @@ from compute_renderer_torch.backends import binning, common, raster
 F32 = torch.float32
 
 
+# The front's modes (the vis mode's table is the base one).
+MODES = ("base", "mat", "texf", "texf_mip")
+
+
 def front_end_plain(pos_soa, nrm_soa, view_proj, effect, *, width: int,
                     height: int, tile_h: int, tile_w: int, kd_rows=None,
-                    uv_soa=None, tex_rows=None):
+                    uv_soa=None, tex_rows=None, mip_rows=None):
     """The twin: ``common.vertex_stage`` -> ``common.triangle_setup`` ->
     ``raster.tri_table_columns`` on the corner vertices, reduced to the
     kernel's (coeff, meta)."""
+    mode = _mode(kd_rows, uv_soa, tex_rows, mip_rows)
     T = pos_soa.shape[2]
     device = pos_soa.device
     # Corner-major vertex list: vertex k*T + t is corner k of triangle t.
@@ -51,28 +58,31 @@ def front_end_plain(pos_soa, nrm_soa, view_proj, effect, *, width: int,
         tuple(world[k * T:(k + 1) * T, ch] for ch in range(3))
         for k in range(3)
     )
-    cols = raster.tri_table_columns(screen_soa, nrm_soa.to(F32), world_soa,
-                                    face_kd=kd_rows, uv_soa=uv_soa,
-                                    tex_rows=tex_rows)
+    cols = raster.tri_table_columns(
+        screen_soa, nrm_soa.to(F32), world_soa, face_kd=kd_rows,
+        uv_soa=uv_soa, tex_rows=mip_rows if mode == "texf_mip" else tex_rows)
     return torch.stack(cols), meta.to(torch.int32)
 
 
-def _mode(kd_rows, uv_soa, tex_rows) -> str:
-    if tex_rows is not None:
+def _mode(kd_rows, uv_soa, tex_rows, mip_rows) -> str:
+    if tex_rows is not None or mip_rows is not None:
         if uv_soa is None:
-            raise ValueError("the texf front end needs uv_soa with tex_rows")
-        return "texf"
+            raise ValueError("the texture front end needs uv_soa")
+        if tex_rows is not None and mip_rows is not None:
+            raise ValueError("tex_rows (texf) and mip_rows (texf_mip) are "
+                             "two modes")
+        return "texf" if mip_rows is None else "texf_mip"
     return "mat" if kd_rows is not None else "base"
 
 
 def _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, *, width, height,
                     tile_h, tile_w, kd_rows=None, uv_soa=None,
-                    tex_rows=None):
+                    tex_rows=None, mip_rows=None):
     from compute_renderer_torch import _build
 
     T = pos_soa.shape[2]
     device = pos_soa.device
-    mode = _mode(kd_rows, uv_soa, tex_rows)
+    mode = _mode(kd_rows, uv_soa, tex_rows, mip_rows)
     pos = pos_soa.to(F32).contiguous()
     nrm = nrm_soa.to(F32).contiguous()
     if nrm.shape != pos.shape:
@@ -88,8 +98,12 @@ def _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, *, width, height,
         return a
 
     kd = rows(kd_rows, (T, 3), "kd_rows")
-    uv = rows(uv_soa, (3, 2, T), "uv_soa") if mode == "texf" else None
-    tex = rows(tex_rows, (T, 3), "tex_rows") if mode == "texf" else None
+    uv = rows(uv_soa, (3, 2, T), "uv_soa") if mode.startswith("texf") \
+        else None
+    # The per-triangle block the texture modes copy: TextureInfo or mips.
+    tex = (rows(tex_rows, (T, 3), "tex_rows") if mode == "texf" else
+           rows(mip_rows, (T, 5), "mip_rows") if mode == "texf_mip" else
+           None)
     scal = torch.cat([view_proj.to(device=device, dtype=F32).reshape(16),
                       effect.to(device=device, dtype=F32).reshape(-1)[:6]])
     coeff = torch.empty((raster.MODE_WIDTHS[mode], T), dtype=F32,
@@ -111,16 +125,18 @@ def _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, *, width, height,
 
 def front_end(pos_soa, nrm_soa, view_proj, effect, *, width: int,
               height: int, tile_h: int, tile_w: int, kd_rows=None,
-              uv_soa=None, tex_rows=None):
+              uv_soa=None, tex_rows=None, mip_rows=None):
     """Fused vertex + setup + coefficient rows; returns (coeff (R, T) f32,
     meta (4, T) i32). ``kd_rows`` (T, 3) selects the material rows,
     ``uv_soa`` (3 corners, 2, T) with ``tex_rows`` (T, 3) the
-    fused-texture rows. CPU tensors take the plain twin, CUDA tensors the
+    fused-texture rows, ``uv_soa`` with ``mip_rows`` (T, 5) the
+    mip-filtered ones. CPU tensors take the plain twin, CUDA tensors the
     kernel (``front_end.launches`` counts its launches,
     ``front_end.mode_launches`` per mode)."""
     kw = dict(width=width, height=height, tile_h=tile_h, tile_w=tile_w,
-              kd_rows=kd_rows, uv_soa=uv_soa, tex_rows=tex_rows)
-    _mode(kd_rows, uv_soa, tex_rows)
+              kd_rows=kd_rows, uv_soa=uv_soa, tex_rows=tex_rows,
+              mip_rows=mip_rows)
+    _mode(kd_rows, uv_soa, tex_rows, mip_rows)
     if pos_soa.device.type == "cpu":
         return front_end_plain(pos_soa, nrm_soa, view_proj, effect, **kw)
     if pos_soa.device.type != "cuda":
@@ -129,4 +145,4 @@ def front_end(pos_soa, nrm_soa, view_proj, effect, *, width: int,
 
 
 front_end.launches = 0
-front_end.mode_launches = dict.fromkeys(raster.MODES, 0)
+front_end.mode_launches = dict.fromkeys(MODES, 0)

@@ -6,27 +6,26 @@ sixteen 8x8 cells, and each cell walks its own segment of the cell-sorted
 pair list (``binning.bin_cells_sort_meta``) in pair order, evaluating only
 its 64 pixels: the same coverage, depth key, strict-< running minimum (the
 (key, pair)-lexicographic winner) and epilogues as the tile raster
-(``raster.py``): base (32-column table), material (35) or the fused-texture
-G-buffer (44). Cell c of tile (ti, tj) is pixels x in
-[128 tj + 8 c, +8), y in [8 ti, +8) plus the row offset.
+(``raster.py``), in each of its modes: base, mat, texf and texf_mip, and
+vis, where the output is the winner's absolute index in ``pair_tri``
+(``raster.PAIR_IDX_CLEAR`` where no pair covers; ``pair_tri`` maps it to
+the triangle). Cell c of tile (ti, tj) is pixels x in [128 tj + 8 c, +8),
+y in [8 ti, +8) plus the row offset.
 
 The coefficient rows are read from the (T, R) table at ``pair_tri[p]``:
 the JAX package's P-sized pair stream (``build_pair_coeffs``) and its
 complex64 packing are TPU mechanics the port does not carry.
 
 A CUDA tensor runs the hand-written kernel ``csrc/micro.cu``; a CPU tensor
-runs ``raster_shade_micro_plain``. The visibility and mip-filtered texture
-modes are not ported yet (ROADMAP queue 2) and raise
-``NotImplementedError``.
+runs ``raster_shade_micro_plain``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from compute_renderer_torch.backends import common, raster
+from compute_renderer_torch.backends import raster
 
-F32 = torch.float32
 I32 = torch.int32
 
 
@@ -39,11 +38,11 @@ def raster_shade_micro_plain(tri_table, pair_tri, seg_start, seg_count,
     at 8x8 tiles on the flat layout: vectorized over (pair, 64 cell
     pixels) with a ``scatter_reduce`` "amin" merge of the key and the
     first pair that reaches it. Returns (out, key) as in
-    ``raster.raster_shade_tiles_plain``."""
+    ``raster.raster_shade_tiles_plain``, vis ids as pair indices."""
     return raster.raster_shade_tiles_plain(
         tri_table, pair_tri, seg_start, seg_count, params, lights,
         height_padded=height_padded, width_padded=width_padded, tile_h=8,
-        tile_w=8, layout="flat", mode=mode)
+        tile_w=8, layout="flat", mode=mode, pair_ids=True)
 
 
 def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
@@ -63,16 +62,9 @@ def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
     counts = seg_count.to(I32).contiguous()
     wl, k = raster.occupied_worklist(tile_count.to(I32))
     k = k.reshape(1).contiguous()
-    if mode == "texf":
-        out = torch.zeros((common.texf_channels(lights.shape[0]),
-                           height_padded, width_padded), dtype=F32,
-                          device=device)
-    else:
-        out = torch.full((height_padded, width_padded),
-                         common.BACKGROUND_RGBA - (1 << 32), dtype=I32,
-                         device=device)
-    key = torch.full((height_padded, width_padded), -1, dtype=I32,
-                     device=device)
+    out, key = raster.cleared_outputs(mode, lights.shape[0], height_padded,
+                                      width_padded, device,
+                                      no_id=raster.PAIR_IDX_CLEAR)
     fn = _build.entry("micro", "raster_shade_micro", pointers=10, ints=6)
     raster_shade_micro.launches += 1
     raster_shade_micro.mode_launches[mode] += 1
@@ -90,19 +82,20 @@ def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
 def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
                        effect, view_position, light_world_pos, light_color,
                        light_intensity, *, height_padded: int,
-                       width_padded: int):
+                       width_padded: int, mode: str = "base"):
     """Raster + shade the padded (Hp, Wp) framebuffer, Hp a multiple of 8
-    and Wp of 128, from the (T, R) table (R picks the mode as in
-    ``raster.raster_shade_tiles``), the cell-sorted ``pair_tri``, per-cell
-    ``seg_start`` / ``seg_count`` and per-tile ``tile_count``. Returns
-    (rgba_packed (Hp, Wp) u32, best_key (Hp, Wp) u32) — in texf mode
-    (gbuf (C, Hp, Wp) f32, best_key).
+    and Wp of 128, in ``mode`` (as ``raster.raster_shade_tiles``) from the
+    (T, R) table, the cell-sorted ``pair_tri``, per-cell ``seg_start`` /
+    ``seg_count`` and per-tile ``tile_count``. Returns (out, best_key
+    (Hp, Wp) u32) with ``out`` as the tile raster's, except that vis
+    writes the winner's index in ``pair_tri`` (``raster.PAIR_IDX_CLEAR``
+    where none covers).
 
     CPU tensors take the twin, CUDA tensors the kernel
     (``raster_shade_micro.launches`` counts its launches,
     ``mode_launches`` per mode), launched over the occupied-tile work
     list of ``tile_count``."""
-    mode = raster.table_mode(tri_table)
+    raster.check_mode(tri_table, mode)
     params, lights = raster.shading_inputs(effect, view_position,
                                            light_world_pos, light_color,
                                            light_intensity)
@@ -117,9 +110,7 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
                                tile_count, params, lights, **kw)
     else:
         raise ValueError(f"raster_shade_micro: no kernel for device {device}")
-    if mode != "texf":
-        out = out.view(torch.uint32)
-    return out, key.view(torch.uint32)
+    return raster.public_outputs(mode, out, key)
 
 
 raster_shade_micro.launches = 0

@@ -17,13 +17,20 @@ from its row at the pixel — feed one of three epilogues, by mode:
 - ``texf`` (44 columns): no shading — the (C, Hp, Wp) f32 G-buffer of
   ``common.TEXF_BASE_CHANNELS`` (interpolated uv, the winner's kd and
   TextureInfo row, per-light diff/spec), which
-  ``common.fused_texture_tail`` samples and shades.
+  ``common.fused_texture_tail`` samples and shades;
+- ``texf_mip`` (46 columns, the mip filters): the same G-buffer with the
+  winner's ``common.mip_tri_rows`` (tid, lod, mu, mv, spread) in place of
+  the TextureInfo row (``common.TEXF_MIP_BASE_CHANNELS``), for
+  ``common.fused_texture_tail_mip``;
+- ``vis`` (the 32-column base table, deferred texturing): the winner's
+  triangle id (the table row), ``common.NO_TRI`` where no triangle
+  covers, as (Hp, Wp) int32; ``common.resolve_attributes`` and
+  ``common.textured_shade`` shade it.
 
-A CUDA tensor runs the hand-written kernel ``csrc/raster.cu``; a CPU
-tensor runs ``raster_shade_tiles_plain``, the same arithmetic vectorized in
-eager torch. The visibility mode (deferred texturing) and the mip-filtered
-texture mode (a 46-wide table, which raises ``NotImplementedError``) are
-not ported yet (ROADMAP queue 2).
+The mode is an argument: the base and vis tables share their width, so it
+cannot be read from the table. A CUDA tensor runs the hand-written kernel
+``csrc/raster.cu``; a CPU tensor runs ``raster_shade_tiles_plain``, the
+same arithmetic vectorized in eager torch.
 """
 
 from __future__ import annotations
@@ -46,13 +53,20 @@ I32 = torch.int32
 # mode appends 32:38 the uv affine triples (u then v), 38:41 kd (ones when
 # the mesh has none) and 41:44 the TextureInfo row {off, tw, th} as exact
 # f32 ints; the kd and TextureInfo columns are copied, not interpolated.
+# The mip-filtered mode puts the (T, 5) common.mip_tri_rows block at 41:46
+# in place of the TextureInfo row (46 columns, a row stride of 48).
 TRI_TABLE_WIDTH = 32
 MAT_TRI_TABLE_WIDTH = 35
 TEX_TRI_TABLE_WIDTH = 44
-MODES = {"base": 0, "mat": 1, "texf": 2}  # the kernels' MODE argument
+TEX_MIP_TRI_TABLE_WIDTH = 46
+# The kernels' MODE argument (csrc/shade.cuh) and each mode's table width.
+MODES = {"base": 0, "mat": 1, "texf": 2, "vis": 3, "texf_mip": 4}
 MODE_WIDTHS = {"base": TRI_TABLE_WIDTH, "mat": MAT_TRI_TABLE_WIDTH,
-               "texf": TEX_TRI_TABLE_WIDTH}
-TEX_MIP_TRI_TABLE_WIDTH = 46  # the mip-filtered texture mode, not ported
+               "texf": TEX_TRI_TABLE_WIDTH, "vis": TRI_TABLE_WIDTH,
+               "texf_mip": TEX_MIP_TRI_TABLE_WIDTH}
+# The vis mode's output where no pair covers a pixel: the tile raster's
+# NO_TRI, or the micro raster's PAIR_IDX_CLEAR (pallas_micro.py:63).
+PAIR_IDX_CLEAR = 2**31 - 1
 
 # Elements of one (pairs, pixels) block the twin evaluates at a time:
 # bounds its memory at a few hundred MB.
@@ -65,8 +79,9 @@ def tri_table_columns(screen_soa, nrm_soa, wld_soa, face_kd=None,
     corner-SoA inputs: ``screen_soa[k][c]`` is component c (x, y, z, w) of
     corner k; ``nrm_soa`` / ``wld_soa`` likewise with 3 components. With
     ``face_kd`` (T, 3) the three kd columns append (35); with ``uv_soa``
-    (3 corners, 2, T) and ``tex_rows`` (T, 3) together, the fused-texture
-    columns append (44)."""
+    (3 corners, 2, T) and ``tex_rows`` together, the fused-texture columns
+    append: 44 with the (T, 3) TextureInfo rows, 46 with the (T, 5)
+    ``common.mip_tri_rows``."""
     v1, v2, v3 = screen_soa
     co = common.barycentric_coefficients(v1[0], v1[1], v2[0], v2[1],
                                          v3[0], v3[1])
@@ -92,7 +107,7 @@ def tri_table_columns(screen_soa, nrm_soa, wld_soa, face_kd=None,
         else:
             cols += [torch.ones_like(cols[0]) for _ in range(3)]
         tr = tex_rows.to(F32)
-        cols += [tr[:, c] for c in range(3)]
+        cols += [tr[:, c] for c in range(tr.shape[1])]
     elif face_kd is not None:
         kd = face_kd.to(F32)
         cols += [kd[:, 0], kd[:, 1], kd[:, 2]]
@@ -101,7 +116,7 @@ def tri_table_columns(screen_soa, nrm_soa, wld_soa, face_kd=None,
 
 def build_tri_table(screen, tri, normals, world, face_kd=None, uvs=None,
                     tex_rows=None):
-    """(T, 32 | 35 | 44) f32 coefficient table from per-vertex screen
+    """(T, 32 | 35 | 44 | 46) f32 coefficient table from per-vertex screen
     (N, 4), normals (N, 3) and world (N, 3), (T, 3) triangle indices and
     the mode inputs of ``tri_table_columns`` (``uvs`` (N, 2) per vertex)."""
     tri = tri.long()
@@ -116,20 +131,27 @@ def build_tri_table(screen, tri, normals, world, face_kd=None, uvs=None,
     )
 
 
-def table_mode(tri_table) -> str:
-    """The mode a table's width selects: 32 columns base, 35 material, 44
-    fused-texture. The 46-wide mip-filtered texture table is not ported
-    yet."""
+def check_mode(tri_table, mode: str) -> None:
+    """Refuse a mode that names no kernel mode, or a table whose width is
+    not the mode's (``MODE_WIDTHS``)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown raster mode {mode!r} (modes "
+                         f"{list(MODES)})")
     width = tri_table.shape[1]
-    for mode, w in MODE_WIDTHS.items():
-        if width == w:
-            return mode
-    if width == TEX_MIP_TRI_TABLE_WIDTH:
-        raise NotImplementedError(
-            "the mip-filtered texture raster mode (a 46-wide table) is not "
-            "ported yet (ROADMAP queue 2)")
-    raise ValueError(f"a {width}-wide table selects no raster mode (widths "
-                     f"{sorted(MODE_WIDTHS.values())})")
+    if width != MODE_WIDTHS[mode]:
+        raise ValueError(
+            f"a {width}-wide table does not fit mode {mode!r}, which reads "
+            f"{MODE_WIDTHS[mode]} columns (widths {MODE_WIDTHS})")
+
+
+def output_channels(mode: str, num_lights: int) -> int:
+    """Planes of a G-buffer mode's (C, Hp, Wp) f32 output (0: the packed
+    RGBA or vis ids, one (Hp, Wp) int32 plane)."""
+    if mode == "texf":
+        return common.texf_channels(num_lights)
+    if mode == "texf_mip":
+        return common.texf_mip_channels(num_lights)
+    return 0
 
 
 def kernel_table(tri_table):
@@ -191,42 +213,6 @@ def shading_inputs(effect, view_position, light_world_pos, light_color,
     return params, lights
 
 
-def _light_terms(nx, ny, nz, wx, wy, wz, params, lights):
-    """Per light: (light row, Lambert diff, pow32 Phong spec) on (...,
-    pixels) attribute tensors, in the kernels' op order (shade.cuh)."""
-    eye_x, eye_y, eye_z = params[8], params[9], params[10]
-    vdx = eye_x - wx
-    vdy = eye_y - wy
-    vdz = eye_z - wz
-    vnorm = torch.sqrt(vdx * vdx + vdy * vdy + vdz * vdz)
-    vdx = vdx / vnorm
-    vdy = vdy / vnorm
-    vdz = vdz / vnorm
-    zero = torch.zeros((), dtype=F32, device=nx.device)
-    for li in range(lights.shape[0]):
-        lp = lights[li]
-        ldx = lp[0] - wx
-        ldy = lp[1] - wy
-        ldz = lp[2] - wz
-        lnorm = torch.sqrt(ldx * ldx + ldy * ldy + ldz * ldz)
-        ldx = ldx / lnorm
-        ldy = ldy / lnorm
-        ldz = ldz / lnorm
-        d = nx * ldx + ny * ldy + nz * ldz
-        diff = torch.where(d > 0.0, d, zero)
-        edotn = -(ldx * nx + ldy * ny + ldz * nz)
-        rdx = -ldx - 2.0 * edotn * nx
-        rdy = -ldy - 2.0 * edotn * ny
-        rdz = -ldz - 2.0 * edotn * nz
-        s = vdx * rdx + vdy * rdy + vdz * rdz
-        s = torch.where(s > 0.0, s, zero)
-        s2 = s * s
-        s4 = s2 * s2
-        s8 = s4 * s4
-        s16 = s8 * s8
-        yield lp, diff, s16 * s16
-
-
 def shade_pixels(attrs, params, lights, kd=None):
     """The shading epilogue on (..., pixels) tensors -> packed RGBA as int64
     holding the u32 pattern. ``attrs`` = [nx, ny, nz, wx, wy, wz]; ``kd``
@@ -238,7 +224,9 @@ def shade_pixels(attrs, params, lights, kd=None):
         b = torch.full_like(nx, 0.1)
     else:
         r, g, b = 0.1 * kd[0], 0.1 * kd[1], 0.1 * kd[2]
-    for lp, diff, spec in _light_terms(*attrs, params, lights):
+    for li, diff, spec in common.light_terms(attrs[0:3], attrs[3:6],
+                                             params[8:11], lights):
+        lp = lights[li]
         if kd is None:
             contrib = diff + spec * 0.5
             r = r + contrib * lp[3] * lp[6]
@@ -259,12 +247,13 @@ def shade_pixels(attrs, params, lights, kd=None):
 
 
 def texf_planes(attrs, params, lights):
-    """The texf G-buffer channels (common.TEXF_BASE_CHANNELS layout) from
-    the winner's 14 attributes [nx, ny, nz, wx, wy, wz, u, v, kd (3),
-    off, tw, th]: uv, kd and the TextureInfo row, then per light the
-    shading epilogue's diff and spec."""
-    planes = list(attrs[6:14])
-    for _, diff, spec in _light_terms(*attrs[:6], params, lights):
+    """The texf / texf_mip G-buffer channels from the winner's attributes
+    [nx, ny, nz, wx, wy, wz, u, v, then the copied columns: kd (3) and the
+    TextureInfo row (3) or the mip rows (5)]: uv and the copied columns,
+    then per light the shading epilogue's diff and spec."""
+    planes = list(attrs[6:])
+    for _, diff, spec in common.light_terms(attrs[0:3], attrs[3:6],
+                                            params[8:11], lights):
         planes += [diff, spec]
     return planes
 
@@ -272,16 +261,22 @@ def texf_planes(attrs, params, lights):
 def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
                              params, lights, *, height_padded: int,
                              width_padded: int, tile_h: int, tile_w: int,
-                             layout: str, mode: str = "base"):
+                             layout: str, mode: str = "base",
+                             pair_ids: bool = False):
     """The twin of the kernel, vectorized over (tile, list entry) pairs:
     the occupied tiles' lists are flattened into one pair list in tile
     order (each tile's entries in list order), each block of pairs is
     evaluated over (pairs, pixels), and per tile and pixel the minimum key
     and the first pair that reaches it are merged into the running minimum
     with a strict < — the sequential walk's winner. Returns (out, key) as
-    (Hp, Wp) int32 holding u32 patterns, ``out`` the packed RGBA — or, in
-    texf mode, the (C, Hp, Wp) f32 G-buffer (zeros where no triangle
-    covers, as in the kernel)."""
+    (Hp, Wp) int32, ``key`` holding u32 patterns and ``out`` by mode: the
+    packed RGBA (base, mat); the winner's triangle id or ``common.NO_TRI``
+    (vis; with ``pair_ids`` its index in the flat ``pair_data`` or
+    ``PAIR_IDX_CLEAR``, the micro raster's output); or the (C, Hp, Wp) f32
+    G-buffer (texf, texf_mip; zeros where no triangle covers, as in the
+    kernel)."""
+    if pair_ids and layout != "flat":
+        raise ValueError("pair_ids index the flat pair list")
     device = tri_table.device
     ntx = width_padded // tile_w
     nty = height_padded // tile_h
@@ -290,11 +285,13 @@ def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
     i64 = torch.int64
     key = torch.full((num_tiles, P), common.DEPTH_CLEAR, dtype=i64,
                      device=device)
-    if mode == "texf":
-        out = torch.zeros((common.texf_channels(lights.shape[0]), num_tiles,
-                           P), dtype=F32, device=device)
+    channels = output_channels(mode, lights.shape[0])
+    no_id = PAIR_IDX_CLEAR if pair_ids else common.NO_TRI
+    if channels:
+        out = torch.zeros((channels, num_tiles, P), dtype=F32, device=device)
     else:
-        out = torch.full((num_tiles, P), common.BACKGROUND_RGBA, dtype=i64,
+        out = torch.full((num_tiles, P), no_id if mode == "vis"
+                         else common.BACKGROUND_RGBA, dtype=i64,
                          device=device)
 
     tiles = torch.nonzero(seg_count > 0).flatten()
@@ -308,7 +305,8 @@ def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
     if layout == "dense":
         pair_tri = pair_data[tiles[pair_tile], slot].long()
     else:
-        pair_tri = pair_data[seg_start[tiles].long()[pair_tile] + slot].long()
+        pair_pos = seg_start[tiles].long()[pair_tile] + slot
+        pair_tri = pair_data[pair_pos].long()
 
     pix = torch.arange(P, device=device)
     ti = torch.div(tiles, ntx, rounding_mode="floor")
@@ -354,35 +352,66 @@ def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
         best_pair = torch.where(win, first_pair, best_pair)
 
     if G:
-        # The winner's attributes, evaluated from its row at the pixel.
-        wrow = tri_table[pair_tri[best_pair]]  # (G, P, R)
-        dx = px - wrow[..., 30]
-        dy = py - wrow[..., 31]
-        affine = lambda c: wrow[..., c] + wrow[..., c + 1] * dx \
-            + wrow[..., c + 2] * dy
-        attrs = [affine(12 + 3 * c) for c in range(6)]
         hit = best != common.DEPTH_CLEAR
-        if mode == "texf":
-            attrs += [affine(32), affine(35)]
-            attrs += [wrow[..., 38 + c] for c in range(6)]
-            out[:, tiles] = torch.where(
-                hit, torch.stack(texf_planes(attrs, params, lights)), 0.0)
+        if mode == "vis":
+            ids = (pair_pos if pair_ids else pair_tri)[best_pair]
+            out[tiles] = torch.where(hit, ids, no_id)
         else:
-            kd = ([wrow[..., 32 + c] for c in range(3)] if mode == "mat"
-                  else None)
-            shaded = shade_pixels(attrs, params, lights, kd)
-            out[tiles] = torch.where(hit, shaded, common.BACKGROUND_RGBA)
+            # The winner's attributes, evaluated from its row at the pixel.
+            wrow = tri_table[pair_tri[best_pair]]  # (G, P, R)
+            dx = px - wrow[..., 30]
+            dy = py - wrow[..., 31]
+            affine = lambda c: wrow[..., c] + wrow[..., c + 1] * dx \
+                + wrow[..., c + 2] * dy
+            attrs = [affine(12 + 3 * c) for c in range(6)]
+            if channels:  # texf, texf_mip: uv, then the copied columns
+                attrs += [affine(32), affine(35)]
+                attrs += [wrow[..., c] for c in range(38, tri_table.shape[1])]
+                out[:, tiles] = torch.where(
+                    hit, torch.stack(texf_planes(attrs, params, lights)), 0.0)
+            else:
+                kd = ([wrow[..., 32 + c] for c in range(3)] if mode == "mat"
+                      else None)
+                shaded = shade_pixels(attrs, params, lights, kd)
+                out[tiles] = torch.where(hit, shaded, common.BACKGROUND_RGBA)
         key[tiles] = best
 
     def frame(a):
         return (a.reshape(nty, ntx, tile_h, tile_w).permute(0, 2, 1, 3)
                 .reshape(height_padded, width_padded))
 
-    if mode == "texf":
+    if channels:
         out = torch.stack([frame(c) for c in out])
     else:
         out = frame(out).to(I32)
     return out, frame(key).to(I32)
+
+
+def cleared_outputs(mode, num_lights, height_padded, width_padded, device,
+                    no_id=common.NO_TRI):
+    """The kernels' pre-cleared (out, key): what an empty tile keeps — the
+    background RGBA, the vis ``no_id`` or a zero G-buffer, and the cleared
+    key (-1 as int32)."""
+    channels = output_channels(mode, num_lights)
+    if channels:
+        out = torch.zeros((channels, height_padded, width_padded), dtype=F32,
+                          device=device)
+    else:
+        fill = (no_id if mode == "vis"
+                else common.BACKGROUND_RGBA - (1 << 32))
+        out = torch.full((height_padded, width_padded), fill, dtype=I32,
+                         device=device)
+    key = torch.full((height_padded, width_padded), -1, dtype=I32,
+                     device=device)
+    return out, key
+
+
+def public_outputs(mode, out, key):
+    """The wrappers' output types: packed RGBA as u32, vis ids as int32,
+    G-buffers as f32; keys as u32."""
+    if mode in ("base", "mat"):
+        out = out.view(torch.uint32)
+    return out, key.view(torch.uint32)
 
 
 def _raster_cuda(tri_table, pair_data, seg_start, seg_count, params, lights,
@@ -399,16 +428,8 @@ def _raster_cuda(tri_table, pair_data, seg_start, seg_count, params, lights,
     counts = seg_count.to(I32).contiguous()
     wl, k = occupied_worklist(counts)
     k = k.reshape(1).contiguous()
-    if mode == "texf":
-        out = torch.zeros((common.texf_channels(lights.shape[0]),
-                           height_padded, width_padded), dtype=F32,
-                          device=device)
-    else:
-        out = torch.full((height_padded, width_padded),
-                         common.BACKGROUND_RGBA - (1 << 32), dtype=I32,
-                         device=device)
-    key = torch.full((height_padded, width_padded), -1, dtype=I32,
-                     device=device)
+    out, key = cleared_outputs(mode, lights.shape[0], height_padded,
+                               width_padded, device)
     fn = _build.entry("raster", "raster_shade_tiles", pointers=10, ints=10)
     raster_shade_tiles.launches += 1
     raster_shade_tiles.mode_launches[mode] += 1
@@ -429,18 +450,20 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
                        view_position, light_world_pos, light_color,
                        light_intensity, *, height_padded: int,
                        width_padded: int, tile_h: int, tile_w: int,
-                       layout: str = "flat"):
-    """Raster + shade the padded framebuffer. ``pair_data`` is the dense
-    (num_tiles, C) ``bin_rows`` or the flat tile-sorted ``pair_tri``; the
-    table's width picks the mode (``table_mode``: 32 base, 35 material, 44
-    fused-texture). Returns (rgba_packed (Hp, Wp) u32, best_key
-    (Hp, Wp) u32) — in texf mode (gbuf (C, Hp, Wp) f32, best_key).
+                       layout: str = "flat", mode: str = "base"):
+    """Raster + shade the padded framebuffer in ``mode`` (``MODES``; the
+    table must have the mode's width, ``check_mode``). ``pair_data`` is
+    the dense (num_tiles, C) ``bin_rows`` or the flat tile-sorted
+    ``pair_tri``. Returns (out, best_key (Hp, Wp) u32), ``out`` by mode:
+    the packed RGBA (Hp, Wp) u32 (base, mat), the winner's table row
+    (Hp, Wp) int32, -1 where none covers (vis), or the (C, Hp, Wp) f32
+    G-buffer (texf, texf_mip).
 
     CPU tensors take the twin, CUDA tensors the kernel
     (``raster_shade_tiles.launches`` counts its launches,
     ``mode_launches`` per mode), launched over the occupied-tile work
     list."""
-    mode = table_mode(tri_table)
+    check_mode(tri_table, mode)
     if layout not in ("dense", "flat"):
         raise ValueError(f"unknown layout {layout!r}")
     params, lights = shading_inputs(effect, view_position, light_world_pos,
@@ -456,9 +479,7 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
                                 params, lights, **kw)
     else:
         raise ValueError(f"raster_shade_tiles: no kernel for device {device}")
-    if mode != "texf":
-        out = out.view(torch.uint32)
-    return out, key.view(torch.uint32)
+    return public_outputs(mode, out, key)
 
 
 raster_shade_tiles.launches = 0

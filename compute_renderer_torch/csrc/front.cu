@@ -6,26 +6,30 @@
 // (_front_kernel, launched by front_end) in its three modes: base (32
 // coefficient rows), mat (35: the per-triangle kd appended) and texf (44:
 // the uv affine triples, kd or ones, and the TextureInfo row appended;
-// pallas_front.py:223-235).
+// pallas_front.py:223-235); and in a fourth the JAX package builds with
+// XLA ops because its front cannot see the frame's mip rows
+// (tpu.py:213-217): texf_mip (46: as texf with the frame's (T, 5)
+// common.mip_tri_rows block in place of the TextureInfo row).
 //
 // What bounds it on an H100: memory traffic. Each triangle reads 18 floats
 // (corner-SoA positions and normals; mat adds 3 kd floats, texf 6 uv, 3 kd
-// and 3 TextureInfo floats) and writes 32, 35 or 44 coefficient floats and
-// 4 meta ints — 216, 240 or 312 bytes for ~300 float operations, far below
+// and 3 TextureInfo floats, texf_mip 5 mip floats in place of the last 3)
+// and writes 32, 35, 44 or 46 coefficient floats and 4 meta ints — 216,
+// 240, 312 or 328 bytes for ~300 float operations, far below
 // the card's compute-to-bandwidth balance, so the kernel is a streaming
 // pass. The design keeps every read and write coalesced: the SoA inputs
 // and the outputs are row-major (rows, T) with the triangle index as the
 // fastest axis, so a warp touches 32 consecutive floats of each row; the
-// (T, 3) kd and TextureInfo rows are read as three loads a thread over one
-// contiguous span a warp. At the tile path's 1,280 triangles the launch
-// itself dominates.
+// (T, 3) kd and TextureInfo rows ((T, 5) mip rows) are read as three
+// (five) loads a thread over one contiguous span a warp. At the tile
+// path's 1,280 triangles the launch itself dominates.
 //
 // Exactness: the arithmetic is the JAX package's op for op, in the same
 // association: clip sums as (m0*x + m1*y) + (m2*z + m3), IEEE division,
 // floor/ceil of IEEE quotients for the tile rect, a1 = 1 + 0*inv (NaN for
 // degenerate triangles). Built with -fmad=false and without fast math, so
 // no mul+add is contracted and the results equal the eager torch twin's.
-// The kd and TextureInfo rows are copied, not computed.
+// The kd, TextureInfo and mip rows are copied, not computed.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -38,6 +42,7 @@ constexpr int THREADS = 256;
 constexpr int MODE_BASE = 0;  // raster.MODES
 constexpr int MODE_MAT = 1;
 constexpr int MODE_TEXF = 2;
+constexpr int MODE_TEXF_MIP = 4;  // 3 is the rasters' vis (base table)
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS) front_kernel(
@@ -45,9 +50,9 @@ __global__ void __launch_bounds__(THREADS) front_kernel(
     const float* __restrict__ nrm,   // (3 corners * 3 comps, T)
     const float* __restrict__ scal,  // view_proj row-major (16) + effect (6)
     const float* __restrict__ kd,    // (T, 3) or null (texf: ones)
-    const float* __restrict__ uv,    // (3 corners * 2 comps, T), texf
-    const float* __restrict__ tex,   // (T, 3) TextureInfo rows, texf
-    float* __restrict__ coeff,       // (32 | 35 | 44, T)
+    const float* __restrict__ uv,    // (3 corners * 2 comps, T), texf*
+    const float* __restrict__ tex,   // (T, 3) TextureInfo | (T, 5) mip rows
+    float* __restrict__ coeff,       // (32 | 35 | 44 | 46, T)
     int* __restrict__ meta,          // (4, T): tile_x0, tile_y0, rx, c
     int T, int width, int height, int tile_h, int tile_w) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -181,7 +186,9 @@ __global__ void __launch_bounds__(THREADS) front_kernel(
     combine(wld[0][ch], wld[1][ch], wld[2][ch]);
   put(v1x);
   put(v1y);
-  if (MODE == MODE_TEXF) {
+  constexpr bool TEX = MODE == MODE_TEXF || MODE == MODE_TEXF_MIP;
+  constexpr int NTEX = MODE == MODE_TEXF_MIP ? 5 : 3;
+  if (TEX) {
 #pragma unroll
     for (int ch = 0; ch < 2; ++ch)  // uv: rows (corner*2 + ch)
       combine(uv[(0 + ch) * T + t], uv[(2 + ch) * T + t],
@@ -192,9 +199,9 @@ __global__ void __launch_bounds__(THREADS) front_kernel(
     for (int c = 0; c < 3; ++c)
       put(kd != nullptr ? kd[(size_t)3 * t + c] : 1.0f);
   }
-  if (MODE == MODE_TEXF) {
+  if (TEX) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) put(tex[(size_t)3 * t + c]);
+    for (int c = 0; c < NTEX; ++c) put(tex[(size_t)NTEX * t + c]);
   }
 }
 
@@ -205,7 +212,8 @@ extern "C" int front_end(const void* pos, const void* nrm, const void* scal,
                          void* coeff, void* meta, int mode, int T, int width,
                          int height, int tile_h, int tile_w, void* stream) {
   if ((mode == MODE_MAT && kd == nullptr) ||
-      (mode == MODE_TEXF && (uv == nullptr || tex == nullptr)))
+      ((mode == MODE_TEXF || mode == MODE_TEXF_MIP) &&
+       (uv == nullptr || tex == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (T > 0) {
     const int blocks = (T + THREADS - 1) / THREADS;
@@ -223,6 +231,9 @@ extern "C" int front_end(const void* pos, const void* nrm, const void* scal,
         break;
       case MODE_TEXF:
         front_kernel<MODE_TEXF><<<blocks, THREADS, 0, s>>>(FRONT_ARGS);
+        break;
+      case MODE_TEXF_MIP:
+        front_kernel<MODE_TEXF_MIP><<<blocks, THREADS, 0, s>>>(FRONT_ARGS);
         break;
       default:
         return (int)cudaErrorInvalidValue;

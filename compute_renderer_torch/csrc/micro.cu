@@ -1,12 +1,11 @@
 // Micro raster + shade of the mega-scene path: each 8x8 cell walks its own
-// segment of the cell-sorted pair list; base, material and fused-texture
-// modes.
+// segment of the cell-sorted pair list; base, material, fused-texture
+// (texf), visibility (vis) and mip-filtered texture (texf_mip) modes.
 //
 // Replaces the TPU kernel of the JAX package's backends/pallas_micro.py
 // (_micro_kernel_wl with _raster_tile_micro, launched by
 // raster_shade_micro; the full-grid _micro_kernel is this kernel fed an
-// all-tiles work list). The JAX kernel's visibility mode and its
-// mip-filtered texture mode are not ported yet.
+// all-tiles work list).
 //
 // One block per entry of the occupied-tile work list; a tile is 8x128
 // pixels, sixteen 8x8 cells side by side, and warp c of the block owns
@@ -25,21 +24,26 @@
 // (key, pair)-lexicographic winner of the TPU kernel's lane-group
 // butterfly. The epilogue (shade.cuh emit_pixel, the tile raster's)
 // evaluates the winner's attributes from its row and shades (base,
-// material: kd at columns 32:35) or writes the texf G-buffer. Only the
-// cell's own 64 pixels are evaluated, so coverage outside a triangle's
-// bbox (voxelize, mirage) clips to the 8x8 cell rectangles, as in the JAX
+// material: kd at columns 32:35) or writes a G-buffer (texf, texf_mip). In
+// vis mode the walk remembers the winner's absolute pair index instead of
+// its row (the strict < never adopts a pair on the CLEAR == CLEAR tie), and
+// the epilogue writes it, or PAIR_IDX_CLEAR where the key stayed clear
+// (pallas_micro.py:507-510, :624-629). Only the cell's
+// own 64 pixels are evaluated, so coverage outside a triangle's bbox
+// (voxelize, mirage) clips to the 8x8 cell rectangles, as in the JAX
 // package.
 //
-// What bounds it on an H100: by the roofline, memory (a row of 128, 140
-// or 176 bytes and a 4-byte id per pair, against ~30 float operations for
-// each of the 64 pixels); in practice the longest cell, since a warp walks
-// its segment alone: the densest cell holds over ten times the mean
+// What bounds it on an H100: by the roofline, memory (a row of 128, 140,
+// 176 or 184 bytes and a 4-byte id per pair, against ~30 float operations
+// for each of the 64 pixels); in practice the longest cell, since a warp
+// walks its segment alone: the densest cell holds over ten times the mean
 // occupied cell's pairs. Balancing cells across warps is later work. The
 // grid is every tile; blocks past the occupied count (read on the device,
 // no host synchronisation) exit at once, and the wrapper pre-clears the
 // outputs. The table's row stride is a multiple of four floats (the
-// material table's 35 columns sit at a stride of 36), so rows load as
-// float4; the staging takes 16 KB of shared memory in every mode.
+// material table's 35 columns sit at a stride of 36, texf_mip's 46 at 48),
+// so rows load as float4; the staging takes 16 KB of shared memory in
+// every mode.
 //
 // Exactness: built with -fmad=false and without fast math, the same op
 // order as the eager torch twin; each barycentric is tested with >= so
@@ -59,6 +63,7 @@ constexpr int THREADS = 32 * CELLS;
 constexpr int SQUADS = 4;  // staged float4 per row: columns 0..11, 28..31
 constexpr int CHUNK = 16;  // pairs staged per warp per round
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int PAIR_IDX_CLEAR = 0x7FFFFFFF;  // vis: no pair covers the pixel
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS) micro_kernel(
@@ -70,7 +75,7 @@ __global__ void __launch_bounds__(THREADS) micro_kernel(
     const int* __restrict__ num_work,    // () occupied count
     const float* __restrict__ params,    // (11,) raster.shading_inputs
     const float* __restrict__ lights,    // (L, 8)
-    void* __restrict__ out,              // (Hp, Wp) u32 | (C, Hp, Wp) f32
+    void* __restrict__ out,              // (Hp, Wp) u32 | i32 | (C, Hp, Wp) f32
     uint32_t* __restrict__ key,          // (Hp, Wp)
     int row_stride, int num_lights, int ntx, int width_padded,
     size_t plane) {
@@ -100,7 +105,7 @@ __global__ void __launch_bounds__(THREADS) micro_kernel(
   // Pixel j of this lane: q = lane + 32 j, row q / 8, column q % 8.
   float px[2], py[2];
   uint32_t best[2];
-  int winner[2];  // table row of the winner, -1 for none
+  int winner[2];  // the winner's table row (vis: pair index), -1 for none
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int q = lane + 32 * j;
@@ -147,7 +152,7 @@ __global__ void __launch_bounds__(THREADS) micro_kernel(
         const uint32_t kz = covered ? __float_as_uint(z) : shade::KEY_CLEAR;
         if (kz < best[j]) {
           best[j] = kz;
-          winner[j] = t;
+          winner[j] = MODE == shade::MODE_VIS ? s + base + k : t;
         }
       }
     }
@@ -158,9 +163,11 @@ __global__ void __launch_bounds__(THREADS) micro_kernel(
     const int q = lane + 32 * j;
     const size_t o = (size_t)(ti * 8 + (q >> 3)) * width_padded +
                      (size_t)(tj * 128 + cell * 8 + (q & 7));
-    const float* row =
-        winner[j] < 0 ? nullptr : table + (size_t)winner[j] * row_stride;
-    shade::emit_pixel<MODE>(row, px[j], py[j], best[j], params, lights,
+    const float* row = (MODE == shade::MODE_VIS || winner[j] < 0)
+                           ? nullptr
+                           : table + (size_t)winner[j] * row_stride;
+    const int id = winner[j] < 0 ? PAIR_IDX_CLEAR : winner[j];
+    shade::emit_pixel<MODE>(row, id, px[j], py[j], best[j], params, lights,
                             num_lights, out, key, o, plane);
   }
 }
@@ -194,6 +201,14 @@ extern "C" int raster_shade_micro(
         break;
       case shade::MODE_TEXF:
         micro_kernel<shade::MODE_TEXF><<<num_tiles, THREADS, 0, s>>>(
+            MICRO_ARGS);
+        break;
+      case shade::MODE_VIS:
+        micro_kernel<shade::MODE_VIS><<<num_tiles, THREADS, 0, s>>>(
+            MICRO_ARGS);
+        break;
+      case shade::MODE_TEXF_MIP:
+        micro_kernel<shade::MODE_TEXF_MIP><<<num_tiles, THREADS, 0, s>>>(
             MICRO_ARGS);
         break;
       default:

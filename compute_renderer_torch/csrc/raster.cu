@@ -1,11 +1,10 @@
 // Raster + shade over the occupied framebuffer tiles (tile path), in the
-// base, material and fused-texture modes.
+// base, material, fused-texture (texf), visibility (vis, deferred
+// texturing) and mip-filtered texture (texf_mip) modes.
 //
 // Replaces the TPU kernel of the JAX package's backends/pallas_raster.py
 // (_raster_kernel_wl with _raster_tile, launched by raster_shade_tiles;
-// the full-grid _raster_kernel is this kernel fed an all-tiles list). The
-// JAX kernel's visibility mode (deferred texturing) and its mip-filtered
-// texture mode are not ported yet.
+// the full-grid _raster_kernel is this kernel fed an all-tiles list).
 //
 // One block per entry of the occupied-tile work list; its threads own the
 // tile's pixels (up to MAX_TILE_PIXELS, PIXELS_PER_THREAD each, a warp on
@@ -20,8 +19,10 @@
 // as the list is in ascending triangle order) that remembers the winner's
 // table row. The mode only changes the epilogue (shade.cuh emit_pixel):
 // the winner's attributes are evaluated from its row there, then shaded
-// (base, material) or written as the G-buffer (texf). Empty tiles never
-// launch work: the wrapper pre-clears the outputs (background or zero
+// (base, material) or written as the G-buffer (texf, texf_mip); in vis
+// mode the winner's table row itself is written (-1 where no triangle
+// covers), the id the walk already carries. Empty tiles never launch
+// work: the wrapper pre-clears the outputs (background, -1 ids or zero
 // G-buffer, cleared key), the JAX package's aliased-clear semantics.
 //
 // What bounds it on an H100: arithmetic in the walk, about 30 float
@@ -32,7 +33,7 @@
 // frame). At the main path's scale only a few dozen tiles are occupied,
 // so most SMs idle; splitting a tile across blocks is later work. The
 // walk carries two registers a pixel whatever the mode (key and winner),
-// so the texf mode's 14 attributes cost no registers in the loop.
+// so the texf modes' 14 or 16 attributes cost no registers in the loop.
 //
 // Exactness: built with -fmad=false and without fast math, so each
 // (A + B*dx) + C*dy is two roundings as in the eager torch twin. Coverage
@@ -70,7 +71,7 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(
     const int* __restrict__ num_work,   // () occupied count
     const float* __restrict__ params,   // (11,) raster.shading_inputs
     const float* __restrict__ lights,   // (L, 8)
-    void* __restrict__ out,             // (Hp, Wp) u32 | (C, Hp, Wp) f32
+    void* __restrict__ out,             // (Hp, Wp) u32 | i32 | (C, Hp, Wp) f32
     uint32_t* __restrict__ key,         // (Hp, Wp)
     int row_stride, int num_lights, int ntx, int tile_h, int tile_w,
     int width_padded, size_t plane, int dense, int list_stride) {
@@ -157,8 +158,8 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(
                      (size_t)(tj * tile_w + (p - r * tile_w));
     const float* row =
         winner[j] < 0 ? nullptr : table + (size_t)winner[j] * row_stride;
-    shade::emit_pixel<MODE>(row, px[j], py[j], best[j], params, lights,
-                            num_lights, out, key, o, plane);
+    shade::emit_pixel<MODE>(row, winner[j], px[j], py[j], best[j], params,
+                            lights, num_lights, out, key, o, plane);
   }
 }
 
@@ -191,6 +192,14 @@ extern "C" int raster_shade_tiles(
         break;
       case shade::MODE_TEXF:
         raster_kernel<shade::MODE_TEXF><<<num_tiles, THREADS, 0, s>>>(
+            RASTER_ARGS);
+        break;
+      case shade::MODE_VIS:
+        raster_kernel<shade::MODE_VIS><<<num_tiles, THREADS, 0, s>>>(
+            RASTER_ARGS);
+        break;
+      case shade::MODE_TEXF_MIP:
+        raster_kernel<shade::MODE_TEXF_MIP><<<num_tiles, THREADS, 0, s>>>(
             RASTER_ARGS);
         break;
       default:

@@ -1,6 +1,6 @@
 // The epilogues shared by the tile raster (raster.cu) and the micro raster
 // (micro.cu): fragment.wgsl:50-93 as the JAX package evaluates it
-// (pallas_raster._raster_tile, pallas_micro._raster_tile_micro), in three
+// (pallas_raster._raster_tile, pallas_micro._raster_tile_micro), in five
 // modes selected at compile time:
 //
 //   MODE_BASE  ambient 0.1, then per light a Lambert term and a pow32 x 0.5
@@ -13,7 +13,14 @@
 //   MODE_TEXF  no shading: the fused-texture G-buffer
 //              (pallas_raster._emit_texf_gbuffer) — u, v (affine columns
 //              32:38), kd (38:41) and the TextureInfo row (41:44) copied,
-//              then per light the same diff and spec as the shading.
+//              then per light the same diff and spec as the shading;
+//   MODE_VIS   deferred texturing: no shading, the winner's id (the tile
+//              raster's table row, the micro raster's pair index) as an
+//              int32; the wrapper's tail resolves and shades it;
+//   MODE_TEXF_MIP  the mip-filtered G-buffer (common.TEXF_MIP_BASE_CHANNELS):
+//              u, v as texf, the 8 flat columns 38:46 copied (kd, then the
+//              frame's mip rows tid, lod, mu, mv, spread), then diff and
+//              spec per light.
 //
 // The raster walks carry only each pixel's best key and the winner's table
 // row; emit_pixel evaluates the winner's attributes from that row at the
@@ -35,7 +42,10 @@ constexpr uint32_t KEY_CLEAR = 0xFFFFFFFFu;
 constexpr int MODE_BASE = 0;
 constexpr int MODE_MAT = 1;
 constexpr int MODE_TEXF = 2;
-constexpr int TEXF_BASE_CHANNELS = 8;  // common.TEXF_BASE_CHANNELS
+constexpr int MODE_VIS = 3;
+constexpr int MODE_TEXF_MIP = 4;
+constexpr int TEXF_BASE_CHANNELS = 8;      // common.TEXF_BASE_CHANNELS
+constexpr int TEXF_MIP_BASE_CHANNELS = 10;  // common.TEXF_MIP_BASE_CHANNELS
 
 __device__ __forceinline__ float clip01(float x) {
   // jnp.clip keeps a NaN; fminf/fmaxf alone would turn it into 0 or 1.
@@ -144,42 +154,54 @@ __device__ __forceinline__ float affine(const float* row, int c, float dx,
   return row[c] + row[c + 1] * dx + row[c + 2] * dy;
 }
 
-// Writes pixel o of the outputs from its best key and the winner's row
-// (nullptr where no triangle covers it): the key, then by MODE the packed
-// RGBA into out (uint32_t) or the G-buffer planes into out (float, plane
-// stride `plane`). The attributes are evaluated at the sample (px, py) the
-// walk used. An uncovered pixel keeps the wrapper's pre-cleared output:
-// the background, or G-buffer zeros (the fused tail masks by the key).
+// Writes pixel o of the outputs from its best key, the winner's id and
+// the winner's row (nullptr where no triangle covers it): the key, then by
+// MODE the id into out (int32, vis), the packed RGBA into out (uint32_t)
+// or the G-buffer planes into out (float, plane stride `plane`). The
+// attributes are evaluated at the sample (px, py) the walk used. An
+// uncovered pixel keeps the wrapper's pre-cleared output: the background,
+// or G-buffer zeros (the fused tail masks by the key); in vis mode the
+// caller passes the cleared id itself.
 template <int MODE>
-__device__ __forceinline__ void emit_pixel(const float* row, float px,
-                                           float py, uint32_t best,
+__device__ __forceinline__ void emit_pixel(const float* row, int id,
+                                           float px, float py, uint32_t best,
                                            const float* params,
                                            const float* lights,
                                            int num_lights, void* out,
                                            uint32_t* key, size_t o,
                                            size_t plane) {
   key[o] = best;
+  if (MODE == MODE_VIS) {
+    static_cast<int*>(out)[o] = id;
+    return;
+  }
   if (row == nullptr) return;
-  float a[14];
+  constexpr bool GBUF = MODE == MODE_TEXF || MODE == MODE_TEXF_MIP;
+  // The first diff/spec plane, after u, v and the columns copied from 38:
+  // kd and the TextureInfo row (texf) or kd and the mip rows (texf_mip).
+  constexpr int BASE =
+      MODE == MODE_TEXF_MIP ? TEXF_MIP_BASE_CHANNELS : TEXF_BASE_CHANNELS;
+  constexpr int FLAT = BASE - 2;
+  float a[6 + BASE];
   const float dx = px - row[30];
   const float dy = py - row[31];
 #pragma unroll
   for (int c = 0; c < 6; ++c) a[c] = affine(row, 12 + 3 * c, dx, dy);
-  if (MODE == MODE_TEXF) {
+  if (GBUF) {
     a[6] = affine(row, 32, dx, dy);
     a[7] = affine(row, 35, dx, dy);
 #pragma unroll
-    for (int c = 0; c < 6; ++c) a[8 + c] = row[38 + c];
+    for (int c = 0; c < FLAT; ++c) a[8 + c] = row[38 + c];
     float* g = static_cast<float*>(out) + o;
 #pragma unroll
-    for (int c = 0; c < TEXF_BASE_CHANNELS; ++c) g[c * plane] = a[6 + c];
+    for (int c = 0; c < BASE; ++c) g[c * plane] = a[6 + c];
     const ViewDir v = view_dir(params, a[3], a[4], a[5]);
     for (int li = 0; li < num_lights; ++li) {
       float diff, spec;
       light_terms(lights + li * 8, a[0], a[1], a[2], a[3], a[4], a[5], v,
                   diff, spec);
-      g[(TEXF_BASE_CHANNELS + 2 * li) * plane] = diff;
-      g[(TEXF_BASE_CHANNELS + 2 * li + 1) * plane] = spec;
+      g[(BASE + 2 * li) * plane] = diff;
+      g[(BASE + 2 * li + 1) * plane] = spec;
     }
   } else {
     static_cast<uint32_t*>(out)[o] = shade_rgba<MODE == MODE_MAT>(

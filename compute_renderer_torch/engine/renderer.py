@@ -2,9 +2,14 @@
 
 Counterpart of the JAX package's ``engine/renderer.py`` (the reference's
 CustomRenderer orchestration, src/custom_pipeline/renderer.rs:105-157),
-tile and micro paths, with the material and fused-texture extensions.
-Geometry is uploaded once — corner-SoA, and a mesh's kd, texture slots,
-atlas, uv corners and TextureInfo rows included; a frame is one packed
+tile and micro paths, with the material and texture extensions in every
+mode: fused nearest / bilinear, fused trilinear / anisotropic over a mip
+pool, and deferred (``tex_mode="deferred"``, and any atlas of 2^24
+texels or more). Geometry is uploaded once — corner-SoA, and a mesh's
+kd, texture slots, atlas (the mip pool and its level table, built on the
+host, under a mip filter), uvs, uv corners and TextureInfo rows
+included, by ``cuda.mesh_ext_tensors``, which makes the JAX engine's
+texture decisions (engine/renderer.py:122-191); a frame is one packed
 uniform buffer in, ``cuda.render_frame`` on the renderer's device, and the
 frame's overflow report out. PyTorch
 runs eagerly, so there is no compiled step to cache: the JAX package's
@@ -16,10 +21,9 @@ measured need (``_maybe_calibrate``), and a tile path whose per-tile list
 outgrows ``cuda.MAX_TILE_CAP`` falls back to the micro path
 (``_switch_to_micro``), as in the JAX engine.
 
-Not ported yet (ROADMAP): the deferred and mip-filtered texture modes
-(``tex_filter`` "trilinear" / "anisotropic", ``tex_mode="deferred"``
-raise), the comparator backends, and the TPU engine's measured tile-shape
-auto-tune (this renderer keeps the fixed 16x256 of ``cuda.choose_tile``).
+Not ported yet (ROADMAP): the comparator backends, and the TPU engine's
+measured tile-shape auto-tune (this renderer keeps the fixed 16x256 of
+``cuda.choose_tile``).
 """
 
 from __future__ import annotations
@@ -64,9 +68,10 @@ class Renderer:
     ``device``: ``"cuda"`` (the default) runs the hand-written kernels and
     raises where there is no card; ``device="cpu"`` runs their plain torch
     twins. The path (tile or micro) follows ``cuda.resolve_path``; a mesh's
-    ``face_kd`` selects the material mode and its textures the
-    fused-texture mode (``tex_filter`` "nearest" or "bilinear").
-    ``backend`` is "cuda", the one engine ported so far."""
+    ``face_kd`` selects the material mode and its textures a texture mode
+    (``cuda.frame_mode``): ``tex_filter`` "nearest", "bilinear",
+    "trilinear" or "anisotropic", ``tex_mode`` "fused" (the default) or
+    "deferred". ``backend`` is "cuda", the one engine ported so far."""
 
     def __init__(self, mesh, width: int, height: int, backend: str = "cuda",
                  *, device="cuda", **options):
@@ -121,7 +126,7 @@ class Renderer:
         self.pos_soa = cuda.corner_soa(self.positions, self.tri)
         self.nrm_soa = cuda.corner_soa(self.normals, self.tri)
         # Material / texture inputs, static per mesh like the corner SoA
-        # (raises for a texture mode that is not ported yet).
+        # (the mip pool is built here, once per mesh).
         self.ext = cuda.mesh_ext_tensors(mesh, self.tri, self.device,
                                          **self._tex_options)
 

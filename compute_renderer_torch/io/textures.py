@@ -15,10 +15,10 @@ Conventions (the reference has no sampling stage to match):
   model.rs:64), so a flipped v of 0 addresses the image's top row.
 
 A copy of the JAX package's ``io/textures.py`` (``load_image``,
-``build_atlas``, ``write_ppm``). PPM (P6/P3) is decoded in numpy; other
-formats go through Pillow, imported when such a file is loaded. The mip
-helpers (``build_mips``, ``trilinear_tex_arrays``) and the u8-packed pool
-wait for the mip-filtered texture mode (ROADMAP queue 2).
+``build_atlas``, ``build_mips``, ``trilinear_tex_arrays``, ``write_ppm``).
+PPM (P6/P3) is decoded in numpy; other formats go through Pillow, imported
+when such a file is loaded. The u8-packed pool (``pack_pool_u8``) is not
+ported: the JAX engine does not use it by default.
 """
 
 from __future__ import annotations
@@ -127,6 +127,65 @@ def build_atlas(paths: list) -> tuple:
         if texels else np.zeros((0, 3), dtype=F32)
     )
     return np.ascontiguousarray(pool, dtype=F32), table
+
+
+def build_mips(texels: np.ndarray, tex_table: np.ndarray) -> tuple:
+    """Extend a flat atlas with box-filtered mip chains, for the trilinear
+    and anisotropic filters (an extension: the reference binds no sampler).
+
+    Built once on the host. Level l+1 halves each dimension (floor, min
+    1); each child texel is the f32 mean of a 2x2 parent block. Odd
+    dimensions floor-halve, so the trailing row/column of an odd level
+    does not contribute to the next one (a dimension already at 1
+    duplicates instead).
+
+    Returns ``(pool, mip_table)``:
+      pool:      (P', 3) f32 — the original pool with every level >= 1
+                 appended (level-0 rows keep their original offsets)
+      mip_table: (M, L, 3) i32 — per-slot, per-level {offset, width,
+                 height}; chains shorter than the longest repeat their
+                 1x1 tail so L is uniform (sampling clamps lod to L-1)."""
+    tex_table = np.asarray(tex_table, dtype=np.int32)
+    M = tex_table.shape[0]
+    chains = []
+    for off, w, h in tex_table:
+        img = np.asarray(texels[off:off + w * h], dtype=F32).reshape(h, w, 3)
+        imgs = []
+        while img.shape[0] > 1 or img.shape[1] > 1:
+            h2 = max(img.shape[0] // 2, 1)
+            w2 = max(img.shape[1] // 2, 1)
+            # Clamp only engages for a dimension already at 1 (duplicate);
+            # odd dims >= 3 floor-halve and drop the trailing row/column.
+            ys = np.minimum(2 * np.arange(h2)[:, None] + np.arange(2),
+                            img.shape[0] - 1)
+            xs = np.minimum(2 * np.arange(w2)[:, None] + np.arange(2),
+                            img.shape[1] - 1)
+            block = img[ys[:, None, :, None], xs[None, :, None, :]]
+            img = block.mean(axis=(2, 3), dtype=np.float64).astype(F32)
+            imgs.append(img)
+        chains.append(((int(off), int(w), int(h)), imgs))
+    L = max(1 + len(c[1]) for c in chains) if chains else 1
+    pool = [np.asarray(texels, dtype=F32).reshape(-1, 3)]
+    offset = pool[0].shape[0]
+    mip_table = np.zeros((M, L, 3), dtype=np.int32)
+    for slot, (level0, imgs) in enumerate(chains):
+        mip_table[slot, 0] = level0
+        for li, img in enumerate(imgs, start=1):
+            h, w = img.shape[:2]
+            mip_table[slot, li] = (offset, w, h)
+            pool.append(img.reshape(h * w, 3))
+            offset += h * w
+        # Uniform L: repeat the 1x1 tail for shorter chains.
+        for li in range(1 + len(imgs), L):
+            mip_table[slot, li] = mip_table[slot, li - 1]
+    return np.ascontiguousarray(np.concatenate(pool, axis=0)), mip_table
+
+
+def trilinear_tex_arrays(texels, tex_table) -> tuple:
+    """(mip-extended pool, (M, L, 3) level table) for the mip filters: the
+    one helper the host entries use, so the pool-replaces-texels
+    convention cannot drift between them."""
+    return build_mips(np.asarray(texels), np.asarray(tex_table))
 
 
 def write_ppm(path, img: np.ndarray) -> None:

@@ -234,7 +234,7 @@ def test_tile_twin_modes_vs_pallas_raster(port, tpu, small, mode, layout):
         *[t.from_numpy(np.ascontiguousarray(a)) for a in (
             table, data, starts, counts, f["eff"], f["vpos"], *LIGHTS)],
         height_padded=hp, width_padded=wp, tile_h=TILE[0], tile_w=TILE[1],
-        layout=layout)
+        layout=layout, mode=mode)
     assert key_b.dtype == t.uint32
     assert out_b.dtype == (t.float32 if mode == "texf" else t.uint32)
     _compare_outputs(port, tpu, f, mode, out_a, key_a, out_b.numpy(),
@@ -266,7 +266,7 @@ def test_micro_twin_modes_vs_pallas_micro(port, tpu, small, mode):
         dev(table), *[dev(bins[k]) for k in ("pair_tri", "seg_start",
                                              "seg_count", "tile_count")],
         *[dev(a) for a in (f["eff"], f["vpos"], *LIGHTS)],
-        height_padded=nty * 8, width_padded=ntx * 128)
+        height_padded=nty * 8, width_padded=ntx * 128, mode=mode)
     _compare_outputs(port, tpu, f, mode, out_a, key_a, out_b.numpy(),
                      key_b.numpy())
 
@@ -327,8 +327,9 @@ def test_tex_rows_and_eligibility(port, tpu, small):
         mesh.positions, mesh.normals, mesh.uvs, mesh.indices,
         face_kd=mesh.face_kd, face_tex=np.zeros_like(mesh.face_tex),
         texels=np.ones((1, 3), np.float32), tex_table=big)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.renderer.Renderer(far, W, H, device="cpu")
+    # Such an atlas takes the deferred (vis) mode, as tpu.render decides.
+    ext = port.renderer.Renderer(far, W, H, device="cpu").ext
+    assert ext["tex_mode"] == "deferred" and "tex_rows" not in ext
 
 
 # (materials, textures, tex_filter, ssaa, path): the suite's rows at the
@@ -487,7 +488,7 @@ def test_tile_raster_modes_on_card(port, small, cuda_device, mode, layout):
     dev = lambda a: t.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
     shading = [dev(a) for a in (f["eff"], f["vpos"], *LIGHTS)]
     kw = dict(height_padded=nty * 16, width_padded=ntx * 256, tile_h=16,
-              tile_w=256, layout=layout)
+              tile_w=256, layout=layout, mode=mode)
     before = port.raster.raster_shade_tiles.launches
     out_k, key_k = port.raster.raster_shade_tiles(
         table, data, bins["seg_start"], bins["seg_count"], *shading, **kw)
@@ -495,7 +496,7 @@ def test_tile_raster_modes_on_card(port, small, cuda_device, mode, layout):
     params, lights = port.raster.shading_inputs(*shading)
     out_p, key_p = port.raster.raster_shade_tiles_plain(
         table, data, bins["seg_start"], bins["seg_count"], params, lights,
-        **kw, mode=mode)
+        **kw)
     _assert_kernel_matches_twin(port, mode, out_k, key_k, out_p, key_p)
 
 
@@ -512,14 +513,14 @@ def test_micro_modes_on_card(port, small, cuda_device, mode):
     dev = lambda a: t.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
     shading = [dev(a) for a in (f["eff"], f["vpos"], *LIGHTS)]
     margs = (table, bins["pair_tri"], bins["seg_start"], bins["seg_count"])
-    kw = dict(height_padded=nty * 8, width_padded=ntx * 128)
+    kw = dict(height_padded=nty * 8, width_padded=ntx * 128, mode=mode)
     before = port.micro.raster_shade_micro.launches
     out_k, key_k = port.micro.raster_shade_micro(
         *margs, bins["tile_count"], *shading, **kw)
     assert port.micro.raster_shade_micro.launches == before + 1
     params, lights = port.raster.shading_inputs(*shading)
     out_p, key_p = port.micro.raster_shade_micro_plain(
-        *margs, params, lights, **kw, mode=mode)
+        *margs, params, lights, **kw)
     _assert_kernel_matches_twin(port, mode, out_k, key_k, out_p, key_p)
 
 

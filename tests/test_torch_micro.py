@@ -343,18 +343,23 @@ def test_san_miguel_golden_frames(port):
 
 
 def test_unported_micro_modes_raise(port):
-    # The table's width picks the mode: the 46-wide mip-filtered texture
-    # table is not ported, and a width that names no mode is refused.
+    # The mode is an argument, and the table must have its width: the
+    # 46-wide table is texf_mip's, a width that is no mode's is refused.
     t = port.torch
     z = t.zeros((NTX * NTY * 16,), dtype=t.int32)
     args = (t.zeros((8,), dtype=t.int32), z, z,
             t.zeros((NTX * NTY,), dtype=t.int32), t.zeros(6), t.zeros(4),
             t.zeros((1, 3)), t.zeros((1, 3)), t.zeros(1))
     kw = dict(height_padded=NTY * 8, width_padded=NTX * 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="46"):
         port.micro.raster_shade_micro(t.zeros((4, 46)), *args, **kw)
     with pytest.raises(ValueError, match="44"):
         port.micro.raster_shade_micro(t.zeros((4, 36)), *args, **kw)
+    for mode, width in (("texf_mip", 46), ("vis", 32)):
+        out, key = port.micro.raster_shade_micro(t.zeros((4, width)), *args,
+                                                 mode=mode, **kw)
+        assert key.dtype == t.uint32 and not (key != 0xFFFFFFFF).any()
+    assert (out == port.raster.PAIR_IDX_CLEAR).all()  # vis, nothing binned
 
 
 @pytest.mark.cuda

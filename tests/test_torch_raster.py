@@ -200,9 +200,9 @@ def test_degenerate_triangles_cover_nothing(port):
 
 
 def test_unported_modes_raise(port, tpu):
-    # The table's width picks the mode: the 46-wide mip-filtered texture
-    # table is not ported, and a width that names no mode is refused. The
-    # material (35) and texf (44) tables are accepted.
+    # The mode is an argument, and the table must have its width: a mode
+    # that names no kernel mode, or a width that is not the mode's, is
+    # refused. Every mode of the TPU kernel is ported.
     s = _scene(tpu, "icosphere", "none", "dense")
     t = port.torch
     args = [t.from_numpy(np.ascontiguousarray(a)) for a in (
@@ -211,12 +211,17 @@ def test_unported_modes_raise(port, tpu):
     kw = dict(height_padded=s["padded"][0], width_padded=s["padded"][1],
               tile_h=16, tile_w=256, layout="dense")
     T = s["table"].shape[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="46"):
         port.raster.raster_shade_tiles(t.zeros((T, 46)), *args[1:], **kw)
     with pytest.raises(ValueError, match="44"):
         port.raster.raster_shade_tiles(t.zeros((T, 33)), *args[1:], **kw)
+    with pytest.raises(ValueError, match="modes"):
+        port.raster.raster_shade_tiles(*args, mode="lit", **kw)
+    assert set(port.raster.MODES) == {"base", "mat", "texf", "vis",
+                                      "texf_mip"}
     mat = t.cat([args[0], t.ones((T, 3))], dim=1)
-    rgba, key = port.raster.raster_shade_tiles(mat, *args[1:], **kw)
+    rgba, key = port.raster.raster_shade_tiles(mat, *args[1:], mode="mat",
+                                               **kw)
     base_rgba, base_key = port.raster.raster_shade_tiles(*args, **kw)
     assert t.equal(key, base_key) and t.equal(rgba, base_rgba)  # kd = 1
     cols = port.raster.tri_table_columns(

@@ -226,8 +226,8 @@ def test_unported_paths_raise(port):
     for backend in ("xla", "tpu"):
         with pytest.raises(NotImplementedError):
             port.renderer.Renderer(mesh, 64, 64, backend, device="cpu")
-    # The material and fused-texture modes are ported; the deferred and
-    # mip-filtered texture modes are not, and say so.
+    # Every material and texture mode is ported: a white 1x1 texture
+    # modulates nothing, in any of them.
     kd = port.convert.mesh_from_arrays(
         mesh.positions, mesh.normals, mesh.uvs, mesh.indices,
         face_kd=np.ones((mesh.num_triangles, 3), np.float32))
@@ -239,8 +239,8 @@ def test_unported_paths_raise(port):
         texels=np.ones((1, 3), np.float32), tex_table=[[0, 1, 1]])
     for opts in ({"tex_filter": "trilinear"}, {"tex_filter": "anisotropic"},
                  {"tex_mode": "deferred"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.renderer.Renderer(textured, 64, 64, device="cpu", **opts)
+        assert_frames_match(tile.render(uniforms), port.renderer.Renderer(
+            textured, 64, 64, device="cpu", **opts).render(uniforms))
     with pytest.raises(ValueError):
         port.renderer.Renderer(mesh, 64, 64, device="cpu", tex_filter="cubic")
 
