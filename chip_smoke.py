@@ -74,7 +74,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (micro: trilinear and anisotropic; tile: trilinear, else at most 1
    LSB, the differing pixels printed), and the batch slope and a profiled
    batch (the texture work split out) of the micro trilinear,
-   anisotropic and deferred rows.
+   anisotropic and deferred rows;
+13. stress — card tensors built directly (no front end) at 256x64: a
+   cell of over 20 x micro.SPAN coplanar duplicates (equal keys straddle
+   the spans), NaN / infinite coefficients and -0.0 depth planes inside
+   split cells under voxelize, and triangles whose integer edges run along
+   the tile raster's sub-rectangle borders, plain and under mirage; every
+   mode of both rasters (both tile layouts) against its twin: keys, ids,
+   pair indices and G-buffers bitwise, RGBA within 1 LSB.
+
+A kernel's time is the device time of all its launches in one call
+(torch.profiler). Beside each raster time the script prints what the walk
+covers: the longest tile list, the cull's survivors and the samples
+walked (tile), the densest cell, the cells over SPAN pairs and their spans
+(micro).
 
 Prints the kernels' JSON record (one entry per kernel and mode) and the
 card line before the last line, and as the last line
@@ -233,8 +246,9 @@ def event_ms(fn, iters):
 
 
 def kernel_device_ms(fn, iters, symbol):
-    """Mean device time of the kernel named ``symbol`` per call of ``fn``,
-    from torch.profiler; None when the profiler records no device time."""
+    """Device time per call of ``fn`` of every kernel whose name holds
+    ``symbol`` (all its launches in a call), from torch.profiler; None when
+    the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -250,13 +264,12 @@ def kernel_device_ms(fn, iters, symbol):
     except (RuntimeError, AssertionError) as e:  # optional here
         print(f"[time] profiler unavailable: {e!r}")
         return None
+    total = 0.0
     for ev in averages:
         if symbol in ev.key and ev.count:
-            total = getattr(ev, "device_time_total", None)
-            if total is None:
-                total = ev.cuda_time_total
-            return total / ev.count / 1e3 if total else None
-    return None
+            t = getattr(ev, "device_time_total", None)
+            total += ev.cuda_time_total if t is None else t
+    return total / iters / 1e3 if total else None
 
 
 def ptxas_report(log):
@@ -455,6 +468,45 @@ def check_raster(name, x, coeff, meta, caps, report, mode="base"):
     return inputs
 
 
+def tile_walk(tag, table, data, bins, params, lights, rkw):
+    """Prints what the tile raster walks on these bins: the longest list,
+    the cull's survivors and the samples walked, beside the unculled
+    walk's (the kernel's decomposition, raster.raster_shade_subtiles_plain,
+    run on the card tensors)."""
+    from compute_renderer_torch.backends import raster
+
+    stats = {}
+    raster.raster_shade_subtiles_plain(
+        table[:, :raster.TRI_TABLE_WIDTH], data, bins["seg_start"],
+        bins["seg_count"], params, lights, layout=bins["layout"],
+        mode="vis", stats=stats, **rkw)
+    print(f"[walk] {tag}: longest list {int(bins['seg_count'].max())} of "
+          f"{stats['pairs']} pairs; survivors {stats['sub_survivors']} "
+          f"(pair, {raster.SUB_H}x{raster.SUB_W} block), "
+          f"{stats['patch_survivors']} (pair, 8x8 warp patch); samples "
+          f"walked {stats['samples_walked']}, unculled "
+          f"{stats['samples_unculled']}")
+
+
+def micro_walk(tag, bins):
+    """Prints what the micro raster walks on these bins: the densest cell,
+    the cells over SPAN pairs and their spans, the span warps launched and
+    the samples walked."""
+    from compute_renderer_torch.backends import micro
+
+    counts = bins["seg_count"].long()
+    starts = bins["seg_start"].long()
+    span = micro.SPAN
+    long_cell = counts > span
+    spans = ((starts + counts - 1) // span - starts // span + 1)[long_cell]
+    print(f"[walk] {tag}: densest cell {int(counts.max())} pairs; "
+          f"{int(long_cell.sum())} cells over {span} pairs hold "
+          f"{int(counts[long_cell].sum())} of {int(counts.sum())} pairs in "
+          f"{int(spans.sum())} spans; "
+          f"{-(-bins['pair_tri'].shape[0] // span)} span warps launched; "
+          f"{int(counts.sum()) * 64} samples walked")
+
+
 def phase_kernels(device, reports):
     from compute_renderer_torch.backends import binning, cuda, front, raster
     from compute_renderer_torch.core.effects import Effect, WaveDirection
@@ -520,6 +572,8 @@ def phase_kernels(device, reports):
         "raster_shade_tiles (suzanne dense)", rx, table, bins,
         tile_twin(data, bins, params, lights, rkw), (16, 256, W // 256),
         W * H)
+    tile_walk("raster_shade_tiles (suzanne dense)", table, data, bins,
+              params, lights, rkw)
     # The san_miguel_small flat layout, for the record.
     run_kernel, run_plain = runners("san_miguel_small/flat")
     rep_r["ms_san_miguel_small_flat"] = kernel_device_ms(run_kernel, 20,
@@ -796,6 +850,7 @@ def phase_micro_kernels(device, reports):
         "raster_shade_micro (san_miguel)", x, table, bins,
         micro_twin(bins, params, lights, mkw), (8, 8, ntx * 16),
         nty * 8 * ntx * 128)
+    micro_walk("raster_shade_micro (san_miguel)", bins)
     print_time("raster_shade_micro", rep, "san_miguel")
 
 
@@ -1264,6 +1319,7 @@ def phase_mode_kernels(device, reports, scenes, modes):
             (8, 8, ntx * 16), nty * 8 * ntx * 128, PIXEL_BYTES[mode],
             winner_rows=mode != "vis")
         print_time(record("raster_shade_micro", mode), rep, "structured")
+        micro_walk(f"{record('raster_shade_micro', mode)} (structured)", bins)
 
         # The tile raster at structured_scene_tex's shapes.
         x, coeff, (table, data, tbins, params, lights, rkw, layout) = \
@@ -1286,6 +1342,8 @@ def phase_mode_kernels(device, reports, scenes, modes):
             winner_rows=mode != "vis")
         print_time(record("raster_shade_tiles", mode), rep,
                    f"structured_tex {layout}")
+        tile_walk(f"{record('raster_shade_tiles', mode)} (structured_tex "
+                  f"{layout})", table, data, tbins, params, lights, rkw)
         if mode != "vis":
             fkw = dict(width=W, height=H, tile_h=16, tile_w=256,
                        **front_modes(x, mode))
@@ -1485,6 +1543,210 @@ def phase_mip_main_paths(device, card, reports, scenes):
         profile_batch(renderer, scene, slope_ms, MICRO_LAYERS)
 
 
+# Phase 13's frame and cases (tests/test_torch_walks.py runs them too).
+STRESS_W, STRESS_H = 256, 64
+STRESS_CASES = ("duplicates", "nan_zero", "edges", "edges+mirage")
+STRESS_EFFECTS = {"duplicates": [0.0] * 6, "edges": [0.0] * 6,
+                  "nan_zero": [3.0, 0.3, 0.0, 0.0, 0.0, 0.4],  # voxelize
+                  "edges+mirage": [4.0, 0.6, 0.05, 0.3, 1.0, 1.7]}
+
+
+def stress_triangles(kind, span, rng):
+    """(vertices (T, 3, 2), depths (T, 3), patches {column: rows}) of a
+    stress case in screen space, and the rows whose depth plane is -0.0:
+    - duplicates: one triangle over many cells, repeated 20 * span + 37
+      times at one depth, with coplanar triangles of the same depth and a
+      few nearer ones among the copies: equal keys straddle every span;
+    - nan_zero: copies of a triangle at depth +0.0 among rows with NaN or
+      infinite coefficients and rows whose depth plane is -0.0;
+    - edges (and edges+mirage): triangles with integer corners whose edges
+      run along the tile raster's sub-rectangle borders (multiples of 16)
+      and through samples."""
+    import numpy as np
+
+    verts, depth, patches, neg_zero = [], [], {}, []
+
+    def add(p, z):
+        verts.append(p)
+        depth.append([z] * 3)
+
+    if kind == "duplicates":
+        big = [(4.0, 2.0), (70.0, 2.0), (4.0, 60.0)]
+        for i in range(20 * span + 37):
+            add(big, 0.5)
+            if i % 97 == 0:
+                c = rng.uniform(8, 40, (3, 2)).round(1)
+                add([tuple(v) for v in c], 0.5)
+            if i % 131 == 0:
+                c = rng.uniform(4, 48, (3, 2))
+                add([tuple(v) for v in c], 0.25)
+    elif kind == "nan_zero":
+        big = [(2.0, 3.0), (60.0, 5.0), (30.0, 62.0)]
+        bad = {0: float("nan"), 4: float("nan"), 8: float("nan"),
+               30: float("nan"), 1: float("inf"), 5: float("-inf")}
+        for i in range(3 * span + 11):
+            add(big, 0.0)
+            if i % 7 == 0:
+                col = list(bad)[(i // 7) % len(bad)]
+                patches.setdefault(col, []).append(len(verts))
+                add(big, 0.0)
+            if i % 11 == 0:
+                neg_zero.append(len(verts))
+                add(big, -0.0)
+            if i % 13 == 0:
+                add([tuple(v) for v in rng.uniform(0, 64, (3, 2))],
+                    float(rng.choice([-0.25, 0.0, 0.125])))
+        patches = {c: (r, bad[c]) for c, r in patches.items()}
+    else:  # edges
+        for k in range(1, 16):
+            x = 16.0 * k
+            for y in (0.0, 16.0, 32.0):
+                add([(x, y), (x, y + 16.0), (x - 8.0, y + 8.0)], 0.3 + k / 64)
+                add([(x, y), (x + 8.0, y + 8.0), (x, y + 16.0)], 0.4 - k / 64)
+                add([(x - 16.0, y + 16.0), (x + 16.0, y + 16.0),
+                     (x, y + 8.0)], 0.2 + y / 256)
+        add([(0.0, 0.0), (32.0, 32.0), (0.0, 32.0)], 0.1)
+        add([(32.0, 0.0), (96.0, 64.0), (32.0, 64.0)], 0.15)
+        for _ in range(40):
+            c = rng.integers(0, 17, (3, 2)) * np.array([16, 4])
+            add([tuple(map(float, v)) for v in c], float(rng.uniform(0, 1)))
+    return (np.asarray(verts, np.float32), np.asarray(depth, np.float32),
+            patches, neg_zero)
+
+
+def stress_lists(verts, tile_h, tile_w, width, height):
+    """Each triangle listed in every tile (or cell) its bounding box, grown
+    by 2 pixels for the mirage warp, touches, in ascending triangle order:
+    (pair_tri sorted by row-major tile id, seg_start, seg_count) as numpy
+    int32."""
+    import numpy as np
+
+    ntx, nty = width // tile_w, height // tile_h
+    lo = np.floor(verts.min(1) - 2.0).astype(np.int64)
+    hi = np.ceil(verts.max(1) + 2.0).astype(np.int64)
+    pairs = []
+    for t in range(verts.shape[0]):
+        x0, x1 = max(lo[t, 0] // tile_w, 0), min(hi[t, 0] // tile_w, ntx - 1)
+        y0, y1 = max(lo[t, 1] // tile_h, 0), min(hi[t, 1] // tile_h, nty - 1)
+        for ty in range(y0, y1 + 1):
+            for tx in range(x0, x1 + 1):
+                pairs.append((ty * ntx + tx, t))
+    pairs.sort()
+    tiles = np.array([p[0] for p in pairs], np.int64)
+    counts = np.bincount(tiles, minlength=ntx * nty).astype(np.int32)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    return np.array([p[1] for p in pairs], np.int32), starts, counts
+
+
+def stress_inputs(kind, device, span):
+    """Card (or CPU) tensors of a phase-13 case, built directly (no front
+    end), at STRESS_W x STRESS_H: "tables" {mode: (T, R) f32} (the base
+    columns from the screen corners, patched with NaN / inf coefficients
+    and -0.0 depth planes, then random mode columns), "tile" {layout:
+    (pair data, seg_start, seg_count)} at 16x256, "micro" (pair_tri padded
+    past the end, seg_start, seg_count, tile_count), "params", "lights"."""
+    import numpy as np
+    import torch
+
+    from compute_renderer_torch.backends import raster
+
+    rng = np.random.default_rng(2024 + STRESS_CASES.index(kind))
+    verts, depth, patches, neg_zero = stress_triangles(kind, span, rng)
+    T = verts.shape[0]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    screen = tuple((t(verts[:, k, 0]), t(verts[:, k, 1]), t(depth[:, k]),
+                    t(np.ones(T))) for k in range(3))
+    unit = rng.standard_normal((3, 3, T)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    world = rng.uniform(-2, 2, (3, 3, T)).astype(np.float32)
+    table = torch.stack(raster.tri_table_columns(
+        screen, tuple(tuple(t(unit[k, c]) for c in range(3))
+                      for k in range(3)),
+        tuple(tuple(t(world[k, c]) for c in range(3)) for k in range(3))),
+        dim=1)
+    for col, (rows, value) in patches.items():
+        table[rows, col] = value
+    table[neg_zero, 9:12] = -0.0
+    tables = {}
+    for mode, width in raster.MODE_WIDTHS.items():
+        extra = t(rng.uniform(0, 1, (T, width - raster.TRI_TABLE_WIDTH)))
+        tables[mode] = torch.cat([table, extra], 1).to(device)
+
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
+    flat, starts, counts = stress_lists(verts, 16, 256, STRESS_W, STRESS_H)
+    dense = np.zeros((counts.size, max(int(counts.max()), 1)), np.int32)
+    for tile, (s, n) in enumerate(zip(starts, counts)):
+        dense[tile, :n] = flat[s:s + n]
+    tile = {"flat": (i32(flat), i32(starts), i32(counts)),
+            "dense": (i32(dense), i32(starts), i32(counts))}
+    # Micro: 8x8 cells, row-major ids (16 to an 8x128 tile).
+    cell_tri, cstarts, ccounts = stress_lists(verts, 8, 8, STRESS_W,
+                                              STRESS_H)
+    padded = np.concatenate([cell_tri, np.zeros(3 * span + 5, np.int32)])
+    micro_bins = (i32(padded), i32(cstarts), i32(ccounts),
+                  i32(ccounts.reshape(-1, 16).sum(1)))
+    effect = torch.tensor(STRESS_EFFECTS[kind], dtype=torch.float32,
+                          device=device)
+    lights = (torch.tensor([[0.0, 0.0, 5.0], [-5.0, 3.0, 0.0]], device=device),
+              torch.tensor([[1.0, 0.9, 0.8], [0.3, 0.4, 0.5]], device=device),
+              torch.tensor([1.0, 0.5], device=device))
+    vpos = torch.tensor([0.1, 0.05, 3.0], device=device)
+    params, light_rows = raster.shading_inputs(effect, vpos, *lights)
+    return {"tables": tables, "tile": tile, "micro": micro_bins,
+            "effect": effect, "vpos": vpos, "lights": lights,
+            "params": params, "light_rows": light_rows,
+            "densest": int(ccounts.max()), "longest": int(counts.max())}
+
+
+def phase_stress(device, reports):
+    """Phase 13: every mode of both rasters against its twin on the stress
+    cases, built directly on the card: keys, ids, pair indices and
+    G-buffers bitwise, RGBA within 1 LSB."""
+    import torch
+
+    from compute_renderer_torch.backends import micro, raster
+
+    for kind in STRESS_CASES:
+        x = stress_inputs(kind, device, micro.SPAN)
+        kw = dict(height_padded=STRESS_H, width_padded=STRESS_W)
+        for mode in ("base",) + MODES + NEW_MODES:
+            table = x["tables"][mode]
+            for layout, (data, starts, counts) in x["tile"].items():
+                rk, kk = raster.raster_shade_tiles(
+                    table, data, starts, counts, x["effect"], x["vpos"],
+                    *x["lights"], tile_h=16, tile_w=256, layout=layout,
+                    mode=mode, **kw)
+                rp, kp = raster.raster_shade_tiles_plain(
+                    table, data, starts, counts, x["params"],
+                    x["light_rows"], tile_h=16, tile_w=256, layout=layout,
+                    mode=mode, **kw)
+                torch.cuda.synchronize()
+                diff, covered = compare_outputs(
+                    f"stress {kind} raster {mode} {layout}", mode, rk, kk,
+                    rp, kp)
+                reports[record("raster_shade_tiles", mode)]["max_abs_err"] = \
+                    max(reports[record("raster_shade_tiles", mode)].get(
+                        "max_abs_err", 0.0), diff)
+            pair_tri, starts, counts, tile_count = x["micro"]
+            rk, kk = micro.raster_shade_micro(
+                table, pair_tri, starts, counts, tile_count, x["effect"],
+                x["vpos"], *x["lights"], mode=mode, **kw)
+            rp, kp = micro.raster_shade_micro_plain(
+                table, pair_tri, starts, counts, x["params"],
+                x["light_rows"], mode=mode, **kw)
+            torch.cuda.synchronize()
+            diff, covered_m = compare_outputs(
+                f"stress {kind} micro {mode}", mode, rk, kk, rp, kp)
+            rep = reports[record("raster_shade_micro", mode)]
+            rep["max_abs_err"] = max(rep.get("max_abs_err", 0.0), diff)
+        print(f"[stress] {kind}: T={x['tables']['base'].shape[0]}, every "
+              f"mode of both rasters equals its twin (keys, ids, G-buffers "
+              f"bitwise; RGBA within 1 LSB); longest tile list "
+              f"{x['longest']}, densest cell {x['densest']} pairs (span "
+              f"{micro.SPAN}), covered {covered} (tile) / {covered_m} "
+              f"(micro) px")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "compute_renderer_torch")):
         print("chip_smoke: compute_renderer_torch/ is not beside this script",
@@ -1524,6 +1786,7 @@ def main() -> int:
     phase_ext_main_paths(device, card, reports, scenes)
     phase_mode_kernels(device, reports, scenes, NEW_MODES)
     phase_mip_main_paths(device, card, reports, scenes)
+    phase_stress(device, reports)
 
     kernels = [{
         "name": name, "route": "cuda", "source": meta["source"],

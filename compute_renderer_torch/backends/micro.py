@@ -17,16 +17,24 @@ the JAX package's P-sized pair stream (``build_pair_coeffs``) and its
 complex64 packing are TPU mechanics the port does not carry.
 
 A CUDA tensor runs the hand-written kernel ``csrc/micro.cu``; a CPU tensor
-runs ``raster_shade_micro_plain``.
+runs ``raster_shade_micro_plain``. The kernel cuts a cell of more than
+``SPAN`` pairs at the multiples of ``SPAN`` of the pair list and merges the
+pieces exactly; ``raster_shade_micro_spans_plain`` is that decomposition
+in torch, for the tests.
 """
 
 from __future__ import annotations
 
 import torch
 
-from compute_renderer_torch.backends import raster
+from compute_renderer_torch.backends import common, raster
 
 I32 = torch.int32
+# The longest range of pairs a warp of the kernel walks (csrc/micro.cu).
+SPAN = 128
+# The span merge's words and counters, per (device, Hp, Wp): each launch
+# leaves them clear for the next.
+_MERGE_SCRATCH: dict = {}
 
 
 def raster_shade_micro_plain(tri_table, pair_tri, seg_start, seg_count,
@@ -43,6 +51,62 @@ def raster_shade_micro_plain(tri_table, pair_tri, seg_start, seg_count,
         tri_table, pair_tri, seg_start, seg_count, params, lights,
         height_padded=height_padded, width_padded=width_padded, tile_h=8,
         tile_w=8, layout="flat", mode=mode, pair_ids=True)
+
+
+def raster_shade_micro_spans_plain(tri_table, pair_tri, seg_start,
+                                   seg_count, params, lights, *,
+                                   height_padded: int, width_padded: int,
+                                   mode: str = "base", span: int = SPAN):
+    """The kernel's decomposition of ``raster_shade_micro_plain``, in torch
+    (tests only): a cell of more than ``span`` pairs is cut at the
+    multiples of ``span`` of the pair list, and each piece walks its range
+    alone; the pieces of a cell merge per pixel by an "amin" of the int64
+    words ((key - 2^31) << 32) + pair — the (key, pair)-lexicographic
+    minimum, the key's top bit flipped so that signed order is its
+    unsigned order; an uncovered piece adds no word. Then the twin's
+    epilogue. Equal to ``raster_shade_micro_plain`` bitwise."""
+    device = tri_table.device
+    i64 = torch.int64
+    none = torch.iinfo(i64).max
+    tiles, pair_cell, tri, pos = raster._tile_pairs(pair_tri, seg_start,
+                                                    seg_count, "flat")
+    px, py = raster._tile_samples(params, tiles, width_padded // 8, 8, 8)
+    cov_min = torch.maximum(params[0], params[1])
+    long_cell = seg_count[tiles].long()[pair_cell] > span
+    piece = torch.where(long_cell, torch.div(pos, span, rounding_mode="floor")
+                        + 1, 0)
+    units, unit = torch.unique(pair_cell * (pair_tri.shape[0] + 1) + piece,
+                               return_inverse=True)
+    unit_cell = torch.div(units, pair_tri.shape[0] + 1, rounding_mode="floor")
+    best, first = raster._walk_plain(tri_table, unit, tri, pos,
+                                     px[unit_cell], py[unit_cell], cov_min)
+    word = torch.where(best != common.DEPTH_CLEAR,
+                       ((best - 2**31) << 32) + first, none)
+    merged = torch.full((tiles.shape[0], 64), none, dtype=i64,
+                        device=device).scatter_reduce(
+        0, unit_cell[:, None].expand_as(word), word, "amin")
+    hit = merged != none
+    best = torch.where(hit, (merged >> 32) + 2**31, common.DEPTH_CLEAR)
+    pair = torch.where(hit, merged & 0xFFFFFFFF, 0)
+    return raster._frame_outputs(
+        tri_table, tiles, best, pair_tri.long()[pair], pair, px, py, params,
+        lights, height_padded=height_padded, width_padded=width_padded,
+        tile_h=8, tile_w=8, mode=mode, no_id=raster.PAIR_IDX_CLEAR)
+
+
+def merge_scratch(device, height_padded, width_padded):
+    """The kernel's span-merge state for a frame size on a device: one
+    int64 word a pixel, all ones, and one int32 counter a cell, zero —
+    made once and left clear by every launch."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    k = (index, height_padded, width_padded)
+    if k not in _MERGE_SCRATCH:
+        cells = height_padded * width_padded // 64
+        _MERGE_SCRATCH[k] = (
+            torch.full((cells * 64,), -1, dtype=torch.int64, device=device),
+            torch.zeros((cells,), dtype=I32, device=device))
+    return _MERGE_SCRATCH[k]
 
 
 def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
@@ -65,15 +129,17 @@ def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
     out, key = raster.cleared_outputs(mode, lights.shape[0], height_padded,
                                       width_padded, device,
                                       no_id=raster.PAIR_IDX_CLEAR)
-    fn = _build.entry("micro", "raster_shade_micro", pointers=10, ints=6)
+    words, arrivals = merge_scratch(device, height_padded, width_padded)
+    fn = _build.entry("micro", "raster_shade_micro", pointers=12, ints=7)
     raster_shade_micro.launches += 1
     raster_shade_micro.mode_launches[mode] += 1
     _build.check(
         fn(table.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
            counts.data_ptr(), wl.data_ptr(), k.data_ptr(), params.data_ptr(),
            lights.data_ptr(), out.data_ptr(), key.data_ptr(),
-           raster.MODES[mode], row_stride, num_tiles, lights.shape[0], ntx,
-           width_padded, torch.cuda.current_stream(device).cuda_stream),
+           words.data_ptr(), arrivals.data_ptr(), raster.MODES[mode],
+           row_stride, num_tiles, lights.shape[0], ntx, width_padded,
+           pairs.shape[0], torch.cuda.current_stream(device).cuda_stream),
         "raster_shade_micro",
     )
     return out, key

@@ -258,6 +258,150 @@ def texf_planes(attrs, params, lights):
     return planes
 
 
+def _tile_pairs(pair_data, seg_start, seg_count, layout):
+    """The occupied tiles' lists flattened in tile order, each tile's
+    entries in list order: (tiles, pair_tile, pair_tri, pair_pos), with
+    ``pair_tile`` indexing ``tiles``, ``pair_tri`` the table and
+    ``pair_pos`` the flat ``pair_data`` (None for the dense layout)."""
+    device = seg_count.device
+    tiles = torch.nonzero(seg_count > 0).flatten()
+    counts = seg_count[tiles].long()
+    pair_tile = torch.repeat_interleave(
+        torch.arange(tiles.shape[0], device=device), counts)
+    first = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(pair_tile.shape[0], device=device) - first[pair_tile]
+    if layout == "dense":
+        return tiles, pair_tile, pair_data[tiles[pair_tile], slot].long(), None
+    pair_pos = seg_start[tiles].long()[pair_tile] + slot
+    return tiles, pair_tile, pair_data[pair_pos].long(), pair_pos
+
+
+def _tile_samples(params, tiles, ntx, tile_h, tile_w):
+    """(px, py), each (G, tile_h * tile_w): the tiles' sample positions
+    in row-major pixel order, with the mirage warp applied as the kernels
+    apply it."""
+    P = tile_h * tile_w
+    pix = torch.arange(P, device=tiles.device)
+    ti = torch.div(tiles, ntx, rounding_mode="floor")
+    tj = tiles - ti * ntx
+    xs = (pix % tile_w).to(F32)[None, :] + (tj * tile_w).to(F32)[:, None]
+    ys = (torch.div(pix, tile_w, rounding_mode="floor").to(F32)[None, :]
+          + ((ti * tile_h).to(F32) + params[7])[:, None])
+    amplitude, frequency, phase, time = (params[3], params[4], params[5],
+                                         params[6])
+    px = torch.where(params[2] > 0.5,
+                     xs + amplitude * torch.sin(frequency * xs + time + phase),
+                     xs)
+    py = torch.where(params[2] > 0.5,
+                     ys + amplitude * torch.cos(frequency * ys + time + phase),
+                     ys)
+    return px, py
+
+
+def _walk_plain(tri_table, unit, tri, order, px, py, cov_min):
+    """The walk, vectorized over (entry, pixel): entry e tests row
+    ``tri[e]`` at the samples ``px[unit[e]]``, ``py[unit[e]]`` (U, P).
+    Returns per unit and pixel the minimum key and the ``order`` of the
+    first entry that reaches it (the strict-< walk's winner when ``order``
+    ascends within each unit; 0 where no entry covers). Blocks of entries
+    bound the memory."""
+    device = tri_table.device
+    i64 = torch.int64
+    big = torch.iinfo(i64).max
+    best = torch.full(px.shape, common.DEPTH_CLEAR, dtype=i64, device=device)
+    best_order = torch.zeros(px.shape, dtype=i64, device=device)
+    step = max(1, _PLAIN_BLOCK // max(px.shape[1], 1))
+    for p0 in range(0, unit.shape[0], step):
+        pt = unit[p0:p0 + step]
+        rows = tri_table[tri[p0:p0 + step]]  # (n, R)
+        rc = lambda c: rows[:, c:c + 1]
+        dx = px[pt] - rc(30)
+        dy = py[pt] - rc(31)
+        bc1 = rc(0) + rc(1) * dx + rc(2) * dy
+        bc2 = rc(3) + rc(4) * dx + rc(5) * dy
+        bc3 = rc(6) + rc(7) * dx + rc(8) * dy
+        z = rc(9) + rc(10) * dx + rc(11) * dy
+        covered = ((bc1 >= cov_min) & (bc2 >= cov_min) & (bc3 >= cov_min)
+                   & torch.isfinite(z))
+        k = torch.where(covered, common.depth_key(z), common.DEPTH_CLEAR)
+        idx = pt[:, None].expand_as(k)
+        kmin = torch.full_like(best, common.DEPTH_CLEAR).scatter_reduce(
+            0, idx, k, "amin")
+        at_min = torch.where(k == kmin[pt], order[p0:p0 + step, None], big)
+        first = torch.full_like(best, big).scatter_reduce(0, idx, at_min,
+                                                          "amin")
+        win = kmin < best
+        best = torch.where(win, kmin, best)
+        best_order = torch.where(win, first, best_order)
+    return best, best_order
+
+
+def _emit_plain(tri_table, best, win_tri, win_id, px, py, params, lights,
+                mode, no_id):
+    """The epilogue on (U, P) units: ``out`` by mode (as the kernels' —
+    vis ids ``win_id``, the packed RGBA or the (C, U, P) G-buffer) from the
+    winners' table rows ``win_tri``, where ``best`` is covered."""
+    hit = best != common.DEPTH_CLEAR
+    if mode == "vis":
+        return torch.where(hit, win_id, no_id)
+    # The winner's attributes, evaluated from its row at the pixel.
+    wrow = tri_table[win_tri]  # (U, P, R)
+    dx = px - wrow[..., 30]
+    dy = py - wrow[..., 31]
+    affine = lambda c: wrow[..., c] + wrow[..., c + 1] * dx \
+        + wrow[..., c + 2] * dy
+    attrs = [affine(12 + 3 * c) for c in range(6)]
+    if output_channels(mode, lights.shape[0]):  # texf, texf_mip
+        attrs += [affine(32), affine(35)]
+        attrs += [wrow[..., c] for c in range(38, tri_table.shape[1])]
+        return torch.where(hit, torch.stack(texf_planes(attrs, params, lights)),
+                           0.0)
+    kd = [wrow[..., 32 + c] for c in range(3)] if mode == "mat" else None
+    shaded = shade_pixels(attrs, params, lights, kd)
+    return torch.where(hit, shaded, common.BACKGROUND_RGBA)
+
+
+def _frame_outputs(tri_table, tiles, best, win_tri, win_id, px, py, params,
+                   lights, *, height_padded, width_padded, tile_h, tile_w,
+                   mode, no_id):
+    """(out, key) of the padded frame from the occupied tiles' winners
+    (G, tile_h * tile_w): the epilogue, the cleared outputs elsewhere,
+    tiles put back in place."""
+    device = tri_table.device
+    ntx = width_padded // tile_w
+    nty = height_padded // tile_h
+    num_tiles = ntx * nty
+    P = tile_h * tile_w
+    i64 = torch.int64
+    key = torch.full((num_tiles, P), common.DEPTH_CLEAR, dtype=i64,
+                     device=device)
+    channels = output_channels(mode, lights.shape[0])
+    if channels:
+        out = torch.zeros((channels, num_tiles, P), dtype=F32, device=device)
+    else:
+        out = torch.full((num_tiles, P), no_id if mode == "vis"
+                         else common.BACKGROUND_RGBA, dtype=i64,
+                         device=device)
+    if tiles.shape[0]:
+        emitted = _emit_plain(tri_table, best, win_tri, win_id, px, py,
+                              params, lights, mode, no_id)
+        if channels:
+            out[:, tiles] = emitted
+        else:
+            out[tiles] = emitted
+        key[tiles] = best
+
+    def frame(a):
+        return (a.reshape(nty, ntx, tile_h, tile_w).permute(0, 2, 1, 3)
+                .reshape(height_padded, width_padded))
+
+    if channels:
+        out = torch.stack([frame(c) for c in out])
+    else:
+        out = frame(out).to(I32)
+    return out, frame(key).to(I32)
+
+
 def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
                              params, lights, *, height_padded: int,
                              width_padded: int, tile_h: int, tile_w: int,
@@ -277,114 +421,165 @@ def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
     kernel)."""
     if pair_ids and layout != "flat":
         raise ValueError("pair_ids index the flat pair list")
-    device = tri_table.device
-    ntx = width_padded // tile_w
-    nty = height_padded // tile_h
-    num_tiles = ntx * nty
-    P = tile_h * tile_w
-    i64 = torch.int64
-    key = torch.full((num_tiles, P), common.DEPTH_CLEAR, dtype=i64,
-                     device=device)
-    channels = output_channels(mode, lights.shape[0])
-    no_id = PAIR_IDX_CLEAR if pair_ids else common.NO_TRI
-    if channels:
-        out = torch.zeros((channels, num_tiles, P), dtype=F32, device=device)
-    else:
-        out = torch.full((num_tiles, P), no_id if mode == "vis"
-                         else common.BACKGROUND_RGBA, dtype=i64,
-                         device=device)
-
-    tiles = torch.nonzero(seg_count > 0).flatten()
-    G = tiles.shape[0]
-    counts = seg_count[tiles].long()
-    # The pair list: pair_tile[p] indexes `tiles`, pair_tri[p] the table.
-    pair_tile = torch.repeat_interleave(torch.arange(G, device=device),
-                                        counts)
-    first = torch.cumsum(counts, 0) - counts
-    slot = torch.arange(pair_tile.shape[0], device=device) - first[pair_tile]
-    if layout == "dense":
-        pair_tri = pair_data[tiles[pair_tile], slot].long()
-    else:
-        pair_pos = seg_start[tiles].long()[pair_tile] + slot
-        pair_tri = pair_data[pair_pos].long()
-
-    pix = torch.arange(P, device=device)
-    ti = torch.div(tiles, ntx, rounding_mode="floor")
-    tj = tiles - ti * ntx
-    xs = (pix % tile_w).to(F32)[None, :] + (tj * tile_w).to(F32)[:, None]
-    ys = (torch.div(pix, tile_w, rounding_mode="floor").to(F32)[None, :]
-          + ((ti * tile_h).to(F32) + params[7])[:, None])
-    amplitude, frequency, phase, time = (params[3], params[4], params[5],
-                                         params[6])
-    px = torch.where(params[2] > 0.5,
-                     xs + amplitude * torch.sin(frequency * xs + time + phase),
-                     xs)
-    py = torch.where(params[2] > 0.5,
-                     ys + amplitude * torch.cos(frequency * ys + time + phase),
-                     ys)
+    tiles, pair_tile, pair_tri, pair_pos = _tile_pairs(
+        pair_data, seg_start, seg_count, layout)
+    px, py = _tile_samples(params, tiles, width_padded // tile_w, tile_h,
+                           tile_w)
     cov_min = torch.maximum(params[0], params[1])
+    order = torch.arange(pair_tri.shape[0], device=tri_table.device)
+    best, first = _walk_plain(tri_table, pair_tile, pair_tri, order, px, py,
+                              cov_min)
+    win_id = (pair_pos if pair_ids else pair_tri)[first]
+    return _frame_outputs(
+        tri_table, tiles, best, pair_tri[first], win_id, px, py, params,
+        lights, height_padded=height_padded, width_padded=width_padded,
+        tile_h=tile_h, tile_w=tile_w, mode=mode,
+        no_id=PAIR_IDX_CLEAR if pair_ids else common.NO_TRI)
 
-    best = torch.full((G, P), common.DEPTH_CLEAR, dtype=i64, device=device)
-    best_pair = torch.zeros((G, P), dtype=i64, device=device)
-    step = max(1, _PLAIN_BLOCK // P)
-    for p0 in range(0, pair_tile.shape[0], step):
-        pt = pair_tile[p0:p0 + step]
-        rows = tri_table[pair_tri[p0:p0 + step]]  # (n, R)
-        rc = lambda c: rows[:, c:c + 1]
-        dx = px[pt] - rc(30)
-        dy = py[pt] - rc(31)
-        bc1 = rc(0) + rc(1) * dx + rc(2) * dy
-        bc2 = rc(3) + rc(4) * dx + rc(5) * dy
-        bc3 = rc(6) + rc(7) * dx + rc(8) * dy
-        z = rc(9) + rc(10) * dx + rc(11) * dy
-        covered = ((bc1 >= cov_min) & (bc2 >= cov_min) & (bc3 >= cov_min)
-                   & torch.isfinite(z))
-        k = torch.where(covered, common.depth_key(z), common.DEPTH_CLEAR)
-        idx = pt[:, None].expand_as(k)
-        kmin = torch.full_like(best, common.DEPTH_CLEAR).scatter_reduce(
-            0, idx, k, "amin")
-        pair_id = torch.arange(p0, p0 + k.shape[0], device=device)[:, None]
-        at_min = torch.where(k == kmin[pt], pair_id, torch.iinfo(i64).max)
-        first_pair = torch.full_like(best, torch.iinfo(i64).max
-                                     ).scatter_reduce(0, idx, at_min, "amin")
-        win = kmin < best
-        best = torch.where(win, kmin, best)
-        best_pair = torch.where(win, first_pair, best_pair)
 
-    if G:
-        hit = best != common.DEPTH_CLEAR
-        if mode == "vis":
-            ids = (pair_pos if pair_ids else pair_tri)[best_pair]
-            out[tiles] = torch.where(hit, ids, no_id)
-        else:
-            # The winner's attributes, evaluated from its row at the pixel.
-            wrow = tri_table[pair_tri[best_pair]]  # (G, P, R)
-            dx = px - wrow[..., 30]
-            dy = py - wrow[..., 31]
-            affine = lambda c: wrow[..., c] + wrow[..., c + 1] * dx \
-                + wrow[..., c + 2] * dy
-            attrs = [affine(12 + 3 * c) for c in range(6)]
-            if channels:  # texf, texf_mip: uv, then the copied columns
-                attrs += [affine(32), affine(35)]
-                attrs += [wrow[..., c] for c in range(38, tri_table.shape[1])]
-                out[:, tiles] = torch.where(
-                    hit, torch.stack(texf_planes(attrs, params, lights)), 0.0)
-            else:
-                kd = ([wrow[..., 32 + c] for c in range(3)] if mode == "mat"
-                      else None)
-                shaded = shade_pixels(attrs, params, lights, kd)
-                out[tiles] = torch.where(hit, shaded, common.BACKGROUND_RGBA)
-        key[tiles] = best
+# The kernel's decomposition of a tile (csrc/raster.cu): SUB_H x SUB_W
+# sub-rectangles, one block each, and PATCH x PATCH patches, one warp each.
+SUB_H, SUB_W, PATCH = 16, 16, 8
+def cull_rect_plain(rows, x0, x1, y0, y1, cov_min):
+    """The kernel's cull (csrc/walk.cuh ``may_cover``) in float32 torch,
+    op for op: for (N, R) table rows and sample rectangles [x0, x1] x
+    [y0, y1] (float32, broadcast against N), False only where some
+    barycentric plane A + B*dx + C*dy, evaluated at the rectangle's highest
+    corner with the walk's own float operations, (A + max(B*dxl, B*dxh))
+    + max(C*dyl, C*dyh), is below ``cov_min``. dxl and dxh are the float
+    differences of the rectangle's edges and the anchor; rounding is
+    monotone in each operand, so that corner value bounds every sample's
+    own float barycentric exactly, with no margin. Non-finite rectangles,
+    anchors or planes, and NaN maxima, cull nothing."""
+    ax, ay = rows[:, 30], rows[:, 31]
+    dxl, dxh = x0 - ax, x1 - ax
+    dyl, dyh = y0 - ay, y1 - ay
+    finite = (torch.isfinite(dxl) & torch.isfinite(dxh) & torch.isfinite(dyl)
+              & torch.isfinite(dyh))
+    bound = torch.as_tensor(cov_min, dtype=F32, device=rows.device)
+    culled = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+    for k in range(3):
+        a, b, c = (rows[:, 3 * k + i] for i in range(3))
+        ok = finite & torch.isfinite(a) & torch.isfinite(b) & torch.isfinite(c)
+        hi = (a + torch.maximum(b * dxl, b * dxh)
+              + torch.maximum(c * dyl, c * dyh))
+        culled |= ok & (hi < bound)
+    return ~culled
 
-    def frame(a):
-        return (a.reshape(nty, ntx, tile_h, tile_w).permute(0, 2, 1, 3)
-                .reshape(height_padded, width_padded))
 
-    if channels:
-        out = torch.stack([frame(c) for c in out])
-    else:
-        out = frame(out).to(I32)
-    return out, frame(key).to(I32)
+def _nan_rect(x, y, valid):
+    """Per row of (N, P) samples: (x0, x1, y0, y1), the min and max over
+    the valid samples with NaNs left out (fminf / fmaxf), NaN where none
+    is left."""
+    def lo_hi(v):
+        keep = valid & ~torch.isnan(v)
+        inf = torch.tensor(float("inf"), dtype=F32, device=v.device)
+        lo = torch.where(keep, v, inf).amin(1)
+        hi = torch.where(keep, v, -inf).amax(1)
+        none = ~keep.any(1)
+        return (torch.where(none, float("nan"), lo),
+                torch.where(none, float("nan"), hi))
+
+    return (*lo_hi(x), *lo_hi(y))
+
+
+def raster_shade_subtiles_plain(tri_table, pair_data, seg_start, seg_count,
+                                params, lights, *, height_padded: int,
+                                width_padded: int, tile_h: int, tile_w: int,
+                                layout: str, mode: str = "base",
+                                stats: dict | None = None):
+    """The kernel's decomposition of ``raster_shade_tiles_plain``, in
+    torch (tests only): each occupied tile is cut into SUB_H x SUB_W
+    sub-rectangles and these into PATCH x PATCH patches (pixels past the
+    tile left out); a tile's list entry reaches a patch only if
+    ``cull_rect_plain`` keeps it against the sub-rectangle's sample
+    rectangle and then against the patch's; each patch reduces what
+    reaches it to the (key, list position) minimum of its pixels (the
+    kernel's warps share a round's entries and merge them so). Equal to
+    ``raster_shade_tiles_plain`` bitwise: a culled entry covers no sample
+    of its block. With ``stats`` (a dict),
+    the counts of pairs, of (pair, sub-rectangle) and (pair, patch)
+    survivors, and the samples walked, are written into it."""
+    device = tri_table.device
+    tiles, pair_tile, pair_tri, _ = _tile_pairs(pair_data, seg_start,
+                                                seg_count, layout)
+    px, py = _tile_samples(params, tiles, width_padded // tile_w, tile_h,
+                           tile_w)
+    cov_min = torch.maximum(params[0], params[1])
+    # Patch k of a tile: its 64 pixels' tile pixel index, -1 past the tile,
+    # and its sub-rectangle.
+    nsy, nsx = -(-tile_h // SUB_H), -(-tile_w // SUB_W)
+    per_sub = (SUB_H // PATCH) * (SUB_W // PATCH)
+    k = torch.arange(nsy * nsx * per_sub, device=device)
+    sub = torch.div(k, per_sub, rounding_mode="floor")
+    w = k - sub * per_sub
+    q = torch.arange(PATCH * PATCH, device=device)
+    r = (torch.div(sub, nsx, rounding_mode="floor")[:, None] * SUB_H
+         + torch.div(w, SUB_W // PATCH, rounding_mode="floor")[:, None]
+         * PATCH + torch.div(q, PATCH, rounding_mode="floor")[None, :])
+    c = ((sub % nsx)[:, None] * SUB_W + (w % (SUB_W // PATCH))[:, None]
+         * PATCH + (q % PATCH)[None, :])
+    valid = (r < tile_h) & (c < tile_w)
+    pix = torch.where(valid, r * tile_w + c, 0)  # (K, 64)
+    K = k.shape[0]
+    G = tiles.shape[0]
+
+    # Rectangles: (G, K) per patch, (G, nsub) per sub-rectangle.
+    gx, gy = px[:, pix], py[:, pix]  # (G, K, 64)
+    patch_valid = valid[None].expand(G, K, -1)
+    prect = [v.reshape(G, K) for v in _nan_rect(
+        gx.reshape(G * K, -1), gy.reshape(G * K, -1),
+        patch_valid.reshape(G * K, -1))]
+    srect = [v.reshape(G, nsy * nsx) for v in _nan_rect(
+        gx.reshape(G * nsy * nsx, -1), gy.reshape(G * nsy * nsx, -1),
+        patch_valid.reshape(G * nsy * nsx, -1))]
+
+    # Entries (pair, patch) that pass both culls, in (tile, patch, list)
+    # order; a patch with no valid pixel walks nothing.
+    n = pair_tri.shape[0]
+    rows = tri_table[pair_tri]
+    keep_sub = torch.stack([cull_rect_plain(
+        rows, *(v[pair_tile, s] for v in srect), cov_min)
+        for s in range(nsy * nsx)], 1)  # (n, nsub)
+    keep = torch.stack([cull_rect_plain(
+        rows, *(v[pair_tile, kk] for v in prect), cov_min)
+        for kk in range(K)], 1) & keep_sub[:, sub] & valid.any(1)[None]
+    pair, patch = torch.nonzero(keep.T, as_tuple=True)[::-1]  # patch-major
+    unit_key = pair_tile[pair] * K + patch
+    order = torch.sort(unit_key * max(n, 1) + pair).indices
+    pair, patch = pair[order], patch[order]
+    unit = pair_tile[pair] * K + patch
+    best_u, first = _walk_plain(
+        tri_table, unit, pair_tri[pair], pair, gx.reshape(G * K, -1),
+        gy.reshape(G * K, -1), cov_min)
+
+    # Back to the tiles' pixel order, then the tile twin's epilogue.
+    best = torch.full((G, tile_h * tile_w), common.DEPTH_CLEAR,
+                      dtype=torch.int64, device=device)
+    winner = torch.zeros_like(best)
+    dest = (torch.arange(G, device=device)[:, None, None] * (tile_h * tile_w)
+            + pix[None]).reshape(-1)
+    sel = patch_valid.reshape(-1)
+    best.view(-1)[dest[sel]] = best_u.reshape(-1)[sel]
+    winner.view(-1)[dest[sel]] = first.reshape(-1)[sel]
+    if stats is not None:
+        per_block = torch.zeros(G * nsy * nsx, dtype=torch.int64,
+                                device=device).index_add_(
+            0, (pair_tile[:, None] * (nsy * nsx) + torch.arange(
+                nsy * nsx, device=device)).reshape(-1),
+            keep_sub.reshape(-1).long())
+        per_patch = torch.bincount(unit, minlength=max(G * K, 1))
+        stats.update(pairs=n, sub_survivors=int(keep_sub.sum()),
+                     patch_survivors=int(keep.sum()),
+                     block_max=int(per_block.max()) if n else 0,
+                     patch_max=int(per_patch.max()) if n else 0,
+                     samples_unculled=n * tile_h * tile_w,
+                     samples_walked=int(keep.sum()) * PATCH * PATCH)
+    return _frame_outputs(
+        tri_table, tiles, best, pair_tri[winner], pair_tri[winner], px, py,
+        params, lights, height_padded=height_padded,
+        width_padded=width_padded, tile_h=tile_h, tile_w=tile_w, mode=mode,
+        no_id=common.NO_TRI)
 
 
 def cleared_outputs(mode, num_lights, height_padded, width_padded, device,

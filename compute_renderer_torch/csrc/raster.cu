@@ -6,34 +6,56 @@
 // (_raster_kernel_wl with _raster_tile, launched by raster_shade_tiles;
 // the full-grid _raster_kernel is this kernel fed an all-tiles list).
 //
-// One block per entry of the occupied-tile work list; its threads own the
-// tile's pixels (up to MAX_TILE_PIXELS, PIXELS_PER_THREAD each, a warp on
-// 32 neighbouring pixels of a row so that every store is coalesced). The
-// block walks the tile's triangle list — row `tile` of the dense bin_rows,
-// or pair_tri[seg_start : seg_start + seg_count] of the flat list — in
-// chunks of CHUNK triangles, staging in shared memory only the 14 columns
-// the walk reads (barycentrics, depth, anchor); every thread then reads
-// each staged row as a broadcast. Per triangle and pixel: three
-// barycentrics and z as (A + B*dx) + C*dy, the coverage test, the u32
-// depth key and a strict-< running minimum (the lowest triangle wins ties,
-// as the list is in ascending triangle order) that remembers the winner's
-// table row. The mode only changes the epilogue (shade.cuh emit_pixel):
-// the winner's attributes are evaluated from its row there, then shaded
-// (base, material) or written as the G-buffer (texf, texf_mip); in vis
-// mode the winner's table row itself is written (-1 where no triangle
-// covers), the id the walk already carries. Empty tiles never launch
-// work: the wrapper pre-clears the outputs (background, -1 ids or zero
-// G-buffer, cleared key), the JAX package's aliased-clear semantics.
+// Each occupied tile of the work list is split into SUB_H x SUB_W
+// sub-rectangles, one block each (a 16x256 tile is sixteen); the
+// blocks own disjoint pixels. Warp w < 4 of a block's eight owns an 8x8
+// patch of its sub-rectangle, two pixels a lane in one column, for the
+// culls and the epilogue; all eight walk. The block walks the tile's whole triangle list — row `tile` of
+// the dense bin_rows, or pair_tri[seg_start : seg_start + seg_count] of
+// the flat list — CHUNK triangles a round, double-buffered: while round k
+// is walked, round k+1's rows are in flight (cp.async of the four quads
+// the walk reads, walk.cuh) and round k+2's ids are in registers. Each
+// round:
+//   1. one thread per staged triangle tests it against the block's sample
+//      rectangle (walk::may_cover: a barycentric plane below cov_min at
+//      the rectangle's highest corner, evaluated with the walk's own float
+//      operations, so exactly); the survivors are compacted in list order
+//      with ballots and popcounts;
+//   2. each warp lists, in order, the survivors that may cover its patch;
+//   3. the lists, patch after patch, are cut into one equal range a warp,
+//      so that a patch crowded with small triangles is walked by all the
+//      block's warps: per triangle and pixel the barycentrics and z as
+//      (A + B*dx) + C*dy, the coverage test, the u32 depth key and a
+//      strict-< running minimum in registers that remembers the list
+//      position; where a warp's range leaves a patch, it folds each
+//      pixel's minimum into the pixel's shared 64-bit word,
+//      atomicMin((key << 32) | position) — the (key, position)-
+//      lexicographic minimum is the sequential walk's winner (the lowest
+//      list position wins ties).
+// A culled triangle covers no sample of the block or patch, so it could
+// never have won: the output is the unculled walk's, bitwise. The epilogue
+// reads each pixel's word, takes the winner's table row from the list, and
+// (shade.cuh emit_pixel) evaluates its attributes and shades (base,
+// material) or writes the G-buffer (texf, texf_mip); in vis mode it writes
+// the table row itself (-1 where no triangle covers). Empty tiles never
+// launch work: the wrapper pre-clears the outputs (background, -1 ids or
+// zero G-buffer, cleared key), the JAX package's aliased-clear semantics.
 //
-// What bounds it on an H100: arithmetic in the walk, about 30 float
-// operations per (triangle, pixel) pair, with nothing read from device
-// memory in the inner loop. The grid has no host-side size: it is
-// num_tiles blocks and each block exits when its index is past the
-// occupied count, which stays on the device (no host synchronisation per
-// frame). At the main path's scale only a few dozen tiles are occupied,
-// so most SMs idle; splitting a tile across blocks is later work. The
-// walk carries two registers a pixel whatever the mode (key and winner),
-// so the texf modes' 14 or 16 attributes cost no registers in the loop.
+// What bounds it on an H100: by the roofline, bytes (the walked columns of
+// each binned triangle, the winners' rows and the outputs;
+// chip_smoke.py raster_bound: 0.0022-0.0148 ms on structured_scene_tex by
+// mode). In practice the heaviest tile: each of its blocks stages and
+// culls its 3,140-triangle list in 13 rounds of about 1.5 us, and the
+// densest walk thousands of (triangle, patch) items in the first rounds;
+// alone, that tile takes 0.088 of the kernel's 0.094 ms at 16x32 blocks
+// (scripts/sweep_raster_constants.py --probe). 16x16 blocks of eight warps
+// measured best of eight shapes: 0.0695 ms on structured_scene_tex (mat),
+// 0.011 ms on Suzanne, against 1.67 and 0.032 ms for one block per tile
+// without the cull, which tested 95.7M samples there for the 6.3M that
+// the cull leaves (NVIDIA H100 80GB HBM3, 700 W; PERF.md). The grid has no
+// host-side size: it is num_tiles x sub-rectangles blocks, and each block
+// exits when its tile index is past the occupied count, which stays on
+// the device (no host synchronisation per frame).
 //
 // Exactness: built with -fmad=false and without fast math, so each
 // (A + B*dx) + C*dy is two roundings as in the eager torch twin. Coverage
@@ -47,22 +69,29 @@
 #include <stdint.h>
 
 #include "shade.cuh"
+#include "walk.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int PIXELS_PER_THREAD = 8;
-constexpr int MAX_TILE_PIXELS = THREADS * PIXELS_PER_THREAD;  // 16 x 256
-constexpr int SROW = 14;   // staged columns: 0..11 (bc, z) and 30, 31
-constexpr int CHUNK = 64;  // triangles staged in shared memory per round
+constexpr int SUB_H = 16;  // a block's sub-rectangle of its tile
+constexpr int SUB_W = 16;
+constexpr int PATCH = 8;  // a warp's patch: 8x8 pixels, two a lane
+constexpr int PATCHES_X = SUB_W / PATCH;
+constexpr int PATCHES = (SUB_H / PATCH) * PATCHES_X;
+constexpr int WARPS = 8;  // warp w < PATCHES owns patch w; all walk
+constexpr int THREADS = 32 * WARPS;
+// Triangles staged a round, at most one a thread.
+constexpr int CHUNK = THREADS < 256 ? THREADS : 256;
+static_assert(PATCHES <= WARPS, "a patch a warp at most");
+constexpr int MIN_BLOCKS = 4;  // resident blocks an SM: caps the registers
+constexpr int MAX_TILE_PIXELS = 4096;
 constexpr uint32_t KEY_CLEAR = shade::KEY_CLEAR;
-
-__device__ __forceinline__ int staged_column(int c) {
-  return c < 12 ? c : c + 18;  // 12 -> 30, 13 -> 31
-}
+constexpr unsigned long long WORD_CLEAR = ~0ull;
+using walk::FULL;
+using walk::QUADS;
 
 template <int MODE>
-__global__ void __launch_bounds__(THREADS) raster_kernel(
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
     const float* __restrict__ table,    // (T, row_stride) f32 rows
     const int* __restrict__ pair_data,  // dense (num_tiles, list_stride) | flat
     const int* __restrict__ seg_start,  // (num_tiles,)
@@ -74,19 +103,34 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(
     void* __restrict__ out,             // (Hp, Wp) u32 | i32 | (C, Hp, Wp) f32
     uint32_t* __restrict__ key,         // (Hp, Wp)
     int row_stride, int num_lights, int ntx, int tile_h, int tile_w,
-    int width_padded, size_t plane, int dense, int list_stride) {
-  __shared__ float rows[CHUNK * SROW];
-  __shared__ int ids[CHUNK];
+    int width_padded, size_t plane, int dense, int list_stride, int nsx,
+    int nsub) {
+  __shared__ float4 rows[2][CHUNK * QUADS];  // 32 KB
+  // Per pixel of the block, patch-major: (key << 32) | list position.
+  __shared__ unsigned long long words[PATCHES * 64];
+  __shared__ int survivors[CHUNK];  // staged slots, in list order
+  __shared__ unsigned short items[PATCHES][CHUNK];  // per patch: slots
+  __shared__ int item_counts[PATCHES];
+  __shared__ int warp_survivors[WARPS];
+  __shared__ walk::Rect warp_rects[PATCHES];
+  __shared__ float sample_x[PATCHES][PATCH];  // per patch: px of a column,
+  __shared__ float sample_y[PATCHES][PATCH];  // py of a row
 
-  const int w = blockIdx.x;
+  const int w = blockIdx.x / nsub;
   if (w >= *num_work) return;
+  const int sub = blockIdx.x - w * nsub;
   const int tile = worklist[w];
   const int count = seg_count[tile];
   const int* list = dense ? pair_data + (size_t)tile * list_stride
                           : pair_data + seg_start[tile];
   const int ti = tile / ntx;
   const int tj = tile - ti * ntx;
-  const int npix = tile_h * tile_w;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int sy = sub / nsx;
+  const int r0 = sy * SUB_H + (warp / PATCHES_X) * PATCH + (lane >> 3);
+  const int col = (sub - sy * nsx) * SUB_W + (warp % PATCHES_X) * PATCH +
+                  (lane & 7);
 
   const float cov_min = shade::coverage_min(params[0], params[1]);
   const bool mirage = params[2] > 0.5f;
@@ -97,69 +141,167 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(
   const float y0 = (float)(ti * tile_h) + params[7];
   const float x0 = (float)(tj * tile_w);
 
-  float px[PIXELS_PER_THREAD], py[PIXELS_PER_THREAD];
-  uint32_t best[PIXELS_PER_THREAD];
-  int winner[PIXELS_PER_THREAD];  // table row of the winner, -1 for none
+  // Pixel j of this lane (in its warp's patch): tile row r0 + 4 j, tile
+  // column col (its samples share px). Rows and columns past the tile are
+  // not emitted.
+  const float xs = (float)col + x0;
+  const float px =
+      mirage ? xs + amplitude * sinf(frequency * xs + time + phase) : xs;
+  float py[2];
+  bool valid[2];
+  const float nan = __int_as_float(0x7fc00000);
+  walk::Rect rect = {nan, nan, nan, nan};
 #pragma unroll
-  for (int j = 0; j < PIXELS_PER_THREAD; ++j) {
-    const int p = threadIdx.x + j * THREADS;
-    const int r = p / tile_w;
-    const float xs = (float)(p - r * tile_w) + x0;
+  for (int j = 0; j < 2; ++j) {
+    const int r = r0 + 4 * j;
     const float ys = (float)r + y0;
-    px[j] = xs;
-    py[j] = ys;
-    if (mirage) {
-      px[j] = xs + amplitude * sinf(frequency * xs + time + phase);
-      py[j] = ys + amplitude * cosf(frequency * ys + time + phase);
+    py[j] = mirage ? ys + amplitude * cosf(frequency * ys + time + phase)
+                   : ys;
+    valid[j] = warp < PATCHES && r < tile_h && col < tile_w;
+    if (valid[j]) {
+      rect.x0 = fminf(rect.x0, px);
+      rect.x1 = fmaxf(rect.x1, px);
+      rect.y0 = fminf(rect.y0, py[j]);
+      rect.y1 = fmaxf(rect.y1, py[j]);
     }
-    best[j] = KEY_CLEAR;
-    winner[j] = -1;
+  }
+  const walk::Rect patch = walk::warp_rect(rect);
+  const bool active = __any_sync(FULL, valid[0] || valid[1]);
+  if (warp < PATCHES) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) words[warp * 64 + lane + 32 * j] = WORD_CLEAR;
+    if (lane < PATCH) sample_x[warp][lane] = px;
+    if ((lane & 7) == 0) {
+      sample_y[warp][lane >> 3] = py[0];
+      sample_y[warp][(lane >> 3) + 4] = py[1];
+    }
+    if (lane == 0) warp_rects[warp] = patch;
+  }
+  __syncthreads();
+  walk::Rect block = warp_rects[0];
+  for (int k = 1; k < PATCHES; ++k) {
+    const walk::Rect o = warp_rects[k];
+    block = {fminf(block.x0, o.x0), fmaxf(block.x1, o.x1),
+             fminf(block.y0, o.y0), fmaxf(block.y1, o.y1)};
   }
 
-  for (int base = 0; base < count; base += CHUNK) {
-    const int n = min(CHUNK, count - base);
-    __syncthreads();  // the previous chunk is fully consumed
-    if (threadIdx.x < n) ids[threadIdx.x] = list[base + threadIdx.x];
-    for (int e = threadIdx.x; e < n * SROW; e += THREADS) {
-      const int k = e / SROW;
-      rows[e] = table[(size_t)list[base + k] * row_stride +
-                      staged_column(e - k * SROW)];
-    }
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float* row = rows + k * SROW;
-      const int t = ids[k];
+  // Stages round c's rows into buffer c & 1: this thread's row is `id`.
+  const float4* table4 = reinterpret_cast<const float4*>(table);
+  const int row_quads = row_stride / 4;
+  auto stage = [&](int c, int id) {
+    if ((int)threadIdx.x < CHUNK && c * CHUNK + (int)threadIdx.x < count) {
 #pragma unroll
-      for (int j = 0; j < PIXELS_PER_THREAD; ++j) {
-        const float dx = px[j] - row[12];
-        const float dy = py[j] - row[13];
-        const float bc1 = row[0] + row[1] * dx + row[2] * dy;
-        const float bc2 = row[3] + row[4] * dx + row[5] * dy;
-        const float bc3 = row[6] + row[7] * dx + row[8] * dy;
-        const float z = row[9] + row[10] * dx + row[11] * dy;
-        const bool covered = (bc1 >= cov_min) && (bc2 >= cov_min) &&
-                             (bc3 >= cov_min) && isfinite(z);
-        const uint32_t kz = covered ? __float_as_uint(z) : KEY_CLEAR;
-        if (kz < best[j]) {
-          best[j] = kz;
-          winner[j] = t;
-        }
+      for (int q = 0; q < QUADS; ++q)
+        walk::cp_async16(&rows[c & 1][threadIdx.x * QUADS + q],
+                         table4 + (size_t)id * row_quads + walk::table_quad(q));
+    }
+    walk::cp_async_commit();
+  };
+  auto list_id = [&](int c) {
+    const int i = c * CHUNK + threadIdx.x;
+    return (int)threadIdx.x < CHUNK && i < count ? list[i] : 0;
+  };
+
+  const int rounds = (count + CHUNK - 1) / CHUNK;
+  stage(0, list_id(0));
+  int next_id = list_id(1);
+  for (int c = 0; c < rounds; ++c) {
+    const int n = min(CHUNK, count - c * CHUNK);
+    stage(c + 1, next_id);  // an empty group past the last round
+    next_id = list_id(c + 2);
+    walk::cp_async_wait<1>();  // this thread's copies of round c landed
+    __syncthreads();  // and every thread's
+
+    // 1. The block's cull, compacted in list order.
+    const float4* staged = rows[c & 1];
+    const bool keep = (int)threadIdx.x < n &&
+                      walk::may_cover(staged + threadIdx.x * QUADS, block,
+                                      cov_min);
+    const unsigned ballot = __ballot_sync(FULL, keep);
+    if (lane == 0) warp_survivors[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int k = 0; k < WARPS; ++k) {
+      before += k < warp ? warp_survivors[k] : 0;
+      total += warp_survivors[k];
+    }
+    if (keep)
+      survivors[before + __popc(ballot & ((1u << lane) - 1u))] = threadIdx.x;
+    __syncthreads();
+
+    // 2. Each warp lists, in order, the survivors that may cover its patch.
+    int listed = 0;
+    if (active) {
+      for (int g = 0; g < total; g += 32) {
+        const int i = g + lane;
+        const bool mine =
+            i < total &&
+            walk::may_cover(staged + survivors[i] * QUADS, patch, cov_min);
+        const unsigned m = __ballot_sync(FULL, mine);
+        if (mine)
+          items[warp][listed + __popc(m & ((1u << lane) - 1u))] =
+              (unsigned short)survivors[i];
+        listed += __popc(m);
       }
     }
+    if (lane == 0 && warp < PATCHES) item_counts[warp] = listed;
+    __syncthreads();
+
+    // 3. The lists, patch after patch, cut into WARPS equal ranges: each
+    // warp walks its range in order, keeps each pixel's (key, position)
+    // minimum in registers, and folds it into the pixel's word when its
+    // range moves to the next patch and at its end.
+    int n_items = 0;
+    for (int k = 0; k < PATCHES; ++k) n_items += item_counts[k];
+    const int lo = warp * n_items / WARPS;
+    const int hi = (warp + 1) * n_items / WARPS;
+    if (lo < hi) {
+      int p = 0, first = 0;  // the patch of item i, and its first item
+      while (first + item_counts[p] <= lo) first += item_counts[p++];
+      float qx = sample_x[p][lane & 7];
+      float qy[2] = {sample_y[p][lane >> 3], sample_y[p][(lane >> 3) + 4]};
+      uint32_t best[2] = {KEY_CLEAR, KEY_CLEAR};
+      int at[2] = {-1, -1};  // list positions
+      auto fold = [&]() {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (best[j] != KEY_CLEAR)
+            atomicMin(&words[p * 64 + lane + 32 * j],
+                      ((unsigned long long)best[j] << 32) | (unsigned)at[j]);
+          best[j] = KEY_CLEAR;
+          at[j] = -1;
+        }
+      };
+      for (int i = lo; i < hi; ++i) {
+        if (i == first + item_counts[p]) {
+          fold();
+          do first += item_counts[p++]; while (i >= first + item_counts[p]);
+          qx = sample_x[p][lane & 7];
+          qy[0] = sample_y[p][lane >> 3];
+          qy[1] = sample_y[p][(lane >> 3) + 4];
+        }
+        const int slot = items[p][i - first];
+        walk::walk_row(staged + slot * QUADS, qx, qy, cov_min,
+                       c * CHUNK + slot, best, at);
+      }
+      fold();
+    }
+    __syncthreads();  // round c is consumed before its buffer is refilled
   }
 
   // --- epilogue (shade.cuh): resolve the winner's row, shade or emit ------
 #pragma unroll
-  for (int j = 0; j < PIXELS_PER_THREAD; ++j) {
-    const int p = threadIdx.x + j * THREADS;
-    if (p >= npix) continue;
-    const int r = p / tile_w;
-    const size_t o = (size_t)(ti * tile_h + r) * width_padded +
-                     (size_t)(tj * tile_w + (p - r * tile_w));
+  for (int j = 0; j < 2; ++j) {
+    if (!valid[j]) continue;
+    const unsigned long long v = words[warp * 64 + lane + 32 * j];
+    const uint32_t best = v == WORD_CLEAR ? KEY_CLEAR : (uint32_t)(v >> 32);
+    const int winner = v == WORD_CLEAR ? -1 : list[(uint32_t)v];
+    const size_t o = (size_t)(ti * tile_h + r0 + 4 * j) * width_padded +
+                     (size_t)(tj * tile_w + col);
     const float* row =
-        winner[j] < 0 ? nullptr : table + (size_t)winner[j] * row_stride;
-    shade::emit_pixel<MODE>(row, winner[j], px[j], py[j], best[j], params,
-                            lights, num_lights, out, key, o, plane);
+        winner < 0 ? nullptr : table + (size_t)winner * row_stride;
+    shade::emit_pixel<MODE>(row, winner, px, py[j], best, params, lights,
+                            num_lights, out, key, o, plane);
   }
 }
 
@@ -172,34 +314,35 @@ extern "C" int raster_shade_tiles(
     int row_stride, int num_tiles, int num_lights, int ntx, int tile_h,
     int tile_w, int width_padded, int dense, int list_stride, void* stream) {
   if (tile_h * tile_w > MAX_TILE_PIXELS) return (int)cudaErrorInvalidValue;
+  if (row_stride % 4 != 0 || ((uintptr_t)table & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;  // rows stage as float4
   if (num_tiles > 0) {
     const size_t plane = (size_t)num_tiles * tile_h * tile_w;
+    const int nsx = (tile_w + SUB_W - 1) / SUB_W;
+    const int nsub = nsx * ((tile_h + SUB_H - 1) / SUB_H);
 #define RASTER_ARGS                                                          \
   (const float*)table, (const int*)pair_data, (const int*)seg_start,        \
       (const int*)seg_count, (const int*)worklist, (const int*)num_work,    \
       (const float*)params, (const float*)lights, out, (uint32_t*)key,      \
       row_stride, num_lights, ntx, tile_h, tile_w, width_padded, plane,     \
-      dense, list_stride
+      dense, list_stride, nsx, nsub
+    const unsigned grid = (unsigned)num_tiles * nsub;
     cudaStream_t s = (cudaStream_t)stream;
     switch (mode) {
       case shade::MODE_BASE:
-        raster_kernel<shade::MODE_BASE><<<num_tiles, THREADS, 0, s>>>(
-            RASTER_ARGS);
+        raster_kernel<shade::MODE_BASE><<<grid, THREADS, 0, s>>>(RASTER_ARGS);
         break;
       case shade::MODE_MAT:
-        raster_kernel<shade::MODE_MAT><<<num_tiles, THREADS, 0, s>>>(
-            RASTER_ARGS);
+        raster_kernel<shade::MODE_MAT><<<grid, THREADS, 0, s>>>(RASTER_ARGS);
         break;
       case shade::MODE_TEXF:
-        raster_kernel<shade::MODE_TEXF><<<num_tiles, THREADS, 0, s>>>(
-            RASTER_ARGS);
+        raster_kernel<shade::MODE_TEXF><<<grid, THREADS, 0, s>>>(RASTER_ARGS);
         break;
       case shade::MODE_VIS:
-        raster_kernel<shade::MODE_VIS><<<num_tiles, THREADS, 0, s>>>(
-            RASTER_ARGS);
+        raster_kernel<shade::MODE_VIS><<<grid, THREADS, 0, s>>>(RASTER_ARGS);
         break;
       case shade::MODE_TEXF_MIP:
-        raster_kernel<shade::MODE_TEXF_MIP><<<num_tiles, THREADS, 0, s>>>(
+        raster_kernel<shade::MODE_TEXF_MIP><<<grid, THREADS, 0, s>>>(
             RASTER_ARGS);
         break;
       default:
