@@ -10,16 +10,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    one process per source, all at once;
 3. kernel vs twin, tile path — the front end and the raster on the tile
    path's inputs (Suzanne and san_miguel_small at 1024x768, and a wave
-   frame): meta bitwise, coefficients bitwise with NaN positions equal
-   (<= 1 ULP on the wave frame, whose sinf inputs differ), the raster's
-   keys bitwise and RGBA within 1 LSB, dense and flat layouts;
+   frame): meta bitwise, the (T, R) table bitwise with NaN positions equal
+   (<= 1 ULP on the wave frame, whose sinf inputs differ) and in the
+   layout the rasters take without a copy, the raster (fed the front's own
+   table) with keys bitwise and RGBA within 1 LSB, dense and flat layouts;
 4. kernel vs twin, micro path — the front end at 8x8 cells (meta and
-   coefficients bitwise), the pair expansion (bitwise on the valid range,
-   the sentinel tail, total equal, an overflowing capacity included) and
+   table bitwise), the pair expansion (bitwise on the valid range,
+   the sentinel tail, total equal, an overflowing capacity included; and
+   at San Miguel's triangle count one triangle of 40,000 cells among
+   single-cell ones, within and past the capacity) and
    the micro raster (keys bitwise, RGBA within 1 LSB) on the San Miguel
    stand-in (998,784 triangles), san_miguel_small forced onto the micro
    path, a mirage frame and a voxelize frame; each kernel's time beside
-   its twin's at San Miguel's shapes;
+   its twin's at San Miguel's shapes (beside the expansion,
+   torch.repeat_interleave of its triangle ids);
 5. main path, tile — bench.py's scene through Scene.from_config ->
    Renderer -> three render() frames: the front and raster launch counts
    advance, no overflow, and every frame matches
@@ -45,8 +49,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
    micro raster on structured_scene.obj and the mirage frame: keys
    bitwise, RGBA within 1 LSB (mat), the G-buffer bitwise (texf; the
    max ULP is printed if not); each mode
-   kernel's time beside its twin's at its main path's shapes, and the
-   (R, T) -> (T, R) table copy at 35 and 44 rows;
+   kernel's time beside its twin's at its main path's shapes;
 10. main paths, extension rows — through Scene -> Renderer ->
    render_batch_device: structured_scene.obj +materials and +textures
    (micro path, three frames each), structured_scene_tex.obj +textures
@@ -83,11 +86,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
    mode of both rasters (both tile layouts) against its twin: keys, ids,
    pair indices and G-buffers bitwise, RGBA within 1 LSB.
 
+Every main path runs its rasters on the front's own table: no
+``raster.kernel_table`` copy is counted in phases 5, 6, 10 and 12.
+
 A kernel's time is the device time of all its launches in one call
-(torch.profiler). Beside each raster time the script prints what the walk
-covers: the longest tile list, the cull's survivors and the samples
-walked (tile), the densest cell, the cells over SPAN pairs and their spans
-(micro).
+(torch.profiler; the expansion's two launches together). Beside each
+raster time the script prints what the walk covers: the longest tile
+list, the cull's survivors and the samples walked (tile), the densest
+cell, the cells over SPAN pairs and their spans (micro).
 
 Prints the kernels' JSON record (one entry per kernel and mode) and the
 card line before the last line, and as the last line
@@ -125,7 +131,8 @@ PEAK_OPS = 67e12
 # per triangle (3 corner transforms, setup, 9 barycentric and 21
 # interpolant coefficients); a raster sample per (pair, pixel) (two
 # offsets, four (A + B dx) + C dy, four compares); the expansion per pair
-# slot (a binary search of ~20 steps and the rect walk, integer ops).
+# slot (a 10-step binary search of its block's starts and the rect walk,
+# integer ops).
 FRONT_OPS = 300
 SAMPLE_OPS = 30
 EXPAND_OPS = 60
@@ -247,8 +254,9 @@ def event_ms(fn, iters):
 
 def kernel_device_ms(fn, iters, symbol):
     """Device time per call of ``fn`` of every kernel whose name holds
-    ``symbol`` (all its launches in a call), from torch.profiler; None when
-    the profiler records no device time."""
+    ``symbol`` (all its launches in a call), or of every kernel and copy
+    it runs on the card when ``symbol`` is None, from torch.profiler; None
+    when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -266,10 +274,30 @@ def kernel_device_ms(fn, iters, symbol):
         return None
     total = 0.0
     for ev in averages:
-        if symbol in ev.key and ev.count:
+        if symbol is None:
+            match = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        else:
+            match = symbol in ev.key
+        if match and ev.count:
             t = getattr(ev, "device_time_total", None)
             total += ev.cuda_time_total if t is None else t
     return total / iters / 1e3 if total else None
+
+
+def mangled_names(mangled):
+    """The length-prefixed identifiers of an Itanium-mangled name."""
+    import re
+
+    out, i = [], 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + len(m.group())
+        out.append(mangled[start:start + int(m.group())])
+        i = start + int(m.group())
+    return out
 
 
 def ptxas_report(log):
@@ -282,8 +310,9 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            sym = next((k["symbol"] for k in KERNELS.values()
-                        if k["symbol"] in m.group(1)), m.group(1))
+            sym = next((w for w in mangled_names(m.group(1))
+                        if any(k["symbol"] in w for k in KERNELS.values())),
+                       m.group(1))
             mode = re.search(r"ILi(\d+)E", m.group(1))
             cur = f"{sym}<{mode.group(1)}>" if mode else sym
             out[cur] = {}
@@ -294,12 +323,16 @@ def ptxas_report(log):
                       line)
         if m:
             out[cur]["spill"] = f"{m.group(1)}/{m.group(2)} B spill"
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[cur]["stack"] = f"{m.group(1)} B stack"
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[cur]["regs"] = f"{m.group(1)} registers"
             sm = re.search(r"(\d+) bytes smem", line)
             out[cur]["smem"] = f"{sm.group(1) if sm else 0} B smem"
-    return {k: ", ".join(v.get(f, "?") for f in ("regs", "spill", "smem"))
+    return {k: ", ".join(v.get(f, "?") for f in ("regs", "spill", "stack",
+                                                  "smem"))
             for k, v in out.items()}
 
 
@@ -391,11 +424,13 @@ def compare_outputs(tag, mode, out_k, key_k, out_p, key_p):
 
 
 def check_front(name, x, wave, report, tile=(16, 256), mode="base"):
-    """Front kernel vs twin on one frame's inputs, in ``mode``; returns
-    (coeff, meta)."""
+    """Front kernel vs twin on one frame's inputs, in ``mode``: the (T, R)
+    tables (``[:, :R]``, the pad column aside) and meta; the kernel's table
+    in the layout the rasters take without a copy. Returns (table,
+    meta)."""
     import torch
 
-    from compute_renderer_torch.backends import front
+    from compute_renderer_torch.backends import front, raster
 
     kw = dict(width=W, height=H, tile_h=tile[0], tile_w=tile[1],
               **front_modes(x, mode))
@@ -403,6 +438,17 @@ def check_front(name, x, wave, report, tile=(16, 256), mode="base"):
     ck, mk = front.front_end(*args, **kw)  # the public wrapper's card route
     cp, mp = front.front_end_plain(*args, **kw)
     torch.cuda.synchronize()
+    R = raster.MODE_WIDTHS[mode]
+    stride = raster.table_stride(R)
+    require(ck.shape == (x["T"], R) and ck.stride() == (stride, 1)
+            and ck.data_ptr() % 16 == 0,
+            f"front {name}: table {tuple(ck.shape)} at strides "
+            f"{ck.stride()}, not the rasters' ({x['T']}, {R}) at "
+            f"({stride}, 1), 16-byte aligned")
+    copies = raster.kernel_table.copies
+    require(raster.kernel_table(ck)[0].data_ptr() == ck.data_ptr()
+            and raster.kernel_table.copies == copies,
+            f"front {name}: the rasters would copy the front's table")
     require(torch.equal(mk, mp), f"front {name}: meta differs from the twin")
     nan_k, nan_p = torch.isnan(ck), torch.isnan(cp)
     require(torch.equal(nan_k, nan_p),
@@ -415,17 +461,18 @@ def check_front(name, x, wave, report, tile=(16, 256), mode="base"):
     limit = 1 if wave else 0
     require(worst_ulp <= limit,
             f"front {name}: coeff differs by {worst_ulp} ULP (limit {limit})")
-    print(f"[check] front {name} {mode} {tile[0]}x{tile[1]}: T={x['T']} "
-          f"rows {ck.shape[0]}, meta bitwise, coeff worst "
-          f"{worst_ulp} ULP (limit {limit}), max abs {max_abs:g}")
+    print(f"[check] front {name} {mode} {tile[0]}x{tile[1]}: table "
+          f"{tuple(ck.shape)} row stride {stride} (the rasters' own, no "
+          f"copy), meta bitwise, table worst {worst_ulp} ULP (limit "
+          f"{limit}), max abs {max_abs:g}")
     report["max_abs_err"] = max(report.get("max_abs_err", 0.0), max_abs)
     return ck, mk
 
 
-def check_raster(name, x, coeff, meta, caps, report, mode="base"):
-    """Raster kernel vs twin on one frame, both layouts, in ``mode`` (which
-    the table's width selects); returns each layout's inputs for the
-    timing runs."""
+def check_raster(name, x, table, meta, caps, report, mode="base"):
+    """Raster kernel vs twin on one frame, both layouts, in ``mode``, on
+    the front's table; returns each layout's inputs for the timing
+    runs."""
     import torch
 
     from compute_renderer_torch.backends import binning, raster
@@ -433,7 +480,6 @@ def check_raster(name, x, coeff, meta, caps, report, mode="base"):
     ntx = (W + 255) // 256
     nty = (H + 15) // 16
     setup = binning.setup_from_meta(meta)
-    table = coeff.T.contiguous()
     params, lights = raster.shading_inputs(x["eff"], x["vpos"], x["lwp"],
                                            x["lc"], x["li"])
     kw = dict(height_padded=nty * 16, width_padded=ntx * 256, tile_h=16,
@@ -523,7 +569,7 @@ def phase_kernels(device, reports):
         for _ in range(3):  # advance the animation a few frames
             scene.update(DT)
         x = frame_inputs(scene, device)
-        coeff, meta = check_front(name, x, effect is not None,
+        table, meta = check_front(name, x, effect is not None,
                                   reports["front_end"])
         caps = cuda.default_caps("tile", x["T"], W, H)
         # Size the caps to this frame's exact need, as the engine's retry
@@ -534,7 +580,7 @@ def phase_kernels(device, reports):
         caps["tile_cap"] = max(caps["tile_cap"], int(need.max()))
         caps["pair_cap"] = max(caps["pair_cap"], int(need.sum()))
         for layout, args in check_raster(
-                name, x, coeff, meta, caps,
+                name, x, table, meta, caps,
                 reports["raster_shade_tiles"]).items():
             timing[f"{name}/{layout}"] = (x, args)
 
@@ -739,6 +785,23 @@ def check_expand(name, meta, pair_cap, ntx, num_cells, report):
     return ck, tk, nk
 
 
+def expand_stress_meta(T, ntx, nty, device):
+    """(4, T) meta of single-cell triangles, but for one triangle a third
+    of the way in whose 200 x 200 cell rectangle holds 40,000 cells: one
+    expansion block owns far more slots than the others."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(6)
+    x0 = rng.integers(0, ntx * 16, T)
+    y0 = rng.integers(0, nty, T)
+    rx, c = np.ones(T, np.int64), np.ones(T, np.int64)
+    big = T // 3
+    x0[big], y0[big], rx[big], c[big] = 3, 1, 200, 40_000
+    return torch.from_numpy(np.stack([x0, y0, rx, c]).astype(
+        np.int32)).to(device)
+
+
 def check_micro(name, x, table, bins, ntx, nty, report, mode="base"):
     """Micro raster kernel vs twin in ``mode``: keys bitwise, RGBA within
     1 LSB or the G-buffer bitwise."""
@@ -772,6 +835,8 @@ def check_micro(name, x, table, bins, ntx, nty, report, mode="base"):
 
 
 def phase_micro_kernels(device, reports):
+    import torch
+
     from compute_renderer_torch.backends import binning, cuda, expand, front
     from compute_renderer_torch.backends import micro
 
@@ -785,7 +850,7 @@ def phase_micro_kernels(device, reports):
         for _ in range(3):
             scene.update(DT)
         x = frame_inputs(scene, device)
-        coeff, meta = check_front(name, x, False, reports["front_end"],
+        table, meta = check_front(name, x, False, reports["front_end"],
                                   tile=(8, 8))
         total = int(meta[3].sum())
         pair_cap = cuda.grow_pair_cap(0, max(total, num_cells, 1024))
@@ -794,10 +859,17 @@ def phase_micro_kernels(device, reports):
         if name == "san_miguel_small":  # an overflowing capacity
             check_expand(name, meta, 1024, ntx, num_cells,
                          reports["expand_cells"])
+        if name == "san_miguel":  # uneven blocks at the same scale
+            stress = expand_stress_meta(x["T"], ntx, nty, device)
+            need = int(stress[3].sum())
+            # The big triangle's slots start at T // 3: the second
+            # capacity ends inside them.
+            for cap in (cuda.grow_pair_cap(0, need), x["T"] // 3 + 20_000):
+                check_expand("one 40,000-cell triangle", stress, cap, ntx,
+                             num_cells, reports["expand_cells"])
         bins = binning.bin_cells_sort_meta(meta[3], meta[2], meta[0],
                                            meta[1], ntx, nty, pair_cap)
         require(int(bins["pair_needed"]) == 0, f"micro {name}: overflow")
-        table = coeff.T.contiguous()
         params, lights = check_micro(name, x, table, bins, ntx, nty,
                                      reports["raster_shade_micro"])
         if timing is None:  # San Miguel: the micro main path's shapes
@@ -828,10 +900,28 @@ def phase_micro_kernels(device, reports):
                                 200)
     rep["plain_ms"] = event_ms(
         lambda: expand.expand_cells_plain(*eargs, **ekw), 20)
+    # The closest single PyTorch call: tri_of_pair alone, each triangle id
+    # repeated by its cover count (no cell ids, no sentinel tail); the
+    # device time of every kernel it launches, as the expansion's own.
+    ids = torch.arange(x["T"], dtype=torch.int32, device=device)
+    total = int(meta[3].sum())
+    library = lambda: torch.repeat_interleave(ids, meta[3],
+                                              output_size=total)
+    rep["library_ms"] = kernel_device_ms(library, 50, None)
+    if rep["ms"] is None:  # the profiler recorded nothing: both by events
+        rep["library_ms"] = event_ms(library, 50)
+    # The bytes the function must move: each triangle's count c, the rect
+    # (rx, x0, y0) of the live triangles only (the kernel reads no culled
+    # triangle's rect), 8 B a slot out.
     alive = int((meta[3] > 0).sum())
     rep["bound_ms"], rep["bound_by"] = bound_ms(
         x["T"] * 4 + alive * 12 + pair_cap * 8, pair_cap * EXPAND_OPS)
     print_time("expand_cells", rep, "san_miguel")
+    print(f"[time] expand_cells (san_miguel): {alive} of {x['T']} "
+          f"triangles live; torch.repeat_interleave of the triangle ids by "
+          f"c ({total} pairs, tri_of_pair alone) {rep['library_ms']} ms "
+          f"(device time of all its launches), {event_ms(library, 50):.6f} "
+          f"ms (events, call included)")
 
     margs = (table, bins["pair_tri"], bins["seg_start"], bins["seg_count"])
     mkw = dict(height_padded=nty * 8, width_padded=ntx * 128)
@@ -889,10 +979,13 @@ def phase_main_path(device, card, reports):
 
     front.front_end.launches = 0
     raster.raster_shade_tiles.launches = 0
+    raster.kernel_table.copies = 0
     frames = [renderer.render(scene.update(DT)) for _ in range(3)]
     launches = {"front_end": front.front_end.launches,
                 "raster_shade_tiles": raster.raster_shade_tiles.launches}
-    print(f"[main] launches over 3 render() frames: {launches}")
+    print(f"[main] launches over 3 render() frames: {launches}; table "
+          f"copies {raster.kernel_table.copies}")
+    require_front_tables("main path")
     for name, n in launches.items():
         require(n > 0, f"main path never launched the {name} kernel")
         reports[name]["launches"] = n
@@ -1042,10 +1135,13 @@ def phase_micro_main_path(device, card, reports):
                 "raster_shade_tiles": raster.raster_shade_tiles}
     for fn in counters.values():
         fn.launches = 0
+    raster.kernel_table.copies = 0
     frames = [renderer.render(scene.update(DT)) for _ in range(3)]
     launches = {name: fn.launches for name, fn in counters.items()}
     print(f"[main-micro] launches over 3 render() frames (calibration "
-          f"included): {launches}")
+          f"included): {launches}; table copies "
+          f"{raster.kernel_table.copies}")
+    require_front_tables("micro main path")
     for name in ("front_end", "expand_cells", "raster_shade_micro"):
         require(launches[name] >= 3, f"the micro main path launched the "
                 f"{name} kernel {launches[name]} times in 3 frames")
@@ -1116,10 +1212,23 @@ def counters():
 
 
 def reset_counts():
+    from compute_renderer_torch.backends import raster
+
+    raster.kernel_table.copies = 0
     for fn in counters().values():
         fn.launches = 0
         if hasattr(fn, "mode_launches"):
             fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
+
+
+def require_front_tables(tag):
+    """The rasters of a main-path run read the front's own tables: no
+    ``raster.kernel_table`` copy since ``reset_counts()``."""
+    from compute_renderer_torch.backends import raster
+
+    require(raster.kernel_table.copies == 0,
+            f"{tag}: the rasters copied {raster.kernel_table.copies} tables "
+            "instead of reading the front's")
 
 
 def read_counts():
@@ -1242,7 +1351,7 @@ def phase_mode_kernels(device, reports, scenes, modes):
         fmode = "base" if mode == "vis" else mode
         if path == "micro":
             ntx, nty = (W + 127) // 128, (H + 7) // 8
-            coeff, meta = check_front(name, x, False,
+            table, meta = check_front(name, x, False,
                                       reports[front_record(mode)],
                                       tile=(8, 8), mode=fmode)
             pair_cap = cuda.grow_pair_cap(0, max(int(meta[3].sum()),
@@ -1250,14 +1359,13 @@ def phase_mode_kernels(device, reports, scenes, modes):
             bins = binning.bin_cells_sort_meta(meta[3], meta[2], meta[0],
                                                meta[1], ntx, nty, pair_cap)
             require(int(bins["pair_needed"]) == 0, f"micro {name}: overflow")
-            table = coeff.T.contiguous()
             params, lights = check_micro(
                 name, x, table, bins, ntx, nty,
                 reports[record("raster_shade_micro", mode)], mode=mode)
-            timing.setdefault(("micro", mode), (x, coeff, bins, params,
+            timing.setdefault(("micro", mode), (x, table, bins, params,
                                                 lights))
             continue
-        coeff, meta = check_front(name, x, False,
+        table, meta = check_front(name, x, False,
                                   reports[front_record(mode)], mode=fmode)
         caps = cuda.default_caps("tile", x["T"], W, H)
         setup = binning.setup_from_meta(meta)
@@ -1265,19 +1373,19 @@ def phase_mode_kernels(device, reports, scenes, modes):
         need = binning.exact_tile_counts(setup, ntx, nty)
         caps["tile_cap"] = max(caps["tile_cap"], int(need.max()))
         caps["pair_cap"] = max(caps["pair_cap"], int(need.sum()))
-        inputs = check_raster(name, x, coeff, meta, caps,
+        inputs = check_raster(name, x, table, meta, caps,
                               reports[record("raster_shade_tiles", mode)],
                               mode=mode)
         # The layout the main path's binning picks for this scene.
         layout = binning.bin_triangles(setup, ntx, nty, caps["pair_cap"],
                                        caps["tile_cap"])["layout"]
-        timing.setdefault(("tile", mode), (x, coeff, inputs[layout]))
+        timing.setdefault(("tile", mode), (x, inputs[layout]))
 
     for mode in modes:
         # Front and micro raster at the micro rows' shapes (structured
         # scene, 8x8 cells); the front at 16x256 on structured_scene_tex
         # is printed beside it.
-        x, coeff, bins, params, lights = timing[("micro", mode)]
+        x, table, bins, params, lights = timing[("micro", mode)]
         args = (x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"])
         if mode != "vis":
             rep = reports[record("front_end", mode)]
@@ -1293,11 +1401,7 @@ def phase_mode_kernels(device, reports, scenes, modes):
             rep["bound_ms"], rep["bound_by"] = bound_ms(
                 x["T"] * FRONT_BYTES[mode], x["T"] * FRONT_OPS)
             print_time(record("front_end", mode), rep, "structured 8x8")
-        t_copy = event_ms(lambda: cuda.coeff_table(coeff), 20)
-        print(f"[time] (R, T) -> (T, R) table copy, R={coeff.shape[0]}, "
-              f"T={x['T']}: {t_copy:.6f} ms (events)")
 
-        table = coeff.T.contiguous()
         ntx, nty = (W + 127) // 128, (H + 7) // 8
         margs = (table, bins["pair_tri"], bins["seg_start"],
                  bins["seg_count"], bins["tile_count"], params, lights)
@@ -1322,7 +1426,7 @@ def phase_mode_kernels(device, reports, scenes, modes):
         micro_walk(f"{record('raster_shade_micro', mode)} (structured)", bins)
 
         # The tile raster at structured_scene_tex's shapes.
-        x, coeff, (table, data, tbins, params, lights, rkw, layout) = \
+        x, (table, data, tbins, params, lights, rkw, layout) = \
             timing[("tile", mode)]
         common_args = (table, data, tbins["seg_start"], tbins["seg_count"],
                        params, lights)
@@ -1348,11 +1452,10 @@ def phase_mode_kernels(device, reports, scenes, modes):
             fkw = dict(width=W, height=H, tile_h=16, tile_w=256,
                        **front_modes(x, mode))
             args = (x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"])
-            t_front = kernel_device_ms(
-                lambda: front._front_end_cuda(*args, **fkw), 50,
-                KERNELS["front_end"]["symbol"])
+            ms = kernel_device_ms(lambda: front._front_end_cuda(*args, **fkw),
+                                  50, KERNELS["front_end"]["symbol"])
             print(f"[time] {record('front_end', mode)} (structured_tex "
-                  f"16x256, T={x['T']}): kernel {t_front} ms")
+                  f"16x256, T={x['T']}): kernel {ms} ms")
 
 
 # (golden row, scene, frames, path, mode): the suite's extension rows
@@ -1389,9 +1492,10 @@ def phase_ext_main_paths(device, card, reports, scenes):
         imgs = renderer.render_batch_device(
             [scene.update(DT) for _ in range(frames)]).cpu().numpy()
         launches = read_counts()
+        require_front_tables(f"ext {row}")
         ran = {k: v for k, v in launches.items() if v}
         print(f"[ext] {row} ({key}, {path} path, {frames} frames): "
-              f"launches {ran}")
+              f"launches {ran}, no table copy")
         raster_name = ("raster_shade_micro" if path == "micro"
                        else "raster_shade_tiles")
         for name in ("front_end", raster_name):
@@ -1482,9 +1586,10 @@ def phase_mip_main_paths(device, card, reports, scenes):
                 f"{row} does not take the {path} path")
         renderer, scene, imgs, launches = render_row(
             device, scene, frames, tex_mode=tex_mode)
+        require_front_tables(f"mip {row}")
         ran = {k: v for k, v in launches.items() if v}
         print(f"[mip] {row} ({key}, {tex_filter}, {tex_mode}, {path} path, "
-              f"{frames} frames): launches {ran}")
+              f"{frames} frames): launches {ran}, no table copy")
         raster_name = ("raster_shade_micro" if path == "micro"
                        else "raster_shade_tiles")
         for name in (front_record(mode), record(raster_name, mode)):
@@ -1798,8 +1903,10 @@ def main() -> int:
         "plain_ms": reports[name]["plain_ms"],
         "bound_ms": reports[name]["bound_ms"],
         "bound_by": reports[name]["bound_by"],
-        # No single PyTorch call computes any of these functions.
-        "library_ms": None,
+        # Only the expansion has a PyTorch call near it
+        # (torch.repeat_interleave, its tri_of_pair alone); none computes
+        # the front's or the rasters' functions.
+        "library_ms": reports[name].get("library_ms"),
     } for name, meta in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -21,8 +21,9 @@ tpu.py:196-206 and :618-627 pick it):
 
 Tile path, per frame:
 
-1. ``front.front_end`` — vertex stage, setup and the coefficient rows in
-   one kernel, at tile granularity (texf_mip and vis also run the torch
+1. ``front.front_end`` — vertex stage, setup and the coefficient table in
+   one kernel, at tile granularity, in the layout the rasters read (no
+   copy between them; texf_mip and vis also run the torch
    ``common.vertex_stage`` for the per-vertex screen and world the mip
    rows and the deferred tail read);
 2. ``binning.setup_from_meta`` + ``binning.bin_triangles`` (dense at
@@ -175,13 +176,6 @@ def frame_mode(face_kd, texels, tex_filter: str, tex_mode: str) -> str:
     return "texf_mip" if tex_filter in common.MIP_FILTERS else "texf"
 
 
-def coeff_table(coeff):
-    """The front end's (R, T) coefficient rows as the (T, R) table the
-    raster kernels read, in one copy: row stride R rounded up to a multiple
-    of 4 floats (``raster.kernel_table``)."""
-    return raster.kernel_table(coeff.T)[0]
-
-
 def _frame_texture(mode, positions, tri, view_proj, effect, width, height,
                    face_kd, uvs, uv_soa, tex_rows, face_tex, tex_mips,
                    tex_filter):
@@ -267,11 +261,10 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     vertex, front_kw = _frame_texture(
         mode, positions, tri, view_proj, effect, width, height, face_kd,
         uvs, uv_soa, tex_rows, face_tex, tex_mips, tex_filter)
-    coeff, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
+    table, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
                                   width=width, height=height, tile_h=tile_h,
                                   tile_w=tile_w, **front_kw)
     setup = binning.setup_from_meta(meta)
-    table = coeff_table(coeff)
 
     out_p = key_p = overflow = best = None
     for c0 in range(0, T, tri_chunk):
@@ -384,13 +377,13 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
     vertex, front_kw = _frame_texture(
         mode, positions, tri, view_proj, effect, width, height, face_kd,
         uvs, uv_soa, tex_rows, face_tex, tex_mips, tex_filter)
-    coeff, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
+    table, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
                                   width=width, height=height, tile_h=8,
                                   tile_w=8, **front_kw)
     bins = binning.bin_cells_sort_meta(meta[3], meta[2], meta[0], meta[1],
                                        ntx, nty, pair_cap)
     out_p, key_p = micro.raster_shade_micro(
-        coeff_table(coeff), bins["pair_tri"], bins["seg_start"],
+        table, bins["pair_tri"], bins["seg_start"],
         bins["seg_count"], bins["tile_count"], effect,
         view_position.to(F32), light_world_pos, light_color,
         light_intensity, height_padded=nty * 8, width_padded=ntx * 128,

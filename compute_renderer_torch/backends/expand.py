@@ -15,8 +15,9 @@ beyond holds the ``num_cells`` sentinel (so it sorts past every real cell);
 drives the capacity retry). The tail's ``tri_of_pair`` is unspecified: the
 kernel writes 0 there, the twin the last owner; nothing reads it.
 
-A CUDA tensor runs the hand-written kernel ``csrc/expand.cu``; a CPU tensor
-runs ``expand_cells_plain``.
+A CUDA tensor runs the hand-written kernel ``csrc/expand.cu`` (two
+launches, the scan of ``c`` included: block sums, then the block-local
+scan and expansion); a CPU tensor runs ``expand_cells_plain``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ import torch
 from compute_renderer_torch.backends import binning
 
 I32 = torch.int32
+# Triangles an expansion block owns (csrc/expand.cu's TRIS): the length
+# of the kernel's block-sum scratch is ceil(T / TRIS).
+TRIS = 1024
 
 
 def expand_cells_plain(c, rx, x0, y0, *, pair_cap: int, ntx_t: int,
@@ -56,18 +60,19 @@ def _expand_cuda(c, rx, x0, y0, *, pair_cap, ntx_t, num_cells):
     from compute_renderer_torch import _build
 
     device = c.device
-    c = c.to(I32)
-    starts = (torch.cumsum(c, 0, dtype=I32) - c).contiguous()
-    total = c.sum(dtype=I32).reshape(1)
-    rx, x0, y0 = (a.to(I32).contiguous() for a in (rx, x0, y0))
+    T = c.shape[0]
+    c, rx, x0, y0 = (a.to(I32).contiguous() for a in (c, rx, x0, y0))
+    blocks = -(-T // TRIS)
+    sums = torch.empty((blocks,), dtype=I32, device=device)
+    total = torch.empty((1,), dtype=I32, device=device)
     cell = torch.empty((pair_cap,), dtype=I32, device=device)
     tri = torch.empty((pair_cap,), dtype=I32, device=device)
-    fn = _build.entry("expand", "expand_cells_i32", pointers=7, ints=4)
+    fn = _build.entry("expand", "expand_cells_i32", pointers=8, ints=5)
     expand_cells.launches += 1
     _build.check(
-        fn(starts.data_ptr(), rx.data_ptr(), x0.data_ptr(), y0.data_ptr(),
-           total.data_ptr(), cell.data_ptr(), tri.data_ptr(), c.shape[0],
-           pair_cap, ntx_t, num_cells,
+        fn(c.data_ptr(), rx.data_ptr(), x0.data_ptr(), y0.data_ptr(),
+           sums.data_ptr(), total.data_ptr(), cell.data_ptr(),
+           tri.data_ptr(), T, blocks, pair_cap, ntx_t, num_cells,
            torch.cuda.current_stream(device).cuda_stream),
         "expand_cells",
     )
@@ -79,7 +84,7 @@ def expand_cells(c, rx, x0, y0, *, pair_cap: int, ntx_t: int,
     """(cell_of_pair (pair_cap,) i32, tri_of_pair (pair_cap,) i32, total
     () i32) from (T,) cover meta; see the module docstring for the
     contract. CPU tensors take the twin, CUDA tensors the kernel
-    (``expand_cells.launches`` counts its launches)."""
+    (``expand_cells.launches`` counts its calls, two launches each)."""
     kw = dict(pair_cap=pair_cap, ntx_t=ntx_t, num_cells=num_cells)
     if c.device.type == "cpu":
         return expand_cells_plain(c, rx, x0, y0, **kw)

@@ -4,12 +4,18 @@ Counterpart of the JAX package's ``backends/pallas_front.py``, at tile or
 8x8-cell granularity. ``front_end`` takes corner-SoA geometry
 (``pos_soa``/``nrm_soa`` (3 corners, 3 components, T)) and returns
 
-- ``coeff`` (R, T) f32: the raster table's columns in ``raster.py`` order
-  (rows = coefficients), R = 32 in base mode, 35 with ``kd_rows`` (the
+- ``table`` (T, R) f32: the rasters' coefficient table, columns in
+  ``raster.py`` order, R = 32 in base mode, 35 with ``kd_rows`` (the
   material columns), 44 with ``uv_soa`` + ``tex_rows`` (the fused-texture
   columns; kd is ``kd_rows`` or ones) and 46 with ``uv_soa`` +
   ``mip_rows`` (the mip-filtered texture columns: the frame's (T, 5)
-  ``common.mip_tri_rows`` in place of the TextureInfo rows);
+  ``common.mip_tri_rows`` in place of the TextureInfo rows). It is a view
+  in the layout both raster kernels read (``raster.empty_table``: row
+  stride R rounded up to a multiple of 4 floats, 16-byte aligned), so
+  ``raster.kernel_table`` passes it on without a copy. The pad column is
+  no column of the table: the kernel writes 0 there, the twin nothing.
+  (The JAX package's front writes (R, T), triangles on lanes: the TPU's
+  layout.)
 - ``meta`` (4, T) i32: tile_x0, tile_y0, rect width rx, cover count c
   (0 for culled triangles) — what ``binning.setup_from_meta`` reads.
 
@@ -36,7 +42,7 @@ def front_end_plain(pos_soa, nrm_soa, view_proj, effect, *, width: int,
                     uv_soa=None, tex_rows=None, mip_rows=None):
     """The twin: ``common.vertex_stage`` -> ``common.triangle_setup`` ->
     ``raster.tri_table_columns`` on the corner vertices, reduced to the
-    kernel's (coeff, meta)."""
+    kernel's (table, meta) in the kernel's layout."""
     mode = _mode(kd_rows, uv_soa, tex_rows, mip_rows)
     T = pos_soa.shape[2]
     device = pos_soa.device
@@ -61,7 +67,9 @@ def front_end_plain(pos_soa, nrm_soa, view_proj, effect, *, width: int,
     cols = raster.tri_table_columns(
         screen_soa, nrm_soa.to(F32), world_soa, face_kd=kd_rows,
         uv_soa=uv_soa, tex_rows=mip_rows if mode == "texf_mip" else tex_rows)
-    return torch.stack(cols), meta.to(torch.int32)
+    table = raster.empty_table(T, len(cols), device)
+    table.copy_(torch.stack(cols, dim=1))
+    return table, meta.to(torch.int32)
 
 
 def _mode(kd_rows, uv_soa, tex_rows, mip_rows) -> str:
@@ -106,8 +114,7 @@ def _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, *, width, height,
            None)
     scal = torch.cat([view_proj.to(device=device, dtype=F32).reshape(16),
                       effect.to(device=device, dtype=F32).reshape(-1)[:6]])
-    coeff = torch.empty((raster.MODE_WIDTHS[mode], T), dtype=F32,
-                        device=device)
+    table = raster.empty_table(T, raster.MODE_WIDTHS[mode], device)
     meta = torch.empty((4, T), dtype=torch.int32, device=device)
     ptr = lambda a: None if a is None else a.data_ptr()
     fn = _build.entry("front", "front_end", pointers=8, ints=6)
@@ -115,22 +122,22 @@ def _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, *, width, height,
     front_end.mode_launches[mode] += 1
     _build.check(
         fn(pos.data_ptr(), nrm.data_ptr(), scal.data_ptr(), ptr(kd), ptr(uv),
-           ptr(tex), coeff.data_ptr(), meta.data_ptr(),
+           ptr(tex), table.data_ptr(), meta.data_ptr(),
            raster.MODES[mode], T, width, height, tile_h, tile_w,
            torch.cuda.current_stream(device).cuda_stream),
         "front_end",
     )
-    return coeff, meta
+    return table, meta
 
 
 def front_end(pos_soa, nrm_soa, view_proj, effect, *, width: int,
               height: int, tile_h: int, tile_w: int, kd_rows=None,
               uv_soa=None, tex_rows=None, mip_rows=None):
-    """Fused vertex + setup + coefficient rows; returns (coeff (R, T) f32,
-    meta (4, T) i32). ``kd_rows`` (T, 3) selects the material rows,
-    ``uv_soa`` (3 corners, 2, T) with ``tex_rows`` (T, 3) the
-    fused-texture rows, ``uv_soa`` with ``mip_rows`` (T, 5) the
-    mip-filtered ones. CPU tensors take the plain twin, CUDA tensors the
+    """Fused vertex + setup + coefficient rows; returns (table (T, R) f32
+    in the rasters' layout, meta (4, T) i32). ``kd_rows`` (T, 3) selects
+    the material rows, ``uv_soa`` (3 corners, 2, T) with ``tex_rows``
+    (T, 3) the fused-texture rows, ``uv_soa`` with ``mip_rows`` (T, 5)
+    the mip-filtered ones. CPU tensors take the plain twin, CUDA tensors the
     kernel (``front_end.launches`` counts its launches,
     ``front_end.mode_launches`` per mode)."""
     kw = dict(width=width, height=height, tile_h=tile_h, tile_w=tile_w,

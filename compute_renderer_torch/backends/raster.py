@@ -154,22 +154,39 @@ def output_channels(mode: str, num_lights: int) -> int:
     return 0
 
 
+def table_stride(width: int) -> int:
+    """Row stride of the kernels' tables: ``width`` rounded up to a
+    multiple of 4 floats (32, 36, 44, 48), so that rows load as float4."""
+    return (width + 3) // 4 * 4
+
+
+def empty_table(T: int, width: int, device):
+    """An uninitialized (T, width) f32 table in the kernels' layout: a view
+    of (T, ``table_stride(width)``) storage, unit column stride, 16-byte
+    aligned. The front end writes its rows into one."""
+    out = torch.empty((T, table_stride(width)), dtype=F32, device=device)
+    return out[:, :width]
+
+
 def kernel_table(tri_table):
     """The (T, R) f32 table as the CUDA kernels read it: unit column
-    stride, a row stride of R rounded up to a multiple of 4 floats (35 ->
-    36) and a 16-byte aligned base, so that rows load as float4. Returns
-    the table itself when it already has that layout (as
-    ``cuda.coeff_table`` builds it), else a padded copy. No kernel reads
-    the pad column, so it is left unwritten."""
+    stride, a row stride of ``table_stride(R)`` and a 16-byte aligned
+    base. Returns the table itself when it already has that layout (as the
+    front end writes it, ``empty_table``), else a padded copy, counted in
+    ``kernel_table.copies``. No kernel reads the pad column."""
     T, R = tri_table.shape
-    stride = (R + 3) // 4 * 4
+    stride = table_stride(R)
     if (tri_table.dtype == F32 and tri_table.stride(1) == 1
             and (T <= 1 or tri_table.stride(0) == stride)
             and tri_table.data_ptr() % 16 == 0):
         return tri_table, stride
-    out = torch.empty((T, stride), dtype=F32, device=tri_table.device)
-    out[:, :R].copy_(tri_table)
-    return out[:, :R], stride
+    kernel_table.copies += 1
+    out = empty_table(T, R, tri_table.device)
+    out.copy_(tri_table)
+    return out, stride
+
+
+kernel_table.copies = 0
 
 
 def occupied_worklist(seg_count):

@@ -1,6 +1,6 @@
 // Fused front end: vertex stage + triangle setup + anchored-affine
 // coefficient rows, one thread per triangle, at tile or 8x8-cell
-// granularity.
+// granularity, written as the rasters' (T, R) table.
 //
 // Replaces the TPU kernel of the JAX package's backends/pallas_front.py
 // (_front_kernel, launched by front_end) in its three modes: base (32
@@ -14,15 +14,27 @@
 // What bounds it on an H100: memory traffic. Each triangle reads 18 floats
 // (corner-SoA positions and normals; mat adds 3 kd floats, texf 6 uv, 3 kd
 // and 3 TextureInfo floats, texf_mip 5 mip floats in place of the last 3)
-// and writes 32, 35, 44 or 46 coefficient floats and 4 meta ints — 216,
-// 240, 312 or 328 bytes for ~300 float operations, far below
-// the card's compute-to-bandwidth balance, so the kernel is a streaming
-// pass. The design keeps every read and write coalesced: the SoA inputs
-// and the outputs are row-major (rows, T) with the triangle index as the
-// fastest axis, so a warp touches 32 consecutive floats of each row; the
-// (T, 3) kd and TextureInfo rows ((T, 5) mip rows) are read as three
-// (five) loads a thread over one contiguous span a warp. At the tile
-// path's 1,280 triangles the launch itself dominates.
+// and writes its table row and 4 meta ints — 216, 240, 312 or 328 bytes
+// for ~300 float operations, far below the card's compute-to-bandwidth
+// balance, so the kernel is a streaming pass.
+//
+// Output layout: the (T, R) table the two rasters read, with a row stride
+// S = R rounded up to a multiple of 4 floats (32, 36, 44, 48) on a 16-byte
+// aligned base (raster.kernel_table), so no copy sits between the front
+// and the rasters. Meta stays (4, T), triangle-fastest.
+//
+// Design. One thread per triangle computes its row in registers. A warp
+// storing rows straight to the table would touch 32 rows 4*S bytes apart
+// per instruction, so the rows are first staged in shared memory, each
+// thread writing its row as S/4 float4s, and the block's threads then
+// copy the block's contiguous slice of the table (block triangles x S
+// floats) out with coalesced 16-byte stores. The staging stride is padded
+// to an odd number of float4s (32 -> 36, 48 -> 52 floats), so that the
+// eight float4 writes of a quarter warp land on distinct banks. Blocks of
+// 128 threads keep the largest staging area (128 x 52 floats, 26 KiB)
+// under the 48 KiB static limit with eight blocks an SM; the tile path's
+// 1,280 triangles are 10 blocks, where the launch itself dominates. Meta
+// is stored directly, coalesced. The pad column of a row is written 0.
 //
 // Exactness: the arithmetic is the JAX package's op for op, in the same
 // association: clip sums as (m0*x + m1*y) + (m2*z + m3), IEEE division,
@@ -38,26 +50,34 @@ namespace {
 
 constexpr float EFFECT_WAVE = 1.0f;
 constexpr float EFFECT_VOXELIZE = 3.0f;
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int MODE_BASE = 0;  // raster.MODES
 constexpr int MODE_MAT = 1;
 constexpr int MODE_TEXF = 2;
 constexpr int MODE_TEXF_MIP = 4;  // 3 is the rasters' vis (base table)
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS) front_kernel(
-    const float* __restrict__ pos,   // (3 corners * 3 comps, T)
-    const float* __restrict__ nrm,   // (3 corners * 3 comps, T)
-    const float* __restrict__ scal,  // view_proj row-major (16) + effect (6)
-    const float* __restrict__ kd,    // (T, 3) or null (texf: ones)
-    const float* __restrict__ uv,    // (3 corners * 2 comps, T), texf*
-    const float* __restrict__ tex,   // (T, 3) TextureInfo | (T, 5) mip rows
-    float* __restrict__ coeff,       // (32 | 35 | 44 | 46, T)
-    int* __restrict__ meta,          // (4, T): tile_x0, tile_y0, rx, c
-    int T, int width, int height, int tile_h, int tile_w) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
+// Table columns R of a mode (raster.MODE_WIDTHS) and the row stride S.
+__host__ __device__ constexpr int width_of(int mode) {
+  return mode == MODE_BASE ? 32 : mode == MODE_MAT ? 35
+         : mode == MODE_TEXF ? 44 : 46;
+}
+__host__ __device__ constexpr int stride_of(int mode) {
+  return (width_of(mode) + 3) / 4 * 4;
+}
+// The staging stride: an odd number of float4s.
+__host__ __device__ constexpr int padded(int s) {
+  return (s / 4) % 2 ? s : s + 4;
+}
 
+// Triangle t's meta (stored) and its table row in v[0, S): the R columns,
+// then 0 in the pad.
+template <int MODE>
+__device__ __forceinline__ void triangle_row(
+    const float* __restrict__ pos, const float* __restrict__ nrm,
+    const float* __restrict__ scal, const float* __restrict__ kd,
+    const float* __restrict__ uv, const float* __restrict__ tex,
+    int* __restrict__ meta, int t, int T, int width, int height, int tile_h,
+    int tile_w, float (&v)[stride_of(MODE)]) {
   float m[16];
 #pragma unroll
   for (int r = 0; r < 16; ++r) m[r] = scal[r];
@@ -165,9 +185,8 @@ __global__ void __launch_bounds__(THREADS) front_kernel(
   const float b3 = bux * inv;
   const float c3 = cux * inv;
 
-  float* out = coeff + t;
   int row = 0;
-  auto put = [&](float v) { out[(row++) * T] = v; };
+  auto put = [&](float x) { v[row++] = x; };
   auto combine = [&](float w1, float w2, float w3) {
     put(w1 * a1 + w2 * a2 + w3 * a3);
     put(w1 * b1 + w2 * b2 + w3 * b3);
@@ -188,20 +207,59 @@ __global__ void __launch_bounds__(THREADS) front_kernel(
   put(v1y);
   constexpr bool TEX = MODE == MODE_TEXF || MODE == MODE_TEXF_MIP;
   constexpr int NTEX = MODE == MODE_TEXF_MIP ? 5 : 3;
-  if (TEX) {
+  if constexpr (TEX) {
 #pragma unroll
     for (int ch = 0; ch < 2; ++ch)  // uv: rows (corner*2 + ch)
       combine(uv[(0 + ch) * T + t], uv[(2 + ch) * T + t],
               uv[(4 + ch) * T + t]);
   }
-  if (MODE != MODE_BASE) {
+  if constexpr (MODE != MODE_BASE) {
 #pragma unroll
     for (int c = 0; c < 3; ++c)
       put(kd != nullptr ? kd[(size_t)3 * t + c] : 1.0f);
   }
-  if (TEX) {
+  if constexpr (TEX) {
 #pragma unroll
     for (int c = 0; c < NTEX; ++c) put(tex[(size_t)NTEX * t + c]);
+  }
+#pragma unroll
+  for (int k = width_of(MODE); k < stride_of(MODE); ++k) v[k] = 0.0f;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) front_kernel(
+    const float* __restrict__ pos,   // (3 corners * 3 comps, T)
+    const float* __restrict__ nrm,   // (3 corners * 3 comps, T)
+    const float* __restrict__ scal,  // view_proj row-major (16) + effect (6)
+    const float* __restrict__ kd,    // (T, 3) or null (texf: ones)
+    const float* __restrict__ uv,    // (3 corners * 2 comps, T), texf*
+    const float* __restrict__ tex,   // (T, 3) TextureInfo | (T, 5) mip rows
+    float* __restrict__ table,       // (T, S): rows of 32 | 35 | 44 | 46
+    int* __restrict__ meta,          // (4, T): tile_x0, tile_y0, rx, c
+    int T, int width, int height, int tile_h, int tile_w) {
+  constexpr int S = stride_of(MODE);
+  constexpr int Q = S / 4;  // float4s a row
+  constexpr int SS = padded(S);
+  __shared__ __align__(16) float stage[THREADS * SS];
+  const int t0 = blockIdx.x * THREADS;
+  const int t = t0 + threadIdx.x;
+  const int rows = min(THREADS, T - t0);
+  if (t < T) {
+    float v[S];
+    triangle_row<MODE>(pos, nrm, scal, kd, uv, tex, meta, t, T, width,
+                       height, tile_h, tile_w, v);
+    float4* mine = reinterpret_cast<float4*>(stage + threadIdx.x * SS);
+#pragma unroll
+    for (int k = 0; k < Q; ++k)
+      mine[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                            v[4 * k + 3]);
+  }
+  __syncthreads();
+  // The slice is 16-byte aligned: S % 4 == 0.
+  float4* out = reinterpret_cast<float4*>(table + (size_t)t0 * S);
+  for (int q = threadIdx.x; q < rows * Q; q += THREADS) {
+    const int r = q / Q;
+    out[q] = reinterpret_cast<const float4*>(stage + r * SS)[q - r * Q];
   }
 }
 
@@ -209,35 +267,32 @@ __global__ void __launch_bounds__(THREADS) front_kernel(
 
 extern "C" int front_end(const void* pos, const void* nrm, const void* scal,
                          const void* kd, const void* uv, const void* tex,
-                         void* coeff, void* meta, int mode, int T, int width,
+                         void* table, void* meta, int mode, int T, int width,
                          int height, int tile_h, int tile_w, void* stream) {
   if ((mode == MODE_MAT && kd == nullptr) ||
       ((mode == MODE_TEXF || mode == MODE_TEXF_MIP) &&
-       (uv == nullptr || tex == nullptr)))
+       (uv == nullptr || tex == nullptr)) ||
+      (reinterpret_cast<unsigned long long>(table) & 15))
     return (int)cudaErrorInvalidValue;
   if (T > 0) {
     const int blocks = (T + THREADS - 1) / THREADS;
 #define FRONT_ARGS                                                          \
   (const float*)pos, (const float*)nrm, (const float*)scal,                \
-      (const float*)kd, (const float*)uv, (const float*)tex, (float*)coeff, \
+      (const float*)kd, (const float*)uv, (const float*)tex, (float*)table, \
       (int*)meta, T, width, height, tile_h, tile_w
+#define FRONT_LAUNCH(M)                                      \
+  front_kernel<M><<<blocks, THREADS, 0, s>>>(FRONT_ARGS);  \
+  break;
     cudaStream_t s = (cudaStream_t)stream;
     switch (mode) {
-      case MODE_BASE:
-        front_kernel<MODE_BASE><<<blocks, THREADS, 0, s>>>(FRONT_ARGS);
-        break;
-      case MODE_MAT:
-        front_kernel<MODE_MAT><<<blocks, THREADS, 0, s>>>(FRONT_ARGS);
-        break;
-      case MODE_TEXF:
-        front_kernel<MODE_TEXF><<<blocks, THREADS, 0, s>>>(FRONT_ARGS);
-        break;
-      case MODE_TEXF_MIP:
-        front_kernel<MODE_TEXF_MIP><<<blocks, THREADS, 0, s>>>(FRONT_ARGS);
-        break;
+      case MODE_BASE: FRONT_LAUNCH(MODE_BASE)
+      case MODE_MAT: FRONT_LAUNCH(MODE_MAT)
+      case MODE_TEXF: FRONT_LAUNCH(MODE_TEXF)
+      case MODE_TEXF_MIP: FRONT_LAUNCH(MODE_TEXF_MIP)
       default:
         return (int)cudaErrorInvalidValue;
     }
+#undef FRONT_LAUNCH
 #undef FRONT_ARGS
   }
   return (int)cudaGetLastError();

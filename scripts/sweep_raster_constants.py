@@ -246,7 +246,7 @@ def main() -> int:
     cases = {}
     x = cs.frame_inputs(cs.scene_copy(scenes["structured_tex+materials"]),
                         device)
-    coeff, meta = cs.check_front("structured_tex", x, False, {}, mode="mat")
+    table, meta = cs.check_front("structured_tex", x, False, {}, mode="mat")
     ntx, nty = (cs.W + 255) // 256, (cs.H + 15) // 16
     setup = binning.setup_from_meta(meta)
     need = binning.exact_tile_counts(setup, ntx, nty)
@@ -257,10 +257,10 @@ def main() -> int:
     tkw = dict(height_padded=nty * 16, width_padded=ntx * 256, tile_h=16,
                tile_w=256, layout="flat", mode="mat")
     cases["tile structured_tex mat"] = ("raster", (
-        coeff.T.contiguous(), bins["pair_tri"], bins["seg_start"],
+        table, bins["pair_tri"], bins["seg_start"],
         bins["seg_count"], params, lights), tkw)
     x = cs.frame_inputs(cs.bench_scene(), device)
-    coeff, meta = cs.check_front("suzanne", x, False, {})
+    table, meta = cs.check_front("suzanne", x, False, {})
     setup = binning.setup_from_meta(meta)
     need = binning.exact_tile_counts(setup, ntx, nty)
     bins = binning.bin_triangles_dense(setup, ntx, nty, int(need.sum()),
@@ -268,12 +268,12 @@ def main() -> int:
     params, lights = raster.shading_inputs(x["eff"], x["vpos"], x["lwp"],
                                            x["lc"], x["li"])
     cases["tile suzanne base"] = ("raster", (
-        coeff.T.contiguous(), bins["bin_rows"], bins["seg_start"],
+        table, bins["bin_rows"], bins["seg_start"],
         bins["seg_count"], params, lights), dict(tkw, layout="dense",
                                                  mode="base"))
     x = cs.frame_inputs(cs.scene_copy(scenes["structured+materials"]),
                         device)
-    coeff, meta = cs.check_front("structured", x, False, {}, tile=(8, 8),
+    table, meta = cs.check_front("structured", x, False, {}, tile=(8, 8),
                                  mode="mat")
     mtx, mty = (cs.W + 127) // 128, (cs.H + 7) // 8
     pair_cap = cuda.grow_pair_cap(0, max(int(meta[3].sum()),
@@ -283,7 +283,7 @@ def main() -> int:
     params, lights = raster.shading_inputs(x["eff"], x["vpos"], x["lwp"],
                                            x["lc"], x["li"])
     cases["micro structured mat"] = ("micro", (
-        coeff.T.contiguous(), bins["pair_tri"], bins["seg_start"],
+        table, bins["pair_tri"], bins["seg_start"],
         bins["seg_count"], bins["tile_count"], params, lights),
         dict(height_padded=mty * 8, width_padded=mtx * 128, mode="mat"))
 

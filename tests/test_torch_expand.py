@@ -5,8 +5,16 @@ The same numpy cover meta goes into ``pallas_expand.expand_cells``
 port's ``expand_cells_plain``. The contract (tests/test_expand_kernel.py:
 66-72): cell and triangle ids bitwise on [0, min(total, pair_cap)), the
 ``num_cells`` sentinel in every cell slot beyond, ``total`` exact even
-when it exceeds ``pair_cap``. The CUDA kernel is held against the twin
-only where a card exists."""
+when it exceeds ``pair_cap``. Besides the seven cases of the JAX
+package's own tests: T one past a block of the CUDA kernel (``expand.TRIS``
+triangles) and one a few past two, and the uneven case of one triangle
+owning 40,000 cells among 4,096 single-cell triangles, within and past
+``pair_cap``. T = 0, which neither JAX branch takes (their kernels index
+an empty array), is held to the contract alone. The CUDA kernel is held
+against the twin only where a card exists."""
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -25,12 +33,26 @@ CASES = [
     (4000, 3, 1024, 4),   # overflow: total > cap
     (1024, 2, 2048, 5),   # exact block multiple
     (7, 30, 1024, 6),     # tiny T, large counts
+    (1025, 3, 2048, 7),   # one past a CUDA block (expand.TRIS)
+    (4101, 3, 8192, 8),   # not a multiple of the block size
+    (4097, None, 45056, 9),   # one c = 40,000 among 4,096 c = 1
+    (4097, None, 40960, 10),  # the same, total > pair_cap inside it
 ]
 
 
 def _meta(T, max_c, seed):
-    """(c, rx, x0, y0) as tests/test_expand_kernel.py draws them."""
+    """(c, rx, x0, y0) as tests/test_expand_kernel.py draws them; for
+    ``max_c`` None, T - 1 single-cell triangles and, at a seeded place, one
+    whose 200 x 200 cell rectangle holds 40,000 cells."""
     r = np.random.default_rng(seed)
+    if max_c is None:
+        c = np.ones(T, np.int32)
+        rx = np.ones(T, np.int32)
+        x0 = r.integers(0, NTX_T * 16, size=T).astype(np.int32)
+        y0 = r.integers(0, NTY, size=T).astype(np.int32)
+        big = int(r.integers(0, T))
+        c[big], rx[big], x0[big], y0[big] = 40_000, 200, 3, 1
+        return c, rx, x0, y0
     c = r.integers(0, max_c + 1, size=T).astype(np.int32)
     c[r.random(T) < 0.4] = 0
     rx = np.clip(r.integers(1, 5, size=T), 1, None).astype(np.int32)
@@ -95,6 +117,19 @@ def test_binning_dispatches_to_expand(port):
     _check(b, (a[0].numpy(), a[1].numpy(), int(a[2])), 1024)
 
 
+def test_block_size_is_the_kernels(port):
+    # The wrapper sizes the kernel's block-sum scratch by the source's
+    # block: THREADS x ITEMS triangles.
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "compute_renderer_torch", "csrc",
+        "expand.cu")
+    with open(path) as fh:
+        text = fh.read()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                       text).group(1))
+    assert port.expand.TRIS == const("THREADS") * const("ITEMS")
+
+
 def test_empty_and_other_devices(port):
     t = port.torch
     z = np.zeros((0,), np.int32)
@@ -107,7 +142,7 @@ def test_empty_and_other_devices(port):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,max_c,cap,seed", CASES)
+@pytest.mark.parametrize("T,max_c,cap,seed", CASES + [(0, 2, 1024, 11)])
 def test_kernel_vs_twin_on_card(port, cuda_device, T, max_c, cap, seed):
     meta = _meta(T, max_c, seed)
     before = port.expand.expand_cells.launches

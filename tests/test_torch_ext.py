@@ -134,9 +134,10 @@ def test_front_modes_vs_xla_chain(port, tpu, small, mode, tile):
     ca, ma, _, _ = _jax_chain(tpu, f, mode, tile)
     cb, mb = _port_front(port, f, mode, tile)
     width = {"mat": 35, "texf": 44}[mode]
-    assert cb.shape == ca.shape == (width, small["mesh"].num_triangles)
+    # The port's (T, R) table against the JAX package's (R, T) rows.
+    assert cb.shape == ca.T.shape == (small["mesh"].num_triangles, width)
     np.testing.assert_array_equal(ma, mb.numpy())
-    _assert_bitwise_nan(ca, cb.numpy())
+    _assert_bitwise_nan(ca.T, cb.numpy())
 
 
 @pytest.mark.parametrize("mode", ["mat", "texf"])
@@ -159,7 +160,7 @@ def test_front_modes_vs_pallas_front(port, tpu, small, mode):
     assert live.sum() > 1000
     np.testing.assert_array_equal(ma[:, live], mb[:, live])
     copied = slice(32, 35) if mode == "mat" else slice(38, 44)
-    np.testing.assert_array_equal(ca[copied], cb[copied])
+    np.testing.assert_array_equal(ca[copied].T, cb[:, copied])
 
 
 def _tile_bins(tpu, setup, layout, T):
@@ -452,9 +453,11 @@ def test_front_modes_on_card(port, small, cuda_device, mode, tile):
 
 
 def _port_tables(port, f, mode, tile, device):
-    """The port's own chain on the card: table, meta, setup."""
-    coeff, meta = _port_front(port, f, mode, tile, device)
-    return port.cuda.coeff_table(coeff), meta
+    """The port's own chain on the card: the front's table, as the rasters
+    take it (no copy), and meta."""
+    table, meta = _port_front(port, f, mode, tile, device)
+    assert port.raster.kernel_table(table)[0].data_ptr() == table.data_ptr()
+    return table, meta
 
 
 def _assert_kernel_matches_twin(port, mode, out_k, key_k, out_p, key_p):

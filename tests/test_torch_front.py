@@ -22,7 +22,11 @@ Two references:
   relative. The rendered frames, which those coefficients feed, are held
   to the pixel contract in test_torch_raster.py and test_torch_slice.py.
 
-The CUDA kernel is held against the twin only where a card exists."""
+The port's front returns the rasters' (T, R) table, the JAX package's the
+(R, T) rows, so the port's table is held against the transposed rows. The
+table's layout is the one ``raster.kernel_table`` passes on without a copy
+(checked in every mode at both granularities). The CUDA kernel is held
+against the twin only where a card exists."""
 
 import numpy as np
 import pytest
@@ -77,9 +81,9 @@ def _inputs(pkg, name, effect, position=(0.0, 0.0, 3.0)):
 def _port_front(port, inputs, tile=(16, 256), fn=None):
     t = port.torch
     fn = fn or port.front.front_end
-    coeff, meta = fn(*[t.from_numpy(a) for a in inputs], width=W, height=H,
+    table, meta = fn(*[t.from_numpy(a) for a in inputs], width=W, height=H,
                      tile_h=tile[0], tile_w=tile[1])
-    return coeff.numpy(), meta.numpy()
+    return table.numpy(), meta.numpy()
 
 
 CASES = [
@@ -112,6 +116,8 @@ def test_twin_vs_xla_chain(port, tpu, name, effect):
     ca, ma = _xla_chain(tpu, inputs)
     cb, mb = _port_front(port, inputs)
     assert cb.dtype == np.float32 and mb.dtype == np.int32
+    ca = ca.T  # the (T, 32) table
+    assert cb.shape == ca.shape
     if effect.startswith("wave"):
         assert_close_nan(ca, cb)
     else:  # bitwise, except NaN sign / payload bits
@@ -135,6 +141,8 @@ def test_twin_vs_xla_chain_at_cells(port, tpu, name, effect):
     inputs = _inputs(tpu, name, effect)
     ca, ma = _xla_chain(tpu, inputs, tile=(8, 8))
     cb, mb = _port_front(port, inputs, tile=(8, 8))
+    ca = ca.T
+    assert cb.shape == ca.shape
     nan = np.isnan(ca)
     np.testing.assert_array_equal(nan, np.isnan(cb))
     np.testing.assert_array_equal(ca.view(np.int32)[~nan],
@@ -157,13 +165,13 @@ def test_twin_vs_pallas_front(port, tpu, name, effect):
         *[jnp.asarray(a) for a in inputs], width=W, height=H, tile_h=16,
         tile_w=256, interpret=True)
     cb, mb = _port_front(port, inputs)
-    ca, ma = np.asarray(ca), np.asarray(ma)
+    ca, ma = np.asarray(ca).T, np.asarray(ma)
     assert cb.shape == ca.shape and mb.shape == ma.shape
     alive_a, alive_b = ma[3] > 0, mb[3] > 0
     np.testing.assert_array_equal(alive_a, alive_b)
     np.testing.assert_array_equal(ma[:, alive_a], mb[:, alive_b])
-    np.testing.assert_array_equal(np.isnan(ca[:, alive_a]),
-                                  np.isnan(cb[:, alive_b]))
+    np.testing.assert_array_equal(np.isnan(ca[alive_a]),
+                                  np.isnan(cb[alive_b]))
     assert alive_b.any()
 
 
@@ -221,9 +229,82 @@ def test_kernel_vs_twin_on_card(port, cuda_device, name, effect):
     ck, mk = port.front.front_end(*inputs, **kw)
     cp, mp = port.front.front_end_plain(*inputs, **kw)
     assert port.front.front_end.launches == before + 1
+    assert ck.shape == cp.shape and ck.stride() == cp.stride()
     assert t.equal(mk, mp)
     assert t.equal(t.isnan(ck), t.isnan(cp))
     keep = ~t.isnan(ck)
     gap = (ck[keep].view(t.int32).long() - cp[keep].view(t.int32).long())
     # Bitwise, except where sinf inputs differ on the wave frame (<= 1 ULP).
     assert int(gap.abs().max()) <= (1 if effect.startswith("wave") else 0)
+
+
+def _mode_inputs(port, inputs, mode, device):
+    """The front's inputs in ``mode`` on ``device``: the geometry of
+    ``inputs`` and random kd, uv corners, TextureInfo or mip rows."""
+    t = port.torch
+    T = inputs[0].shape[2]
+    rng = np.random.default_rng(3)
+    rows = lambda *shape: t.from_numpy(
+        rng.uniform(0, 1, shape).astype(np.float32)).to(device)
+    kw = {}
+    if mode != "base":
+        kw["kd_rows"] = rows(T, 3)
+    if mode.startswith("texf"):
+        kw["uv_soa"] = rows(3, 2, T)
+        kw["tex_rows" if mode == "texf" else "mip_rows"] = (
+            rows(T, 3) if mode == "texf" else rows(T, 5))
+    return [t.from_numpy(a).to(device) for a in inputs], kw
+
+
+def _assert_rasters_take_table(port, table, mode):
+    """The front's table has the layout both raster kernels read: (T, R),
+    unit column stride, a row stride of R rounded up to 4 floats, a 16-byte
+    aligned base; ``raster.kernel_table`` hands back the same storage and
+    counts no copy."""
+    R = port.raster.MODE_WIDTHS[mode]
+    stride = {32: 32, 35: 36, 44: 44, 46: 48}[R]
+    assert table.shape[1] == R and table.stride() == (stride, 1)
+    assert table.data_ptr() % 16 == 0
+    copies = port.raster.kernel_table.copies
+    out, row_stride = port.raster.kernel_table(table)
+    assert out.data_ptr() == table.data_ptr() and row_stride == stride
+    assert port.raster.kernel_table.copies == copies
+    # A chunk of rows, as the tile path's chunk loop slices it, too.
+    assert port.raster.kernel_table(table[5:])[0].data_ptr() == \
+        table[5:].data_ptr()
+
+
+@pytest.mark.parametrize("tile", [(16, 256), (8, 8)])
+@pytest.mark.parametrize("mode", ["base", "mat", "texf", "texf_mip"])
+def test_rasters_take_the_twin_table_without_copy(port, mode, tile):
+    inputs, kw = _mode_inputs(port, _inputs(port, "icosphere", "none"),
+                              mode, "cpu")
+    table, _ = port.front.front_end(*inputs, width=W, height=H,
+                                    tile_h=tile[0], tile_w=tile[1], **kw)
+    _assert_rasters_take_table(port, table, mode)
+    # A table in another layout (a dense (T, 35) or (T, 46) one) is
+    # copied, and the copy is counted.
+    copies = port.raster.kernel_table.copies
+    out, _ = port.raster.kernel_table(table.contiguous())
+    assert port.raster.kernel_table.copies == copies + (table.shape[1] % 4
+                                                        != 0)
+    assert port.torch.equal(out, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(16, 256), (8, 8)])
+@pytest.mark.parametrize("mode", ["base", "mat", "texf", "texf_mip"])
+def test_rasters_take_the_kernel_table_on_card(port, cuda_device, mode,
+                                               tile):
+    # The kernel's table: the layout above, and bitwise the twin's.
+    inputs, kw = _mode_inputs(port, _inputs(port, "san_miguel_small",
+                                            "none"), mode, cuda_device)
+    fkw = dict(width=W, height=H, tile_h=tile[0], tile_w=tile[1], **kw)
+    table, meta = port.front.front_end(*inputs, **fkw)
+    _assert_rasters_take_table(port, table, mode)
+    plain, meta_p = port.front.front_end_plain(*inputs, **fkw)
+    t = port.torch
+    assert t.equal(meta, meta_p)
+    assert t.equal(t.isnan(table), t.isnan(plain))
+    keep = ~t.isnan(table)
+    assert t.equal(table[keep].view(t.int32), plain[keep].view(t.int32))

@@ -401,7 +401,7 @@ def test_kernels_vs_twins_on_card(port, cuda_device, name, effect):
     for k in INTS:
         assert t.equal(bins[k].cpu(), bins_cpu[k]), k
     assert t.equal(bins["pair_tri"][:n].cpu(), bins_cpu["pair_tri"][:n])
-    margs = (ck.T.contiguous(), bins["pair_tri"], bins["seg_start"],
+    margs = (ck, bins["pair_tri"], bins["seg_start"],
              bins["seg_count"])
     mkw = dict(height_padded=NTY * 8, width_padded=NTX * 128)
     rk, kk = port.micro.raster_shade_micro(*margs, bins["tile_count"], eff,

@@ -280,7 +280,8 @@ def _jax_mip_chain(tpu, f, tex_filter, tile):
 
 def _port_mip_front(port, f, tex_filter, tile, device="cpu", fn=None):
     """The port's own chain: mip rows from its vertex stage, then the
-    front end in texf_mip mode. Returns (coeff, meta, mip rows)."""
+    front end in texf_mip mode. Returns (table (T, 46), meta, mip
+    rows)."""
     t = port.torch
     mesh, tri = f["mesh"], f["tri"]
     dev = lambda a: t.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -290,12 +291,12 @@ def _port_mip_front(port, f, tex_filter, tile, device="cpu", fn=None):
     rows = port.common.mip_tri_rows(dev(mesh.face_tex), dev(f["mips"]), guv,
                                     tex_filter)
     fn = fn or port.front.front_end
-    coeff, meta = fn(
+    table, meta = fn(
         dev(mesh.positions[tri].transpose(1, 2, 0)),
         dev(mesh.normals[tri].transpose(1, 2, 0)), vp, eff, width=W,
         height=H, tile_h=tile[0], tile_w=tile[1], kd_rows=dev(mesh.face_kd),
         uv_soa=dev(mesh.uvs[tri].transpose(1, 2, 0)), mip_rows=rows)
-    return coeff, meta, rows
+    return table, meta, rows
 
 
 @pytest.mark.parametrize("tile", [TILE, (8, 8)])
@@ -303,12 +304,12 @@ def _port_mip_front(port, f, tex_filter, tile, device="cpu", fn=None):
 def test_front_texf_mip_vs_xla_chain(port, tpu, frame, tex_filter, tile):
     ca, ma, _, _ = _jax_mip_chain(tpu, frame, tex_filter, tile)
     cb, mb, _ = _port_mip_front(port, frame, tex_filter, tile)
-    cb = cb.numpy()
-    assert cb.shape == ca.shape == (46, frame["tri"].shape[0])
+    cb = cb.numpy()  # the port's (T, 46) table; JAX's rows are (46, T)
+    assert cb.shape == ca.T.shape == (frame["tri"].shape[0], 46)
     np.testing.assert_array_equal(ma, mb.numpy())
     others = [c for c in range(46) if c not in (42, 45)]
-    assert_bitwise_nan(ca[others], cb[others])
-    assert_rows_match(ca[41:46].T, cb[41:46].T)
+    assert_bitwise_nan(ca[others].T, cb[:, others])
+    assert_rows_match(ca[41:46].T, cb[:, 41:46])
 
 
 def _compare_mip_outputs(port, tpu, frame, tex_filter, out_a, key_a, out_b,
@@ -499,9 +500,9 @@ def _card_gbuffers_equal(port, out_k, key_k, out_p, key_p):
 def test_tile_raster_texf_mip_on_card(port, port_frame, cuda_device,
                                       tex_filter, layout):
     frame = port_frame
-    coeff, meta, _ = _port_mip_front(port, frame, tex_filter, TILE,
+    table, meta, _ = _port_mip_front(port, frame, tex_filter, TILE,
                                      cuda_device)
-    table = port.cuda.coeff_table(coeff)
+    assert port.raster.kernel_table(table)[0].data_ptr() == table.data_ptr()
     setup = port.binning.setup_from_meta(meta)
     ntx, nty = (W + 255) // 256, (H + 15) // 16
     need = port.binning.exact_tile_counts(setup, ntx, nty)
@@ -529,7 +530,7 @@ def test_tile_raster_texf_mip_on_card(port, port_frame, cuda_device,
 @pytest.mark.parametrize("tex_filter", MIP_FILTERS)
 def test_micro_texf_mip_on_card(port, port_frame, cuda_device, tex_filter):
     frame = port_frame
-    coeff, meta, _ = _port_mip_front(port, frame, tex_filter, (8, 8),
+    table, meta, _ = _port_mip_front(port, frame, tex_filter, (8, 8),
                                      cuda_device)
     ntx, nty = (W + 127) // 128, (H + 7) // 8
     pair_cap = max(int(meta[3].sum()), ntx * nty * 16, 1024)
@@ -537,8 +538,7 @@ def test_micro_texf_mip_on_card(port, port_frame, cuda_device, tex_filter):
                                             meta[1], ntx, nty, pair_cap)
     t = port.torch
     shading = _shading(lambda a: t.from_numpy(a).to(cuda_device), frame)
-    margs = (port.cuda.coeff_table(coeff), bins["pair_tri"],
-             bins["seg_start"], bins["seg_count"])
+    margs = (table, bins["pair_tri"], bins["seg_start"], bins["seg_count"])
     kw = dict(height_padded=nty * 8, width_padded=ntx * 128, mode="texf_mip")
     before = port.micro.raster_shade_micro.mode_launches["texf_mip"]
     out_k, key_k = port.micro.raster_shade_micro(

@@ -146,7 +146,7 @@ def test_front_twin_matches_xla_chain_per_corner(port, tpu):
     setup = port.common.triangle_setup(screen, tri, t.from_numpy(eff), W, H,
                                        16, 256)
     soa = port.cuda.corner_soa
-    coeff, meta = port.front.front_end_plain(
+    front_table, meta = port.front.front_end_plain(
         soa(pos, tri), soa(t.from_numpy(mesh.normals), tri),
         t.from_numpy(vp), t.from_numpy(eff), width=W, height=H, tile_h=16,
         tile_w=256)
@@ -155,4 +155,4 @@ def test_front_twin_matches_xla_chain_per_corner(port, tpu):
                                   setup["alive"].numpy())
     table = port.raster.build_tri_table(screen, tri, t.from_numpy(
         mesh.normals), world)
-    np.testing.assert_array_equal(coeff.T.numpy(), table.numpy())
+    np.testing.assert_array_equal(front_table.numpy(), table.numpy())

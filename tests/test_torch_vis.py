@@ -373,10 +373,11 @@ def test_structured_tex_deferred_golden_frame(port):
 def _port_base_table(port, f, tile, device):
     t = port.torch
     dev = lambda a: t.from_numpy(np.ascontiguousarray(a)).to(device)
-    coeff, meta = port.front.front_end(
+    table, meta = port.front.front_end(
         dev(f["pos_soa"]), dev(f["nrm_soa"]), dev(f["vp"]), dev(f["eff"]),
         width=W, height=H, tile_h=tile[0], tile_w=tile[1])
-    return port.cuda.coeff_table(coeff), meta
+    assert port.raster.kernel_table(table)[0].data_ptr() == table.data_ptr()
+    return table, meta
 
 
 @pytest.mark.cuda
