@@ -25,19 +25,28 @@ Phases, each fatal on failure (nonzero exit, no result line):
    its twin's at San Miguel's shapes (beside the expansion,
    torch.repeat_interleave of its triangle ids);
 5. main path, tile — bench.py's scene through Scene.from_config ->
-   Renderer -> three render() frames: the front and raster launch counts
-   advance, no overflow, and every frame matches
+   Renderer -> three render() frames (the first tunes the tile shape,
+   capturing each candidate's CUDA graph; the frames replay the
+   winner's): the front and raster launch counts advance, no overflow,
+   and every frame matches
    tests/golden_data/torch_slice_suzanne_1024x768.npz (rendered by the JAX
    package) with at most max(2, H*W/500) pixels differing by more than
-   2 LSB; ms/frame by bench.py's batch-slope method (64 and 256 frames,
-   best of 4) and one profiled batch;
+   2 LSB, and equals the eager loop's frame bitwise; the tuner's timings
+   and pick; then the eager loop against the graph (``compare_eager_graph``:
+   ms/frame by bench.py's batch-slope method, 64 and 256 frames, best of
+   4, the two in turns; the host's CUDA calls a frame, at most 3 through
+   the graph; one profiled batch of each, busy time, kernels and idle
+   share);
 6. main path, micro — the San Miguel benchmark configuration through
-   Renderer: calibration, three frames against
-   tests/golden_data/torch_micro_san_miguel_1024x768.npz, the front,
-   expand and micro launch counts advance and the tile raster's stays 0,
-   no overflow; the batch slope and one profiled batch split into front /
-   expand / sort+segments / micro / other;
-7. san_miguel_small on the tile path against the CPU twin path;
+   Renderer: calibration, one capture, three frames against
+   tests/golden_data/torch_micro_san_miguel_1024x768.npz and bitwise
+   against the eager frames, the front, expand and micro launch counts
+   advance and the tile raster's stays 0, no overflow, the micro merge
+   scratch clear after the replays; the eager loop against the graph,
+   the eager profile split into front / expand / sort+segments / micro /
+   other;
+7. san_miguel_small on the tile path against the CPU twin path, with the
+   tuner's pick;
 8. the structured scenes of the reference suite's extension rows
    (bench/suite.py:101-144), synthesized (io/objgen.py) and parsed from
    disk once each (structured_scene.obj, 1,023,442 triangles, and
@@ -56,9 +65,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (tile path, three frames), + bilinear and SSAA 2 (one frame) and
    +materials (the tile raster's material mode, three frames), each frame
    within the pixel contract of
-   tests/golden_data/torch_ext_structured_1024x768.npz, no overflow, and
-   each mode kernel of the row's path launched (per-mode counts); the
-   batch slope and a profiled batch of the two micro rows;
+   tests/golden_data/torch_ext_structured_1024x768.npz and bitwise equal
+   to the eager frame, no overflow, and each mode kernel of the row's path
+   launched (per-mode counts); the tuner's pick on the tile rows; the
+   eager loop against the graph on the two micro rows;
 11. kernel vs twin, visibility (vis) and mip-filtered texture (texf_mip)
    modes — the front end's texf_mip at 8x8 and 16x256 (meta bitwise,
    coefficients 0 ULP), the tile raster on structured_scene_tex and its
@@ -71,13 +81,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
    anisotropic and tex_mode="deferred" on structured_scene_tex.obj, tile
    path; trilinear, anisotropic and deferred trilinear on
    structured_scene.obj, micro path) through Scene -> Renderer ->
-   render_batch_device, each within the pixel contract, no overflow, its
-   mode kernels launched every frame and the other path's raster never;
-   then the fused and deferred images of one frame bitwise equal
-   (micro: trilinear and anisotropic; tile: trilinear, else at most 1
-   LSB, the differing pixels printed), and the batch slope and a profiled
-   batch (the texture work split out) of the micro trilinear,
-   anisotropic and deferred rows;
+   render_batch_device, each within the pixel contract and bitwise equal
+   to the eager frames, no overflow, its mode kernels launched and the
+   other path's raster never, the tuner's pick on the tile rows; then the
+   fused and deferred images of one frame bitwise equal (micro: trilinear
+   and anisotropic; tile: trilinear, else at most 1 LSB, the differing
+   pixels printed), and the eager loop (16 and 64 frames) against the
+   graph on the micro trilinear, anisotropic and deferred rows, the eager
+   profile with the texture work split out;
 13. stress — card tensors built directly (no front end) at 256x64: a
    cell of over 20 x micro.SPAN coplanar duplicates (equal keys straddle
    the spans), NaN / infinite coefficients and -0.0 depth planes inside
@@ -86,8 +97,16 @@ Phases, each fatal on failure (nonzero exit, no result line):
    mode of both rasters (both tile layouts) against its twin: keys, ids,
    pair indices and G-buffers bitwise, RGBA within 1 LSB.
 
+14. graph — the eager-against-graph numbers of every main-path row
+   together, the tuner's picks, and ``bench_torch.py`` run once (its JSON
+   line printed).
+
 Every main path runs its rasters on the front's own table: no
-``raster.kernel_table`` copy is counted in phases 5, 6, 10 and 12.
+``raster.kernel_table`` copy is counted in phases 5, 6, 10 and 12. On
+the card each frame of a main path is a replayed CUDA graph; a kernel
+wrapper's launch count ticks when the graph is captured (and at the
+eager warm-up before it), never at a replay, so a main path's counts are
+those of its captures.
 
 A kernel's time is the device time of all its launches in one call
 (torch.profiler; the expansion's two launches together). Beside each
@@ -112,6 +131,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H = 1024, 768
 DT = 1.0 / 60.0
 BATCH_SMALL, BATCH_LARGE, ROUNDS = 64, 256, 4  # bench.py's batch slope
+# The eager loop's batches on the rows whose eager frame takes 7-18 ms.
+SLOW_EAGER_BATCHES = (16, 64)
 GOLDEN = os.path.join(ROOT, "tests", "golden_data",
                       "torch_slice_suzanne_1024x768.npz")
 GOLDEN_MICRO = os.path.join(ROOT, "tests", "golden_data",
@@ -205,15 +226,6 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
-
-
 def bench_scene(model="suzanne.obj", effect=None, eye=(0.0, 0.0, 3.0)):
     from compute_renderer_torch import CameraConfig, Scene, SceneConfig
     from compute_renderer_torch.core.camera import CameraMode
@@ -232,24 +244,6 @@ def bound_ms(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def event_ms(fn, iters):
-    """Mean wall time per call on the card's clock (CUDA events around
-    ``iters`` back-to-back calls, after a warm-up)."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def kernel_device_ms(fn, iters, symbol):
@@ -555,6 +549,7 @@ def micro_walk(tag, bins):
 
 def phase_kernels(device, reports):
     from compute_renderer_torch.backends import binning, cuda, front, raster
+    from compute_renderer_torch.bench.profiling import event_ms
     from compute_renderer_torch.core.effects import Effect, WaveDirection
 
     cases = (
@@ -839,6 +834,7 @@ def phase_micro_kernels(device, reports):
 
     from compute_renderer_torch.backends import binning, cuda, expand, front
     from compute_renderer_torch.backends import micro
+    from compute_renderer_torch.bench.profiling import event_ms
 
     ntx, nty = (W + 127) // 128, (H + 7) // 8
     num_cells = ntx * nty * 16
@@ -980,140 +976,173 @@ def phase_main_path(device, card, reports):
     front.front_end.launches = 0
     raster.raster_shade_tiles.launches = 0
     raster.kernel_table.copies = 0
-    frames = [renderer.render(scene.update(DT)) for _ in range(3)]
+    batch = [scene.update(DT) for _ in range(3)]
+    frames = [renderer.render(u) for u in batch]
     launches = {"front_end": front.front_end.launches,
                 "raster_shade_tiles": raster.raster_shade_tiles.launches}
-    print(f"[main] launches over 3 render() frames: {launches}; table "
-          f"copies {raster.kernel_table.copies}")
+    # The first frame tunes the tile shape: each candidate's graph is
+    # captured (an eager warm-up and the capture); the frames replay the
+    # winner's.
+    print(f"[main] launches over 3 render() frames (the tuner's captures; "
+          f"replays tick no counter): {launches}; table copies "
+          f"{raster.kernel_table.copies}")
     require_front_tables("main path")
     for name, n in launches.items():
-        require(n > 0, f"main path never launched the {name} kernel")
+        require(n >= CAPTURE_LAUNCHES,
+                f"main path launched the {name} kernel {n} times")
         reports[name]["launches"] = n
     require(not renderer.flush_overflow(), "overflow on the main path")
     check_golden("main", frames, golden)
-
-    slope_ms, wall_ms = batch_slope(renderer, scene)
-    print(f"[bench] ms/frame 1024x768 suzanne (cuda, batch slope "
-          f"{BATCH_SMALL}->{BATCH_LARGE}, best of {ROUNDS}): {slope_ms:.6f} ;"
-          f" wall ms/frame at {BATCH_LARGE}: {wall_ms:.6f} ; card: {card}")
-    profile_batch(renderer, scene, slope_ms, {
+    check_graph_equals_eager("main", renderer, batch, frames)
+    note_tuner("suzanne", renderer)
+    compare_eager_graph("suzanne", renderer, scene, card, {
         "front_end": ("front_kernel",),
         "raster_shade_tiles": ("raster_kernel",),
     })
 
 
-def batch_slope(renderer, scene):
-    """bench.py's batch-slope method: (ms/frame by slope, wall ms/frame at
-    the large batch), best of ROUNDS, after a warm-up of both sizes."""
+# A graph's eager warm-up and its capture: the launch counters tick on
+# both, never on a replay (engine/renderer.py).
+CAPTURE_LAUNCHES = 2
+# Every main-path row's eager and graph numbers, and each tile-path row's
+# tuned tile shape, as the phases measure them (phase 14 prints them
+# together).
+GRAPH_ROWS = {}
+TUNED_ROWS = {}
+
+
+def batch_slopes(renderer, make_batch, sizes):
+    """bench.py's batch-slope method for the eager loop and the replayed
+    graphs of one renderer, in turns: ``sizes`` maps "eager" and "graph"
+    to (small, large) batch sizes; after a checked warm-up of every size,
+    ROUNDS rounds time each mode's two batches (unchecked, fenced), eager
+    first in even rounds and graph first in odd ones. Returns {mode:
+    (ms/frame by slope, wall ms/frame at the large batch)}, best of
+    ROUNDS."""
+    for mode, pair in sizes.items():
+        for n in pair:
+            renderer.render_batch_device(make_batch(n),
+                                         eager=mode == "eager")
+    renderer.fence_pending()
+    best = {}
+    modes = list(sizes)
+    for r in range(ROUNDS):
+        for mode in (modes if r % 2 == 0 else modes[::-1]):
+            for n in sizes[mode]:
+                batch = make_batch(n)
+                t0 = time.perf_counter()
+                renderer.render_batch_device(batch, check=False,
+                                             eager=mode == "eager")
+                renderer.fence_pending()
+                t = time.perf_counter() - t0
+                best[mode, n] = min(best.get((mode, n), float("inf")), t)
+    require(not renderer.flush_overflow(), "overflow during the batch runs")
+    return {mode: ((best[mode, large] - best[mode, small])
+                   / (large - small) * 1e3, best[mode, large] / large * 1e3)
+            for mode, (small, large) in sizes.items()}
+
+
+def check_graph_equals_eager(tag, renderer, batch, frames):
+    """The graph frames ``frames`` (K host arrays, or a (K, H, W, 4)
+    stack) of ``batch`` equal the eager loop's frames of the same
+    uniforms on the same renderer, bitwise. Run after the launch counts
+    are read: the eager frames tick them."""
+    import numpy as np
+
+    eager = renderer.render_batch_device(batch, eager=True).cpu().numpy()
+    require(np.array_equal(np.asarray(frames), eager),
+            f"{tag}: the replayed graph's frames differ from the eager "
+            "frames")
+    print(f"[graph] {tag}: {len(batch)} graph frames bitwise equal to the "
+          "eager frames")
+
+
+def print_profile(tag, p, slope_ms):
+    """Prints a ``profiling.profile_batch`` result: busy time and kernels
+    a frame, the layer split, the idle share against the batch's own wall
+    (profiler on) and against the unprofiled slope, the top kernels."""
+    split = ", ".join(f"{k} {v:.6f}" for k, v in p["by_layer"].items())
+    texture = ", ".join(f"{k} {v:.1f} kernels/frame"
+                        for k, v in p["texture_kernels"].items())
+    per_frame = p["wall_ms"] / p["frames"]
+    print(f"[profile] {tag}: {p['frames']} frames (profiler on, wall "
+          f"{p['wall_ms']:.3f} ms, {per_frame:.6f} ms/frame): device busy "
+          f"{p['busy_ms']:.6f} ms/frame in {p['kernels']:.1f} kernels/frame "
+          f"({split}{'; ' + texture if texture else ''}); idle share "
+          f"against this batch's wall {1 - p['busy_ms'] / per_frame:.4f}, "
+          f"against the unprofiled slope {1 - p['busy_ms'] / slope_ms:.4f}")
+    for ms, count, key in p["rows"][:8]:
+        print(f"[profile]   {ms:9.6f} ms/frame  x{count // p['frames']:<3d} "
+              f"{key[:80]}")
+
+
+def compare_eager_graph(tag, renderer, scene, card, layers,
+                        eager_sizes=(BATCH_SMALL, BATCH_LARGE)):
+    """A main-path row's eager loop against its replayed graph on one
+    renderer, in one call: the slopes (in turns; the eager loop of the
+    slow texture rows at smaller batches, printed), the host's CUDA calls
+    a frame (at most 3 through the graph), and a profiled 16-frame batch
+    of each — the eager one for the layer split and texture ranges, the
+    graph one for its busy time and kernels. Stored in GRAPH_ROWS."""
+    from compute_renderer_torch.bench import profiling
+
     def make_batch(n):
         return [scene.update(DT) for _ in range(n)]
 
-    renderer.render_batch_device(make_batch(BATCH_SMALL))
-    renderer.render_batch_device(make_batch(BATCH_LARGE))
-    renderer.fence_pending()
+    slopes = batch_slopes(renderer, make_batch,
+                          {"eager": eager_sizes,
+                           "graph": (BATCH_SMALL, BATCH_LARGE)})
+    calls = {mode: profiling.host_calls_per_frame(renderer, make_batch,
+                                                  eager=mode == "eager")
+             for mode in slopes}
+    require(calls["graph"] is not None and calls["graph"] <= 3,
+            f"{tag}: the graph batch costs the host {calls['graph']} CUDA "
+            "calls a frame (at most 3)")
+    prof = {mode: profiling.profile_batch(renderer, make_batch(16), layers,
+                                          eager=mode == "eager")
+            for mode in slopes}
+    busy_by = "profiler"
+    if not prof["graph"]["busy_ms"]:
+        # The profiler saw no kernel of the replays: the device time of
+        # back-to-back replays instead (an upper bound of the busy time).
+        prof["graph"]["busy_ms"] = profiling.event_ms(
+            renderer.frame_graph(scene.update(DT)).graph.replay, 20)
+        busy_by = "CUDA events around back-to-back replays"
+    require(not renderer.flush_overflow(), f"{tag}: overflow in the runs")
+    for mode in ("eager", "graph"):
+        print_profile(f"{tag} {mode}", prof[mode], slopes[mode][0])
+    row = {mode: {"slope_ms": slopes[mode][0], "wall_ms": slopes[mode][1],
+                  "busy_ms": prof[mode]["busy_ms"],
+                  "kernels": prof[mode]["kernels"],
+                  "host_calls": calls[mode],
+                  "idle": 1 - prof[mode]["busy_ms"] / slopes[mode][0]}
+           for mode in slopes}
+    row["eager_sizes"] = eager_sizes
+    row["busy_by"] = busy_by
+    GRAPH_ROWS[tag] = row
+    e, g = row["eager"], row["graph"]
+    print(f"[bench] {tag} 1024x768 (cuda): graph {g['slope_ms']:.6f} "
+          f"ms/frame by slope {BATCH_SMALL}->{BATCH_LARGE} (wall "
+          f"{g['wall_ms']:.6f} at {BATCH_LARGE}), eager {e['slope_ms']:.6f} "
+          f"(batches {eager_sizes[0]}->{eager_sizes[1]}; wall "
+          f"{e['wall_ms']:.6f}), best of {ROUNDS} in turns; busy graph "
+          f"{g['busy_ms']:.6f} ({busy_by}) in {g['kernels']:.1f} kernels, "
+          f"idle {g['idle']:.4f}; eager {e['busy_ms']:.6f} in "
+          f"{e['kernels']:.1f}, idle {e['idle']:.4f}; host calls a frame "
+          f"graph {g['host_calls']}, eager {e['host_calls']} ; card: {card}")
 
-    def timed_round(n):
-        batch = make_batch(n)
-        t0 = time.perf_counter()
-        renderer.render_batch_device(batch, check=False)
-        renderer.fence_pending()
-        return time.perf_counter() - t0
 
-    best_small = min(timed_round(BATCH_SMALL) for _ in range(ROUNDS))
-    best_large = min(timed_round(BATCH_LARGE) for _ in range(ROUNDS))
-    require(not renderer.flush_overflow(), "overflow during the batch runs")
-    slope_ms = (best_large - best_small) / (BATCH_LARGE - BATCH_SMALL) * 1e3
-    return slope_ms, best_large / BATCH_LARGE * 1e3
-
-
-def range_device_ms(events, name):
-    """(device ms, kernels) of every kernel launched inside the
-    torch.profiler ranges named ``name``, summed over ``events``
-    (prof.events()): the kernels each range's ops launched, found through
-    their CPU children."""
-    import torch
-
-    cpu = torch.autograd.DeviceType.CPU
-    total_us, count = 0.0, 0
-    stack = [e for e in events
-             if e.name == name and getattr(e, "device_type", cpu) == cpu]
-    while stack:
-        e = stack.pop()
-        for k in getattr(e, "kernels", ()):
-            total_us += k.duration
-            count += 1
-        stack.extend(e.cpu_children)
-    return total_us / 1e3, count
-
-
-def profile_batch(renderer, scene, slope_ms, layers):
-    """Where the time goes: one profiled 16-frame batch, device time per
-    frame split by layer (``layers`` maps a layer to substrings of its
-    kernels' names; the rest is "other"), with the device time and
-    kernel count of the texture work (cuda.TEXTURE_RANGES) split out of
-    "other"."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from compute_renderer_torch.backends import cuda
-
-    batch = [scene.update(DT) for _ in range(16)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    events = []
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            renderer.render_batch_device(batch, check=False)
-            renderer.fence_pending()
-        averages = prof.key_averages()
-        events = prof.events()
-    except (RuntimeError, AssertionError) as e:  # informational only
-        print(f"[profile] unavailable: {e!r}")
-        averages = []
-    wall = (time.perf_counter() - t0) * 1e3
-    # Device kernels only: the aten rows repeat their kernels' time, and
-    # a range's device row (its annotation) spans its kernels.
-    cuda_type = torch.autograd.DeviceType.CUDA
-    rows = []
-    for ev in averages:
-        if (getattr(ev, "device_type", None) != cuda_type
-                or ev.key in cuda.TEXTURE_RANGES):
-            continue
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0)
-        rows.append((dev / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    n = len(batch)
-    busy = sum(r[0] for r in rows) / n
-    launches = sum(r[1] for r in rows) / n
-    by_layer = {name: 0.0 for name in layers}
-    by_layer["other"] = 0.0
-    for ms, _, key in rows:
-        layer = next((name for name, keys in layers.items()
-                      if any(k in key.lower() for k in keys)), "other")
-        by_layer[layer] += ms / n
-    texture = []
-    for name in cuda.TEXTURE_RANGES:
-        ms, count = range_device_ms(events, name)
-        if count:
-            by_layer[name.replace("_", " ")] = ms / n
-            by_layer["other"] -= ms / n
-            texture.append(f"{name} {count / n:.1f} kernels/frame")
-    split = ", ".join(f"{k} {v:.6f}" for k, v in by_layer.items())
-    # Idle share against this batch's own wall time (the profiler's cost
-    # included), and against the unprofiled slope of another batch.
-    print(f"[profile] {n} frames (profiler on, wall {wall:.3f} ms, "
-          f"{wall / n:.6f} ms/frame): device busy {busy:.6f} ms/frame in "
-          f"{launches:.1f} kernels/frame ({split}"
-          f"{'; ' + ', '.join(texture) if texture else ''}); idle share "
-          f"against this batch's wall {1 - busy / (wall / n):.4f}, against "
-          f"the unprofiled slope {1 - busy / slope_ms:.4f}")
-    for ms, count, key in rows[:12]:
-        print(f"[profile]   {ms / n:9.6f} ms/frame  x{count // n:<3d} "
-              f"{key[:80]}")
-    require(not renderer.flush_overflow(), "overflow in the profiled batch")
+def note_tuner(tag, renderer):
+    """Prints and keeps a tile-path row's tuned tile shape and the tuner's
+    timings (best seconds of each candidate on the row's first frames)."""
+    shape = (renderer.options.get("tile_h"), renderer.options.get("tile_w"))
+    timings = {f"{h}x{w}": round(t * 1e3, 4)
+               for (h, w), t in renderer.tile_timings.items()}
+    require(timings and shape in renderer.tile_timings,
+            f"{tag}: the tile tuner did not run (options {renderer.options})")
+    TUNED_ROWS[tag] = (shape, timings)
+    print(f"[tune] {tag}: picked {shape[0]}x{shape[1]}; best ms of each "
+          f"candidate {timings}")
 
 
 def phase_micro_main_path(device, card, reports):
@@ -1136,19 +1165,22 @@ def phase_micro_main_path(device, card, reports):
     for fn in counters.values():
         fn.launches = 0
     raster.kernel_table.copies = 0
-    frames = [renderer.render(scene.update(DT)) for _ in range(3)]
+    batch = [scene.update(DT) for _ in range(3)]
+    frames = [renderer.render(u) for u in batch]
     launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"[main-micro] launches over 3 render() frames (calibration "
-          f"included): {launches}; table copies "
-          f"{raster.kernel_table.copies}")
+    print(f"[main-micro] launches over 3 render() frames (calibration and "
+          f"the graph's capture; replays tick no counter): {launches}; "
+          f"table copies {raster.kernel_table.copies}")
     require_front_tables("micro main path")
     for name in ("front_end", "expand_cells", "raster_shade_micro"):
-        require(launches[name] >= 3, f"the micro main path launched the "
-                f"{name} kernel {launches[name]} times in 3 frames")
+        require(launches[name] >= CAPTURE_LAUNCHES, f"the micro main path "
+                f"launched the {name} kernel {launches[name]} times")
     require(launches["raster_shade_tiles"] == 0,
             "the micro main path launched the tile raster")
-    # One expansion a frame: calibration left no frame to retry.
-    require(launches["expand_cells"] == 3, "a frame overflowed and retried")
+    # One capture: calibration left no frame to retry and re-capture.
+    require(launches["expand_cells"] == CAPTURE_LAUNCHES
+            and launches["front_end"] == CAPTURE_LAUNCHES + 1,
+            "a frame overflowed and was captured again")
     for name in ("expand_cells", "raster_shade_micro"):
         reports[name]["launches"] = launches[name]
     require(not renderer.flush_overflow(), "overflow on the micro main path")
@@ -1156,18 +1188,12 @@ def phase_micro_main_path(device, card, reports):
     print(f"[main-micro] calibrated pair_cap {renderer.options['pair_cap']} "
           f"(heuristic {caps['pair_cap']})")
     check_golden("main-micro", frames, golden)
-
-    slope_ms, wall_ms = batch_slope(renderer, scene)
-    print(f"[bench] ms/frame 1024x768 san_miguel (cuda, micro path, batch "
-          f"slope {BATCH_SMALL}->{BATCH_LARGE}, best of {ROUNDS}): "
-          f"{slope_ms:.6f} ; wall ms/frame at {BATCH_LARGE}: {wall_ms:.6f} ;"
-          f" card: {card}")
-    profile_batch(renderer, scene, slope_ms, {
-        "front": ("front_kernel",),
-        "expand": ("expand_kernel",),
-        "sort+segments": ("sort", "searchsorted"),
-        "micro": ("micro_kernel",),
-    })
+    check_graph_equals_eager("main-micro", renderer, batch, frames)
+    words, arrivals = micro.merge_scratch(device, 768, 1024)
+    require(bool((words == -1).all()) and not bool(arrivals.any()),
+            "the micro raster's merge scratch is not clear after the "
+            "graph's replays")
+    compare_eager_graph("san_miguel", renderer, scene, card, MICRO_LAYERS)
 
 
 def phase_san_miguel(device):
@@ -1180,11 +1206,14 @@ def phase_san_miguel(device):
     uniforms = scene.update(DT)
     gpu = Renderer(scene.mesh, W, H, device=device,
                    **scene.renderer_options())
-    gpu.render(uniforms)  # settles the capacities (one retry at most)
     front.front_end.launches = 0
     raster.raster_shade_tiles.launches = 0
+    # The first frame tunes the tile shape and settles the capacities
+    # (one retry at most); the second replays the winner's graph.
+    gpu.render(uniforms)
     img = gpu.render(uniforms)
     launches = (front.front_end.launches, raster.raster_shade_tiles.launches)
+    note_tuner("san_miguel_small", gpu)
     cpu = Renderer(scene.mesh, W, H, device="cpu",
                    **scene.renderer_options())
     ref = cpu.render(uniforms)
@@ -1344,6 +1373,7 @@ def phase_mode_kernels(device, reports, scenes, modes):
     their twins, then each mode kernel's time at its main path's shapes."""
     from compute_renderer_torch.backends import binning, cuda, front, micro
     from compute_renderer_torch.backends import raster
+    from compute_renderer_torch.bench.profiling import event_ms
 
     timing = {}
     for name, scene, mode, path in mode_cases(scenes, modes):
@@ -1489,19 +1519,19 @@ def phase_ext_main_paths(device, card, reports, scenes):
         renderer = Renderer(scene.mesh, W, H, device=device,
                             **scene.renderer_options())
         reset_counts()
-        imgs = renderer.render_batch_device(
-            [scene.update(DT) for _ in range(frames)]).cpu().numpy()
+        batch = [scene.update(DT) for _ in range(frames)]
+        imgs = renderer.render_batch_device(batch).cpu().numpy()
         launches = read_counts()
         require_front_tables(f"ext {row}")
         ran = {k: v for k, v in launches.items() if v}
         print(f"[ext] {row} ({key}, {path} path, {frames} frames): "
-              f"launches {ran}, no table copy")
+              f"launches {ran} (the captures), no table copy")
         raster_name = ("raster_shade_micro" if path == "micro"
                        else "raster_shade_tiles")
         for name in ("front_end", raster_name):
             n = launches[record(name, mode)]
-            require(n >= frames, f"{row}: the {record(name, mode)} kernel "
-                    f"launched {n} times in {frames} frames")
+            require(n >= CAPTURE_LAUNCHES, f"{row}: the "
+                    f"{record(name, mode)} kernel launched {n} times")
             reports[record(name, mode)]["launches"] = (
                 reports[record(name, mode)].get("launches", 0) + n)
         other = ("raster_shade_tiles" if path == "micro"
@@ -1510,22 +1540,21 @@ def phase_ext_main_paths(device, card, reports, scenes):
                         for m in ("base",) + MODE_KERNELS[other]),
                 f"{row}: the {path} path launched {other}")
         if path == "micro":
-            require(launches["expand_cells"] >= frames,
-                    f"{row}: the expansion kernel did not run every frame")
+            require(launches["expand_cells"] >= CAPTURE_LAUNCHES,
+                    f"{row}: the expansion kernel did not run")
         require(not renderer.flush_overflow(), f"{row}: overflow")
         require(golden[row].shape[0] == frames,
                 f"{row}: {golden[row].shape[0]} golden frames")
         check_golden(f"ext {row}", imgs, golden[row])
+        check_graph_equals_eager(f"ext {row}", renderer, batch, imgs)
+        if path == "tile":
+            note_tuner(f"structured_tex {row}", renderer)
         renderers[row] = (renderer, scene)
 
     for row in ("materials", "textures"):
         renderer, scene = renderers[row]
-        slope_ms, wall_ms = batch_slope(renderer, scene)
-        print(f"[bench] ms/frame 1024x768 structured_scene +{row} (cuda, "
-              f"micro path, batch slope {BATCH_SMALL}->{BATCH_LARGE}, best "
-              f"of {ROUNDS}): {slope_ms:.6f} ; wall ms/frame at "
-              f"{BATCH_LARGE}: {wall_ms:.6f} ; card: {card}")
-        profile_batch(renderer, scene, slope_ms, MICRO_LAYERS)
+        compare_eager_graph(f"structured +{row}", renderer, scene, card,
+                            MICRO_LAYERS)
 
 
 # (golden row, scene, tex_filter, tex_mode, frames, path, mode): the rows
@@ -1554,18 +1583,18 @@ MICRO_LAYERS = {
 
 def render_row(device, scene, frames, **options):
     """A fresh renderer of ``scene`` (a copy that animates from its start)
-    and its first ``frames`` frames, rendered through
-    render_batch_device, as a numpy stack and the launch counts."""
+    and its first ``frames`` frames' uniforms, rendered through
+    render_batch_device, as a numpy stack, and the launch counts."""
     from compute_renderer_torch import Renderer
 
     scene = scene_copy(scene)
     renderer = Renderer(scene.mesh, W, H, device=device,
                         **scene.renderer_options(), **options)
     reset_counts()
-    imgs = renderer.render_batch_device(
-        [scene.update(DT) for _ in range(frames)]).cpu().numpy()
+    batch = [scene.update(DT) for _ in range(frames)]
+    imgs = renderer.render_batch_device(batch).cpu().numpy()
     require(not renderer.flush_overflow(), "overflow")
-    return renderer, scene, imgs, read_counts()
+    return renderer, scene, batch, imgs, read_counts()
 
 
 def phase_mip_main_paths(device, card, reports, scenes):
@@ -1584,18 +1613,19 @@ def phase_mip_main_paths(device, card, reports, scenes):
         scene = scene_copy(scenes[key], texture_filter=tex_filter)
         require(cuda.resolve_path("auto", scene.total_tris) == path,
                 f"{row} does not take the {path} path")
-        renderer, scene, imgs, launches = render_row(
+        renderer, scene, batch, imgs, launches = render_row(
             device, scene, frames, tex_mode=tex_mode)
         require_front_tables(f"mip {row}")
         ran = {k: v for k, v in launches.items() if v}
         print(f"[mip] {row} ({key}, {tex_filter}, {tex_mode}, {path} path, "
-              f"{frames} frames): launches {ran}, no table copy")
+              f"{frames} frames): launches {ran} (the captures), no table "
+              "copy")
         raster_name = ("raster_shade_micro" if path == "micro"
                        else "raster_shade_tiles")
         for name in (front_record(mode), record(raster_name, mode)):
             n = launches[name]
-            require(n >= frames, f"{row}: the {name} kernel launched {n} "
-                    f"times in {frames} frames")
+            require(n >= CAPTURE_LAUNCHES, f"{row}: the {name} kernel "
+                    f"launched {n} times")
             if name != "front_end":  # the base front keeps its own count
                 reports[name]["launches"] = (
                     reports[name].get("launches", 0) + n)
@@ -1605,11 +1635,14 @@ def phase_mip_main_paths(device, card, reports, scenes):
                         for m in ("base",) + MODE_KERNELS[other]),
                 f"{row}: the {path} path launched {other}")
         if path == "micro":
-            require(launches["expand_cells"] >= frames,
-                    f"{row}: the expansion kernel did not run every frame")
+            require(launches["expand_cells"] >= CAPTURE_LAUNCHES,
+                    f"{row}: the expansion kernel did not run")
         require(golden[row].shape[0] == frames,
                 f"{row}: {golden[row].shape[0]} golden frames")
         check_golden(f"mip {row}", imgs, golden[row])
+        check_graph_equals_eager(f"mip {row}", renderer, batch, imgs)
+        if path == "tile":
+            note_tuner(f"structured_tex {row}", renderer)
         renderers[row] = (renderer, scene)
         first[row] = imgs[0]
 
@@ -1622,8 +1655,8 @@ def phase_mip_main_paths(device, card, reports, scenes):
                                                  if r[0] == row)
         if deferred is None:
             scene = scene_copy(scenes[key], texture_filter=tex_filter)
-            _, _, imgs, launches = render_row(device, scene, 1,
-                                              tex_mode="deferred")
+            _, _, _, imgs, launches = render_row(device, scene, 1,
+                                                 tex_mode="deferred")
             raster_name = ("raster_shade_micro" if path == "micro"
                            else "raster_shade_tiles")
             require(launches[record(raster_name, "vis")] >= 1,
@@ -1637,15 +1670,15 @@ def phase_mip_main_paths(device, card, reports, scenes):
         require(int(d.max()) <= limit, f"{row}: fused and deferred differ "
                 f"by {int(d.max())} LSB (limit {limit})")
 
-    for row in ("textures_trilinear", "textures_anisotropic",
-                "textures_deferred_trilinear"):
+    # The eager loop of these rows runs at 7-18 ms a frame: its slope is
+    # taken over smaller batches.
+    for row, tag in (("textures_trilinear", "structured +trilinear"),
+                     ("textures_anisotropic", "structured +anisotropic"),
+                     ("textures_deferred_trilinear",
+                      "structured +deferred trilinear")):
         renderer, scene = renderers[row]
-        slope_ms, wall_ms = batch_slope(renderer, scene)
-        print(f"[bench] ms/frame 1024x768 structured_scene {row} (cuda, "
-              f"micro path, batch slope {BATCH_SMALL}->{BATCH_LARGE}, best "
-              f"of {ROUNDS}): {slope_ms:.6f} ; wall ms/frame at "
-              f"{BATCH_LARGE}: {wall_ms:.6f} ; card: {card}")
-        profile_batch(renderer, scene, slope_ms, MICRO_LAYERS)
+        compare_eager_graph(tag, renderer, scene, card, MICRO_LAYERS,
+                            eager_sizes=SLOW_EAGER_BATCHES)
 
 
 # Phase 13's frame and cases (tests/test_torch_walks.py runs them too).
@@ -1852,6 +1885,38 @@ def phase_stress(device, reports):
               f"(micro) px")
 
 
+def phase_graph_summary(card):
+    """Phase 14: every main-path row's eager loop against its replayed
+    graph, as phases 5, 6, 10 and 12 measured them in this run; the tile
+    tuner's pick and timings on each tile-path row; and ``bench_torch.py``
+    run once, its JSON line checked and printed."""
+    print("[graph] row: slope ms/frame graph | eager (eager batches); busy "
+          "ms/frame graph | eager; kernels a frame graph | eager; idle "
+          "share graph | eager; host calls a frame graph | eager")
+    for tag, row in GRAPH_ROWS.items():
+        g, e = row["graph"], row["eager"]
+        print(f"[graph] {tag}: {g['slope_ms']:.6f} | {e['slope_ms']:.6f} "
+              f"({row['eager_sizes'][0]}->{row['eager_sizes'][1]}); "
+              f"{g['busy_ms']:.6f} | {e['busy_ms']:.6f}; {g['kernels']:.1f} "
+              f"| {e['kernels']:.1f}; {g['idle']:.4f} | {e['idle']:.4f}; "
+              f"{g['host_calls']} | {e['host_calls']} ; card: {card}")
+    for tag, (shape, timings) in TUNED_ROWS.items():
+        print(f"[tune] {tag}: {shape[0]}x{shape[1]} of {timings} (ms)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable,
+                           os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0 and proc.stdout.strip(),
+            f"bench_torch.py failed ({proc.returncode}): "
+            f"{proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    result = json.loads(line)
+    require("cuda backend" in result["metric"]
+            and result["extra"]["card"] and result["value"] > 0,
+            f"bench_torch.py printed {line}")
+    print(f"[bench_torch] {time.perf_counter() - t0:.1f} s: {line}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "compute_renderer_torch")):
         print("chip_smoke: compute_renderer_torch/ is not beside this script",
@@ -1867,6 +1932,8 @@ def main() -> int:
     device = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from compute_renderer_torch.bench.profiling import card_line
+
     card = card_line()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1892,6 +1959,7 @@ def main() -> int:
     phase_mode_kernels(device, reports, scenes, NEW_MODES)
     phase_mip_main_paths(device, card, reports, scenes)
     phase_stress(device, reports)
+    phase_graph_summary(card)
 
     kernels = [{
         "name": name, "route": "cuda", "source": meta["source"],

@@ -26,6 +26,11 @@ values the hand-written kernels (built with ``-fmad=false``) compute.
 Depth keys are carried as int64 holding the u32 bit pattern: torch has no
 ``<``/``minimum`` for ``torch.uint32`` on the CPU. They become ``uint32``
 only at the public boundary (``render_frame``'s outputs).
+
+The stages of a frame are safe to capture in a CUDA graph (the renderer
+replays one a frame): none reads a value back to the host, and constants
+are made on the device (``torch.full``, ``fill_``), never copied from
+host memory (an indexed assignment of a Python number is such a copy).
 """
 
 from __future__ import annotations
@@ -50,8 +55,9 @@ NO_TRI = -1  # winner id of a pixel no triangle covers (the tile raster's vis)
 def empty_frame(width: int, height: int, device):
     """Background-only frame for zero-triangle scenes: blue clear color +
     cleared depth (fragment.wgsl:58-62)."""
-    rgba = torch.tensor([0, 0, 255, 255], dtype=torch.uint8,
-                        device=device).expand(height, width, 4).contiguous()
+    rgba = torch.full((height, width, 4), 255, dtype=torch.uint8,
+                      device=device)
+    rgba[..., :2].fill_(0)
     key = torch.full((height, width), -1, dtype=torch.int32,
                      device=device).view(torch.uint32)
     return rgba, key
@@ -511,7 +517,7 @@ def mip_tri_rows(face_tex, mip_table, guv, tex_filter: str,
     gx_v = guv[:, 1] * th0
     gy_u = guv[:, 2] * tw0
     gy_v = guv[:, 3] * th0
-    tiny = torch.tensor(1e-12, dtype=F32, device=guv.device)
+    tiny = torch.full((), 1e-12, dtype=F32, device=guv.device)
     rx = torch.sqrt(gx_u * gx_u + gx_v * gx_v)
     ry = torch.sqrt(gy_u * gy_u + gy_v * gy_v)
     if tex_filter == "trilinear":
@@ -779,10 +785,10 @@ def _texf_shade_epilogue(kdt, flag, gbuf, base, light_color,
         final = final + contrib * light_color[li].to(F32) \
             * light_intensity[li].to(F32)
     final = torch.clamp(final, 0.0, 1.0)
-    gamma = torch.tensor(1.0 / 2.2, dtype=F32, device=final.device)
+    gamma = torch.full((), 1.0 / 2.2, dtype=F32, device=final.device)
     shaded = torch.round(torch.pow(final, gamma) * 255.0).to(torch.uint8)
-    background = torch.tensor([0, 0, 255], dtype=torch.uint8,
-                              device=final.device)
+    background = torch.zeros((3,), dtype=torch.uint8, device=final.device)
+    background[2:].fill_(255)
     rgb = torch.where(flag[..., None], shaded, background)
     alpha = torch.full(flag.shape + (1,), 255, dtype=torch.uint8,
                        device=final.device)

@@ -42,9 +42,11 @@ Micro path (``render_frame_micro``), for scenes above
    through the sorted pair list first).
 
 Nothing in a frame waits for the host: the overflow report stays a device
-tensor, and the occupied-tile count is read by the kernels themselves.
-The texture work of a frame runs inside ``torch.profiler`` ranges named
-``TEXTURE_RANGES``, so that a profile can split it out.
+tensor, and the occupied-tile count is read by the kernels themselves. So
+a frame can be captured into a CUDA graph, as the renderer does. The
+texture work of a frame runs inside ``torch.profiler`` ranges named
+``TEXTURE_RANGES``, so that a profile of eager frames can split it out (a
+graph's replay records no ranges).
 """
 
 from __future__ import annotations
@@ -74,11 +76,18 @@ MAX_TILE_CAP = 8192
 
 
 def choose_tile(num_triangles: int, width: int, height: int) -> tuple:
-    """Framebuffer tile shape: a fixed (16, 256) until the tile shape is
-    measured on the card (the JAX package's engine auto-tunes it per scene
-    on the TPU; that tuning is not ported)."""
+    """Framebuffer tile shape of a direct ``render_frame`` call and of a
+    renderer that does not tune it: (16, 256). The renderer times
+    ``TILE_CANDIDATES`` per scene and size on the card
+    (``Renderer._maybe_tune_tile``)."""
     del num_triangles, width, height
     return 16, 256
+
+
+# The tile shapes the renderer's tuner times (the JAX package's
+# tpu.TILE_CANDIDATES): plain, wave and edge-melt frames are the same image
+# at either, so the pick is a matter of speed alone.
+TILE_CANDIDATES = ((16, 256), (8, 128))
 
 
 def resolve_path(path: str, num_triangles: int, tri_chunk: int = 0) -> str:

@@ -84,7 +84,8 @@ def expand_cells(c, rx, x0, y0, *, pair_cap: int, ntx_t: int,
     """(cell_of_pair (pair_cap,) i32, tri_of_pair (pair_cap,) i32, total
     () i32) from (T,) cover meta; see the module docstring for the
     contract. CPU tensors take the twin, CUDA tensors the kernel
-    (``expand_cells.launches`` counts its calls, two launches each)."""
+    (``expand_cells.launches`` counts its calls, two launches each; a
+    CUDA graph's capture ticks it, its replays do not)."""
     kw = dict(pair_cap=pair_cap, ntx_t=ntx_t, num_cells=num_cells)
     if c.device.type == "cpu":
         return expand_cells_plain(c, rx, x0, y0, **kw)

@@ -139,7 +139,8 @@ def front_end(pos_soa, nrm_soa, view_proj, effect, *, width: int,
     (T, 3) the fused-texture rows, ``uv_soa`` with ``mip_rows`` (T, 5)
     the mip-filtered ones. CPU tensors take the plain twin, CUDA tensors the
     kernel (``front_end.launches`` counts its launches,
-    ``front_end.mode_launches`` per mode)."""
+    ``front_end.mode_launches`` per mode; a CUDA graph's capture ticks
+    them, its replays do not)."""
     kw = dict(width=width, height=height, tile_h=tile_h, tile_w=tile_w,
               kd_rows=kd_rows, uv_soa=uv_soa, tex_rows=tex_rows,
               mip_rows=mip_rows)

@@ -97,7 +97,10 @@ def raster_shade_micro_spans_plain(tri_table, pair_tri, seg_start,
 def merge_scratch(device, height_padded, width_padded):
     """The kernel's span-merge state for a frame size on a device: one
     int64 word a pixel, all ones, and one int32 counter a cell, zero —
-    made once and left clear by every launch."""
+    made once and left clear by every launch. Made eagerly: the renderer
+    runs an eager frame before it captures one in a CUDA graph, so that a
+    graph reads these buffers and never makes them (a buffer made inside
+    a capture would come from the graph's pool, filled only at replay)."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     k = (index, height_padded, width_padded)
@@ -159,8 +162,9 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
 
     CPU tensors take the twin, CUDA tensors the kernel
     (``raster_shade_micro.launches`` counts its launches,
-    ``mode_launches`` per mode), launched over the occupied-tile work
-    list of ``tile_count``."""
+    ``mode_launches`` per mode; a CUDA graph's capture ticks them, its
+    replays do not), launched over the occupied-tile work list of
+    ``tile_count``."""
     raster.check_mode(tri_table, mode)
     params, lights = raster.shading_inputs(effect, view_position,
                                            light_world_pos, light_color,

@@ -673,8 +673,8 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
 
     CPU tensors take the twin, CUDA tensors the kernel
     (``raster_shade_tiles.launches`` counts its launches,
-    ``mode_launches`` per mode), launched over the occupied-tile work
-    list."""
+    ``mode_launches`` per mode; a CUDA graph's capture ticks them, its
+    replays do not), launched over the occupied-tile work list."""
     check_mode(tri_table, mode)
     if layout not in ("dense", "flat"):
         raise ValueError(f"unknown layout {layout!r}")

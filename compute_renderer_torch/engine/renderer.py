@@ -11,27 +11,48 @@ host, under a mip filter), uvs, uv corners and TextureInfo rows
 included, by ``cuda.mesh_ext_tensors``, which makes the JAX engine's
 texture decisions (engine/renderer.py:122-191); a frame is one packed
 uniform buffer in, ``cuda.render_frame`` on the renderer's device, and the
-frame's overflow report out. PyTorch
-runs eagerly, so there is no compiled step to cache: the JAX package's
-``jit``/``lax.scan`` batch becomes a frame loop whose overflow flags
-accumulate in a device tensor.
+frame's overflow report out.
+
+The compiled step. The JAX engine jits a frame (``_get_step``) and a
+K-frame ``lax.scan`` (``_get_batch_step``). Here, on a CUDA device, a
+frame is captured once into a ``torch.cuda.CUDAGraph`` per key (the
+uniforms' light count, the frame size, the path, the mode and the
+options: tile shape and capacities) and replayed for every frame after:
+one graph launch in place of the frame's 65-780 eager launches. The
+graph reads the uniforms from a static input buffer and leaves the frame
+in static outputs, which the renderer copies out, so no returned frame
+aliases them. A batch uploads its uniform stack once and costs the host
+three calls a frame (the uniforms into the input buffer, the replay, the
+frame into the output stack); the overflow maximum is taken inside the
+graph, as the scan's loop carry takes it. On the CPU frames run eagerly
+through the kernels' twins. A capture that fails raises: there is no
+eager fall-back on the card (``eager=True`` asks for the eager loop).
+
+The kernels' launch counters (``front.front_end.launches`` and the
+others) count the wrappers' calls: the eager warm-up and the capture of a
+graph tick them, its replays do not.
 
 On the micro path the pair capacity settles to the first checked frame's
 measured need (``_maybe_calibrate``), and a tile path whose per-tile list
 outgrows ``cuda.MAX_TILE_CAP`` falls back to the micro path
-(``_switch_to_micro``), as in the JAX engine.
+(``_switch_to_micro``), as in the JAX engine. On the card the tile path's
+tile shape is timed per scene and size over ``cuda.TILE_CANDIDATES``
+(``_maybe_tune_tile``). Each of these, and ``resize``, drops the cached
+graphs.
 
-Not ported yet (ROADMAP): the comparator backends, and the TPU engine's
-measured tile-shape auto-tune (this renderer keeps the fixed 16x256 of
-``cuda.choose_tile``).
+Not ported yet (ROADMAP): the comparator backends.
 """
 
 from __future__ import annotations
+
+import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from compute_renderer_torch.backends import cuda, front
+from compute_renderer_torch.core.effects import EFFECT_MIRAGE, EFFECT_VOXELIZE
 from compute_renderer_torch.engine.scene import FrameUniforms
 
 _TILE_OPTIONS = ("tile_h", "tile_w", "pair_cap", "tile_cap", "tri_chunk",
@@ -63,15 +84,36 @@ def box_downsample(rgba, s: int):
     return torch.floor(x + 0.5).to(torch.uint8)
 
 
+@dataclass
+class FrameGraph:
+    """One captured frame: replaying ``graph`` renders the uniforms in
+    ``packed`` into ``rgba`` (H, W, 4) u8, ``key`` (rh, rw) u32 and
+    ``overflow`` (2,) i32, and folds ``overflow`` into ``overflow_max``
+    (the batch's running maximum). All five tensors are static: the graph
+    reads and writes them in place at every replay."""
+
+    graph: torch.cuda.CUDAGraph
+    packed: torch.Tensor
+    rgba: torch.Tensor
+    key: torch.Tensor
+    overflow: torch.Tensor
+    overflow_max: torch.Tensor
+
+
 class Renderer:
     """``Renderer(mesh, width, height)`` renders ``Mesh`` geometry on
-    ``device``: ``"cuda"`` (the default) runs the hand-written kernels and
-    raises where there is no card; ``device="cpu"`` runs their plain torch
-    twins. The path (tile or micro) follows ``cuda.resolve_path``; a mesh's
-    ``face_kd`` selects the material mode and its textures a texture mode
+    ``device``: ``"cuda"`` (the default) runs the hand-written kernels,
+    each frame a replayed CUDA graph, and raises where there is no card;
+    ``device="cpu"`` runs their plain torch twins eagerly. The path (tile
+    or micro) follows ``cuda.resolve_path``; a mesh's ``face_kd`` selects
+    the material mode and its textures a texture mode
     (``cuda.frame_mode``): ``tex_filter`` "nearest", "bilinear",
     "trilinear" or "anisotropic", ``tex_mode`` "fused" (the default) or
-    "deferred". ``backend`` is "cuda", the one engine ported so far."""
+    "deferred". ``effect_kind`` is the scene's static effect class (an
+    ``EFFECT_*`` code, None when the effect may change), as
+    ``Scene.renderer_options`` gives it; it decides whether the tile shape
+    may be tuned (``tile_autotune``, on by default). ``backend`` is
+    "cuda", the one engine ported so far."""
 
     def __init__(self, mesh, width: int, height: int, backend: str = "cuda",
                  *, device="cuda", **options):
@@ -94,17 +136,24 @@ class Renderer:
         self._tex_options = {"tex_filter": options.pop("tex_filter",
                                                        "nearest"),
                              "tex_mode": options.pop("tex_mode", "fused")}
+        self.effect_kind = options.pop("effect_kind", None)
+        self._tile_autotune = bool(options.pop("tile_autotune", True))
         unknown = set(options) - set(_TILE_OPTIONS)
         if unknown:
             raise NotImplementedError(
-                f"renderer options {sorted(unknown)} are not ported (the "
-                "JAX engine's tile auto-tune and effect specialisation; "
-                "ROADMAP queue 1)")
+                f"renderer options {sorted(unknown)} are not options of the "
+                f"port (it takes {sorted(_TILE_OPTIONS)}, ssaa, tex_filter, "
+                "tex_mode, effect_kind and tile_autotune)")
         self.options = options
+        self._graphs: dict = {}
         # Settle-to-need pair capacity (micro path): once per scene and
         # size, unless the caller pinned pair_cap.
         self._user_pair_cap = "pair_cap" in options
         self._calibrate_pair_cap = not self._user_pair_cap
+        self._user_tile = "tile_h" in options or "tile_w" in options
+        self._tile_tuned = self._user_tile or not self._tile_autotune
+        # The tuner's best seconds per candidate shape, once it has run.
+        self.tile_timings: dict = {}
         self._pending_overflow = None
         self._upload(mesh)
 
@@ -129,6 +178,11 @@ class Renderer:
         # (the mip pool is built here, once per mesh).
         self.ext = cuda.mesh_ext_tensors(mesh, self.tri, self.device,
                                          **self._tex_options)
+        self.mode = cuda.frame_mode(
+            self.ext.get("face_kd"), self.ext.get("texels"),
+            self.ext.get("tex_filter", "nearest"),
+            self.ext.get("tex_mode", "fused"))
+        self._drop_graphs()
 
     def _path(self) -> str:
         return cuda.resolve_path(self.options.get("path", "auto"),
@@ -144,6 +198,24 @@ class Renderer:
     def rh(self) -> int:
         """Render-resolution height (output height x ssaa)."""
         return self.height * self.ssaa
+
+    def resize(self, width: int, height: int) -> None:
+        """Render at a new output size from the next frame on (the
+        reference's CustomRenderer::resize, renderer.rs:159-170, rebuilds
+        its buffers): calibration and the tile tuning re-arm unless the
+        caller pinned them, and the cached graphs are dropped."""
+        self.width = int(width)
+        self.height = int(height)
+        if not self._user_pair_cap:
+            # A settled capacity was measured at the old size.
+            self.options.pop("pair_cap", None)
+            self._calibrate_pair_cap = True
+        if self._tile_autotune and not self._user_tile:
+            # The tuned shape was measured at the old size.
+            self.options.pop("tile_h", None)
+            self.options.pop("tile_w", None)
+            self._tile_tuned = False
+        self._drop_graphs()
 
     # -- per-frame step -------------------------------------------------------
 
@@ -164,7 +236,8 @@ class Renderer:
         ).astype(np.float32), L
 
     def _frame(self, packed, L: int):
-        """One frame from a packed device buffer: (rgba, key, overflow)."""
+        """One frame from a packed device buffer, eagerly: (rgba, key,
+        overflow)."""
         vpos, vp, eff, lwp, lc, li = unpack_uniforms(packed, L)
         rgba, key, overflow = cuda.render_frame(
             self.positions, self.normals, self.tri, vp, vpos, lwp, lc, li,
@@ -175,16 +248,79 @@ class Renderer:
             rgba = box_downsample(rgba, self.ssaa)
         return rgba, key, overflow
 
+    def graph_key(self, L: int) -> tuple:
+        """The key of a frame's graph: what the JAX engine keys its step
+        by (lights, frame size, tile shape) and what changes the port's
+        shapes besides — the path, the mode and the capacities."""
+        return (L, self.rw, self.rh, self._path(), self.mode,
+                tuple(sorted(self.options.items())))
+
+    def _frame_graph(self, packed, L: int) -> FrameGraph:
+        """The cached graph of this key, captured from ``packed`` (a (P,)
+        device buffer) if there is none."""
+        key = self.graph_key(L)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = self._capture(packed, L)
+        return graph
+
+    def _capture(self, packed, L: int) -> FrameGraph:
+        """Capture one frame. One eager frame on a side stream comes
+        first (PyTorch's rule for capture): it builds and loads the
+        kernels and makes the state that outlives a launch (the micro
+        raster's merge scratch), so that nothing is allocated or filled
+        for the first time inside the graph, whose private pool would
+        otherwise hold it and fill it only at replay."""
+        static_in = torch.empty_like(packed)
+        static_in.copy_(packed)
+        overflow_max = torch.zeros((2,), dtype=torch.int32,
+                                   device=self.device)
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._frame(static_in, L)
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            rgba, key, overflow = self._frame(static_in, L)
+            torch.maximum(overflow_max, overflow, out=overflow_max)
+        return FrameGraph(graph, static_in, rgba, key, overflow,
+                          overflow_max)
+
+    def _drop_graphs(self, keep=lambda key: False) -> None:
+        """Drop the cached graphs whose key ``keep`` refuses, and free
+        their memory pools (the JAX engine clears its step cache)."""
+        for key in [k for k in self._graphs if not keep(k)]:
+            self._graphs.pop(key).graph.reset()
+
+    def frame_graph(self, uniforms: FrameUniforms) -> FrameGraph:
+        """The graph of ``uniforms``' key, captured now if there is none,
+        with the uniforms in its input buffer: a replay renders them. On
+        the card only; for tools that replay it themselves
+        (``bench/profiling.py``)."""
+        packed, L = self.pack_uniforms(uniforms)
+        packed = torch.from_numpy(packed).to(self.device)
+        graph = self._frame_graph(packed, L)
+        graph.packed.copy_(packed)
+        return graph
+
     def render_device(self, uniforms: FrameUniforms):
         """Render and return the device-resident (H, W, 4) u8 frame, the
-        depth keys and the overflow report, without waiting for the device
-        and without an overflow check (see ``_checked``)."""
-        packed, L = self.pack_uniforms(uniforms)
-        return self._frame(torch.from_numpy(packed).to(self.device), L)
+        depth keys and the overflow report, without an overflow check
+        (see ``_checked``). On the card it replays the frame's graph and
+        returns copies of its outputs."""
+        if self.device.type != "cuda":
+            packed, L = self.pack_uniforms(uniforms)
+            return self._frame(torch.from_numpy(packed), L)
+        graph = self.frame_graph(uniforms)
+        graph.graph.replay()
+        return graph.rgba.clone(), graph.key.clone(), graph.overflow.clone()
 
     def _checked(self, uniforms: FrameUniforms, max_retries: int = 3):
         """Render, read the overflow report (one device->host copy), and
         retry at the reported capacities until the frame fits."""
+        self._maybe_tune_tile([uniforms])
         for _ in range(max_retries):
             # Inside the loop: a tile->micro fallback re-arms calibration.
             self._maybe_calibrate(uniforms)
@@ -204,7 +340,7 @@ class Renderer:
         heuristic: the front end at 8x8 cells, its cover counts (meta row
         3) summed on the device, one read. Overflow detection grows the
         capacity later if the camera moves into denser coverage. Once per
-        scene; skipped when the caller pinned pair_cap."""
+        scene and size; skipped when the caller pinned pair_cap."""
         if not self._calibrate_pair_cap or self._path() != "micro":
             return
         self._calibrate_pair_cap = False
@@ -219,10 +355,71 @@ class Renderer:
         num_cells = ((self.rw + 127) // 128) * ((self.rh + 7) // 8) * 16
         self.options["pair_cap"] = cuda.grow_pair_cap(
             0, max(total, num_cells, 1024))
+        self._drop_graphs()
+
+    def _tile_tunable(self) -> bool:
+        """Whether the tile shape may be chosen by timing (the JAX
+        engine's gating, engine/renderer.py:309-353): a nonempty scene on
+        the tile path with a static effect class that keeps coverage
+        inside each triangle. Plain, wave and edge-melt frames are then
+        the same image at every tile shape; mirage and voxelize cover
+        past the triangle, so the covered tiles are part of the image,
+        and a dynamic effect (``effect_kind`` None) may become either."""
+        return (self.num_triangles > 0
+                and self.effect_kind not in (None, EFFECT_MIRAGE,
+                                             EFFECT_VOXELIZE)
+                and self._path() == "tile")
+
+    def _maybe_tune_tile(self, uniforms_seq) -> None:
+        """Pick the tile shape by measurement, once per scene and size
+        (JAX engine/renderer.py:309-392): on the card, for a scene that
+        ``_tile_tunable`` admits, unless the caller pinned tile_h / tile_w
+        or passed ``tile_autotune=False``."""
+        if self._tile_tuned:
+            return
+        self._tile_tuned = True
+        if (self.device.type == "cuda" and uniforms_seq
+                and self._tile_tunable()):
+            self._tune_tile(list(uniforms_seq))
+
+    def _tune_tile(self, uniforms_seq) -> None:
+        """Time each ``cuda.TILE_CANDIDATES`` shape on the caller's own
+        granularity (its batch through the replayed graphs, or single
+        frames) and keep the winner; the losers' graphs are dropped.
+        ``tile_timings`` keeps each shape's best seconds. A checked
+        warm-up first captures the candidate and settles its capacities,
+        so no retry is timed; a tile->micro fallback during it ends the
+        tuning (the shape is then moot)."""
+        batched = len(uniforms_seq) > 1
+        rounds = 3 if batched else 6
+        results = {}
+        for shape in cuda.TILE_CANDIDATES:
+            self.options["tile_h"], self.options["tile_w"] = shape
+            if batched:
+                self.render_batch_device(uniforms_seq)
+            else:
+                self._checked(uniforms_seq[0])
+            if self.options.get("path") == "micro":
+                return
+            best = float("inf")
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                if batched:
+                    self.render_batch_device(uniforms_seq, check=False)
+                else:
+                    self.render_device(uniforms_seq[0])
+                self.fence_pending()
+                best = min(best, time.perf_counter() - t0)
+            results[shape] = best
+        winner = min(results, key=results.get)
+        self.options["tile_h"], self.options["tile_w"] = winner
+        self.tile_timings = results
+        self._drop_graphs(keep=lambda key: key == self.graph_key(key[0]))
 
     def _grow_caps(self, pair_needed: int = 0, tile_needed: int = 0) -> None:
         """Grow the binning capacities to the reported need (0 = leave);
         on the micro path only ``pair_cap`` exists."""
+        self._drop_graphs()
         path = self._path()
         if (path != "micro" and tile_needed > cuda.MAX_TILE_CAP
                 and self.options.get("path", "auto") == "auto"):
@@ -257,36 +454,57 @@ class Renderer:
         if not self._user_pair_cap:
             self.options.pop("pair_cap", None)
             self._calibrate_pair_cap = True
+        self._drop_graphs()
+
+    def _frames(self, stack, L: int, eager: bool):
+        """The frames of a packed (K, P) device stack and their overflow
+        maximum: replays of one graph on the card (three host calls a
+        frame), or ``_frame`` op by op on the CPU and with ``eager``."""
+        K = stack.shape[0]
+        frames = torch.empty((K, self.height, self.width, 4),
+                             dtype=torch.uint8, device=self.device)
+        if eager or self.device.type != "cuda":
+            overflow = torch.zeros((2,), dtype=torch.int32,
+                                   device=self.device)
+            for i in range(K):
+                rgba, _, ovf = self._frame(stack[i], L)
+                frames[i] = rgba
+                overflow = torch.maximum(overflow, ovf)
+            return frames, overflow
+        graph = self._frame_graph(stack[0], L)
+        graph.overflow_max.zero_()
+        for i in range(K):
+            graph.packed.copy_(stack[i])
+            graph.graph.replay()
+            frames[i].copy_(graph.rgba)
+        return frames, graph.overflow_max.clone()
 
     def render_batch_device(self, uniforms_seq, max_retries: int = 3,
-                            check: bool = True):
+                            check: bool = True, *, eager: bool = False):
         """Render a sequence of frames; returns the device-resident
         (K, H, W, 4) u8 stack.
 
         The uniforms cross to the device in one transfer, and the frames'
-        overflow flags accumulate in a device tensor. ``check=True`` reads
-        them once (one device->host copy) and retries the batch at the
-        reported capacities; ``check=False`` leaves them on the device for
-        ``flush_overflow()`` — the steady-state benchmark loop."""
+        overflow maximum stays on the device. ``check=True`` reads it
+        once (one device->host copy) and retries the batch at the reported
+        capacities; ``check=False`` leaves it on the device for
+        ``flush_overflow()`` — the steady-state benchmark loop. On the
+        card every frame replays the key's graph; ``eager=True`` runs the
+        frames op by op instead, as the CPU does (the comparison that
+        ``chip_smoke.py`` times)."""
         uniforms_seq = list(uniforms_seq)
-        packs = [self.pack_uniforms(u) for u in uniforms_seq]
-        if not packs:
+        if not uniforms_seq:
             return torch.empty((0, self.height, self.width, 4),
                                dtype=torch.uint8, device=self.device)
+        self._maybe_tune_tile(uniforms_seq)
+        packs = [self.pack_uniforms(u) for u in uniforms_seq]
         L = packs[0][1]
         stack = torch.from_numpy(np.stack([p for p, _ in packs])).to(
             self.device)
         for _ in range(max_retries):
             if check:
                 self._maybe_calibrate(uniforms_seq[0])
-            frames = torch.empty((len(packs), self.height, self.width, 4),
-                                 dtype=torch.uint8, device=self.device)
-            overflow = torch.zeros((2,), dtype=torch.int32,
-                                   device=self.device)
-            for i in range(len(packs)):
-                rgba, _, ovf = self._frame(stack[i], L)
-                frames[i] = rgba
-                overflow = torch.maximum(overflow, ovf)
+            frames, overflow = self._frames(stack, L, eager)
             if not check:
                 self._pending_overflow = (
                     overflow if self._pending_overflow is None

@@ -16,7 +16,11 @@ import numpy as np
 
 from compute_renderer_torch.core import maths
 from compute_renderer_torch.core.camera import Camera, CameraMode, CameraUniform
-from compute_renderer_torch.core.effects import Effect, EffectUniform
+from compute_renderer_torch.core.effects import (
+    EFFECT_NONE,
+    Effect,
+    EffectUniform,
+)
 from compute_renderer_torch.core.lights import Light, pack_lights
 from compute_renderer_torch.core.maths import F32
 from compute_renderer_torch.io.model import Model
@@ -170,8 +174,12 @@ class Scene:
         return Mesh.concatenate([m.mesh for m in self.models])
 
     def renderer_options(self) -> dict:
-        """Static Renderer options derived from the scene."""
-        opts = {}
+        """Static Renderer options derived from the scene: the effect KIND
+        is fixed per SceneConfig (only its parameters animate), which lets
+        the renderer tune the tile shape of scenes whose effect keeps
+        coverage inside each triangle."""
+        kind = self.effect.kind if self.effect is not None else EFFECT_NONE
+        opts = {"effect_kind": int(kind)}
         if self.texture_filter != "nearest":
             opts["tex_filter"] = self.texture_filter
         if self.ssaa != 1:

@@ -59,11 +59,9 @@ def _scene_pair(port, tpu, mode, effect):
 @pytest.mark.parametrize("effect", [None, "wave", "voxelize"])
 def test_scene_update_uniforms(port, tpu, mode, effect):
     js, ts = _scene_pair(port, tpu, mode, effect)
-    # The port's base mode has no effect-specialised code, so it takes no
-    # effect_kind option; the other options are the same.
-    jopts = js.renderer_options()
-    jopts.pop("effect_kind")
-    assert jopts == ts.renderer_options()
+    # The same options, effect_kind included (the port's tile tuner reads
+    # it).
+    assert js.renderer_options() == ts.renderer_options()
     for _ in range(5):
         for s in (js, ts):
             s.get_active_camera().update_over_time(0.05)
@@ -150,9 +148,10 @@ def test_port_sources_name_no_jax():
             for needle in ("import jax", "from jax", "compute_renderer_tpu"):
                 if needle in text:
                     offenders.append((f, needle))
-    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
-        smoke = fh.read()
-    for needle in ("import jax", "from jax", "compute_renderer_tpu."):
-        if needle in smoke:
-            offenders.append(("chip_smoke.py", needle))
+    for script in ("chip_smoke.py", "bench_torch.py"):
+        with open(os.path.join(ROOT, script)) as fh:
+            text = fh.read()
+        for needle in ("import jax", "from jax", "compute_renderer_tpu."):
+            if needle in text:
+                offenders.append((script, needle))
     assert not offenders, offenders
