@@ -48,10 +48,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
 7. san_miguel_small on the tile path against the CPU twin path, with the
    tuner's pick;
 8. the structured scenes of the reference suite's extension rows
-   (bench/suite.py:101-144), synthesized (io/objgen.py) and parsed from
-   disk once each (structured_scene.obj, 1,023,442 triangles, and
+   (bench/suite.py:101-144), synthesized (io/objgen.py) and loaded from
+   disk through Model.load (the native parser, io/native.py) once each
+   (structured_scene.obj, 1,023,442 triangles, and
    structured_scene_tex.obj, 36,322), with textures; the materials rows
-   drop the atlas (the Kd rows are the same); the seconds printed;
+   drop the atlas (the Kd rows are the same); each file parsed again by
+   the native parser and by the Python loader (io/obj.py), every array
+   (positions, normals, uvs, indices, face_kd, face_tex, texels,
+   tex_table) equal, the seconds of each parse printed;
 9. kernel vs twin, material and fused-texture modes — the front end at
    8x8 and 16x256 (meta bitwise, coefficients 0 ULP), the tile raster on
    structured_scene_tex and a mirage frame of it (both layouts) and the
@@ -99,7 +103,34 @@ Phases, each fatal on failure (nonzero exit, no result line):
 
 14. graph — the eager-against-graph numbers of every main-path row
    together, the tuner's picks, and ``bench_torch.py`` run once (its JSON
-   line printed).
+   line printed);
+15. comparators — backends/xla.py and backends/wgpu_faithful.py at
+   1024x768 through Renderer: the xla and wgpu-faithful frames of Suzanne
+   and Exterior at their suite cameras and the xla frame of
+   structured_tex +textures within the pixel contract of
+   tests/golden_data/torch_comparators_1024x768.npz (the JAX package's
+   frames; the xla winner ids against its ids, as many allowed to
+   differ), the xla frame against the engine's on Suzanne, Exterior,
+   san_miguel_small and structured_tex +textures (the pixel contract, the
+   counts printed), ms/frame of each, no engine kernel launched; xla at
+   chunks of 16, 64 and 256 on three scenes, bitwise equal, with ms/frame
+   and peak memory;
+16. entry points — ``python3 -m compute_renderer_torch.cli`` in a
+   subprocess (three orbit frames, one wave-effect frame, 1024x768, the
+   PNGs decoded with zlib), then the 21 rows of bench/suite.py through
+   run_suite at 1024x768, one call a row: the engine rows at batch 16
+   (64 recorded frames) and at batch 1 (32), the comparator rows one
+   recorded frame each; every row's JSON printed (backend, triangles,
+   frames, ms/frame, FPS and lows, tail_source, overflow, launches, peak
+   memory, seconds); no overflow and at least one frame in every row;
+   each engine row launched its path's kernels, no comparator row any.
+   The big comparator rows after San Miguel xla run only while the
+   script is younger than SUITE_BIG_BUDGET_S; a row left out is printed.
+
+The suite rows and the CLI drive the kernels through the public entry
+points; the kernels' record below keeps the counts of phases 5, 6, 10
+and 12 (each main path's own run), and every kernel is held to its twin
+in phases 3, 4, 9, 11 and 13.
 
 Every main path runs its rasters on the front's own table: no
 ``raster.kernel_table`` copy is counted in phases 5, 6, 10 and 12. On
@@ -1301,11 +1332,12 @@ def load_ext_scenes():
                 f"{mesh.num_triangles} triangles, expected {count}")
         require(mesh.face_kd is not None and mesh.has_textures,
                 f"{model}: no face_kd or textures after the load")
-        print(f"[load] {model}: synthesis {t_synth:.3f} s, parse with "
+        print(f"[load] {model}: synthesis {t_synth:.3f} s, load with "
               f"textures {t_parse:.3f} s; T={mesh.num_triangles}, "
               f"{mesh.positions.shape[0]} vertices, atlas "
               f"{mesh.texels.shape[0]} texels in {mesh.tex_table.shape[0]} "
               f"textures, {int((mesh.face_tex >= 0).sum())} textured faces")
+        check_native_parse(model, tex.models[0].source, mesh)
 
         plain = dataclasses.replace(mesh, face_tex=None, texels=None,
                                     tex_table=None)
@@ -1316,6 +1348,39 @@ def load_ext_scenes():
             scenes[f"{tag}+bilinear+ssaa2"] = scene_copy(
                 tex, texture_filter="bilinear", ssaa=2)
     return scenes
+
+
+MESH_FIELDS = ("positions", "normals", "uvs", "indices", "face_kd",
+               "face_tex", "texels", "tex_table")
+
+
+def check_native_parse(model, path, loaded):
+    """The native parser (io/native.py, the route Model.load took for
+    ``loaded``) against the port's Python loader on the same file: every
+    array equal, dtype included; both parses timed."""
+    import numpy as np
+
+    from compute_renderer_torch.io import native
+    from compute_renderer_torch.io.obj import load_obj
+
+    require(native.enabled(), "CRT_DISABLE_NATIVE is set: the native parser "
+            "is off")
+    t0 = time.perf_counter()
+    nat = native.load_obj(path, textures=True)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = load_obj(path, textures=True)
+    t_python = time.perf_counter() - t0
+    for field in MESH_FIELDS:
+        a, b, c = (getattr(m, field) for m in (nat, py, loaded))
+        require(a is not None and b is not None and c is not None
+                and a.dtype == b.dtype == c.dtype
+                and np.array_equal(a, b) and np.array_equal(a, c),
+                f"{model}: the native parse's {field} differs from the "
+                "Python parse's")
+    print(f"[load] {model}: native parse {t_native:.3f} s, Python parse "
+          f"{t_python:.3f} s ({t_python / t_native:.1f}x); all "
+          f"{len(MESH_FIELDS)} arrays equal ({', '.join(MESH_FIELDS)})")
 
 
 def scene_copy(scene, **attrs):
@@ -1917,6 +1982,281 @@ def phase_graph_summary(card):
     print(f"[bench_torch] {time.perf_counter() - t0:.1f} s: {line}")
 
 
+GOLDEN_CMP = os.path.join(ROOT, "tests", "golden_data",
+                          "torch_comparators_1024x768.npz")
+# The comparator phase's scenes: bench/suite.py rows (their cameras).
+SUITE_ROWS = {"exterior": 2, "suzanne": 4, "san_miguel_small": 8}
+COMPARATOR_CHUNKS = (16, 64, 256)
+# Frames each suite row records (after the unrecorded first batch or
+# frame): the engine rows in batches, the comparators one at a time.
+SUITE_ENGINE_FRAMES, SUITE_BATCH = 64, 16
+SUITE_COMPARATOR_FRAMES = 1
+# The engine rows again frame by frame (batch 1: a checked, fenced frame,
+# the per-frame latency).
+SUITE_LATENCY_FRAMES = 32
+# The big comparator rows (~0.8-1M triangles) after the first run only
+# while the script is younger than this (seconds).
+SUITE_BIG_BUDGET_S = 720.0
+T_START = time.perf_counter()
+
+
+def read_png(path):
+    """(H, W, 4) u8 of an 8-bit RGBA PNG of filter-0 rows (what the port's
+    minimal writer emits: this machine has no Pillow), with zlib alone."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        require(crc == zlib.crc32(tag + body) & 0xFFFFFFFF,
+                f"{path}: bad CRC in {tag}")
+        if tag == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+            require(body[8:10] == b"\x08\x06", f"{path}: not 8-bit RGBA")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
+    require(bool((rows[:, 0] == 0).all()), f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 4)
+
+
+def suite_scene(name):
+    """(config, Scene) of a bench/suite.py row, at W x H."""
+    from compute_renderer_torch import Scene
+    from compute_renderer_torch.bench.suite import benchmark_scene_configs
+
+    cfg = benchmark_scene_configs()[SUITE_ROWS[name]]
+    return cfg, Scene.from_config(cfg, W, H)
+
+
+def timed_frames(renderer, uniforms, frames=3):
+    """(last frame, ms/frame): one checked frame first (the warm-up), then
+    ``frames`` render() calls, each read back to the host (the end of a
+    comparator frame), on the host clock."""
+    import torch
+
+    renderer.render(uniforms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        img = renderer.render(uniforms)
+    return img, (time.perf_counter() - t0) / frames * 1e3
+
+
+def pixels_off(a, b):
+    """(pixels differing, pixels more than 2 LSB off, max LSB)."""
+    import numpy as np
+
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return (int((d > 0).any(axis=-1).sum()), int((d > 2).any(axis=-1).sum()),
+            int(d.max()))
+
+
+def phase_comparators(device, card, scenes):
+    """Phase 15: the comparator backends at 1024x768 on the card. The
+    xla and wgpu-faithful frames of Suzanne and Exterior at their suite
+    cameras, and the xla frame of structured_tex +textures, against
+    tests/golden_data/torch_comparators_1024x768.npz (the JAX package's;
+    the pixel contract, the xla winner ids counted); the xla frame
+    against the engine's on Suzanne, Exterior, san_miguel_small and
+    structured_tex +textures (the pixel contract; the counts printed);
+    ms/frame of each; and xla at each of COMPARATOR_CHUNKS on three
+    scenes, the frames bitwise equal, with ms/frame and peak memory."""
+    import numpy as np
+    import torch
+
+    from compute_renderer_torch import Renderer
+    from compute_renderer_torch.backends import get_backend
+
+    golden = np.load(GOLDEN_CMP)
+    budget = max(2, H * W // 500)
+    rows = {name: suite_scene(name)[1] for name in SUITE_ROWS}
+    rows["structured_tex"] = scene_copy(scenes["structured_tex+textures"])
+    uniforms = {name: scene.update(DT) for name, scene in rows.items()}
+    for name, backend, gold in (
+            ("suzanne", "xla", "suzanne_xla"),
+            ("suzanne", "wgpu-faithful", "suzanne_wgpu"),
+            ("exterior", "xla", "exterior_xla"),
+            ("exterior", "wgpu-faithful", "exterior_wgpu"),
+            ("structured_tex", "xla", "structured_tex_xla"),
+            ("san_miguel_small", "xla", None)):
+        scene, u = rows[name], uniforms[name]
+        tag = f"cmp {name} {backend}"
+        r = Renderer(scene.mesh, W, H, backend=backend, device=device,
+                     **scene.renderer_options())
+        reset_counts()
+        img, ms = timed_frames(r, u)
+        counts = {k: v for k, v in read_counts().items() if v}
+        require(not counts, f"{tag}: launched engine kernels: {counts}")
+        note = ""
+        if gold is not None:
+            check_golden(tag, [img], [golden[gold]])
+        if backend == "xla":
+            out = get_backend("xla").render_frame(
+                r.positions, r.normals, r.uvs, r.tri,
+                *(torch.as_tensor(np.asarray(a), device=device) for a in (
+                    u.view_proj, u.view_position, u.light_world_pos,
+                    u.light_color, u.light_intensity, u.effect)),
+                width=W, height=H, return_tri=True, **r.ext)
+            np.testing.assert_array_equal(out[0].cpu().numpy(), img)
+            if gold is not None:
+                ids = out[2].cpu().numpy()
+                n_ids = int((ids != golden[gold + "_tri"]).sum())
+                require(n_ids <= budget, f"{tag}: {n_ids} winner ids differ "
+                        f"from the golden ids (budget {budget})")
+                note = f"; {n_ids} winner ids differ from the golden's"
+            engine = Renderer(scene.mesh, W, H, device=device,
+                              **scene.renderer_options()).render(u)
+            ndiff, nbad, dmax = pixels_off(img, engine)
+            require(nbad <= budget, f"{tag}: {nbad} px more than 2 LSB off "
+                    f"the engine's frame (budget {budget})")
+            note += (f"; against the engine: {ndiff} px differ, {nbad} by "
+                     f"more than 2 LSB (max {dmax} LSB)"
+                     + (", bitwise" if ndiff == 0 else ""))
+        print(f"[{tag}] T={scene.total_tris}: {ms:.3f} ms/frame (host clock "
+              f"over 3 render() frames){note}; card: {card}")
+        del r
+
+    for name in ("exterior", "san_miguel_small", "structured_tex"):
+        scene, u = rows[name], uniforms[name]
+        ref = None
+        for chunk in COMPARATOR_CHUNKS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            r = Renderer(scene.mesh, W, H, backend="xla", device=device,
+                         chunk=chunk, **scene.renderer_options())
+            img, ms = timed_frames(r, u)
+            peak = torch.cuda.max_memory_allocated(device)
+            if ref is None:
+                ref = img
+            require(np.array_equal(img, ref), f"xla {name}: chunk {chunk} "
+                    "changed the frame")
+            print(f"[cmp-chunk] xla {name} chunk {chunk}: {ms:.3f} ms/frame, "
+                  f"peak memory {peak} B, frame bitwise equal to chunk "
+                  f"{COMPARATOR_CHUNKS[0]}'s; card: {card}")
+            del r
+
+
+def run_cli(args, tag):
+    """``python3 -m compute_renderer_torch.cli`` in a subprocess, on the
+    card; it must exit 0."""
+    proc = subprocess.run([sys.executable, "-m", "compute_renderer_torch.cli",
+                           *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    require(proc.returncode == 0, f"{tag}: exit {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+
+
+def phase_cli_suite(device, card):
+    """Phase 16: the CLI as a subprocess (three orbit frames at 1024x768
+    and one wave-effect frame, the PNGs decoded with zlib), then the 21
+    rows of bench/suite.py through run_suite at 1024x768, one call a
+    row: the engine rows in batches of SUITE_BATCH up to
+    SUITE_ENGINE_FRAMES recorded frames, the comparators frame by frame
+    up to SUITE_COMPARATOR_FRAMES; each row's JSON (with its launches and
+    peak memory) printed; no overflow and at least one frame in every
+    row; the engine rows launched their path's kernels, the comparators
+    none."""
+    import numpy as np
+
+    from compute_renderer_torch.bench.suite import (
+        benchmark_scene_configs,
+    )
+
+    out_dir = os.path.join(ROOT, "build", "cli")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    t0 = time.perf_counter()
+    run_cli(["--width", str(W), "--height", str(H), "--camera-mode",
+             "orbit", "--frames", "3", "--output",
+             os.path.join(out_dir, "f.png")], "cli orbit")
+    t_orbit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(["--width", str(W), "--height", str(H), "--frames", "1",
+             "--output", os.path.join(out_dir, "wave.png"), "effect",
+             "--effect", "wave"], "cli wave")
+    t_wave = time.perf_counter() - t0
+    for name in ("f_0000.png", "f_0001.png", "f_0002.png", "wave.png"):
+        img = read_png(os.path.join(out_dir, name))
+        covered = int((img != np.array([0, 0, 255, 255], np.uint8))
+                      .any(axis=-1).sum())
+        require(img.shape == (H, W, 4), f"cli {name}: shape {img.shape}")
+        print(f"[cli] {name}: {img.shape}, {covered} covered px")
+    print(f"[cli] orbit 3 frames {t_orbit:.1f} s, wave 1 frame {t_wave:.1f} s "
+          "(each a fresh process: start, load, kernels loaded, frames)")
+
+    for i, cfg in enumerate(benchmark_scene_configs()):
+        engine = cfg.normalized_backend() == "cuda"
+        big = not engine and "small" not in cfg.model_path and (
+            "San_Miguel" in cfg.model_path or "vokselia" in cfg.model_path)
+        age = time.perf_counter() - T_START
+        if big and i != 1 and age > SUITE_BIG_BUDGET_S:
+            print(f"[suite] row {i} {cfg.scene_name()}: left out, the script "
+                  f"is {age:.0f} s old (budget {SUITE_BIG_BUDGET_S:.0f} s "
+                  "for the big comparator rows)")
+            continue
+        if engine:
+            suite_row(i, engine, SUITE_BATCH, SUITE_ENGINE_FRAMES, device,
+                      card)
+            suite_row(i, engine, 1, SUITE_LATENCY_FRAMES, device, card)
+        else:
+            suite_row(i, engine, SUITE_BATCH, SUITE_COMPARATOR_FRAMES,
+                      device, card)
+
+
+def suite_row(i, engine, batch, frames, device, card):
+    """Row ``i`` of the suite through ``run_suite`` (which runs the
+    comparators at batch 1 whatever ``batch`` says), its checks, and its
+    JSON line."""
+    import torch
+
+    from compute_renderer_torch.bench.suite import run_suite
+
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    (row,) = run_suite(width=W, height=H, offset=i, limit=1,
+                       duration_secs=60.0, max_frames=frames, batch=batch,
+                       device=device)
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    require(row["frames"] >= 1 and row["overflow"] is False,
+            f"suite row {i}: frames {row['frames']}, overflow "
+            f"{row['overflow']}")
+    if engine:
+        micro = any(k.startswith("raster_shade_micro") for k in counts)
+        tile = any(k.startswith("raster_shade_tiles") for k in counts)
+        require(any(k.startswith("front_end") for k in counts)
+                and (tile or micro)
+                and (not micro or counts.get("expand_cells", 0) > 0),
+                f"suite row {i}: the engine's kernels did not launch "
+                f"({counts})")
+    else:
+        require(not counts, f"suite row {i}: a comparator launched engine "
+                f"kernels ({counts})")
+    keep = ("scene", "backend", "num_triangles", "frames", "batch",
+            "ms_per_frame", "avg_fps", "min_fps", "max_fps",
+            "fps_5_percent_low", "fps_1_percent_low", "tail_source",
+            "overflow", "dispatch_overhead_ms")
+    line = {k: row[k] for k in keep}
+    line.update(row=i, seconds=round(secs, 3),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+                launches=counts, card=card)
+    print(f"[suite] {json.dumps(line)}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "compute_renderer_torch")):
         print("chip_smoke: compute_renderer_torch/ is not beside this script",
@@ -1960,6 +2300,8 @@ def main() -> int:
     phase_mip_main_paths(device, card, reports, scenes)
     phase_stress(device, reports)
     phase_graph_summary(card)
+    phase_comparators(device, card, scenes)
+    phase_cli_suite(device, card)
 
     kernels = [{
         "name": name, "route": "cuda", "source": meta["source"],

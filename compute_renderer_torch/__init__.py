@@ -7,9 +7,14 @@ CUDA kernel (``csrc/``) with a plain torch twin that CPU tensors run. The
 module paths mirror the JAX package's so that each module's
 counterpart is easy to find. This package never imports JAX.
 
-Ported so far: the tile and micro paths, in base mode, with the material
-extension and fused (nearest / bilinear) texturing, OBJ files loaded from
-disk, and box-filter SSAA. See ROADMAP.md for the rest.
+Ported so far: the engine (``backends/cuda.py``: the tile and micro
+paths in every kernel mode, materials, textures fused or deferred with
+every filter, box-filter SSAA), the comparator backends
+(``backends/xla.py``, ``backends/wgpu_faithful.py``), OBJ files loaded
+from disk (the native parser, ``io/native.py``), and the entry points:
+the CLI (``python3 -m compute_renderer_torch``), the headless loop and the
+reference's benchmark suite (``bench/suite.py``). See ROADMAP.md for the
+rest.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build and load the hand-written CUDA kernels of ``csrc/`` and the host
+libraries of ``native/``.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``. The library lands in
@@ -12,6 +13,11 @@ contracted into an FMA (the JAX package's arithmetic is contraction-free,
 and contraction flips coverage exactly on triangle edges), and never
 ``--use_fast_math`` (its flush-to-zero and approximate division and square
 root would change results).
+
+The host libraries (``native/<name>.cpp``: the OBJ parser and the system
+sampler) compile with the C++ compiler (``$CXX``, else ``g++``) at
+``-O2 -fPIC -std=c++17 -shared`` into ``build/host_libs/``, keyed the same
+way by a hash of the source and the flags (``host_library``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NATIVE = Path(__file__).resolve().parent / "native"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host_libs"
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -82,6 +91,33 @@ def build(name: str) -> Path:
             f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     BUILD_LOG[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+    return out
+
+
+def host_library(name: str) -> Path:
+    """Path of the built ``native/<name>.cpp`` library, compiled now unless
+    the library of this source and these flags exists. A failed build
+    raises with the compiler's output."""
+    src = NATIVE / f"{name}.cpp"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    out = HOST_BUILD_DIR / f"lib{name}-{digest}.so"
+    if out.exists():
+        return out
+    cxx = os.environ.get("CXX", "g++")
+    if shutil.which(cxx) is None:
+        raise RuntimeError(f"C++ compiler {cxx!r} not found: native/{name}"
+                           ".cpp needs one (set CXX, or CRT_DISABLE_NATIVE=1 "
+                           "for the pure-Python paths)")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{cxx} failed for native/{name}.cpp:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
     return out
 
 

@@ -133,7 +133,9 @@ def triangle_setup(screen, tri, effect, width: int, height: int,
     (binning.wgsl:93-142). ``tri`` is (T, 3) int vertex indices.
 
     Returns a dict of (T,) tensors: ``alive`` (bool), ``tile_x0/y0``
-    (first covered tile), ``tile_x1/y1`` (exclusive end), int32."""
+    (first covered tile), ``tile_x1/y1`` (exclusive end) and
+    ``px_x0/y0/x1/y1`` (the covered pixel rectangle: the union of the
+    covered tiles, clipped to the frame), int32."""
     v = screen[tri.long()]  # (T, 3, 4)
     v1x, v1y, v1w = v[:, 0, 0], v[:, 0, 1], v[:, 0, 3]
     v2x, v2y, v2w = v[:, 1, 0], v[:, 1, 1], v[:, 1, 3]
@@ -197,6 +199,10 @@ def triangle_setup(screen, tri, effect, width: int, height: int,
         "tile_y0": tile_y0,
         "tile_x1": tile_x1,
         "tile_y1": tile_y1,
+        "px_x0": tile_x0 * tile_w,
+        "px_y0": tile_y0 * tile_h,
+        "px_x1": torch.clamp(tile_x1 * tile_w, max=width),
+        "px_y1": torch.clamp(tile_y1 * tile_h, max=height),
     }
 
 

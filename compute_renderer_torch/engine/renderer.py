@@ -40,7 +40,14 @@ tile shape is timed per scene and size over ``cuda.TILE_CANDIDATES``
 (``_maybe_tune_tile``). Each of these, and ``resize``, drops the cached
 graphs.
 
-Not ported yet (ROADMAP): the comparator backends.
+The comparator backends (``backends/xla.py``, ``backends/wgpu_faithful.py``)
+render through the same methods, eagerly and frame by frame on the
+renderer's device (no graph, no capacities, no overflow: the report is
+always zero), as the JAX engine runs them (engine/renderer.py:336-337,
+586-597). Materials and textures apply to the engine and ``xla`` (the mip
+pool built on the host under a mip filter); ``wgpu-faithful`` models the
+reference's material-less pipeline and ignores them. ``effect_kind`` and
+the tile tuning are the engine's alone.
 """
 
 from __future__ import annotations
@@ -51,12 +58,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from compute_renderer_torch.backends import cuda, front
+from compute_renderer_torch.backends import (
+    cuda, front, get_backend, normalize_backend,
+)
 from compute_renderer_torch.core.effects import EFFECT_MIRAGE, EFFECT_VOXELIZE
 from compute_renderer_torch.engine.scene import FrameUniforms
 
 _TILE_OPTIONS = ("tile_h", "tile_w", "pair_cap", "tile_cap", "tri_chunk",
                  "path")
+# The options each backend's render_frame takes from the renderer.
+_BACKEND_OPTIONS = {"cuda": _TILE_OPTIONS,
+                    "xla": ("tile_h", "tile_w", "chunk"),
+                    "wgpu-faithful": ("chunk", "depth_format")}
 
 
 def unpack_uniforms(packed, L: int):
@@ -113,15 +126,15 @@ class Renderer:
     ``EFFECT_*`` code, None when the effect may change), as
     ``Scene.renderer_options`` gives it; it decides whether the tile shape
     may be tuned (``tile_autotune``, on by default). ``backend`` is
-    "cuda", the one engine ported so far."""
+    "cuda" (the engine; "custom" and "tpu" name it too), "xla" (the
+    brute-force comparator; "wgpu" names it) or "wgpu-faithful"; the
+    comparators take ``chunk`` (and xla ``tile_h`` / ``tile_w``,
+    wgpu-faithful ``depth_format``) as options."""
 
     def __init__(self, mesh, width: int, height: int, backend: str = "cuda",
                  *, device="cuda", **options):
-        if backend != "cuda":
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet (ROADMAP queue 1, "
-                "item 9: comparator backends); use 'cuda'")
-        self.backend_name = backend
+        self.backend_name = normalize_backend(backend)
+        self.backend = get_backend(self.backend_name)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -138,12 +151,17 @@ class Renderer:
                              "tex_mode": options.pop("tex_mode", "fused")}
         self.effect_kind = options.pop("effect_kind", None)
         self._tile_autotune = bool(options.pop("tile_autotune", True))
-        unknown = set(options) - set(_TILE_OPTIONS)
+        if not self.engine:
+            # The engine's static hints; the comparators run every effect.
+            self.effect_kind = None
+            self._tile_autotune = False
+        accepted = _BACKEND_OPTIONS[self.backend_name]
+        unknown = set(options) - set(accepted)
         if unknown:
             raise NotImplementedError(
                 f"renderer options {sorted(unknown)} are not options of the "
-                f"port (it takes {sorted(_TILE_OPTIONS)}, ssaa, tex_filter, "
-                "tex_mode, effect_kind and tile_autotune)")
+                f"{self.backend_name} backend (it takes {sorted(accepted)}, "
+                "ssaa, tex_filter, tex_mode, effect_kind and tile_autotune)")
         self.options = options
         self._graphs: dict = {}
         # Settle-to-need pair capacity (micro path): once per scene and
@@ -169,6 +187,14 @@ class Renderer:
         self.tri = dev(mesh.indices.astype(np.int32),
                        torch.int32).reshape(-1, 3)
         self.num_triangles = int(self.tri.shape[0])
+        if not self.engine:
+            self.uvs = dev(mesh.uvs)
+            self.ext = {}
+            if self.backend_name == "xla":
+                self.ext = self.backend.mesh_ext_tensors(
+                    mesh, self.tri, self.device,
+                    self._tex_options["tex_filter"])
+            return
         # Corner-SoA geometry (3 corners, 3 comps, T), gathered ONCE: the
         # indices are static per mesh, so the per-frame front end streams
         # contiguous rows with no gather.
@@ -183,6 +209,12 @@ class Renderer:
             self.ext.get("tex_filter", "nearest"),
             self.ext.get("tex_mode", "fused"))
         self._drop_graphs()
+
+    @property
+    def engine(self) -> bool:
+        """Whether the backend is the engine (``cuda``), not a
+        comparator."""
+        return self.backend_name == "cuda"
 
     def _path(self) -> str:
         return cuda.resolve_path(self.options.get("path", "auto"),
@@ -237,8 +269,19 @@ class Renderer:
 
     def _frame(self, packed, L: int):
         """One frame from a packed device buffer, eagerly: (rgba, key,
-        overflow)."""
+        overflow); a comparator's key is its depth buffer and its overflow
+        report zero."""
         vpos, vp, eff, lwp, lc, li = unpack_uniforms(packed, L)
+        if not self.engine:
+            rgba, key = self.backend.render_frame(
+                self.positions, self.normals, self.uvs, self.tri, vp, vpos,
+                lwp, lc, li, eff, width=self.rw, height=self.rh,
+                **self.ext, **self.options)
+            overflow = torch.zeros((2,), dtype=torch.int32,
+                                   device=self.device)
+            if self.ssaa > 1:
+                rgba = box_downsample(rgba, self.ssaa)
+            return rgba, key, overflow
         rgba, key, overflow = cuda.render_frame(
             self.positions, self.normals, self.tri, vp, vpos, lwp, lc, li,
             eff, width=self.rw, height=self.rh, pos_soa=self.pos_soa,
@@ -294,6 +337,11 @@ class Renderer:
         for key in [k for k in self._graphs if not keep(k)]:
             self._graphs.pop(key).graph.reset()
 
+    def close(self) -> None:
+        """Drop the cached graphs and free their memory pools (a later
+        frame captures anew)."""
+        self._drop_graphs()
+
     def frame_graph(self, uniforms: FrameUniforms) -> FrameGraph:
         """The graph of ``uniforms``' key, captured now if there is none,
         with the uniforms in its input buffer: a replay renders them. On
@@ -309,10 +357,10 @@ class Renderer:
         """Render and return the device-resident (H, W, 4) u8 frame, the
         depth keys and the overflow report, without an overflow check
         (see ``_checked``). On the card it replays the frame's graph and
-        returns copies of its outputs."""
-        if self.device.type != "cuda":
+        returns copies of its outputs; a comparator renders eagerly."""
+        if self.device.type != "cuda" or not self.engine:
             packed, L = self.pack_uniforms(uniforms)
-            return self._frame(torch.from_numpy(packed), L)
+            return self._frame(torch.from_numpy(packed).to(self.device), L)
         graph = self.frame_graph(uniforms)
         graph.graph.replay()
         return graph.rgba.clone(), graph.key.clone(), graph.overflow.clone()
@@ -341,7 +389,8 @@ class Renderer:
         3) summed on the device, one read. Overflow detection grows the
         capacity later if the camera moves into denser coverage. Once per
         scene and size; skipped when the caller pinned pair_cap."""
-        if not self._calibrate_pair_cap or self._path() != "micro":
+        if (not self._calibrate_pair_cap or not self.engine
+                or self._path() != "micro"):
             return
         self._calibrate_pair_cap = False
         packed, L = self.pack_uniforms(uniforms)
@@ -365,7 +414,7 @@ class Renderer:
         the same image at every tile shape; mirage and voxelize cover
         past the triangle, so the covered tiles are part of the image,
         and a dynamic effect (``effect_kind`` None) may become either."""
-        return (self.num_triangles > 0
+        return (self.engine and self.num_triangles > 0
                 and self.effect_kind not in (None, EFFECT_MIRAGE,
                                              EFFECT_VOXELIZE)
                 and self._path() == "tile")
@@ -459,11 +508,12 @@ class Renderer:
     def _frames(self, stack, L: int, eager: bool):
         """The frames of a packed (K, P) device stack and their overflow
         maximum: replays of one graph on the card (three host calls a
-        frame), or ``_frame`` op by op on the CPU and with ``eager``."""
+        frame), or ``_frame`` op by op on the CPU, with ``eager`` and for a
+        comparator."""
         K = stack.shape[0]
         frames = torch.empty((K, self.height, self.width, 4),
                              dtype=torch.uint8, device=self.device)
-        if eager or self.device.type != "cuda":
+        if eager or self.device.type != "cuda" or not self.engine:
             overflow = torch.zeros((2,), dtype=torch.int32,
                                    device=self.device)
             for i in range(K):

@@ -54,16 +54,16 @@ def _default_lights():
 
 @dataclass
 class SceneConfig:
-    """Reference src/scene.rs:204-241. ``backend_type`` accepts this
-    project's names ('tpu', 'xla') and the reference's ('custom' -> tpu,
-    'wgpu' -> xla)."""
+    """Reference src/scene.rs:204-241. ``backend_type`` accepts the port's
+    names ('cuda', 'xla', 'wgpu-faithful'), the JAX package's ('tpu' ->
+    cuda) and the reference's ('custom' -> cuda, 'wgpu' -> xla)."""
 
     model_path: str = "suzanne.obj"
     lights: list = field(default_factory=_default_lights)
     effect: Optional[Effect] = None
     camera_config: CameraConfig = field(default_factory=CameraConfig)
     benchmark_duration_secs: Optional[float] = None  # None = endless (u64::MAX)
-    backend_type: str = "tpu"
+    backend_type: str = "cuda"
     # Material extension (beyond the reference, which discards MTL data,
     # model.rs:24): resolve MTL diffuse colors into per-triangle shading.
     enable_materials: bool = False
@@ -88,8 +88,9 @@ class SceneConfig:
                 f"{self.normalized_backend()} Pipeline{mat}")
 
     def normalized_backend(self) -> str:
-        return {"custom": "tpu", "wgpu": "xla"}.get(self.backend_type,
-                                                    self.backend_type)
+        from compute_renderer_torch.backends import normalize_backend
+
+        return normalize_backend(self.backend_type)
 
 
 @dataclass

@@ -2,8 +2,9 @@
 synthesized structured scenes and procedural test meshes.
 
 Mirrors the reference's model layer (src/model.rs, src/util.rs).
-``Model.load`` reads OBJ files with the pure-Python loader (the native
-parser is not ported yet) and falls back to the registered procedural
+``Model.load`` reads OBJ files with the native C++ parser
+(``io/native.py``; the pure-Python loader ``io/obj.py`` under
+``CRT_DISABLE_NATIVE``) and falls back to the registered procedural
 stand-ins.
 """
 

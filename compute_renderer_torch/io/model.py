@@ -2,13 +2,12 @@
 
 Resolution order for a model path:
 
-1. a real file on disk (via asset search paths) -> the pure-Python OBJ
-   loader (``io/obj.py``); the synthesized structured scenes are written
-   on first use (``io/objgen.py``);
+1. a real file on disk (via asset search paths) -> the native C++ parser
+   (``io/native.py``), or the pure-Python loader (``io/obj.py``) when
+   ``CRT_DISABLE_NATIVE`` is set; the synthesized structured scenes are
+   written on first use (``io/objgen.py``);
 2. a registered procedural stand-in (the reference's LFS benchmark assets are
    not shipped; see io/procedural.py).
-
-The JAX package's native C++ parser is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -31,7 +30,9 @@ class Model:
         """``materials=True`` (extension) resolves MTL diffuse colors into
         ``Mesh.face_kd``; ``textures=True`` (implies materials)
         additionally decodes map_Kd images into the flat atlas
-        (``Mesh.face_tex``/``texels``/``tex_table``)."""
+        (``Mesh.face_tex``/``texels``/``tex_table``). Files parse natively
+        (materials and textures included) unless ``CRT_DISABLE_NATIVE`` is
+        set; the two loaders give the same arrays."""
         materials = materials or textures
         from compute_renderer_torch.io import objgen
 
@@ -55,6 +56,12 @@ class Model:
                              source=f"procedural:{path}")
             else:
                 raise
+        from compute_renderer_torch.io import native
+
+        if native.enabled():
+            return Model(mesh=native.load_obj(resolved, materials=materials,
+                                              textures=textures),
+                         source=str(resolved))
         from compute_renderer_torch.io.obj import load_obj
 
         return Model(mesh=load_obj(resolved, materials=materials,

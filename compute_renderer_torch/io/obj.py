@@ -18,8 +18,9 @@ single_index: true`` (src/model.rs:24-30):
 Negative (relative) OBJ indices are supported per the OBJ spec.
 
 A copy of the JAX package's ``io/obj.py`` (this package never imports
-that one). The JAX package's native C++ parser (``io/native.py``) is not
-ported yet (ROADMAP), so this loader is the port's only OBJ path.
+that one). ``Model.load`` parses with the native parser
+(``io/native.py``) unless ``CRT_DISABLE_NATIVE`` is set; this loader is
+its oracle.
 """
 
 from __future__ import annotations

@@ -104,9 +104,9 @@ def test_convert_carries_jax_state(port, tpu):
 
 
 def test_model_load_obj_on_disk_not_ported(port, tmp_path):
-    # An OBJ file on disk now loads through the port's pure-Python loader
-    # (the native parser is what stays unported); unknown names still
-    # raise and the procedural stand-ins still resolve.
+    # An OBJ file on disk loads through the port's own loaders (the native
+    # parser, tests/test_torch_native.py); unknown names still raise and
+    # the procedural stand-ins still resolve.
     from compute_renderer_torch.io.model import Model
 
     obj = tmp_path / "tri.obj"

@@ -223,9 +223,16 @@ def test_unported_paths_raise(port):
     assert (img != np.array([0, 0, 255, 255], np.uint8)).any(axis=-1).sum() \
         > 300
     assert_frames_match(tile.render(uniforms), img)
+    # The comparators are ported too: xla renders the engine's frame bit
+    # for bit, "tpu" (the JAX package's name) is the engine, and an
+    # unknown backend raises.
     for backend in ("xla", "tpu"):
-        with pytest.raises(NotImplementedError):
-            port.renderer.Renderer(mesh, 64, 64, backend, device="cpu")
+        np.testing.assert_array_equal(
+            port.renderer.Renderer(mesh, 64, 64, backend,
+                                   device="cpu").render(uniforms),
+            tile.render(uniforms))
+    with pytest.raises(ValueError):
+        port.renderer.Renderer(mesh, 64, 64, "vulkan", device="cpu")
     # Every material and texture mode is ported: a white 1x1 texture
     # modulates nothing, in any of them.
     kd = port.convert.mesh_from_arrays(
