@@ -126,6 +126,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
    each engine row launched its path's kernels, no comparator row any.
    The big comparator rows after San Miguel xla run only while the
    script is younger than SUITE_BIG_BUDGET_S; a row left out is printed.
+17. multi-device — compute_renderer_torch/parallel/ on four ranks that
+   share the card (backend "gloo", an explicit choice; spawned by
+   ``parallel.launch``, the scenes handed over as CPU tensors): tile
+   stripes of Suzanne (plain and mirage), micro stripes and sort-middle of
+   San Miguel, structured +textures on micro stripes and structured
+   +deferred trilinear on sort-middle, 16 frame-parallel frames of Suzanne
+   (wave) and of San Miguel, the 2 x 2 frames x stripes layout; each frame
+   and its keys bitwise equal to the single-device renderer's, on every
+   rank; the textured rows within the golden pixel contract; each rank's
+   launch counts show its path's kernels, each frame-parallel rank
+   replayed its own graph; then sort-middle of San Miguel in a
+   world-size-1 NCCL group, bitwise too (bucket_cap and the gathered
+   table's size printed); ms/frame of each decomposition at n = 1, 2, 4
+   (host clock, fenced: not scaling numbers, the ranks share one card)
+   and ``stage_timings_sortmiddle`` at n = 4, each with the card line.
 
 The suite rows and the CLI drive the kernels through the public entry
 points; the kernels' record below keeps the counts of phases 5, 6, 10
@@ -2257,6 +2272,373 @@ def suite_row(i, engine, batch, frames, device, card):
     print(f"[suite] {json.dumps(line)}")
 
 
+# Phase 17: the multi-device decompositions (compute_renderer_torch/
+# parallel/) by ranks that share the card through a gloo group.
+PAR_RANKS = 4
+PAR_NS = (1, 2, 4)  # group sizes timed: sub-groups of the first n ranks
+PAR_TIMED_CALLS = 5  # timed frames per decomposition and group size
+PAR_FRAMES = 16  # frame-parallel frames
+PAR_TIMEOUT_S = 300.0  # each collective's limit (group.launch)
+PAR_WAVE = (0.4, 3.0, 2.0)  # the frame-parallel Suzanne's wave effect
+
+
+def par_digest(*arrays):
+    """One hash of arrays' bytes: what a rank other than 0 returns in
+    place of its frame."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def par_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def parallel_rank(rank, world, meshes, plan):
+    """Phase 17 on one rank: every case of ``plan`` on the sub-group of
+    its first n ranks, for each n of the case (the other ranks wait at
+    the fences). Returns {"frames": rank 0's frames, digests elsewhere,
+    "counts": launch counts of the case's first call, "stats": the
+    retrying entry's capacities, "ms": host ms a frame over the timed
+    calls (fenced), "replays": graph replays of the frame-parallel
+    renderers}."""
+    import torch
+    import torch.distributed as dist
+
+    from compute_renderer_torch.backends import cuda
+    from compute_renderer_torch.engine.renderer import Renderer
+    from compute_renderer_torch.parallel import (
+        make_2d, make_mesh, mesh_from_tensors, rank_device,
+        render_frame_sharded, render_frames, render_frames_2d,
+        render_sharded,
+    )
+
+    device = rank_device("cuda", rank)
+    groups = {n: make_mesh(n) for n in sorted({n for c in plan
+                                               for n in c["ns"]})}
+    layout = (make_2d(2, world // 2)
+              if any(c["kind"] == "frames2d" for c in plan) else None)
+    mesh = {k: mesh_from_tensors(v) for k, v in meshes.items()}
+    out = {"frames": {}, "counts": {}, "stats": {}, "ms": {}, "replays": {}}
+
+    def fence():
+        torch.cuda.synchronize(device)
+        dist.barrier()
+
+    def keep(tag, *arrays):
+        out["frames"][tag] = arrays if rank == 0 else par_digest(*arrays)
+
+    renderers = {}
+    for case in plan:
+        for n in case["ns"]:
+            tag = f"{case['name']}_n{n}"
+            member = rank < n
+            fence()
+            if case["kind"] == "sharded":
+                u = case["uniforms"]
+                lights = (u.light_world_pos, u.light_color,
+                          u.light_intensity)
+                opts = case["options"]
+                if member:
+                    reset_counts()
+                    stats = {}
+                    rgba, keys = render_sharded(
+                        mesh[case["mesh"]], u, lights, u.effect, W, H,
+                        group=groups[n], device=device, stats=stats,
+                        **opts)
+                    out["counts"][tag] = par_counts()
+                    out["stats"][tag] = stats
+                    keep(tag, rgba, keys)
+                if not case["timed"]:
+                    continue
+                if member:
+                    tex = {k: opts[k] for k in ("tex_filter", "tex_mode")
+                           if k in opts}
+                    args, ext = cuda.frame_tensors(
+                        mesh[case["mesh"]], u, lights, u.effect, device,
+                        **tex)
+                    caps = {k: stats[k] for k in ("path", "pair_cap",
+                                                  "tile_cap", "bucket_cap")}
+
+                    def frame():
+                        return render_frame_sharded(
+                            *args, width=W, height=H, group=groups[n],
+                            **caps, **ext)
+
+                    frame()
+                fence()
+                t0 = time.perf_counter()
+                if member:
+                    for _ in range(PAR_TIMED_CALLS):
+                        frame()
+                fence()
+                out["ms"][tag] = ((time.perf_counter() - t0) * 1e3
+                                  / PAR_TIMED_CALLS)
+            else:
+                seq = case["frames"]
+                key = (case["name"], n)
+                if case["kind"] == "frames2d":
+                    r = Renderer(mesh[case["mesh"]], W, H, device=device,
+                                 **case["options"])
+                    reset_counts()
+                    frames = render_frames_2d(r, seq, layout)
+                    out["counts"][tag] = par_counts()
+                    keep(tag, frames)
+                    continue
+                if member:
+                    # A fresh renderer a group size: its capture counts.
+                    r = renderers[key] = Renderer(
+                        mesh[case["mesh"]], W, H, device=device,
+                        **case["options"])
+                    reset_counts()
+                    frames = render_frames(r, seq, group=groups[n])
+                    out["counts"][tag] = par_counts()
+                    keep(tag, frames)
+                fence()
+                t0 = time.perf_counter()
+                if member:
+                    render_frames(renderers[key], seq, group=groups[n])
+                fence()
+                out["ms"][tag] = ((time.perf_counter() - t0) * 1e3
+                                  / len(seq))
+                if member:
+                    out["replays"][tag] = (renderers[key].replays,
+                                           len(renderers[key]._graphs))
+    return out
+
+
+def par_reference(device, scene_mesh, uniforms, **options):
+    """The single-device frame and keys: a ``Renderer`` (tile shape not
+    tuned: the stripes render at the default (16, 256)) after a checked
+    frame, replaying its graph."""
+    from compute_renderer_torch import Renderer
+
+    r = Renderer(scene_mesh, W, H, device=device, tile_autotune=False,
+                 **options)
+    r.render(uniforms)
+    rgba, key, overflow = r.render_device(uniforms)
+    require(not overflow.any(), "overflow in a single-device reference")
+    return rgba.cpu().numpy(), key.cpu().numpy()
+
+
+def par_check_counts(tag, counts, path):
+    need = (("front_end", "raster_shade_tiles") if path == "tile" else
+            ("front_end", "expand_cells", "raster_shade_micro"))
+    for name in need:
+        require(counts.get(name, 0) > 0,
+                f"{tag}: the {name} kernel was not launched ({counts})")
+
+
+def phase_parallel(device, card, scenes):
+    """Phase 17: ``compute_renderer_torch.parallel`` on ``PAR_RANKS``
+    ranks that share the card (backend "gloo", chosen explicitly; rank r
+    on cuda:0): tile stripes of Suzanne (plain and mirage) at n = 2 and 4,
+    micro stripes and sort-middle of San Miguel at n = 4, structured
+    +textures (texf) on micro stripes and structured +deferred trilinear
+    (vis + mip) on sort-middle at n = 4, 16 frame-parallel frames of
+    Suzanne (wave) and of San Miguel at n = 4, the 2 x 2 frames x stripes
+    layout on Suzanne; each frame bitwise equal to the single-device
+    renderer's (keys too), every rank's the same; the two textured rows
+    within the golden pixel contract; each rank's launch counts show the
+    path's kernels; the frame-parallel ranks replayed their own graphs.
+    Then sort-middle of San Miguel in a world-size-1 NCCL group (the NCCL
+    calls on the card), bitwise as well, with its bucket_cap and gathered
+    table size; ms/frame of every decomposition at n = 1, 2, 4 (host
+    clock, fenced) and ``stage_timings_sortmiddle`` at n = 4, printed with
+    the card line: ranks share one card, so these are not scaling
+    numbers."""
+    import numpy as np
+
+    from compute_renderer_torch.backends import raster
+    from compute_renderer_torch.bench.profiling import (
+        stage_timings_sortmiddle,
+    )
+    from compute_renderer_torch.core.effects import Effect, WaveDirection
+    from compute_renderer_torch.parallel import launch, mesh_tensors
+
+    t_phase = time.perf_counter()
+    suz = bench_scene()
+    mirage = bench_scene(effect=Effect.mirage(0.6, 0.7, 0.3))
+    wave = bench_scene(effect=Effect.wave(*PAR_WAVE,
+                                          WaveDirection.VERTICAL))
+    sm = bench_scene(SAN_MIGUEL, eye=SAN_MIGUEL_EYE)
+    tex = scene_copy(scenes["structured+textures"])
+    tri = scene_copy(scenes["structured+textures"],
+                     texture_filter="trilinear")
+    meshes = {"suzanne": suz.mesh, "san_miguel": sm.mesh,
+              "structured": tex.mesh}
+    u_suz, u_mir, u_sm = suz.update(DT), mirage.update(DT), sm.update(DT)
+    u_tex, u_tri = tex.update(DT), tri.update(DT)
+    wave_seq = [wave.update(DT) for _ in range(PAR_FRAMES)]
+    sm_seq = [sm.update(DT) for _ in range(PAR_FRAMES)]
+
+    def sharded(name, mesh, u, ns, timed, **options):
+        return dict(kind="sharded", name=name, mesh=mesh, uniforms=u, ns=ns,
+                    timed=timed, options=options)
+
+    plan = [
+        sharded("tile_suzanne", "suzanne", u_suz, PAR_NS, True,
+                path="tile"),
+        sharded("tile_suzanne_mirage", "suzanne", u_mir, (2, 4), False,
+                path="tile"),
+        sharded("micro_san_miguel", "san_miguel", u_sm, PAR_NS, True,
+                path="micro"),
+        sharded("sortmiddle_san_miguel", "san_miguel", u_sm, PAR_NS, True,
+                path="sortmiddle"),
+        sharded("micro_structured_texf", "structured", u_tex, (4,), False,
+                path="micro"),
+        sharded("sortmiddle_structured_deferred_trilinear", "structured",
+                u_tri, (4,), False, path="sortmiddle",
+                tex_filter="trilinear", tex_mode="deferred"),
+        dict(kind="frames", name="frames_suzanne_wave", mesh="suzanne",
+             frames=wave_seq, ns=PAR_NS, options=dict(tile_autotune=False)),
+        dict(kind="frames", name="frames_san_miguel", mesh="san_miguel",
+             frames=sm_seq, ns=PAR_NS, options={}),
+        dict(kind="frames2d", name="frames2d_suzanne_wave", mesh="suzanne",
+             frames=wave_seq[:4], ns=(PAR_RANKS,),
+             options=dict(path="micro")),
+    ]
+    tensors = {k: mesh_tensors(m) for k, m in meshes.items()}
+    t0 = time.perf_counter()
+    results = launch(parallel_rank, PAR_RANKS, (tensors, plan),
+                     backend="gloo", device="cuda", timeout=PAR_TIMEOUT_S)
+    t_gloo = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = launch(parallel_rank, 1, (
+        {"san_miguel": tensors["san_miguel"]},
+        [sharded("sortmiddle_san_miguel_nccl", "san_miguel", u_sm, (1,),
+                 True, path="sortmiddle")]),
+        backend="nccl", device="cuda", timeout=PAR_TIMEOUT_S)[0]
+    t_nccl = time.perf_counter() - t0
+    print(f"[parallel] {PAR_RANKS} gloo ranks on cuda:0: {t_gloo:.1f} s; "
+          f"1 NCCL rank on cuda:0: {t_nccl:.1f} s (spawn, set-up and the "
+          "runs)")
+
+    # The single-device references, each case's frame and keys.
+    refs = {
+        "tile_suzanne": par_reference(device, suz.mesh, u_suz, path="tile"),
+        "tile_suzanne_mirage": par_reference(device, suz.mesh, u_mir,
+                                             path="tile"),
+        "micro_san_miguel": par_reference(device, sm.mesh, u_sm,
+                                          path="micro"),
+        "micro_structured_texf": par_reference(device, tex.mesh, u_tex,
+                                               path="micro"),
+        "sortmiddle_structured_deferred_trilinear": par_reference(
+            device, tex.mesh, u_tri, path="micro", tex_filter="trilinear",
+            tex_mode="deferred"),
+    }
+    refs["sortmiddle_san_miguel"] = refs["micro_san_miguel"]
+    refs["sortmiddle_san_miguel_nccl"] = refs["micro_san_miguel"]
+    golden = {"micro_structured_texf": np.load(GOLDEN_EXT)["textures"][0],
+              "sortmiddle_structured_deferred_trilinear": np.load(
+                  GOLDEN_MIP)["textures_deferred_trilinear"][0]}
+    worlds = [(results, PAR_RANKS, "gloo"), ([nccl], 1, "nccl")]
+    for res, world, backend in worlds:
+        for case in (plan if backend == "gloo" else
+                     [dict(name="sortmiddle_san_miguel_nccl",
+                           kind="sharded", ns=(1,),
+                           options=dict(path="sortmiddle"))]):
+            if case["kind"] != "sharded":
+                continue
+            for n in case["ns"]:
+                tag = f"{case['name']}_n{n}"
+                rgba, keys = res[0]["frames"][tag]
+                ref_rgba, ref_keys = refs[case["name"]]
+                require(np.array_equal(rgba, ref_rgba)
+                        and np.array_equal(keys, ref_keys),
+                        f"{tag}: the frame differs from the single-device "
+                        f"frame ({int((rgba != ref_rgba).any(-1).sum())} "
+                        "px)")
+                digest = par_digest(rgba, keys)
+                for r in range(1, n):
+                    require(res[r]["frames"][tag] == digest,
+                            f"{tag}: rank {r}'s frame differs from rank 0's")
+                    par_check_counts(f"{tag} rank {r}", res[r]["counts"][tag],
+                                     case["options"]["path"])
+                par_check_counts(f"{tag} rank 0", res[0]["counts"][tag],
+                                 case["options"]["path"])
+                stats = res[0]["stats"][tag]
+                line = (f"[parallel] {tag} ({backend}): bitwise equal to the "
+                        f"single-device frame on {n} rank(s), "
+                        f"{int((keys != 0xFFFFFFFF).sum())} covered px; "
+                        f"launches rank 0 {res[0]['counts'][tag]}; caps "
+                        f"{stats}")
+                if case["options"]["path"] == "sortmiddle":
+                    # Both sort-middle rows gather the 32-column table
+                    # (base; vis, whose table is the base one).
+                    T = meshes[case.get("mesh", "san_miguel")].num_triangles
+                    rows = n * -(-T // n)
+                    stride = raster.table_stride(raster.TRI_TABLE_WIDTH)
+                    line += (f"; bucket_cap {stats['bucket_cap']}, gathered "
+                             f"table ({rows}, {stride}) f32 = "
+                             f"{rows * stride * 4 / 2**20:.1f} MiB")
+                print(line)
+                if case["name"] in golden:
+                    check_golden(f"parallel {tag}", [rgba],
+                                 golden[case["name"]][None])
+
+    # Frame-parallel and 2-D frames against one renderer's frames.
+    from compute_renderer_torch import Renderer
+
+    singles = {}
+    for name, mesh, seq, options in (
+            ("frames_suzanne_wave", suz.mesh, wave_seq,
+             dict(tile_autotune=False)),
+            ("frames_san_miguel", sm.mesh, sm_seq, {}),
+            ("frames2d_suzanne_wave", suz.mesh, wave_seq[:4],
+             dict(path="micro"))):
+        r = Renderer(mesh, W, H, device=device, **options)
+        singles[name] = r.render_batch_device(seq).cpu().numpy()
+    for case in plan:
+        if case["kind"] == "sharded":
+            continue
+        for n in case["ns"]:
+            tag = f"{case['name']}_n{n}"
+            (frames,) = results[0]["frames"][tag]
+            require(frames.shape == singles[case["name"]].shape
+                    and np.array_equal(frames, singles[case["name"]]),
+                    f"{tag}: the frames differ from one renderer's")
+            digest = par_digest(frames)
+            members = PAR_RANKS if case["kind"] == "frames2d" else n
+            for r in range(members):
+                if r:
+                    require(results[r]["frames"][tag] == digest,
+                            f"{tag}: rank {r}'s frames differ from rank 0's")
+                par_check_counts(f"{tag} rank {r}",
+                                 results[r]["counts"][tag],
+                                 "micro" if case["kind"] == "frames2d"
+                                 or case["mesh"] == "san_miguel" else "tile")
+                if case["kind"] == "frames":
+                    replays, graphs = results[r]["replays"][tag]
+                    require(replays >= len(case["frames"]) // n
+                            and graphs >= 1,
+                            f"{tag} rank {r}: {replays} graph replays, "
+                            f"{graphs} graphs")
+            print(f"[parallel] {tag}: {frames.shape[0]} frames bitwise "
+                  f"equal to one renderer's on {members} rank(s); launches "
+                  f"rank 0 {results[0]['counts'][tag]}"
+                  + (f"; replays (and graphs) by rank "
+                     f"{[results[r]['replays'][tag] for r in range(n)]}"
+                     if case["kind"] == "frames" else ""))
+
+    # Times: host ms a frame, fenced, at each group size.
+    print(f"[parallel] ms/frame (host clock, fenced; {PAR_TIMED_CALLS} "
+          f"calls a stripe decomposition after one, the frame-parallel "
+          f"batch of {PAR_FRAMES} after one; all ranks share one card, so "
+          f"these are not scaling numbers) | {card}")
+    for res in (results[0], nccl):
+        for tag, ms in res["ms"].items():
+            print(f"[parallel-ms] {tag}: {ms:.3f} ms/frame | {card}")
+    st = stage_timings_sortmiddle(sm.mesh, u_sm, W, H, PAR_RANKS,
+                                  device=device)
+    print(f"[parallel] stage_timings_sortmiddle San Miguel n={PAR_RANKS}: "
+          f"{json.dumps(st)} | {card}")
+    print(f"[parallel] phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "compute_renderer_torch")):
         print("chip_smoke: compute_renderer_torch/ is not beside this script",
@@ -2302,6 +2684,7 @@ def main() -> int:
     phase_graph_summary(card)
     phase_comparators(device, card, scenes)
     phase_cli_suite(device, card)
+    phase_parallel(device, card, scenes)
 
     kernels = [{
         "name": name, "route": "cuda", "source": meta["source"],

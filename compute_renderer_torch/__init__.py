@@ -13,8 +13,9 @@ every filter, box-filter SSAA), the comparator backends
 (``backends/xla.py``, ``backends/wgpu_faithful.py``), OBJ files loaded
 from disk (the native parser, ``io/native.py``), and the entry points:
 the CLI (``python3 -m compute_renderer_torch``), the headless loop and the
-reference's benchmark suite (``bench/suite.py``). See ROADMAP.md for the
-rest.
+reference's benchmark suite (``bench/suite.py``), and the multi-device
+decompositions (``parallel/``: framebuffer stripes, sort-middle and frame
+parallelism on ``torch.distributed``). See ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

@@ -326,19 +326,22 @@ def warp_positions(xs, ys, effect):
             torch.where(is_mirage, ys + off_y, ys))
 
 
-def pixel_grid(effect, width: int, height: int):
-    """(H, W) sample positions, warped under mirage. (The JAX package's
-    stripe offsets serve its sharded renders, which are not ported.)"""
+def pixel_grid(effect, width: int, height: int, x_offset: int = 0,
+               y_offset: int = 0):
+    """(H, W) sample positions, warped under mirage. The offsets place a
+    window of the frame (a framebuffer stripe of a sharded render) at its
+    global pixel coordinates; integer offsets add exactly in f32."""
     device = effect.device
-    xs = torch.arange(width, dtype=F32, device=device)[None, :].expand(
-        height, width)
-    ys = torch.arange(height, dtype=F32, device=device)[:, None].expand(
-        height, width)
+    xs = (torch.arange(width, dtype=F32, device=device) + x_offset)[
+        None, :].expand(height, width)
+    ys = (torch.arange(height, dtype=F32, device=device) + y_offset)[
+        :, None].expand(height, width)
     return warp_positions(xs, ys, effect)
 
 
 def resolve_attributes(best_tri, tri, screen, world, normals, uvs, effect,
-                       width: int, height: int):
+                       width: int, height: int, x_offset: int = 0,
+                       y_offset: int = 0):
     """The winner's interpolated {uv, normal, world_pos} per pixel: its
     barycentrics recomputed from the vertices in the rasters' anchored
     affine form, so each value is the float the raster kernels evaluate
@@ -346,13 +349,13 @@ def resolve_attributes(best_tri, tri, screen, world, normals, uvs, effect,
 
     ``best_tri`` (H, W) i32 winner or ``NO_TRI``; ``tri`` (T, 3); per
     vertex ``screen`` (N, 4), ``world`` / ``normals`` (N, 3), ``uvs``
-    (N, 2). Returns a dict of (H, W, c) f32 (zeros where uncovered) and
-    'flag' (H, W) bool."""
+    (N, 2); the offsets as ``pixel_grid``'s. Returns a dict of (H, W, c)
+    f32 (zeros where uncovered) and 'flag' (H, W) bool."""
     flag = best_tri != NO_TRI
     idx = tri.long()[torch.where(flag, best_tri, 0).long()]  # (H, W, 3)
     corners = [idx[..., k] for k in range(3)]
     v1, v2, v3 = (screen[i] for i in corners)
-    px, py = pixel_grid(effect, width, height)
+    px, py = pixel_grid(effect, width, height, x_offset, y_offset)
     co = barycentric_coefficients(v1[..., 0], v1[..., 1], v2[..., 0],
                                   v2[..., 1], v3[..., 0], v3[..., 1])
     dx = px - co["ax"]
@@ -696,15 +699,33 @@ def tex_rows_f32(face_tex, tex_table):
                        torch.zeros((), dtype=F32, device=rows.device))
 
 
+def _pool_fetcher(texels, texels_packed):
+    """The fused tail's texel fetch: a (P, 3) f32 row gather, or, with the
+    u8-packed (P,) i32 pool (``io.textures.pack_pool_u8``), a one-element
+    gather and the unpack k / 255 in f32 — the division the loader made,
+    so both fetches give the same floats."""
+    if texels_packed is None:
+        return lambda idx: texels[idx.long()]
+
+    def fetch(idx):
+        p = texels_packed[idx.long()]
+        return torch.stack([((p >> s) & 0xFF).to(F32) / 255.0
+                            for s in (0, 8, 16)], dim=-1)
+
+    return fetch
+
+
 def fused_texture_tail(gbuf, best_key, texels, light_color, light_intensity,
-                       tex_filter: str = "nearest"):
+                       tex_filter: str = "nearest", texels_packed=None):
     """Shade a texf G-buffer: the texel fetch plus elementwise math.
 
     ``gbuf`` (C, H, W) f32 in the layout above; ``best_key`` (H, W) u32
     (or int holding the u32 pattern; DEPTH_CLEAR = background);
-    ``texels`` (P, 3) f32 flat atlas. Nearest or bilinear repeat-wrap
-    sampling, then the material shading with the winner's kd times the
-    texel. Returns (H, W, 4) u8 RGBA. The JAX package's op order."""
+    ``texels`` (P, 3) f32 flat atlas, or ``texels_packed`` its u8-packed
+    pool (``_pool_fetcher``: the same texels). Nearest or bilinear
+    repeat-wrap sampling, then the material shading with the winner's kd
+    times the texel. Returns (H, W, 4) u8 RGBA. The JAX package's op
+    order."""
     if tex_filter not in ("nearest", "bilinear"):
         raise ValueError(
             f"the fused texture tail samples nearest or bilinear, not "
@@ -726,8 +747,10 @@ def fused_texture_tail(gbuf, best_key, texels, light_color, light_intensity,
     twf = tws.to(F32)
     thf = ths.to(F32)
 
+    pool_fetch = _pool_fetcher(texels, texels_packed)
+
     def fetch(idx):
-        return texels[torch.where(has, idx, 0).long()]
+        return pool_fetch(torch.where(has, idx, 0))
 
     fu = u - torch.floor(u)
     fv = v - torch.floor(v)

@@ -1,9 +1,9 @@
 """The GPU engine: the tile path and the micro (mega-scene) path.
 
 Counterpart of the JAX package's ``backends/tpu.py`` (``render_frame`` at
-tpu.py:511-817, ``render_frame_micro`` at :87-417 with ``micro_vis_tail``
-at :448-482, the capacity helpers, ``texf_eligible`` and the retrying
-``render``) in every mode of its kernels (``frame_mode``, as
+tpu.py:511-817, ``render_frame_micro`` at :87-417, its ``micro_vis_tail``
+at :448-482 in ``finish_frame``, the capacity helpers, ``texf_eligible``
+and the retrying ``render``) in every mode of its kernels (``frame_mode``, as
 tpu.py:196-206 and :618-627 pick it):
 
 - ``base`` and ``mat`` (``face_kd``: 35-column table, kd-modulated
@@ -312,18 +312,24 @@ def render_frame(positions, normals, tri, view_proj, view_position,
             best = torch.where(win, kc, best)
             overflow = torch.maximum(overflow, flags)
     key = key_p[:height, :width]
-    rgba = _finish(mode, out_p[..., :height, :width], key, tex, vertex, tri,
-                   normals, effect, view_position, light_world_pos,
-                   light_color, light_intensity)
+    rgba = finish_frame(mode, out_p[..., :height, :width], key, tex, vertex,
+                        tri, normals, effect, view_position, light_world_pos,
+                        light_color, light_intensity)
     return rgba, key, overflow
 
 
-def _finish(mode, out, key, tex, vertex, tri, normals, effect,
-            view_position, light_world_pos, light_color, light_intensity,
-            pair_tri=None):
-    """Resolve the cropped raster output: unpack RGBA, shade a G-buffer
-    through its fused tail, or run the deferred tail on the winners (vis
-    ids are pair indices when ``pair_tri`` is given: the micro path's)."""
+def finish_frame(mode, out, key, tex, vertex, tri, normals, effect,
+                 view_position, light_world_pos, light_color,
+                 light_intensity, pair_tri=None, x_offset: int = 0,
+                 y_offset: int = 0):
+    """Resolve the raster output: unpack RGBA, shade a G-buffer through
+    its fused tail (with ``tex["texels_packed"]``, the u8-packed pool,
+    when given), or run the deferred tail on the winners. On the micro
+    path the vis ids are pair indices and ``pair_tri`` (its sorted pair
+    list, a stripe's own on a sharded render) maps them to global
+    triangle ids — the JAX package's ``tpu.micro_vis_tail``. The offsets
+    place ``out``'s first pixel at its global coordinates (a stripe of a
+    sharded render), for the deferred tail's sample positions."""
     if mode in ("base", "mat"):
         return raster.unpack_rgba(out)
     with torch.profiler.record_function(TEXTURE_RANGES[1]):
@@ -331,7 +337,8 @@ def _finish(mode, out, key, tex, vertex, tri, normals, effect,
         if mode == "texf":
             return common.fused_texture_tail(
                 out, key, tex["texels"], lc, li,
-                tex_filter=tex["tex_filter"])
+                tex_filter=tex["tex_filter"],
+                texels_packed=tex.get("texels_packed"))
         if mode == "texf_mip":
             return common.fused_texture_tail_mip(
                 out, key, tex["texels"], tex["tex_mips"], lc, li,
@@ -349,7 +356,8 @@ def _finish(mode, out, key, tex, vertex, tri, normals, effect,
         height, width = best_tri.shape
         gbuffer = common.resolve_attributes(best_tri, tri, screen, world,
                                             normals, tex["uvs"], effect,
-                                            width, height)
+                                            width, height, x_offset,
+                                            y_offset)
         mip = tex["tex_filter"] in common.MIP_FILTERS
         return common.textured_shade(
             gbuffer, best_tri, tex["face_kd"], tex["face_tex"],
@@ -399,9 +407,10 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
         mode=mode)
     overflow = torch.stack([bins["pair_needed"], bins["tile_needed"]])
     key = key_p[:height, :width]
-    rgba = _finish(mode, out_p[..., :height, :width], key, tex, vertex, tri,
-                   normals, effect, view_position.to(F32), light_world_pos,
-                   light_color, light_intensity, pair_tri=bins["pair_tri"])
+    rgba = finish_frame(mode, out_p[..., :height, :width], key, tex, vertex,
+                        tri, normals, effect, view_position.to(F32),
+                        light_world_pos, light_color, light_intensity,
+                        pair_tri=bins["pair_tri"])
     return rgba, key, overflow
 
 
@@ -447,6 +456,26 @@ def mesh_ext_tensors(mesh, tri, device, *, tex_filter: str = "nearest",
     return ext
 
 
+def frame_tensors(mesh, camera_uniform, lights, effect, device, *,
+                  tex_filter: str = "nearest", tex_mode: str = "fused"):
+    """One frame's inputs on ``device``: ``render_frame``'s positional
+    arguments (positions, normals, tri, view_proj, view_position, the
+    three light arrays, effect) and the mesh's ``mesh_ext_tensors``."""
+    def dev(a, dtype=F32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    light_world_pos, light_color, light_intensity = lights
+    tri = dev(mesh.indices.astype(np.int32), torch.int32).reshape(-1, 3)
+    args = (
+        dev(mesh.positions), dev(mesh.normals), tri,
+        dev(camera_uniform.view_proj), dev(camera_uniform.view_position),
+        dev(light_world_pos), dev(light_color), dev(light_intensity),
+        dev(effect),
+    )
+    return args, mesh_ext_tensors(mesh, tri, device, tex_filter=tex_filter,
+                                  tex_mode=tex_mode)
+
+
 def render(mesh, camera_uniform, lights, effect, width, height, *,
            device="cuda", tile_h: int = 0, tile_w: int = 0,
            pair_cap: int = 0, tile_cap: int = 0, max_retries: int = 3,
@@ -462,7 +491,6 @@ def render(mesh, camera_uniform, lights, effect, width, height, *,
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("cuda.render(device='cuda') needs an NVIDIA GPU "
                            "with CUDA; pass device='cpu' for the twins")
-    light_world_pos, light_color, light_intensity = lights
     T = max(mesh.indices.shape[0] // 3, 1)
     requested_path = path
     path = resolve_path(path, T)
@@ -470,19 +498,8 @@ def render(mesh, camera_uniform, lights, effect, width, height, *,
     pc = pair_cap or caps["pair_cap"]
     tc = tile_cap or caps["tile_cap"]
     tile_h, tile_w = caps["tile_h"], caps["tile_w"]
-
-    def dev(a, dtype=F32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
-    tri = dev(mesh.indices.astype(np.int32), torch.int32).reshape(-1, 3)
-    args = (
-        dev(mesh.positions), dev(mesh.normals), tri,
-        dev(camera_uniform.view_proj), dev(camera_uniform.view_position),
-        dev(light_world_pos), dev(light_color), dev(light_intensity),
-        dev(effect),
-    )
-    ext = mesh_ext_tensors(mesh, tri, device, tex_filter=tex_filter,
-                           tex_mode=tex_mode)
+    args, ext = frame_tensors(mesh, camera_uniform, lights, effect, device,
+                              tex_filter=tex_filter, tex_mode=tex_mode)
     for _ in range(max_retries):
         rgba, _, overflow = render_frame(
             *args, width=width, height=height, tile_h=tile_h, tile_w=tile_w,

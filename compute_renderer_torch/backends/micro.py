@@ -10,7 +10,7 @@ its 64 pixels: the same coverage, depth key, strict-< running minimum (the
 vis, where the output is the winner's absolute index in ``pair_tri``
 (``raster.PAIR_IDX_CLEAR`` where no pair covers; ``pair_tri`` maps it to
 the triangle). Cell c of tile (ti, tj) is pixels x in [128 tj + 8 c, +8),
-y in [8 ti, +8) plus the row offset.
+y in [8 ti, +8) plus the row offset (``y_offset``).
 
 The coefficient rows are read from the (T, R) table at ``pair_tri[p]``:
 the JAX package's P-sized pair stream (``build_pair_coeffs``) and its
@@ -151,11 +151,13 @@ def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
 def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
                        effect, view_position, light_world_pos, light_color,
                        light_intensity, *, height_padded: int,
-                       width_padded: int, mode: str = "base"):
+                       width_padded: int, mode: str = "base",
+                       y_offset: int = 0):
     """Raster + shade the padded (Hp, Wp) framebuffer, Hp a multiple of 8
     and Wp of 128, in ``mode`` (as ``raster.raster_shade_tiles``) from the
     (T, R) table, the cell-sorted ``pair_tri``, per-cell ``seg_start`` /
-    ``seg_count`` and per-tile ``tile_count``. Returns (out, best_key
+    ``seg_count`` and per-tile ``tile_count``, its first row at global
+    row ``y_offset`` (a stripe of a sharded render). Returns (out, best_key
     (Hp, Wp) u32) with ``out`` as the tile raster's, except that vis
     writes the winner's index in ``pair_tri`` (``raster.PAIR_IDX_CLEAR``
     where none covers).
@@ -168,7 +170,7 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
     raster.check_mode(tri_table, mode)
     params, lights = raster.shading_inputs(effect, view_position,
                                            light_world_pos, light_color,
-                                           light_intensity)
+                                           light_intensity, y_offset)
     kw = dict(height_padded=height_padded, width_padded=width_padded,
               mode=mode)
     device = tri_table.device

@@ -205,13 +205,14 @@ def occupied_worklist(seg_count):
 
 
 def shading_inputs(effect, view_position, light_world_pos, light_color,
-                   light_intensity):
+                   light_intensity, y_offset: int = 0):
     """The kernel's (11,) params and (L, 8) light rows, built on the
     device: params = [threshold, melt_threshold, mirage flag, amplitude,
     frequency, phase, time, row offset, eye x, y, z]; a light row =
-    [position (3), color (3), intensity, 0]. The row offset places a
-    framebuffer stripe of a sharded render; it is 0 until the multi-device
-    decompositions are ported."""
+    [position (3), color (3), intensity, 0]. The row offset ``y_offset``
+    places a framebuffer stripe of a sharded render (``parallel/``): the
+    kernels and twins sample global row ``y + y_offset``, an exact f32
+    integer."""
     device = effect.device
     threshold, melt_threshold = common.coverage_thresholds(effect)
     zero = torch.zeros((), dtype=F32, device=device)
@@ -219,8 +220,8 @@ def shading_inputs(effect, view_position, light_world_pos, light_color,
     L = light_world_pos.shape[0]
     params = torch.stack([
         threshold, melt_threshold, mirage, effect[1], effect[2], effect[3],
-        effect[5], zero, view_position[0], view_position[1],
-        view_position[2],
+        effect[5], zero + float(y_offset), view_position[0],
+        view_position[1], view_position[2],
     ]).to(F32)
     lights = torch.cat([
         light_world_pos.to(F32), light_color.to(F32),
@@ -662,11 +663,14 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
                        view_position, light_world_pos, light_color,
                        light_intensity, *, height_padded: int,
                        width_padded: int, tile_h: int, tile_w: int,
-                       layout: str = "flat", mode: str = "base"):
+                       layout: str = "flat", mode: str = "base",
+                       y_offset: int = 0):
     """Raster + shade the padded framebuffer in ``mode`` (``MODES``; the
     table must have the mode's width, ``check_mode``). ``pair_data`` is
     the dense (num_tiles, C) ``bin_rows`` or the flat tile-sorted
-    ``pair_tri``. Returns (out, best_key (Hp, Wp) u32), ``out`` by mode:
+    ``pair_tri``. ``y_offset`` is the global row of the framebuffer's
+    first row (a stripe of a sharded render; ``shading_inputs``). Returns
+    (out, best_key (Hp, Wp) u32), ``out`` by mode:
     the packed RGBA (Hp, Wp) u32 (base, mat), the winner's table row
     (Hp, Wp) int32, -1 where none covers (vis), or the (C, Hp, Wp) f32
     G-buffer (texf, texf_mip).
@@ -679,7 +683,7 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
     if layout not in ("dense", "flat"):
         raise ValueError(f"unknown layout {layout!r}")
     params, lights = shading_inputs(effect, view_position, light_world_pos,
-                                    light_color, light_intensity)
+                                    light_color, light_intensity, y_offset)
     kw = dict(height_padded=height_padded, width_padded=width_padded,
               tile_h=tile_h, tile_w=tile_w, layout=layout, mode=mode)
     device = tri_table.device

@@ -18,12 +18,14 @@ Counterpart of the JAX package's ``bench/profiling.py``:
   layer and by the texture ranges (``cuda.TEXTURE_RANGES``, seen only in
   eager frames: a replay records no ranges), and the host's CUDA calls a
   frame;
+- ``stage_timings_sortmiddle``: the per-triangle chain of one sort-middle
+  rank (``parallel/sharding.py``) on a 1/n slice of the triangles beside
+  the same chain at full T;
 - ``event_ms``, ``graph_ms``: the timers, and ``card_line``: the card's
   name and power limit, which every kept number names.
 
 Every timing here is of the card and raises without one: a CPU run gives
-no device time. (The JAX package's ``stage_timings_sortmiddle`` waits for
-the port of ``parallel/``.)
+no device time.
 """
 
 from __future__ import annotations
@@ -238,6 +240,47 @@ def stage_timings_micro(mesh, uniforms, width: int, height: int,
                                     iters, path="micro"),
         "pair_cap": pair_cap,
     }
+
+
+def stage_timings_sortmiddle(mesh, uniforms, width: int, height: int,
+                             n_shards: int, iters: int = 8,
+                             device="cuda") -> dict:
+    """Device ms of the per-triangle chain one sort-middle rank runs
+    (``parallel.sharding._stripe_sortmiddle``: the front at 8x8 cells,
+    the pair expansion, the stable cell sort) on the first ``ceil(T /
+    n_shards)`` triangles (``front_slice_ms``), beside the same chain at
+    full T (``front_full_ms``), each a replayed graph; ``speedup`` is their
+    ratio (n_shards where the chain is O(T / n)). The exchange, the table
+    gather and the stripe's raster, which do not scale with T, are not in
+    it. Pair capacities are each chain's own need."""
+    device = _require_cuda(device)
+    pos_soa, nrm_soa, vp, _, eff, *_ = _frame_inputs(mesh, uniforms, device)
+    T = pos_soa.shape[2]
+    Tl = -(-T // n_shards)
+    ntx, nty = (width + 127) // 128, (height + 7) // 8
+    num_cells = ntx * nty * 16
+
+    def chain(count):
+        pos = pos_soa[..., :count].contiguous()
+        nrm = nrm_soa[..., :count].contiguous()
+        _, meta = front.front_end(pos, nrm, vp, eff, width=width,
+                                  height=height, tile_h=8, tile_w=8)
+        pair_cap = cuda.grow_pair_cap(0, max(int(meta[3].sum()), 1024))
+
+        def run():
+            _, meta = front.front_end(pos, nrm, vp, eff, width=width,
+                                      height=height, tile_h=8, tile_w=8)
+            cell, tri, _ = expand.expand_cells(
+                meta[3], meta[2], meta[0], meta[1], pair_cap=pair_cap,
+                ntx_t=ntx, num_cells=num_cells)
+            cell, order = torch.sort(cell, stable=True)
+            return cell, tri[order]
+
+        return graph_ms(run, iters)
+
+    t_slice, t_full = chain(Tl), chain(T)
+    return {"n_shards": n_shards, "front_slice_ms": t_slice,
+            "front_full_ms": t_full, "speedup": t_full / max(t_slice, 1e-9)}
 
 
 def stage_timings_deferred(mesh, uniforms, width: int, height: int,

@@ -172,6 +172,8 @@ class Renderer:
         self._tile_tuned = self._user_tile or not self._tile_autotune
         # The tuner's best seconds per candidate shape, once it has run.
         self.tile_timings: dict = {}
+        # Graph replays so far (a frame each; 0 off the card).
+        self.replays = 0
         self._pending_overflow = None
         self._upload(mesh)
 
@@ -363,6 +365,7 @@ class Renderer:
             return self._frame(torch.from_numpy(packed).to(self.device), L)
         graph = self.frame_graph(uniforms)
         graph.graph.replay()
+        self.replays += 1
         return graph.rgba.clone(), graph.key.clone(), graph.overflow.clone()
 
     def _checked(self, uniforms: FrameUniforms, max_retries: int = 3):
@@ -527,6 +530,7 @@ class Renderer:
             graph.packed.copy_(stack[i])
             graph.graph.replay()
             frames[i].copy_(graph.rgba)
+        self.replays += K
         return frames, graph.overflow_max.clone()
 
     def render_batch_device(self, uniforms_seq, max_retries: int = 3,
@@ -575,14 +579,21 @@ class Renderer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def take_overflow(self):
+        """The (2,) i32 device maximum of the overflow reports of the
+        unchecked batch renders since the last take (zeros if none), and
+        clear it: what a caller that checks batches itself reads (the
+        frame-parallel renders, ``parallel/frames.py``)."""
+        pending = self._pending_overflow
+        self._pending_overflow = None
+        if pending is None:
+            return torch.zeros((2,), dtype=torch.int32, device=self.device)
+        return pending
+
     def flush_overflow(self) -> bool:
         """Fetch and clear the flags of unchecked batch renders. True means
         a frame dropped triangles and the run is invalid."""
-        if self._pending_overflow is None:
-            return False
-        flags = self._pending_overflow.cpu().numpy()
-        self._pending_overflow = None
-        return bool(flags.any())
+        return bool(self.take_overflow().cpu().numpy().any())
 
     def render(self, uniforms: FrameUniforms) -> np.ndarray:
         """Render one frame to a host (H, W, 4) uint8 RGBA array."""

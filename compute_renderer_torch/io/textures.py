@@ -15,10 +15,9 @@ Conventions (the reference has no sampling stage to match):
   model.rs:64), so a flipped v of 0 addresses the image's top row.
 
 A copy of the JAX package's ``io/textures.py`` (``load_image``,
-``build_atlas``, ``build_mips``, ``trilinear_tex_arrays``, ``write_ppm``).
-PPM (P6/P3) is decoded in numpy; other formats go through Pillow, imported
-when such a file is loaded. The u8-packed pool (``pack_pool_u8``) is not
-ported: the JAX engine does not use it by default.
+``build_atlas``, ``build_mips``, ``trilinear_tex_arrays``,
+``pack_pool_u8``, ``write_ppm``). PPM (P6/P3) is decoded in numpy; other
+formats go through Pillow, imported when such a file is loaded.
 """
 
 from __future__ import annotations
@@ -186,6 +185,25 @@ def trilinear_tex_arrays(texels, tex_table) -> tuple:
     one helper the host entries use, so the pool-replaces-texels
     convention cannot drift between them."""
     return build_mips(np.asarray(texels), np.asarray(tex_table))
+
+
+def pack_pool_u8(texels: np.ndarray):
+    """The flat (P, 3) f32 texel pool packed as (P,) i32 ``r | g << 8 |
+    b << 16``, or None when some texel is not exactly a u8 value (v ==
+    round(v * 255) / 255 in f32, bitwise: every u8-sourced image; not a
+    16-bit PPM or a mip level's means). The fused tail's unpack divides by
+    255 in f32 as the loader did (``common._pool_fetcher``), so sampling
+    the packed pool gives the same floats as sampling ``texels``."""
+    texels = np.asarray(texels, dtype=F32)
+    if texels.size == 0:
+        return None
+    k = np.round(texels * 255.0).astype(np.int64)
+    if k.min() < 0 or k.max() > 255:
+        return None
+    if not np.array_equal(k.astype(F32) / F32(255.0), texels):
+        return None
+    k = k.astype(np.int32)
+    return np.ascontiguousarray(k[:, 0] | (k[:, 1] << 8) | (k[:, 2] << 16))
 
 
 def write_ppm(path, img: np.ndarray) -> None:
