@@ -141,6 +141,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    table's size printed); ms/frame of each decomposition at n = 1, 2, 4
    (host clock, fenced: not scaling numbers, the ranks share one card)
    and ``stage_timings_sortmiddle`` at n = 4, each with the card line.
+18. viewers and oracle — app/window.py through a fake Tk at a fixed
+   clock (dt = 1/60), 1024x768: Suzanne (tile path) and the San Miguel
+   stand-in (micro path), 200 ticks each with w held and a mouse drag;
+   every tick one blocking wait and no checked render, no overflow, every
+   presented frame bitwise a second renderer's render of the previous
+   tick's uniforms, the four kernels launched by the ticks; ticks/s and
+   the host split a tick (dispatch, wait, blit). app/webview.py on an
+   ephemeral port driven with urllib (page, a key, a drag, 100 ticks, a
+   resize to 640x480, /stats, /quit): every served PNG (decoded with
+   zlib) bitwise the render of the uniforms it shows — a frame whose
+   unchecked render a later flush reports as overflowing (the viewers'
+   design: dropped triangles shown until that flush) is counted and
+   printed, and that flush's checked render is held bitwise; ticks/s and
+   the PNG encode. The CLI's ``--interactive --frames 2`` (headless
+   fallback, both PNGs) and ``--web 0`` (a frame, exit 0 on /quit) in
+   subprocesses. The NumPy oracle (golden/) against the card's frames,
+   tile and micro paths: tests/test_fuzz.py's soups at 128x48 (at most
+   0.5% of pixels more than 1 LSB off), its pinhole frame (no background
+   pixel inside the silhouette) and tests/test_golden.py's depth order,
+   depth tie, backface, near plane and two lights (each case's own
+   assertion, and the soups' gate); the pixel counts printed.
 
 The suite rows and the CLI drive the kernels through the public entry
 points; the kernels' record below keeps the counts of phases 5, 6, 10
@@ -2016,32 +2037,37 @@ T_START = time.perf_counter()
 
 
 def read_png(path):
-    """(H, W, 4) u8 of an 8-bit RGBA PNG of filter-0 rows (what the port's
-    minimal writer emits: this machine has no Pillow), with zlib alone."""
+    """(H, W, 4) u8 of an 8-bit RGBA PNG file (``decode_png``)."""
+    with open(path, "rb") as fh:
+        return decode_png(fh.read(), path)
+
+
+def decode_png(data, name="PNG"):
+    """(H, W, 4) u8 of the bytes of an 8-bit RGBA PNG of filter-0 rows
+    (what the port's minimal writer emits: this machine has no Pillow),
+    with zlib alone."""
     import struct
     import zlib
 
     import numpy as np
 
-    with open(path, "rb") as fh:
-        data = fh.read()
-    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{name}: not a PNG")
     pos, idat, size = 8, b"", None
     while pos < len(data):
         n, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
         require(crc == zlib.crc32(tag + body) & 0xFFFFFFFF,
-                f"{path}: bad CRC in {tag}")
+                f"{name}: bad CRC in {tag}")
         if tag == b"IHDR":
             size = struct.unpack(">II", body[:8])
-            require(body[8:10] == b"\x08\x06", f"{path}: not 8-bit RGBA")
+            require(body[8:10] == b"\x08\x06", f"{name}: not 8-bit RGBA")
         elif tag == b"IDAT":
             idat += body
         pos += 12 + n
     w, h = size
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
-    require(bool((rows[:, 0] == 0).all()), f"{path}: filtered rows")
+    require(bool((rows[:, 0] == 0).all()), f"{name}: filtered rows")
     return rows[:, 1:].reshape(h, w, 4)
 
 
@@ -2639,6 +2665,662 @@ def phase_parallel(device, card, scenes):
     print(f"[parallel] phase 17: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 18: the viewers (app/window.py, app/webview.py) and the NumPy
+# oracle (golden/) on the card.
+VIEW_TICKS = 200
+VIEW_STEADY = 10  # ticks left out of the steady rates (tuning, capture)
+# The window run's mouse drag: right over these ticks, back left over the
+# next as many (2 px a tick), so the model stays ahead of the camera.
+VIEW_DRAG = (60, 90)
+VIEW_DRAG_PX = 2
+VIEW_WEB_TICKS = 100
+VIEW_RESIZE = (640, 480)
+VIEW_TIMEOUT_S = 120.0  # a viewer subprocess's limit
+# The oracle's cases: tests/test_fuzz.py's frame and seeds (no effect),
+# its pinhole frame, and tests/test_golden.py's frame.
+ORACLE_SOUP = (128, 48)
+ORACLE_SEEDS = (3, 57, 7, 23, 101, 11, 42, 5)
+ORACLE_PINHOLE = (256, 192)
+ORACLE_CASE = (64, 64)
+ORACLE_GATE = 0.005  # share of pixels more than 1 LSB off (test_fuzz.py)
+
+
+class FakeWidget:
+    """The Tk root and canvas of the window run (the card's machine has no
+    display), shaped like tests/test_window.py's fake: it records the
+    bindings, the re-armed ticks and the HUD text."""
+
+    def __init__(self, *a, **k):
+        self.bindings = {}
+        self.after_calls = 0
+        self.text_items = {}
+        self.destroyed = False
+
+    def title(self, *_):
+        pass
+
+    def pack(self, *_, **__):
+        pass
+
+    def config(self, **_):
+        pass
+
+    def bind(self, event, fn):
+        self.bindings[event] = fn
+
+    def create_image(self, *a, **k):
+        pass
+
+    def create_text(self, *a, **k):
+        item = len(self.text_items) + 1
+        self.text_items[item] = k
+        return item
+
+    def itemconfigure(self, item, **k):
+        self.text_items[item].update(k)
+
+    def tag_raise(self, item):
+        pass
+
+    def after(self, ms, fn):
+        self.after_calls += 1
+
+    def destroy(self):
+        self.destroyed = True
+
+    def mainloop(self):
+        pass
+
+
+class FakePhoto:
+    """Tk's PhotoImage: keeps the PPM payload of the last blit only."""
+
+    last = None
+
+    def __init__(self, data=None, format=None):
+        require(format == "PPM", f"blit format {format}")
+        FakePhoto.last = data
+
+
+class FixedClock:
+    """``time`` for a viewer module: perf_counter advances by DT a call,
+    so the camera moves the same at every tick rate."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        now = self.t
+        self.t += DT
+        return now
+
+
+def fake_tk():
+    import types
+
+    return types.SimpleNamespace(Tk=FakeWidget, Canvas=FakeWidget,
+                                 PhotoImage=FakePhoto)
+
+
+def viewer_scenes():
+    """(name, SceneConfig, path) of the viewer runs: Suzanne (the tile
+    path's front + raster) and the San Miguel stand-in (the micro path's
+    front + expansion + micro raster), first-person cameras; Suzanne's far
+    enough back that holding w walks up to it."""
+    from compute_renderer_torch import CameraConfig, SceneConfig
+
+    return (("suzanne", SceneConfig(
+                model_path="suzanne.obj",
+                camera_config=CameraConfig.first_person((0.0, 0.0, 20.0))),
+             "tile"),
+            ("san_miguel", SceneConfig(
+                model_path=SAN_MIGUEL,
+                camera_config=CameraConfig.first_person(SAN_MIGUEL_EYE)),
+             "micro"))
+
+
+class ViewerProbe:
+    """Wraps a viewer's tick parts to count and time them on the host
+    clock: the dispatch (``render_batch_device``), the one blocking wait
+    (``_fetch``), the present (``_blit`` or ``_present``) and the checked
+    renders and overflow flushes; records each tick's uniforms and a copy
+    of each presented frame."""
+
+    def __init__(self, app, present):
+        import numpy as np
+
+        self.uniforms, self.shown = [], []
+        self.ms = {"dispatch": [], "wait": [], "present": []}
+        self.checked = 0
+        self.flushes = []
+        r = app.renderer
+        dispatch, fetch, flush = (r.render_batch_device, app._fetch,
+                                  r.flush_overflow)
+        show, update, render = getattr(app, present), app.scene.update, r.render
+
+        def timed(key, fn):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                self.ms[key].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return wrapper
+
+        def shown(rgba):
+            self.shown.append(np.array(rgba))
+            return show(rgba)
+
+        def checked(u):
+            self.checked += 1
+            return render(u)
+
+        def flushed():
+            # (the tick, whether an unchecked frame since the last flush
+            # overflowed); the tick's uniforms are already recorded.
+            self.flushes.append((len(self.uniforms) - 1, flush()))
+            return self.flushes[-1][1]
+
+        def updated(dt):
+            self.uniforms.append(update(dt))
+            return self.uniforms[-1]
+
+        r.render_batch_device = timed("dispatch", dispatch)
+        r.render = checked
+        r.flush_overflow = flushed
+        app._fetch = timed("wait", fetch)
+        setattr(app, present, timed("present", shown))
+        app.scene.update = updated
+
+    def means(self, start=VIEW_STEADY):
+        """Mean ms of each part over the ticks from ``start`` on."""
+        return {k: sum(v[start:]) / max(len(v[start:]), 1)
+                for k, v in self.ms.items()}
+
+
+def check_lagged(app, probe, device, path, first=0):
+    """Holds each presented frame from tick ``first`` on to a checked
+    render of the uniforms it shows, by a second renderer with the
+    viewer's tile shape: the previous tick's, or its own on a warm-up
+    tick (``first``, or after an overflow's checked render) and on that
+    checked render's tick. Returns (frames checked, {tick: pixels that
+    differ} of the frames not bitwise equal, {tick: pixels} of those
+    among them whose unchecked render a later flush reported as
+    overflowing: the viewer's dropped triangles, shown until that flush,
+    window.py's design)."""
+    import numpy as np
+
+    from compute_renderer_torch import Renderer
+
+    r = app.renderer
+    opts = dict(app.scene.renderer_options(), path=path)
+    opts.update({k: r.options[k] for k in ("tile_h", "tile_w")
+                 if k in r.options})
+    ref = Renderer(app.scene.mesh, r.width, r.height, device=device, **opts)
+    n = len(probe.shown)
+    # The flushes, and a last one closing the run (unwrapped: not a tick).
+    flushes = probe.flushes + [(n, bool(r.take_overflow().cpu().any()))]
+    hits = {k for k, hit in flushes if hit}
+    bad, dropped = {}, {}
+    for k in range(first, n):
+        src = k if k == first or k in hits or k - 1 in hits else k - 1
+        want = ref.render(probe.uniforms[src])
+        if np.array_equal(probe.shown[k], want):
+            continue
+        px = int((probe.shown[k] != want).any(axis=-1).sum())
+        covering = min(f for f, _ in flushes if f > src)
+        if k not in hits and covering in hits:
+            dropped[k] = px
+        else:
+            bad[k] = px
+    return n - first, bad, dropped
+
+
+def view_window(device, card, name, config, path, width=W, height=H,
+                ticks=VIEW_TICKS):
+    """The Tk viewer on ``config`` through the fake Tk at the fixed
+    clock: w held throughout, a mouse drag over VIEW_DRAG; one blocking
+    wait a tick, no checked render, the presented frames lagging one tick
+    bitwise. Returns the launch counts of the ticks."""
+    from compute_renderer_torch.app import window
+
+    tag = f"window {name}"
+    window.time = FixedClock()
+    try:
+        app = window.InteractiveApp([config], width, height,
+                                    tk_module=fake_tk(), device=device)
+        probe = ViewerProbe(app, "_blit")
+        app._on_key_press(types_event(keysym="w"))
+        x, y = width // 2, height // 2
+        d0, d1 = VIEW_DRAG
+        reset_counts()
+        t_ticks = []
+        for k in range(ticks):
+            if k == d0:
+                app._on_mouse_down(types_event(x=x, y=y))
+            elif d0 < k <= d1 + (d1 - d0):
+                x += VIEW_DRAG_PX if k <= d1 else -VIEW_DRAG_PX
+                app._on_mouse_move(types_event(x=x, y=y))
+            elif k == d1 + (d1 - d0) + 1:
+                app._on_mouse_up(types_event())
+            t0 = time.perf_counter()
+            app._tick()
+            t_ticks.append(time.perf_counter() - t0)
+        if device.type == "cuda":
+            torch_sync()
+        counts = {k: v for k, v in read_counts().items() if v}
+    finally:
+        window.time = time
+    n_fetch = len(probe.ms["wait"])
+    cam = app.scene.get_active_camera()
+    n, bad, dropped = check_lagged(app, probe, device, path)
+    steady = t_ticks[VIEW_STEADY:]
+    hits = [k for k, hit in probe.flushes if hit]
+    m = probe.means()
+    print(f"[viewer] {tag} {width}x{height} ({path} path, "
+          f"T={app.scene.mesh.num_triangles}): {ticks} ticks, "
+          f"{len(steady) / sum(steady):.1f} ticks/s steady "
+          f"(ticks {VIEW_STEADY}-{ticks - 1}), first tick "
+          f"{t_ticks[0] * 1e3:.1f} ms; a tick: dispatch "
+          f"{m['dispatch']:.3f} ms, wait {m['wait']:.3f} ms, blit "
+          f"{m['present']:.3f} ms; {n_fetch} blocking waits, 0 checked "
+          f"renders, {len(probe.flushes)} flushes (overflow at ticks "
+          f"{hits}); {n - len(bad) - len(dropped)} of {n} presented frames "
+          f"bitwise the render of the previous tick's uniforms; camera yaw "
+          f"{float(cam.yaw):.3f} eye {[round(float(v), 3) for v in cam.eye]}"
+          f"; launches {counts}; card: {card}")
+    require(n_fetch == ticks and probe.checked == 0,
+            f"{tag}: {n_fetch} blocking waits and {probe.checked} checked "
+            f"renders in {ticks} ticks (want {ticks} and 0)")
+    require(app.root.after_calls == ticks and app._hud is not None,
+            f"{tag}: the loop re-armed {app.root.after_calls} times")
+    require(not bad and not dropped and not hits,
+            f"{tag}: presented frames that are not the render of the "
+            f"previous tick's uniforms, pixels differing by tick: {bad}; "
+            f"overflowed {dropped} (flushes {probe.flushes})")
+    return counts
+
+
+def types_event(**k):
+    import types
+
+    return types.SimpleNamespace(**k)
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def http(port, path, payload=None):
+    """(body, headers) of a GET (or a POST of ``payload``) to the viewer
+    on 127.0.0.1:``port``."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.read(), dict(r.headers)
+
+
+def view_web(device, card, width=W, height=H, ticks=VIEW_WEB_TICKS,
+             resize=VIEW_RESIZE):
+    """The HTTP viewer on Suzanne on an ephemeral port: the page, a key, a
+    drag and a resize posted with urllib; every served frame (decoded
+    with zlib) bitwise the render of the previous tick's uniforms; /stats;
+    POST /quit. Returns the launch counts of the ticks."""
+    from compute_renderer_torch.app import webview
+
+    tag = "web suzanne"
+    (_, config, path), _ = viewer_scenes()
+    webview.time = FixedClock()
+    app = None
+    try:
+        app = webview.WebViewerApp([config], width, height, port=0,
+                                   device=device)
+        probe = ViewerProbe(app, "_present")
+        page, _ = http(app.port, "/")
+        require(b"/frame" in page and b"/input" in page, f"{tag}: page")
+        reset_counts()
+        t0 = time.perf_counter()
+        http(app.port, "/input", {"kind": "keydown", "key": "w"})
+        app.tick()
+        http(app.port, "/input", {"kind": "mousedown", "x": 500, "y": 380})
+        http(app.port, "/input", {"kind": "mousemove", "x": 530, "y": 390})
+        http(app.port, "/input", {"kind": "mouseup"})
+        t_ticks = []
+        for k in range(1, ticks):
+            t1 = time.perf_counter()
+            app.tick()
+            t_ticks.append(time.perf_counter() - t1)
+        if device.type == "cuda":
+            torch_sync()
+        counts = {k: v for k, v in read_counts().items() if v}
+        png, headers = http(app.port, f"/frame?since={ticks - 1}")
+        require(int(headers["X-Frame-No"]) == ticks and "fps" in
+                headers["X-HUD"], f"{tag}: frame {headers}")
+        served, png_bytes = decode_png(png), len(png)
+        require(served.shape == (height, width, 4) and bool(
+            (served == probe.shown[-1]).all()),
+            f"{tag}: the served PNG is not the presented frame")
+        n, bad, dropped = check_lagged(app, probe, device, path)
+        require(not bad, f"{tag}: served frames that are not the render of "
+                f"the uniforms they show, pixels by tick: {bad}")
+        hits = [k for k, hit in probe.flushes if hit]
+        m = probe.means()
+        steady = t_ticks[VIEW_STEADY:]
+        # The resize: the next frames render at the new size.
+        rw, rh = resize
+        first = len(probe.shown)
+        http(app.port, "/input", {"kind": "resize", "w": rw, "h": rh})
+        for _ in range(3):
+            app.tick()
+        png, _ = http(app.port, "/frame?since=0")
+        resized = decode_png(png)
+        require(resized.shape == (rh, rw, 4),
+                f"{tag}: after the resize {resized.shape}")
+        n_resized, bad, dropped_resized = check_lagged(
+            app, probe, device, path, first=first)
+        require(not bad, f"{tag}: after the resize, frames that are not "
+                f"the render of the uniforms they show: {bad}")
+        stats = json.loads(http(app.port, "/stats")[0])
+        require((stats["width"], stats["height"]) == (rw, rh)
+                and stats["frames"] == len(probe.shown),
+                f"{tag}: stats {stats}")
+        n_waits = len(probe.ms["wait"])
+        require(n_waits + probe.checked == len(probe.shown)
+                and probe.checked == len(hits),
+                f"{tag}: {n_waits} waits, {probe.checked} checked renders "
+                f"for {len(probe.shown)} ticks and overflows at {hits}")
+        http(app.port, "/quit", {})
+        app.tick()
+        require(not app.running, f"{tag}: /quit did not stop the loop")
+    finally:
+        webview.time = time
+        if app is not None:
+            app.shutdown()
+    print(f"[viewer] {tag} {width}x{height}: {ticks} ticks, "
+          f"{len(steady) / sum(steady):.1f} ticks/s steady, a tick: "
+          f"dispatch {m['dispatch']:.3f} ms, wait {m['wait']:.3f} ms, PNG "
+          f"encode (_present) {m['present']:.3f} ms ({png_bytes} B PNG); "
+          f"{n_waits} blocking waits, {probe.checked} checked "
+          f"renders (overflow at the flushes of ticks {hits}); "
+          f"{n - len(dropped)} of {n} served frames bitwise the render of "
+          f"the uniforms they show (the previous tick's but on warm-up and "
+          f"at a checked render), the others dropped triangles before an "
+          f"overflow's flush, px by tick {dropped}; {n_resized} more after "
+          f"the resize to {rw}x{rh} (dropped {dropped_resized}); /stats "
+          f"{stats}; launches {counts}; card: {card}")
+    return counts
+
+
+def view_cli(device, width=W, height=H):
+    """The viewers through the CLI in subprocesses: ``--interactive
+    --frames 2`` falls back to headless (no display) and writes both
+    PNGs; ``--web 0`` prints its URL, serves a frame and exits 0 on POST
+    /quit."""
+    import queue
+    import threading
+
+    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    size = ["--width", str(width), "--height", str(height)]
+    out_dir = os.path.join(ROOT, "build", "viewer")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "compute_renderer_torch", *dev, *size,
+         "--interactive", "--frames", "2", "--output",
+         os.path.join(out_dir, "i.png")], cwd=ROOT, capture_output=True,
+        text=True, timeout=VIEW_TIMEOUT_S)
+    require(proc.returncode == 0 and "Falling back to headless."
+            in proc.stderr, f"cli --interactive: exit {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    for name in ("i_0000.png", "i_0001.png"):
+        img = read_png(os.path.join(out_dir, name))
+        require(img.shape == (height, width, 4), f"cli {name}: {img.shape}")
+    t_interactive = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "compute_renderer_torch", *dev, *size,
+         "--web", "0"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        lines = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                         daemon=True).start()
+        line = lines.get(timeout=VIEW_TIMEOUT_S)
+        require(line.startswith("web viewer: http://127.0.0.1:"),
+                f"cli --web: first line {line!r}")
+        port = int(line.rsplit(":", 1)[1].strip().strip("/"))
+        png, headers = http(port, "/frame?since=0")
+        img = decode_png(png)
+        require(img.shape == (height, width, 4)
+                and int(headers["X-Frame-No"]) >= 1,
+                f"cli --web: frame {img.shape} {headers}")
+        http(port, "/quit", {})
+        rc = proc.wait(timeout=VIEW_TIMEOUT_S)
+        require(rc == 0, f"cli --web: exit {rc}: {proc.stderr.read()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"[viewer] cli: --interactive --frames 2 fell back to headless and "
+          f"wrote both PNGs ({t_interactive:.1f} s); --web 0 served frame "
+          f"{headers['X-Frame-No']} on port {port} and exited 0 on /quit "
+          f"({time.perf_counter() - t0:.1f} s); each a fresh process")
+
+
+def oracle_soup(seed, width, height):
+    """tests/test_fuzz.py:106-127's draws for ``seed`` (its random_soup,
+    random_camera and random_lights, copied): (mesh, camera, lights)."""
+    import numpy as np
+
+    from compute_renderer_torch.core.camera import Camera
+    from compute_renderer_torch.core.types import Mesh
+
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(5, 30))
+    pos = rng.uniform(-2.0, 2.0, (n * 3, 3)).astype(f32)
+    nrm = rng.normal(size=(n * 3, 3)).astype(f32)
+    uv = rng.uniform(0, 1, (n * 3, 2)).astype(f32)
+    mesh = Mesh(pos, nrm, uv, np.arange(n * 3, dtype=np.uint32))
+    if rng.random() < 0.5:
+        cam = Camera.first_person(rng.uniform(-1, 1, 3) + [0, 0, 4],
+                                  width / height)
+    else:
+        cam = Camera.orbit(float(rng.uniform(2, 6)),
+                           float(rng.uniform(0, 360)),
+                           float(rng.uniform(-60, 60)),
+                           rng.uniform(-1, 1, 3), width / height)
+    lights = (rng.uniform(-6, 6, (2, 3)).astype(f32),
+              rng.uniform(0, 1, (2, 3)).astype(f32),
+              rng.uniform(0, 2, (2,)).astype(f32))
+    return mesh, cam, lights
+
+
+def oracle_case(name):
+    """(mesh, lights) of a tests/test_golden.py case."""
+    import numpy as np
+
+    from compute_renderer_torch.core.types import Mesh
+    from compute_renderer_torch.io import procedural
+
+    f32 = np.float32
+    tri = procedural.single_triangle
+    one = (np.array([[0, 0, 5.0]], f32), np.ones((1, 3), f32),
+           np.ones((1,), f32))
+    if name == "backface":
+        m = tri(z=0.0)
+        m.indices = m.indices[::-1].copy()
+        return m, one
+    if name == "near_plane":
+        m = tri(z=0.0)
+        m.positions[2, 2] = 10.0
+        return m, one
+    if name == "two_lights":
+        return tri(z=0.0), (np.tile(one[0], (2, 1)), np.ones((2, 3), f32),
+                            np.ones((2,), f32))
+    if name == "one_light":
+        return tri(z=0.0), one
+    if name == "front_only":
+        return tri(z=1.0), one
+    a, b = ((tri(z=0.0), tri(z=1.0)) if name == "depth_order"
+            else (tri(z=0.0), tri(z=0.0)))
+    both = Mesh.concatenate([a, b])
+    both.normals[:3] = [1, 0, 0] if name == "depth_order" else [0, 0, 1]
+    both.normals[3:] = [0, 0, 1] if name == "depth_order" else 0.5
+    return both, one
+
+
+def oracle_frames(device, mesh, cam, lights, width, height):
+    """(oracle frame, {path: card frame}) of one scene, no effect."""
+    from compute_renderer_torch import Renderer
+    from compute_renderer_torch.core.effects import EffectUniform
+    from compute_renderer_torch.engine.scene import FrameUniforms
+    from compute_renderer_torch.golden import render_golden
+
+    u = cam.uniform()
+    effect = EffectUniform().as_array()
+    gold = render_golden(mesh.positions, mesh.normals, mesh.uvs,
+                         mesh.indices, u.view_proj, u.view_position,
+                         *lights, effect, width, height)
+    uni = FrameUniforms(view_position=u.view_position, view_proj=u.view_proj,
+                        light_world_pos=lights[0], light_color=lights[1],
+                        light_intensity=lights[2], effect=effect)
+    return gold, {path: Renderer(mesh, width, height, device=device,
+                                 path=path).render(uni)
+                  for path in ("tile", "micro")}
+
+
+def off_by_more_than(a, b, lsb=1):
+    import numpy as np
+
+    return int((np.abs(a.astype(np.int32) - b.astype(np.int32)) > lsb)
+               .any(axis=-1).sum())
+
+
+def oracle_on_card(device, card):
+    """The port's NumPy oracle against ``Renderer`` on ``device``, tile
+    and micro paths, at the JAX package's gates: the seeded soups
+    (tests/test_fuzz.py, no effect) at most ORACLE_GATE of the pixels
+    more than 1 LSB off; the pinhole frame (icosphere(3), orbit) no
+    background pixel inside the silhouette; tests/test_golden.py's depth
+    order, depth tie, backface, near plane and two lights, each case's
+    own assertion on the card's frames and the soups' gate against the
+    oracle. Prints the pixel counts of each case."""
+    import numpy as np
+
+    from compute_renderer_torch.core.camera import Camera
+    from compute_renderer_torch.io import procedural
+
+    w, h = ORACLE_SOUP
+    gate = int(ORACLE_GATE * w * h)
+    for seed in ORACLE_SEEDS:
+        mesh, cam, lights = oracle_soup(seed, w, h)
+        gold, card_frames = oracle_frames(device, mesh, cam, lights, w, h)
+        offs = {p: off_by_more_than(f, gold) for p, f in card_frames.items()}
+        covered = int((gold != [0, 0, 255, 255]).any(axis=-1).sum())
+        require(max(offs.values()) <= gate, f"oracle soup {seed}: {offs} px "
+                f"more than 1 LSB off (gate {gate})")
+        print(f"[oracle] soup seed {seed} ({mesh.num_triangles} tris, "
+              f"{covered} covered px of {w * h}): more than 1 LSB off the "
+              f"oracle: tile {offs['tile']}, micro {offs['micro']} (gate "
+              f"{gate})")
+
+    w, h = ORACLE_PINHOLE
+    mesh = procedural.icosphere(3)
+    cam = Camera.orbit(4.0, 0.0, 0.0, [0, 0, 0], aspect=w / h)
+    rng = np.random.default_rng(0)  # test_fuzz.py:140's lights
+    lights = (rng.uniform(-6, 6, (2, 3)).astype(np.float32),
+              rng.uniform(0, 1, (2, 3)).astype(np.float32),
+              rng.uniform(0, 2, (2,)).astype(np.float32))
+    gold, card_frames = oracle_frames(device, mesh, cam, lights, w, h)
+    ys, xs = np.mgrid[0:h, 0:w]
+    inside = ((xs - w / 2) ** 2 + (ys - h / 2) ** 2) < 20 ** 2
+    holes = {p: int(((f[..., :3] == [0, 0, 255]).all(-1) & inside).sum())
+             for p, f in dict(card_frames, oracle=gold).items()}
+    offs = {p: off_by_more_than(f, gold) for p, f in card_frames.items()}
+    require(not any(holes.values()) and max(offs.values()) <= int(
+        ORACLE_GATE * w * h), f"oracle pinhole: holes {holes}, off {offs}")
+    print(f"[oracle] pinhole icosphere(3) {w}x{h}: background px inside the "
+          f"silhouette {holes}; more than 1 LSB off the oracle {offs}")
+
+    w, h = ORACLE_CASE
+    cam = Camera.first_person([0, 0, 3.0], aspect=w / h)
+    blue = np.array([0, 0, 255, 255], np.uint8)
+    cases = {}
+    for name in ("depth_order", "depth_tie", "backface", "near_plane",
+                 "two_lights", "one_light", "front_only"):
+        mesh, lights = oracle_case(name)
+        cases[name] = oracle_frames(device, mesh, cam, lights, w, h)
+    for name in ("depth_order", "depth_tie", "backface", "near_plane",
+                 "two_lights"):
+        gold, card_frames = cases[name]
+        for path, img in card_frames.items():
+            tag = f"oracle {name} {path}"
+            off = off_by_more_than(img, gold)
+            require(off <= int(ORACLE_GATE * w * h), f"{tag}: {off} px off")
+            if name in ("backface", "near_plane"):
+                ok = bool((img == blue).all())
+            elif name in ("depth_order", "depth_tie"):
+                only = cases["front_only" if name == "depth_order"
+                             else "one_light"][1][path]
+                cover = ~(only == blue).all(axis=-1)
+                ok = cover.any() and np.array_equal(img[cover], only[cover])
+            else:
+                one = cases["one_light"][1][path]
+                cover = ~(one == blue).all(axis=-1)
+                ok = (img[cover].astype(int).sum()
+                      >= one[cover].astype(int).sum())
+            require(ok, f"{tag}: the case's own assertion fails on the card")
+        covered = {p: int((~(f == blue).all(axis=-1)).sum())
+                   for p, f in card_frames.items()}
+        print(f"[oracle] {name} {w}x{h}: covered px {covered}, more than 1 "
+              f"LSB off the oracle: "
+              + ", ".join(f"{p} {off_by_more_than(f, gold)}"
+                          for p, f in card_frames.items())
+              + f"; card: {card}")
+
+
+def phase_viewers(device, card):
+    """Phase 18: the viewers and the oracle on the card. (a) The Tk
+    viewer through a fake Tk at the fixed clock on Suzanne (tile path)
+    and the San Miguel stand-in (micro path), VIEW_TICKS ticks each with
+    w held and a mouse drag: one blocking wait a tick, no checked render,
+    every presented frame bitwise the render of the previous tick's
+    uniforms, the four kernels launched by the ticks; ticks/s and the
+    host split (dispatch, wait, blit). (b) The HTTP viewer on Suzanne on
+    an ephemeral port driven with urllib: a key, a drag, a resize, the
+    served PNGs bitwise, /stats, /quit; ticks/s and the PNG encode. (c)
+    The CLI's --interactive (headless fallback) and --web 0 in
+    subprocesses. (d) The NumPy oracle against the card's frames."""
+    t_phase = time.perf_counter()
+    launched = {}
+    for name, config, path in viewer_scenes():
+        counts = view_window(device, card, name, config, path)
+        kernels = (("front_end", "raster_shade_tiles") if path == "tile"
+                   else ("front_end", "expand_cells", "raster_shade_micro"))
+        require(all(counts.get(k, 0) > 0 for k in kernels),
+                f"window {name}: the {path} path's kernels did not launch "
+                f"({counts})")
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+    require(all(launched.get(k, 0) > 0 for k in counters()),
+            f"viewers: not every kernel launched ({launched})")
+    counts = view_web(device, card)
+    require(counts.get("front_end", 0) > 0
+            and counts.get("raster_shade_tiles", 0) > 0,
+            f"web suzanne: the tile path's kernels did not launch ({counts})")
+    view_cli(device)
+    oracle_on_card(device, card)
+    print(f"[viewer] phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "compute_renderer_torch")):
         print("chip_smoke: compute_renderer_torch/ is not beside this script",
@@ -2685,6 +3367,7 @@ def main() -> int:
     phase_comparators(device, card, scenes)
     phase_cli_suite(device, card)
     phase_parallel(device, card, scenes)
+    phase_viewers(device, card)
 
     kernels = [{
         "name": name, "route": "cuda", "source": meta["source"],

@@ -13,9 +13,12 @@ every filter, box-filter SSAA), the comparator backends
 (``backends/xla.py``, ``backends/wgpu_faithful.py``), OBJ files loaded
 from disk (the native parser, ``io/native.py``), and the entry points:
 the CLI (``python3 -m compute_renderer_torch``), the headless loop and the
-reference's benchmark suite (``bench/suite.py``), and the multi-device
+reference's benchmark suite (``bench/suite.py``), the multi-device
 decompositions (``parallel/``: framebuffer stripes, sort-middle and frame
-parallelism on ``torch.distributed``). See ROADMAP.md for the rest.
+parallelism on ``torch.distributed``), the viewers (``app/window.py``, the
+display window, and ``app/webview.py``, the HTTP viewer) and the NumPy
+oracle (``golden/``). Nothing of the JAX package is left to port but its
+compile cache, whose counterpart is ``_build.py``'s build directory.
 """
 
 __version__ = "0.1.0"

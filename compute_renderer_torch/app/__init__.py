@@ -1,3 +1,5 @@
 """Host surfaces of the port: the headless frame loop (``headless``)
-behind the CLI. The JAX package's HTTP viewer and display window are not
-ported yet."""
+behind the CLI, the display window (``window``, tkinter) and the HTTP
+viewer (``webview``). All three render through ``Renderer`` on the card
+unless the caller asks for the CPU; the viewers share the pipelined
+present (``window.FramePipe``)."""

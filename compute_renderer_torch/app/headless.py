@@ -21,12 +21,14 @@ def write_png(path, rgba) -> None:
     whether or not Pillow is installed (the JAX package's takes Pillow
     when it can): the same bytes on every machine, and none needs
     Pillow."""
-    _write_png_minimal(path, rgba)
+    Path(path).write_bytes(encode_png(rgba))
 
 
-def _write_png_minimal(path, rgba) -> None:
-    """An RGBA PNG from the standard library alone: one IDAT of the
-    zlib-compressed rows, each with filter byte 0."""
+def encode_png(rgba, level: int = 6) -> bytes:
+    """An RGBA PNG from the standard library alone: one IDAT of the rows,
+    each with filter byte 0, compressed by zlib at ``level`` (6 for
+    files; the web viewer re-encodes every frame and takes 1, rate over
+    ratio)."""
     import struct
     import zlib
 
@@ -38,13 +40,12 @@ def _write_png_minimal(path, rgba) -> None:
         return c + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
-    png = (
+    return (
         b"\x89PNG\r\n\x1a\n"
         + chunk(b"IHDR", ihdr)
-        + chunk(b"IDAT", zlib.compress(raw))
+        + chunk(b"IDAT", zlib.compress(raw, level))
         + chunk(b"IEND", b"")
     )
-    Path(path).write_bytes(png)
 
 
 def run_headless(config: SceneConfig, width: int, height: int,

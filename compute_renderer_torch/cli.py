@@ -12,8 +12,9 @@ version of the JAX package's CLI, with the same flags, subcommands,
 defaults, aliases and error exits, plus ``--device {cuda,cpu}``: the
 renderer runs on the card (the default; without one the CLI exits
 non-zero with the renderer's error) or, when asked, on the CPU through
-the torch twins. ``--web`` and ``--interactive`` (the viewer) are not
-ported yet and exit with an error.
+the torch twins; ``--web`` (the HTTP viewer) and ``--interactive`` (the
+display window; headless when there is no display) render on the same
+device.
 
     python3 -m compute_renderer_torch.cli [--device cpu] ...
 """
@@ -72,11 +73,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "--frames>1); a .gif path with --frames>1 writes one "
                    "animated GIF instead (extension)")
     p.add_argument("--interactive", action="store_true",
-                   help="Open an interactive viewer window (not ported yet)")
+                   help="Open an interactive viewer window (requires display)")
     p.add_argument("--web", nargs="?", const=8700, type=int, default=None,
                    metavar="PORT",
                    help="Serve the interactive viewer over HTTP on PORT "
-                   "(not ported yet)")
+                   "(default 8700; 0 picks a free port) — the headless-box "
+                   "window: open the printed URL in a browser for live "
+                   "frames + keyboard/mouse control (extension)")
     p.add_argument("--materials", action="store_true",
                    help="Resolve MTL diffuse colors into per-triangle "
                    "shading (extension; the reference discards materials)")
@@ -212,11 +215,22 @@ def main(argv=None) -> int:
         return 0
 
     config = scene_config_from_args(args)
-    if args.web is not None or args.interactive:
-        print("the interactive viewer (--web, --interactive) is not ported "
-              "to compute_renderer_torch yet; render headlessly with "
-              "--frames/--output", file=sys.stderr)
-        return 2
+    if args.web is not None:
+        from compute_renderer_torch.app.webview import run_web
+
+        run_web(config, args.width, args.height, port=args.web,
+                device=args.device)
+        return 0
+    if args.interactive:
+        from compute_renderer_torch.app.window import run_interactive
+
+        try:
+            run_interactive(config, args.width, args.height,
+                            device=args.device)
+            return 0
+        except RuntimeError as e:
+            # Docstring contract: fall back to headless when no display.
+            print(f"{e} Falling back to headless.", file=sys.stderr)
 
     from compute_renderer_torch.app.headless import run_headless
 

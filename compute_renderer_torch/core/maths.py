@@ -18,10 +18,11 @@ import numpy as np
 F32 = np.float32
 
 # Anisotropic-filtering tap count AND the footprint clamp baked into the
-# per-triangle mip constants of the texture extension (not ported yet; see
-# ROADMAP). ONE constant, so the table build and every sampler can never
-# desynchronize: a table baked at one value but shaded at another would
-# silently mis-scale the filter footprint.
+# per-triangle mip constants of the texture extension
+# (``backends/common.py``'s ``mip_tri_rows`` and samplers, and the oracle,
+# ``golden/rasterizer.py``). ONE constant, so the table build and every
+# sampler can never desynchronize: a table baked at one value but shaded
+# at another would silently mis-scale the filter footprint.
 MAX_ANISO = 4
 
 

@@ -269,6 +269,18 @@ class Renderer:
             ]
         ).astype(np.float32), L
 
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """A host array (the packed uniforms) on the device. On the card
+        it crosses from pinned memory without holding the host: a copy
+        from pageable memory waits for the stream to drain, which would
+        make every dispatch wait for the frames before it (the viewers'
+        pipelined present, ``app/window.py``). Stream order still puts
+        the copy before the frame that reads it."""
+        t = torch.from_numpy(array)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _frame(self, packed, L: int):
         """One frame from a packed device buffer, eagerly: (rgba, key,
         overflow); a comparator's key is its depth buffer and its overflow
@@ -350,7 +362,7 @@ class Renderer:
         the card only; for tools that replay it themselves
         (``bench/profiling.py``)."""
         packed, L = self.pack_uniforms(uniforms)
-        packed = torch.from_numpy(packed).to(self.device)
+        packed = self._to_device(packed)
         graph = self._frame_graph(packed, L)
         graph.packed.copy_(packed)
         return graph
@@ -553,8 +565,7 @@ class Renderer:
         self._maybe_tune_tile(uniforms_seq)
         packs = [self.pack_uniforms(u) for u in uniforms_seq]
         L = packs[0][1]
-        stack = torch.from_numpy(np.stack([p for p, _ in packs])).to(
-            self.device)
+        stack = self._to_device(np.stack([p for p, _ in packs]))
         for _ in range(max_retries):
             if check:
                 self._maybe_calibrate(uniforms_seq[0])

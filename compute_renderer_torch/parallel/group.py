@@ -85,10 +85,11 @@ def check_backend(backend: str, world_size: int, device) -> None:
 
 
 def init(backend: str, rank: int, world_size: int, init_method: str, *,
-         device="cpu", timeout: float = DEFAULT_TIMEOUT_S) -> torch.device:
+         device="cuda", timeout: float = DEFAULT_TIMEOUT_S) -> torch.device:
     """Join the default group as ``rank`` of ``world_size`` through
     ``init_method`` and return the rank's device (``rank_device``; made
-    current on the card)."""
+    current on the card). ``device`` is "cuda" unless the caller asks for
+    "cpu", as in ``launch``: without a card it raises."""
     check_backend(backend, world_size, device)
     dev = rank_device(device, rank)
     kwargs = {}

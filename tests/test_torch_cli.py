@@ -48,9 +48,14 @@ def _run(args, env_extra=None, timeout=300):
 
 
 def read_png(path):
-    """(H, W, 4) u8 from an 8-bit RGBA PNG with filter 0 rows (what the
-    minimal writer emits), with the standard library alone."""
-    data = open(path, "rb").read()
+    """(H, W, 4) u8 from an 8-bit RGBA PNG file (``decode_png``)."""
+    with open(path, "rb") as fh:
+        return decode_png(fh.read())
+
+
+def decode_png(data):
+    """(H, W, 4) u8 from the bytes of an 8-bit RGBA PNG with filter 0 rows
+    (what the minimal writer emits), with the standard library alone."""
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
     pos, idat, size = 8, b"", None
     while pos < len(data):
@@ -173,12 +178,55 @@ def test_benchmarks_invalid_offset(device):
     assert cli.main(["--device", device, "benchmarks", "--offset", "99"]) == 1
 
 
-@pytest.mark.parametrize("flag", [["--web"], ["--interactive"]])
-def test_viewer_not_ported(flag, capsys):
+@pytest.mark.parametrize("frames", [1, 2])
+def test_interactive_without_display_falls_back(frames, tmp_path, capsys,
+                                                monkeypatch):
+    # No display here: --interactive says so and renders headlessly.
     from compute_renderer_torch import cli
 
-    assert cli.main(["--device", "cpu", *flag]) == 2
-    assert "not ported" in capsys.readouterr().err
+    monkeypatch.delenv("DISPLAY", raising=False)
+    out = tmp_path / "i.png"
+    rc = cli.main(["--device", "cpu", "--width", str(W), "--height", str(H),
+                   "--interactive", "--frames", str(frames), "--output",
+                   str(out)])
+    assert rc == 0
+    assert "Falling back to headless." in capsys.readouterr().err
+    paths = ([out] if frames == 1 else
+             [tmp_path / f"i_{i:04d}.png" for i in range(frames)])
+    for p in paths:
+        assert read_png(p).shape == (H, W, 4)
+
+
+@pytest.mark.parametrize("backend", ["custom", "xla"])
+def test_web_serves_frame_and_quits(backend, capsys):
+    # --web 0 on a thread: the printed URL serves the page and a PNG frame
+    # of the requested size; POST /quit ends main() with 0.
+    import threading
+    import urllib.request
+
+    from compute_renderer_torch import cli
+
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(cli.main(
+        ["--device", "cpu", "--width", str(W), "--height", str(H),
+         "--backend-type", backend, "--web", "0"])), daemon=True)
+    t.start()
+    out, deadline = "", time.monotonic() + 120
+    while ("http://" not in out and t.is_alive()
+           and time.monotonic() < deadline):
+        out += capsys.readouterr().out
+        time.sleep(0.05)
+    url = out[out.index("http://"):].split()[0]
+    with urllib.request.urlopen(url, timeout=30) as r:
+        assert b"/frame" in r.read()
+    with urllib.request.urlopen(url + "frame?since=0", timeout=30) as r:
+        assert int(r.headers["X-Frame-No"]) >= 1
+        img = decode_png(r.read())
+    assert img.shape == (H, W, 4) and (img[..., 2] != 255).any()
+    urllib.request.urlopen(urllib.request.Request(
+        url + "quit", data=b"{}", method="POST"), timeout=30).read()
+    t.join(timeout=60)
+    assert not t.is_alive() and rc == [0]
 
 
 # -- headless runs -----------------------------------------------------------
@@ -244,13 +292,17 @@ def test_headless_png_without_pillow(tmp_path, monkeypatch):
 
 
 def test_png_writer_minimal(tmp_path):
-    from compute_renderer_torch.app.headless import _write_png_minimal
+    # write_png's file and encode_png's bytes at the web viewer's zlib
+    # level decode to the frame, with zlib alone and with Pillow.
+    from compute_renderer_torch.app.headless import encode_png, write_png
 
     rgba = np.random.default_rng(3).integers(0, 256, (5, 7, 4),
                                              dtype=np.uint8)
     p = tmp_path / "m.png"
-    _write_png_minimal(p, rgba)
+    write_png(p, rgba)
     np.testing.assert_array_equal(read_png(p), rgba)
+    np.testing.assert_array_equal(decode_png(encode_png(rgba, level=1)),
+                                  rgba)
     if not _no_pil():
         np.testing.assert_array_equal(_pil_read(p), rgba)
 

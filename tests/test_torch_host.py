@@ -126,7 +126,9 @@ def test_port_never_imports_jax():
         "import compute_renderer_torch\n"
         "from compute_renderer_torch.backends import (cuda, expand, front,"
         " micro, raster)\n"
-        "from compute_renderer_torch import convert\n"
+        "from compute_renderer_torch import cli, convert\n"
+        "from compute_renderer_torch.app import webview, window\n"
+        "from compute_renderer_torch.golden import rasterizer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('compute_renderer_tpu')]\n"
         "assert not bad, bad\n"

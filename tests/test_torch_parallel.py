@@ -452,6 +452,20 @@ def test_backend_checks(port):
             group.rank_device("cuda", 0)
 
 
+def test_init_defaults_to_the_card(port, tmp_path):
+    # init runs on the card unless the caller asks for the CPU, as launch
+    # does: without a card it raises before it joins any group.
+    import torch.distributed as dist
+
+    from compute_renderer_torch.parallel import group
+
+    if port.torch.cuda.is_available():
+        pytest.skip("a card is present: init joins on it")
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+        group.init("gloo", 0, 1, f"file://{tmp_path}/store")
+    assert not dist.is_initialized()
+
+
 def test_failing_rank_raises_in_parent(port):
     from compute_renderer_torch.parallel import launch
     from tests.torch_parallel_ranks import fail_on_rank_one
