@@ -6,14 +6,23 @@
 Phases, each fatal on failure (nonzero exit, no result line):
 
 1. device — requires CUDA; prints the card's name and power limit;
-2. build — compiles the four hand-written kernels (csrc/*.cu) with nvcc,
-   one process per source, all at once;
+2. build — compiles the five hand-written kernel sources (csrc/*.cu)
+   with nvcc, one process per source, all at once;
 3. kernel vs twin, tile path — the front end and the raster on the tile
    path's inputs (Suzanne and san_miguel_small at 1024x768, and a wave
    frame): meta bitwise, the (T, R) table bitwise with NaN positions equal
    (<= 1 ULP on the wave frame, whose sinf inputs differ) and in the
    layout the rasters take without a copy, the raster (fed the front's own
    table) with keys bitwise and RGBA within 1 LSB, dense and flat layouts;
+   the tile path's binning kernel (bin_tiles_dense, csrc/bins.cu) against
+   its twin, every output bitwise (the whole bin_rows, segments, work
+   list, its count, the total and the overflow report), on the synthetic
+   cases of tests/test_torch_tile_bins.py and on Suzanne's meta at both
+   tuner tile shapes, whole and as a chunk view; after phase 8 loads it,
+   the kernel called directly on structured_scene_tex's meta against the
+   dense twin; the shading parameters (shading_params) bitwise in the
+   plain, voxelize, edge-melt and mirage effects, with and without a row
+   offset; each kernel's time beside its twin's at Suzanne's shapes;
 4. kernel vs twin, micro path — the front end at 8x8 cells (meta and
    table bitwise), the pair expansion (bitwise on the valid range,
    the sentinel tail, total equal, an overflowing capacity included; and
@@ -27,7 +36,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
 5. main path, tile — bench.py's scene through Scene.from_config ->
    Renderer -> three render() frames (the first tunes the tile shape,
    capturing each candidate's CUDA graph; the frames replay the
-   winner's): the front and raster launch counts advance, no overflow,
+   winner's): the front, binning, shading-parameter and raster launch
+   counts advance, no overflow,
    and every frame matches
    tests/golden_data/torch_slice_suzanne_1024x768.npz (rendered by the JAX
    package) with at most max(2, H*W/500) pixels differing by more than
@@ -36,7 +46,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    ms/frame by bench.py's batch-slope method, 64 and 256 frames, best of
    4, the two in turns; the host's CUDA calls a frame, at most 3 through
    the graph; one profiled batch of each, busy time, kernels and idle
-   share);
+   share, the binning and shading kernels as layers of their own); the
+   graph's kernels a frame, at most 12;
 6. main path, micro — the San Miguel benchmark configuration through
    Renderer: calibration, one capture, three frames against
    tests/golden_data/torch_micro_san_miguel_1024x768.npz and bitwise
@@ -146,9 +157,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    stand-in (micro path), 200 ticks each with w held and a mouse drag;
    every tick one blocking wait and no checked render, no overflow, every
    presented frame bitwise a second renderer's render of the previous
-   tick's uniforms, the four kernels launched by the ticks; ticks/s and
-   the host split a tick (dispatch, wait, blit). app/webview.py on an
-   ephemeral port driven with urllib (page, a key, a drag, 100 ticks, a
+   tick's uniforms, the kernels of both paths launched by the ticks;
+   ticks/s and the host split a tick (dispatch, wait, blit).
+   app/webview.py on an ephemeral port driven with urllib (page, a key, a drag, 100 ticks, a
    resize to 640x480, /stats, /quit): every served PNG (decoded with
    zlib) bitwise the render of the uniforms it shows — a frame whose
    unchecked render a later flush reports as overflowing (the viewers'
@@ -249,6 +260,21 @@ KERNELS = {
         "replaces": ("pallas_micro.py", "_micro_kernel_wl"),
         "symbol": "micro_kernel",
     },
+    # The stages the JAX package leaves to XLA inside its compiled step:
+    # the dense binning with its work list (binning.py setup_from_meta +
+    # bin_triangles_dense, pallas_raster.py occupied_worklist), and the
+    # rasters' shading parameters (built in pallas_raster.py
+    # raster_shade_tiles and pallas_micro.py raster_shade_micro).
+    "bin_tiles_dense": {
+        "source": "compute_renderer_torch/csrc/bins.cu",
+        "replaces": ("binning.py", "bin_triangles_dense"),
+        "symbol": "bin_",  # bin_rows_kernel and bin_scan_kernel
+    },
+    "shading_params": {
+        "source": "compute_renderer_torch/csrc/bins.cu",
+        "replaces": ("pallas_raster.py", "raster_shade_tiles"),
+        "symbol": "shading_params_kernel",
+    },
 }
 # The modes of three kernels: one record each, "<kernel>.<mode>", the same
 # source and TPU kernel as the base record. The front has no vis mode
@@ -271,11 +297,16 @@ def record(name, mode):
 
 def tpu_kernel_location(filename, function):
     """"path:line" of ``def function(`` in the JAX package's
-    ``backends/<filename>`` — the TPU kernel a CUDA kernel replaces."""
+    ``backends/<filename>`` — the TPU kernel (or the XLA-fused function)
+    a CUDA kernel replaces. The port's own ``backends/`` shares some file
+    names, so it is left out."""
     import glob
 
+    port = os.path.join(ROOT, "compute_renderer_torch", "")
     for path in sorted(glob.glob(os.path.join(ROOT, "*", "backends",
                                               filename))):
+        if path.startswith(port):
+            continue
         with open(path) as fh:
             for n, line in enumerate(fh, 1):
                 if line.startswith(f"def {function}("):
@@ -614,6 +645,183 @@ def micro_walk(tag, bins):
           f"{int(counts.sum()) * 64} samples walked")
 
 
+# The binning kernel's bound: per triangle its 16 meta bytes, per tile its
+# row of C ids and 12 bytes of seg_start, seg_count and the work list; one
+# operation a listed pair (its slot), one a tile (the scan).
+BIN_META_BYTES = 16
+BIN_TILE_BYTES = 12
+
+
+def check_bins(tag, meta, ntx, nty, tile_cap, report, direct=False):
+    """``bin_tiles_dense`` against its twin (``binning.bin_tiles_meta_plain``
+    on the same card tensors, the dense layout) on one meta: every output
+    bitwise, bin_rows whole. The kernel is reached through the public
+    wrapper, or called directly (``direct``) where the dense rule would
+    send the frame to the flat layout. Returns the kernel's bins."""
+    import torch
+
+    from compute_renderer_torch.backends import binning
+    from tests.torch_bin_cases import BIN_KEYS
+
+    if direct:
+        got = binning._bin_tiles_cuda(meta, ntx, nty, tile_cap)
+        want = binning._with_worklist(binning.bin_triangles_dense(
+            binning.setup_from_meta(meta), ntx, nty, 0, tile_cap))
+    else:
+        launches = binning.bin_tiles_meta.launches
+        got = binning.bin_tiles_meta(meta, ntx, nty, 0, tile_cap)
+        require(got["layout"] == "dense"
+                and binning.bin_tiles_meta.launches == launches + 1,
+                f"bins {tag}: the wrapper did not launch the kernel")
+        want = binning.bin_tiles_meta_plain(meta, ntx, nty, 0, tile_cap)
+    torch.cuda.synchronize()
+    for key in BIN_KEYS:
+        a, b = got[key], want[key]
+        require(a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b),
+                f"bins {tag}: {key} differs from the twin")
+    counts = want["seg_count"]
+    print(f"[check] bin_tiles_dense {tag}: {ntx}x{nty} tiles, C "
+          f"{got['bin_rows'].shape[1]}, T {meta.shape[1]}: bin_rows, "
+          f"segments, work list (k {int(got['k'])}), total "
+          f"{int(got['total_pairs'])} and overflow "
+          f"{got['overflow'].tolist()} bitwise; longest list "
+          f"{int(counts.max()) if counts.numel() else 0}")
+    report["max_abs_err"] = 0.0  # every output bitwise
+    return got
+
+
+def check_shading(tag, args, y_offset, report):
+    """``shading_params`` against its twin on card tensors, bitwise:
+    ``args`` = (effect, view_position, light pos, color, intensity), as
+    the caller's path holds them (the main path's are views into the
+    uploaded uniform buffer)."""
+    import torch
+
+    from compute_renderer_torch.backends import raster
+
+    pk, lk = raster.shading_inputs(*args, y_offset)
+    pp, lp = raster.shading_inputs_plain(*args, y_offset)
+    torch.cuda.synchronize()
+    require(torch.equal(pk.view(torch.int32), pp.view(torch.int32))
+            and torch.equal(lk.view(torch.int32), lp.view(torch.int32)),
+            f"shading_params {tag}: differs from the twin (kernel "
+            f"{pk.tolist()}, twin {pp.tolist()})")
+    print(f"[check] shading_params {tag} y_offset {y_offset}: params and "
+          f"{lk.shape[0]} light rows bitwise; melt threshold "
+          f"{float(pk[1])!r}")
+    report["max_abs_err"] = 0.0
+
+
+def phase_bins(device, reports):
+    """Phase 3's binning and shading kernels: ``bin_tiles_dense`` on the
+    synthetic cases of tests/test_torch_tile_bins.py and on Suzanne's meta
+    at both tuner tile shapes (whole and a chunk view), ``shading_params``
+    in the four effects; then both timed at the main path's shapes."""
+    import types
+
+    import torch
+
+    from compute_renderer_torch.backends import binning, cuda, front, raster
+    from compute_renderer_torch.bench.profiling import event_ms
+    from compute_renderer_torch.core import effects
+    from tests.torch_bin_cases import META_CASES, meta_case, shading_case
+
+    rep_b = reports["bin_tiles_dense"]
+    for case in META_CASES:
+        meta, ntx, nty, tile_cap, cut = meta_case(case)
+        m = torch.from_numpy(meta).to(device)
+        if cut is not None:
+            m = m[:, cut[0]:cut[1]]
+        check_bins(case, m, ntx, nty, tile_cap, rep_b)
+    x = frame_inputs(bench_scene(), device)
+    args = (x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"])
+    main = None
+    for th, tw in cuda.TILE_CANDIDATES:
+        _, meta = front._front_end_cuda(*args, width=W, height=H, tile_h=th,
+                                        tile_w=tw)
+        ntx, nty = -(-W // tw), -(-H // th)
+        tc = cuda.default_caps("tile", x["T"], W, H, th, tw)["tile_cap"]
+        bins = check_bins(f"suzanne {th}x{tw}", meta, ntx, nty, tc, rep_b)
+        require(not bool(bins["overflow"].any()),
+                f"bins suzanne {th}x{tw}: overflow at the default cap")
+        check_bins(f"suzanne {th}x{tw} chunk [300, 1000)",
+                   meta[:, 300:1000], ntx, nty, tc, rep_b)
+        if (th, tw) == cuda.choose_tile(x["T"], W, H):
+            main = (meta, ntx, nty, tc, bins)
+
+    rep_s = reports["shading_params"]
+    ns = types.SimpleNamespace(effects=effects)
+    for effect in ("none", "voxelize", "edge_melt", "mirage"):
+        sargs = [torch.from_numpy(a).to(device)
+                 for a in shading_case(ns, effect)]
+        for y_offset in (0, 96):
+            check_shading(effect, sargs, y_offset, rep_s)
+    # The main path's own inputs: bench.py's frame (two lights, views into
+    # the packed uniforms), at row 0 and at stripe 1 of 2 (16-row tiles).
+    for y_offset in (0, SHADING_STRIPE_ROWS["tile"]):
+        check_shading("suzanne main path", [x[k] for k in SHADING_KEYS],
+                      y_offset, rep_s)
+
+    # Times at the main path's shapes: Suzanne 1024x768 at 16x256.
+    meta, ntx, nty, tc, bins = main
+    C = bins["bin_rows"].shape[1]
+    rep_b["ms"] = kernel_device_ms(
+        lambda: binning._bin_tiles_cuda(meta, ntx, nty, tc), 50,
+        KERNELS["bin_tiles_dense"]["symbol"])
+    rep_b["ms_events"] = event_ms(
+        lambda: binning._bin_tiles_cuda(meta, ntx, nty, tc), 200)
+    rep_b["plain_ms"] = event_ms(
+        lambda: binning.bin_tiles_meta_plain(meta, ntx, nty, 0, tc), 50)
+    rep_b["library_ms"] = None  # no PyTorch call bins triangles to tiles
+    rep_b["bound_ms"], rep_b["bound_by"] = bound_ms(
+        meta.shape[1] * BIN_META_BYTES + ntx * nty * (4 * C + BIN_TILE_BYTES)
+        + 16, int(bins["total_pairs"]) + ntx * nty)
+    sargs = (x["eff"], x["vpos"], x["lwp"], x["lc"], x["li"], 0)
+    L = x["lwp"].shape[0]
+    rep_s["ms"] = kernel_device_ms(lambda: raster._shading_cuda(*sargs), 50,
+                                   KERNELS["shading_params"]["symbol"])
+    rep_s["ms_events"] = event_ms(lambda: raster._shading_cuda(*sargs), 200)
+    rep_s["plain_ms"] = event_ms(lambda: raster.shading_inputs_plain(*sargs),
+                                 50)
+    rep_s["library_ms"] = None  # no PyTorch call builds these rows
+    # 6 effect, 3 eye and 7 floats a light in; 11 params and 8 a light
+    # out; about 20 operations (sinf counted as 10).
+    rep_s["bound_ms"], rep_s["bound_by"] = bound_ms(
+        4 * (6 + 3 + 7 * L) + 4 * (11 + 8 * L), 20)
+    for name in ("bin_tiles_dense", "shading_params"):
+        print_time(name, reports[name])
+
+
+# The shading inputs of frame_inputs(), in shading_inputs' order, and the
+# row offset of a stripe the sharded renders give it: stripe 1 of 2 at
+# 16-row tiles (768 rows), stripe 1 of 4 at 8-row cells.
+SHADING_KEYS = ("eff", "vpos", "lwp", "lc", "li")
+SHADING_STRIPE_ROWS = {"tile": 384, "micro": 192}
+
+
+def check_bins_structured(device, reports, scenes):
+    """Phase 3's last binning case, once the structured scenes are loaded:
+    the kernel called directly on structured_scene_tex's meta (36,322
+    triangles; the dense rule sends this frame to the flat layout, and its
+    heaviest tiles overflow the default C) against the dense twin."""
+    from compute_renderer_torch.backends import binning, cuda, front
+
+    x = frame_inputs(scene_copy(scenes["structured_tex+textures"]), device)
+    th, tw = cuda.choose_tile(x["T"], W, H)
+    _, meta = front._front_end_cuda(x["pos_soa"], x["nrm_soa"], x["vp"],
+                                    x["eff"], width=W, height=H, tile_h=th,
+                                    tile_w=tw)
+    ntx, nty = -(-W // tw), -(-H // th)
+    tc = cuda.default_caps("tile", x["T"], W, H, th, tw)["tile_cap"]
+    bins = check_bins(f"structured_tex {th}x{tw} (direct)", meta, ntx, nty,
+                      tc, reports["bin_tiles_dense"], direct=True)
+    layout = "dense" if binning.dense_layout(ntx, nty, tc, x["T"]) else "flat"
+    print(f"[check] bin_tiles_dense structured_tex: the dense rule picks "
+          f"{layout}; tile_needed {int(bins['tile_needed'])} at C "
+          f"{bins['bin_rows'].shape[1]}")
+
+
 def phase_kernels(device, reports):
     from compute_renderer_torch.backends import binning, cuda, front, raster
     from compute_renderer_torch.bench.profiling import event_ms
@@ -666,7 +874,9 @@ def phase_kernels(device, reports):
         table, data, bins, params, lights, rkw, layout = timing[key][1]
         common = (table, data, bins["seg_start"], bins["seg_count"], params,
                   lights)
-        return (lambda: raster._raster_cuda(*common, layout=layout, **rkw),
+        wl = binning.occupied_worklist(bins["seg_count"])
+        return (lambda: raster._raster_cuda(*common, layout=layout,
+                                            mode="base", worklist=wl, **rkw),
                 lambda: raster.raster_shade_tiles_plain(*common,
                                                         layout=layout, **rkw))
 
@@ -692,6 +902,7 @@ def phase_kernels(device, reports):
     print(f"[time] raster_shade_tiles san_miguel_small flat: kernel "
           f"{rep_r['ms_san_miguel_small_flat']} ms, twin "
           f"{rep_r['plain_ms_san_miguel_small_flat']:.6f} ms")
+    phase_bins(device, reports)
 
 
 def print_time(name, rep, where="suzanne"):
@@ -935,6 +1146,9 @@ def phase_micro_kernels(device, reports):
         require(int(bins["pair_needed"]) == 0, f"micro {name}: overflow")
         params, lights = check_micro(name, x, table, bins, ntx, nty,
                                      reports["raster_shade_micro"])
+        for y_offset in (0, SHADING_STRIPE_ROWS["micro"]):
+            check_shading(f"{name} micro path", [x[k] for k in SHADING_KEYS],
+                          y_offset, reports["shading_params"])
         if timing is None:  # San Miguel: the micro main path's shapes
             timing = (x, meta, pair_cap, table, bins, params, lights)
 
@@ -1033,20 +1247,19 @@ def phase_main_path(device, card, reports):
     import numpy as np
 
     from compute_renderer_torch import Renderer
-    from compute_renderer_torch.backends import front, raster
+    from compute_renderer_torch.backends import raster
 
     scene = bench_scene()
     renderer = Renderer(scene.mesh, W, H, device=device,
                         **scene.renderer_options())
     golden = np.load(GOLDEN)["rgba"]
 
-    front.front_end.launches = 0
-    raster.raster_shade_tiles.launches = 0
-    raster.kernel_table.copies = 0
+    tile_kernels = ("front_end", "bin_tiles_dense", "shading_params",
+                    "raster_shade_tiles")
+    reset_counts()
     batch = [scene.update(DT) for _ in range(3)]
     frames = [renderer.render(u) for u in batch]
-    launches = {"front_end": front.front_end.launches,
-                "raster_shade_tiles": raster.raster_shade_tiles.launches}
+    launches = {name: counters()[name].launches for name in tile_kernels}
     # The first frame tunes the tile shape: each candidate's graph is
     # captured (an eager warm-up and the capture); the frames replay the
     # winner's.
@@ -1062,10 +1275,26 @@ def phase_main_path(device, card, reports):
     check_golden("main", frames, golden)
     check_graph_equals_eager("main", renderer, batch, frames)
     note_tuner("suzanne", renderer)
-    compare_eager_graph("suzanne", renderer, scene, card, {
-        "front_end": ("front_kernel",),
-        "raster_shade_tiles": ("raster_kernel",),
-    })
+    compare_eager_graph("suzanne", renderer, scene, card, TILE_LAYERS)
+    kernels = GRAPH_ROWS["suzanne"]["graph"]["kernels"]
+    print(f"[main] the Suzanne graph: {kernels:.1f} kernels a frame (at "
+          f"most {MAX_GRAPH_KERNELS}, the per-frame uniform and frame "
+          f"copies of render_batch_device included); card: {card}")
+    require(0 < kernels <= MAX_GRAPH_KERNELS,
+            f"the Suzanne graph runs {kernels:.1f} kernels a frame (at most "
+            f"{MAX_GRAPH_KERNELS})")
+
+
+# The tile path's layers in a profile: the front, the binning stage's
+# kernel, the shading parameters and the raster (the rest is "other").
+TILE_LAYERS = {
+    "front_end": ("front_kernel",),
+    "bin_tiles_dense": ("bin_rows_kernel", "bin_scan_kernel"),
+    "shading_params": ("shading_params_kernel",),
+    "raster_shade_tiles": ("raster_kernel",),
+}
+# Kernels a frame of the Suzanne graph, by profile_batch's count.
+MAX_GRAPH_KERNELS = 12
 
 
 # A graph's eager warm-up and its capture: the launch counters tick on
@@ -1228,6 +1457,7 @@ def phase_micro_main_path(device, card, reports):
     counters = {"front_end": front.front_end,
                 "expand_cells": expand.expand_cells,
                 "raster_shade_micro": micro.raster_shade_micro,
+                "shading_params": raster.shading_inputs,
                 "raster_shade_tiles": raster.raster_shade_tiles}
     for fn in counters.values():
         fn.launches = 0
@@ -1239,7 +1469,8 @@ def phase_micro_main_path(device, card, reports):
           f"the graph's capture; replays tick no counter): {launches}; "
           f"table copies {raster.kernel_table.copies}")
     require_front_tables("micro main path")
-    for name in ("front_end", "expand_cells", "raster_shade_micro"):
+    for name in ("front_end", "expand_cells", "raster_shade_micro",
+                 "shading_params"):
         require(launches[name] >= CAPTURE_LAUNCHES, f"the micro main path "
                 f"launched the {name} kernel {launches[name]} times")
     require(launches["raster_shade_tiles"] == 0,
@@ -1299,12 +1530,16 @@ def phase_san_miguel(device):
 
 def counters():
     """The launch-counted wrappers by record name."""
-    from compute_renderer_torch.backends import expand, front, micro, raster
+    from compute_renderer_torch.backends import (
+        binning, expand, front, micro, raster,
+    )
 
     return {"front_end": front.front_end,
             "raster_shade_tiles": raster.raster_shade_tiles,
             "expand_cells": expand.expand_cells,
-            "raster_shade_micro": micro.raster_shade_micro}
+            "raster_shade_micro": micro.raster_shade_micro,
+            "bin_tiles_dense": binning.bin_tiles_meta,
+            "shading_params": raster.shading_inputs}
 
 
 def reset_counts():
@@ -1562,8 +1797,9 @@ def phase_mode_kernels(device, reports, scenes, modes):
         common_args = (table, data, tbins["seg_start"], tbins["seg_count"],
                        params, lights)
         rep = reports[record("raster_shade_tiles", mode)]
+        wl = binning.occupied_worklist(tbins["seg_count"])
         run = lambda: raster._raster_cuda(*common_args, layout=layout,
-                                          mode=mode, **rkw)
+                                          mode=mode, worklist=wl, **rkw)
         rep["ms"] = kernel_device_ms(run, 50,
                                      KERNELS["raster_shade_tiles"]["symbol"])
         rep["ms_events"] = event_ms(run, 100)
@@ -1679,6 +1915,7 @@ MICRO_LAYERS = {
     "expand": ("expand_kernel",),
     "sort+segments": ("sort", "searchsorted"),
     "micro": ("micro_kernel",),
+    "shading params": ("shading_params_kernel",),
 }
 
 
@@ -2451,8 +2688,10 @@ def par_reference(device, scene_mesh, uniforms, **options):
 
 
 def par_check_counts(tag, counts, path):
-    need = (("front_end", "raster_shade_tiles") if path == "tile" else
-            ("front_end", "expand_cells", "raster_shade_micro"))
+    need = (("front_end", "bin_tiles_dense", "shading_params",
+             "raster_shade_tiles") if path == "tile" else
+            ("front_end", "expand_cells", "shading_params",
+             "raster_shade_micro"))
     for name in need:
         require(counts.get(name, 0) > 0,
                 f"{tag}: the {name} kernel was not launched ({counts})")
@@ -3293,8 +3532,8 @@ def phase_viewers(device, card):
     and the San Miguel stand-in (micro path), VIEW_TICKS ticks each with
     w held and a mouse drag: one blocking wait a tick, no checked render,
     every presented frame bitwise the render of the previous tick's
-    uniforms, the four kernels launched by the ticks; ticks/s and the
-    host split (dispatch, wait, blit). (b) The HTTP viewer on Suzanne on
+    uniforms, the kernels of both paths launched by the ticks; ticks/s and
+    the host split (dispatch, wait, blit). (b) The HTTP viewer on Suzanne on
     an ephemeral port driven with urllib: a key, a drag, a resize, the
     served PNGs bitwise, /stats, /quit; ticks/s and the PNG encode. (c)
     The CLI's --interactive (headless fallback) and --web 0 in
@@ -3345,7 +3584,7 @@ def main() -> int:
     from compute_renderer_torch import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["front", "raster", "expand", "micro"])
+    _build.build_all(["front", "raster", "expand", "micro", "bins"])
     print(f"[build] {time.perf_counter() - t0:.2f} s (in parallel)")
     for name, (secs, log) in _build.BUILD_LOG.items():
         print(f"[build] {name}.cu {secs:.2f} s: " + "; ".join(
@@ -3358,6 +3597,7 @@ def main() -> int:
     phase_micro_main_path(device, card, reports)
     phase_san_miguel(device)
     scenes = load_ext_scenes()
+    check_bins_structured(device, reports, scenes)
     phase_mode_kernels(device, reports, scenes, MODES)
     phase_ext_main_paths(device, card, reports, scenes)
     phase_mode_kernels(device, reports, scenes, NEW_MODES)

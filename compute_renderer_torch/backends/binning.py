@@ -16,6 +16,13 @@ Two layouts, the same contract:
 - flat (``bin_triangles_sort``): the tile-sorted pair list plus per-tile
   (start, count).
 
+On the tile path ``bin_tiles_meta`` bins straight from the front end's
+meta and adds what the raster and the retry read besides: the
+occupied-tile work list and the (2,) overflow report. On a CUDA tensor
+its dense layout is the hand-written kernel ``csrc/bins.cu``
+(``bin_tiles_dense``), its flat layout the torch sort; a CPU tensor takes
+the twin, ``bin_tiles_meta_plain``.
+
 The micro path bins at 8x8 cells instead (``bin_cells_sort_meta``): the
 pair expansion is a kernel (``expand.py``), the rest one stable sort and
 searchsorted segments.
@@ -67,11 +74,16 @@ def setup_from_meta(meta):
     }
 
 
+def dense_layout(ntx: int, nty: int, tile_cap: int, T: int) -> bool:
+    """Whether ``T`` triangles bin in the dense layout: the rank search's
+    op count against ``DENSE_BINNING_OP_LIMIT`` (the JAX package's rule,
+    so both packages pick the same layout)."""
+    return ntx * nty * tile_cap * max(T, 1) <= DENSE_BINNING_OP_LIMIT
+
+
 def bin_triangles(setup, ntx: int, nty: int, pair_cap: int, tile_cap: int):
-    """Dispatch to the dense or sort layout by the rank-search op count
-    (the same rule as the JAX package, so both pick the same layout)."""
-    T = setup["alive"].shape[0]
-    if ntx * nty * tile_cap * max(T, 1) <= DENSE_BINNING_OP_LIMIT:
+    """Dispatch to the dense or sort layout by ``dense_layout``."""
+    if dense_layout(ntx, nty, tile_cap, setup["alive"].shape[0]):
         return bin_triangles_dense(setup, ntx, nty, pair_cap, tile_cap)
     return bin_triangles_sort(setup, ntx, nty, pair_cap, tile_cap)
 
@@ -229,6 +241,100 @@ def bin_triangles_sort(setup, ntx: int, nty: int, pair_cap: int,
         "tile_needed": torch.where(tile_overflow, max_count, 0).to(I32),
         "layout": "flat",
     }
+
+
+def occupied_worklist(seg_count):
+    """(ascending occupied-tile ids padded with 0, occupied count) — a
+    cumsum and a scatter, with no host synchronisation. The rasters launch
+    over it (``raster.py``, ``micro.py``)."""
+    num_tiles = seg_count.shape[0]
+    device = seg_count.device
+    occ = seg_count > 0
+    incl = torch.cumsum(occ, 0, dtype=I32)
+    k = incl[-1] if num_tiles > 0 else torch.zeros((), dtype=I32,
+                                                   device=device)
+    pos = torch.where(occ, incl - 1, num_tiles).long()
+    wl = torch.zeros((num_tiles + 1,), dtype=I32, device=device)
+    wl.scatter_(0, pos, torch.arange(num_tiles, dtype=I32, device=device))
+    return wl[:num_tiles], k
+
+
+def _with_worklist(bins):
+    """``bins`` with the occupied-tile work list (``worklist``, ``k``) and
+    the (2,) overflow report [pair_needed, tile_needed]."""
+    bins["worklist"], bins["k"] = occupied_worklist(bins["seg_count"])
+    bins["overflow"] = torch.stack([bins["pair_needed"], bins["tile_needed"]])
+    return bins
+
+
+def bin_tiles_meta_plain(meta, ntx: int, nty: int, pair_cap: int,
+                         tile_cap: int):
+    """The twin of ``bin_tiles_meta``: ``bin_triangles`` on
+    ``setup_from_meta``, then ``occupied_worklist``."""
+    return _with_worklist(bin_triangles(setup_from_meta(meta), ntx, nty,
+                                        pair_cap, tile_cap))
+
+
+def _bin_tiles_cuda(meta, ntx: int, nty: int, tile_cap: int):
+    from compute_renderer_torch import _build
+
+    device = meta.device
+    T = meta.shape[1]
+    if meta.dtype != I32 or (T > 1 and meta.stride(1) != 1):
+        meta = meta.to(I32).contiguous()
+    num_tiles = ntx * nty
+    C = (tile_cap + 127) // 128 * 128
+    counts = torch.empty((num_tiles,), dtype=I32, device=device)
+    bin_rows = torch.empty((num_tiles, C), dtype=I32, device=device)
+    seg = torch.empty((3, num_tiles), dtype=I32, device=device)
+    scal = torch.empty((4,), dtype=I32, device=device)
+    fn = _build.entry("bins", "bin_tiles_dense", pointers=7, ints=5)
+    bin_tiles_meta.launches += 1
+    _build.check(
+        fn(meta.data_ptr(), counts.data_ptr(), bin_rows.data_ptr(),
+           seg[0].data_ptr(), seg[1].data_ptr(), seg[2].data_ptr(),
+           scal.data_ptr(), meta.stride(0), T, ntx, num_tiles, C,
+           torch.cuda.current_stream(device).cuda_stream),
+        "bin_tiles_dense",
+    )
+    return {
+        "bin_rows": bin_rows,
+        "seg_start": seg[0],
+        "seg_count": seg[1],
+        "total_pairs": scal[2],
+        "pair_needed": scal[0],
+        "tile_needed": scal[1],
+        "layout": "dense",
+        "worklist": seg[2],
+        "k": scal[3],
+        "overflow": scal[0:2],
+    }
+
+
+def bin_tiles_meta(meta, ntx: int, nty: int, pair_cap: int, tile_cap: int):
+    """Tile binning from the front end's meta rows (4, T) = [tile_x0,
+    tile_y0, rx, c], which may be a chunk ``meta[:, c0:c1]`` of a frame's
+    (read in place; triangle ids are chunk-local). Returns
+    ``bin_triangles``'s dict plus ``worklist`` (num_tiles,) and ``k`` ()
+    (``occupied_worklist`` of ``seg_count``) and ``overflow`` (2,)
+    = [pair_needed, tile_needed].
+
+    CPU tensors take the twin. CUDA tensors take the kernel
+    ``csrc/bins.cu`` when ``dense_layout`` picks the dense layout
+    (``bin_tiles_meta.launches`` counts its calls, two launches each; a
+    CUDA graph's capture ticks it, its replays do not), else the torch
+    sort."""
+    if meta.shape[0] != 4:
+        raise ValueError(f"meta has {meta.shape[0]} rows, expected 4")
+    if (meta.device.type == "cpu"
+            or not dense_layout(ntx, nty, tile_cap, meta.shape[1])):
+        return bin_tiles_meta_plain(meta, ntx, nty, pair_cap, tile_cap)
+    if meta.device.type != "cuda":
+        raise ValueError(f"bin_tiles_meta: no kernel for device {meta.device}")
+    return _bin_tiles_cuda(meta, ntx, nty, tile_cap)
+
+
+bin_tiles_meta.launches = 0
 
 
 def default_pair_cap(num_triangles: int, num_tiles: int) -> int:

@@ -26,9 +26,11 @@ Tile path, per frame:
    copy between them; texf_mip and vis also run the torch
    ``common.vertex_stage`` for the per-vertex screen and world the mip
    rows and the deferred tail read);
-2. ``binning.setup_from_meta`` + ``binning.bin_triangles`` (dense at
-   Suzanne scale, the sort above ``DENSE_BINNING_OP_LIMIT``);
-3. ``raster.raster_shade_tiles`` over the occupied tiles;
+2. ``binning.bin_tiles_meta`` on the front's meta: the bins, the
+   occupied-tile work list and the overflow report (dense at Suzanne
+   scale, one kernel; the sort above ``DENSE_BINNING_OP_LIMIT``);
+3. ``raster.raster_shade_tiles`` over the occupied tiles, its shading
+   parameters built by one kernel (``raster.shading_inputs``);
 4. ``raster.unpack_rgba``, or the mode's texture tail.
 
 Micro path (``render_frame_micro``), for scenes above
@@ -273,19 +275,17 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     table, meta = front.front_end(pos_soa, nrm_soa, view_proj, effect,
                                   width=width, height=height, tile_h=tile_h,
                                   tile_w=tile_w, **front_kw)
-    setup = binning.setup_from_meta(meta)
 
     out_p = key_p = overflow = best = None
     for c0 in range(0, T, tri_chunk):
         c1 = min(c0 + tri_chunk, T)
-        chunk_setup = {k: v[c0:c1] for k, v in setup.items()}
         pc = pair_cap or binning.default_pair_cap(c1 - c0, ntx * nty)
         # Per-tile capacity from FULL-scene density: a chunk's triangles are
         # spatially clustered, so its own average underestimates its peaks.
         tc = tile_cap or min(
             binning.default_tile_cap(T, width, height, tile_h, tile_w),
             MAX_TILE_CAP)
-        bins = binning.bin_triangles(chunk_setup, ntx, nty, pc, tc)
+        bins = binning.bin_tiles_meta(meta[:, c0:c1], ntx, nty, pc, tc)
         pair_data = (bins["bin_rows"] if bins["layout"] == "dense"
                      else bins["pair_tri"])
         out_c, key_c = raster.raster_shade_tiles(
@@ -294,23 +294,26 @@ def render_frame(positions, normals, tri, view_proj, view_position,
             light_intensity, height_padded=nty * tile_h,
             width_padded=ntx * tile_w, tile_h=tile_h, tile_w=tile_w,
             layout=bins["layout"], mode=mode,
+            worklist=(bins["worklist"], bins["k"]),
         )
         if out_c.dtype == torch.uint32:  # packed RGBA merges as int32
             out_c = out_c.view(torch.int32)
         if mode == "vis" and c0:
             # Chunk-local winner ids -> global triangle ids (tpu.py:767-769).
             out_c = torch.where(out_c >= 0, out_c + c0, out_c)
-        flags = torch.stack([bins["pair_needed"], bins["tile_needed"]])
-        kc = key_c.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
         if out_p is None:
-            out_p, key_p, best, overflow = out_c, key_c, kc, flags
-        else:
-            win = kc < best  # a G-buffer merges channel-wise
-            out_p = torch.where(win, out_c, out_p)
-            key_p = torch.where(win, key_c.view(torch.int32),
-                                key_p.view(torch.int32)).view(torch.uint32)
-            best = torch.where(win, kc, best)
-            overflow = torch.maximum(overflow, flags)
+            out_p, key_p, overflow = out_c, key_c, bins["overflow"]
+            continue
+        # A second chunk: merge by the u32 key, held in int64.
+        if best is None:
+            best = key_p.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        kc = key_c.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        win = kc < best  # a G-buffer merges channel-wise
+        out_p = torch.where(win, out_c, out_p)
+        key_p = torch.where(win, key_c.view(torch.int32),
+                            key_p.view(torch.int32)).view(torch.uint32)
+        best = torch.where(win, kc, best)
+        overflow = torch.maximum(overflow, bins["overflow"])
     key = key_p[:height, :width]
     rgba = finish_frame(mode, out_p[..., :height, :width], key, tex, vertex,
                         tri, normals, effect, view_position, light_world_pos,

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from compute_renderer_torch.backends import common, raster
+from compute_renderer_torch.backends import binning, common, raster
 
 I32 = torch.int32
 # The longest range of pairs a warp of the kernel walks (csrc/micro.cu).
@@ -127,7 +127,7 @@ def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
     pairs = pair_tri.to(I32).contiguous()
     starts = seg_start.to(I32).contiguous()
     counts = seg_count.to(I32).contiguous()
-    wl, k = raster.occupied_worklist(tile_count.to(I32))
+    wl, k = binning.occupied_worklist(tile_count.to(I32))
     k = k.reshape(1).contiguous()
     out, key = raster.cleared_outputs(mode, lights.shape[0], height_padded,
                                       width_padded, device,

@@ -30,7 +30,9 @@ from its row at the pixel — feed one of three epilogues, by mode:
 The mode is an argument: the base and vis tables share their width, so it
 cannot be read from the table. A CUDA tensor runs the hand-written kernel
 ``csrc/raster.cu``; a CPU tensor runs ``raster_shade_tiles_plain``, the
-same arithmetic vectorized in eager torch.
+same arithmetic vectorized in eager torch. Both rasters' shading
+parameters (``shading_inputs``) are one launch of ``csrc/bins.cu`` on the
+card, ``shading_inputs_plain`` on the CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from compute_renderer_torch.backends import common
+from compute_renderer_torch.backends.binning import occupied_worklist
 from compute_renderer_torch.core.effects import EFFECT_MIRAGE
 
 F32 = torch.float32
@@ -189,30 +192,9 @@ def kernel_table(tri_table):
 kernel_table.copies = 0
 
 
-def occupied_worklist(seg_count):
-    """(ascending occupied-tile ids padded with 0, occupied count) — a
-    cumsum and a scatter, with no host synchronisation."""
-    num_tiles = seg_count.shape[0]
-    device = seg_count.device
-    occ = seg_count > 0
-    incl = torch.cumsum(occ, 0, dtype=I32)
-    k = incl[-1] if num_tiles > 0 else torch.zeros((), dtype=I32,
-                                                   device=device)
-    pos = torch.where(occ, incl - 1, num_tiles).long()
-    wl = torch.zeros((num_tiles + 1,), dtype=I32, device=device)
-    wl.scatter_(0, pos, torch.arange(num_tiles, dtype=I32, device=device))
-    return wl[:num_tiles], k
-
-
-def shading_inputs(effect, view_position, light_world_pos, light_color,
-                   light_intensity, y_offset: int = 0):
-    """The kernel's (11,) params and (L, 8) light rows, built on the
-    device: params = [threshold, melt_threshold, mirage flag, amplitude,
-    frequency, phase, time, row offset, eye x, y, z]; a light row =
-    [position (3), color (3), intensity, 0]. The row offset ``y_offset``
-    places a framebuffer stripe of a sharded render (``parallel/``): the
-    kernels and twins sample global row ``y + y_offset``, an exact f32
-    integer."""
+def shading_inputs_plain(effect, view_position, light_world_pos,
+                         light_color, light_intensity, y_offset: int = 0):
+    """The twin of ``shading_inputs``, in torch ops."""
     device = effect.device
     threshold, melt_threshold = common.coverage_thresholds(effect)
     zero = torch.zeros((), dtype=F32, device=device)
@@ -229,6 +211,60 @@ def shading_inputs(effect, view_position, light_world_pos, light_color,
         torch.zeros((L, 1), dtype=F32, device=device),
     ], dim=1).contiguous()
     return params, lights
+
+
+def _shading_cuda(effect, view_position, light_world_pos, light_color,
+                  light_intensity, y_offset):
+    from compute_renderer_torch import _build
+
+    device = effect.device
+    L = light_world_pos.shape[0]
+    inputs = [a.to(device=device, dtype=F32).contiguous() for a in (
+        effect, view_position, light_world_pos, light_color,
+        light_intensity)]
+    if inputs[0].numel() < 6 or inputs[1].numel() < 3:
+        raise ValueError(f"effect has {inputs[0].numel()} values (6) and "
+                         f"view_position {inputs[1].numel()} (3 or more)")
+    for a, width in zip(inputs[2:], (3, 3, 1)):
+        if a.numel() != L * width:
+            raise ValueError(f"a light tensor of {tuple(a.shape)} for {L} "
+                             "lights")
+    params = torch.empty((11,), dtype=F32, device=device)
+    lights = torch.empty((L, 8), dtype=F32, device=device)
+    fn = _build.entry("bins", "shading_params", pointers=7, ints=2)
+    shading_inputs.launches += 1
+    _build.check(
+        fn(*(a.data_ptr() for a in inputs), params.data_ptr(),
+           lights.data_ptr(), L, y_offset,
+           torch.cuda.current_stream(device).cuda_stream),
+        "shading_params",
+    )
+    return params, lights
+
+
+def shading_inputs(effect, view_position, light_world_pos, light_color,
+                   light_intensity, y_offset: int = 0):
+    """The rasters' (11,) params and (L, 8) light rows, built on the
+    device: params = [threshold, melt_threshold, mirage flag, amplitude,
+    frequency, phase, time, row offset, eye x, y, z]; a light row =
+    [position (3), color (3), intensity, 0]. The row offset ``y_offset``
+    places a framebuffer stripe of a sharded render (``parallel/``): the
+    kernels and twins sample global row ``y + y_offset``, an exact f32
+    integer.
+
+    CPU tensors take the twin, CUDA tensors the kernel ``csrc/bins.cu``
+    (``shading_params``; ``shading_inputs.launches`` counts its launches)."""
+    args = (effect, view_position, light_world_pos, light_color,
+            light_intensity, int(y_offset))
+    if effect.device.type == "cpu":
+        return shading_inputs_plain(*args)
+    if effect.device.type != "cuda":
+        raise ValueError(f"shading_inputs: no kernel for device "
+                         f"{effect.device}")
+    return _shading_cuda(*args)
+
+
+shading_inputs.launches = 0
 
 
 def shade_pixels(attrs, params, lights, kd=None):
@@ -629,7 +665,7 @@ def public_outputs(mode, out, key):
 
 def _raster_cuda(tri_table, pair_data, seg_start, seg_count, params, lights,
                  *, height_padded, width_padded, tile_h, tile_w, layout,
-                 mode="base"):
+                 mode, worklist):
     from compute_renderer_torch import _build
 
     device = tri_table.device
@@ -639,7 +675,11 @@ def _raster_cuda(tri_table, pair_data, seg_start, seg_count, params, lights,
     pairs = pair_data.to(I32).contiguous()
     starts = seg_start.to(I32).contiguous()
     counts = seg_count.to(I32).contiguous()
-    wl, k = occupied_worklist(counts)
+    wl, k = worklist
+    if wl.dtype != I32 or wl.shape != (num_tiles,) or k.dtype != I32:
+        raise ValueError(f"worklist {wl.dtype} {tuple(wl.shape)}, k {k.dtype}"
+                         f": expected int32, {num_tiles} tiles")
+    wl = wl.contiguous()
     k = k.reshape(1).contiguous()
     out, key = cleared_outputs(mode, lights.shape[0], height_padded,
                                width_padded, device)
@@ -664,7 +704,7 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
                        light_intensity, *, height_padded: int,
                        width_padded: int, tile_h: int, tile_w: int,
                        layout: str = "flat", mode: str = "base",
-                       y_offset: int = 0):
+                       y_offset: int = 0, worklist=None):
     """Raster + shade the padded framebuffer in ``mode`` (``MODES``; the
     table must have the mode's width, ``check_mode``). ``pair_data`` is
     the dense (num_tiles, C) ``bin_rows`` or the flat tile-sorted
@@ -678,7 +718,11 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
     CPU tensors take the twin, CUDA tensors the kernel
     (``raster_shade_tiles.launches`` counts its launches,
     ``mode_launches`` per mode; a CUDA graph's capture ticks them, its
-    replays do not), launched over the occupied-tile work list."""
+    replays do not), launched over the occupied-tile work list:
+    ``worklist`` = (ids, k) as ``occupied_worklist`` gives them for
+    ``seg_count``. The main path passes the one ``binning.bin_tiles_meta``
+    returns; a caller that bins by hand may pass None, and it is built
+    here. The twin walks the occupied tiles itself."""
     check_mode(tri_table, mode)
     if layout not in ("dense", "flat"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -691,8 +735,10 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
         out, key = raster_shade_tiles_plain(
             tri_table, pair_data, seg_start, seg_count, params, lights, **kw)
     elif device.type == "cuda":
+        if worklist is None:
+            worklist = occupied_worklist(seg_count)
         out, key = _raster_cuda(tri_table, pair_data, seg_start, seg_count,
-                                params, lights, **kw)
+                                params, lights, worklist=worklist, **kw)
     else:
         raise ValueError(f"raster_shade_tiles: no kernel for device {device}")
     return public_outputs(mode, out, key)

@@ -168,8 +168,7 @@ def stage_timings(mesh, uniforms, width: int, height: int,
     tc = min(max(caps["tile_cap"], int(need.max())), cuda.MAX_TILE_CAP)
 
     def run_bin():
-        return binning.bin_triangles(binning.setup_from_meta(meta), ntx,
-                                     nty, pc, tc)
+        return binning.bin_tiles_meta(meta, ntx, nty, pc, tc)
 
     bins = run_bin()
     data = bins["bin_rows"] if bins["layout"] == "dense" else \
@@ -180,7 +179,7 @@ def stage_timings(mesh, uniforms, width: int, height: int,
             table, data, bins["seg_start"], bins["seg_count"], eff, vpos,
             lwp, lc, li, height_padded=nty * tile_h,
             width_padded=ntx * tile_w, tile_h=tile_h, tile_w=tile_w,
-            layout=bins["layout"])
+            layout=bins["layout"], worklist=(bins["worklist"], bins["k"]))
 
     return {
         "front_ms": graph_ms(run_front, iters),

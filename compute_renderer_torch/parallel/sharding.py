@@ -94,6 +94,17 @@ def _clip_rows(y0, y1, row0: int, rows: int):
             torch.clamp(y1 - row0, 0, rows).to(I32))
 
 
+def _stripe_meta(meta, row0: int, rows: int):
+    """The front end's meta (4, T) = [x0, y0, rx, c] with each triangle's
+    rows clipped to the stripe [row0, row0 + rows), in stripe-local rows:
+    cover count ``rx * rows`` of the clipped rows, 0 where none is left."""
+    x0, y0, rx, c = meta[0], meta[1], meta[2], meta[3]
+    ry = torch.div(c, torch.clamp(rx, min=1), rounding_mode="floor")
+    ly0, ly1 = _clip_rows(y0, y0 + ry, row0, rows)
+    c = torch.where(ly1 > ly0, rx * (ly1 - ly0), 0).to(I32)
+    return torch.stack([x0.to(I32), ly0, rx.to(I32), c])
+
+
 def _stripe_tile(g, rank, n, *, rw, rh, tile_h, tile_w, pair_cap, tile_cap,
                  mode, front_kw):
     """Tile stripe ``rank`` of ``n``: (out, key, overflow, y_offset,
@@ -106,14 +117,11 @@ def _stripe_tile(g, rank, n, *, rw, rh, tile_h, tile_w, pair_cap, tile_cap,
     table, meta = front.front_end(g["pos_soa"], g["nrm_soa"], g["view_proj"],
                                   g["effect"], width=rw, height=rh,
                                   tile_h=tile_h, tile_w=tile_w, **front_kw)
-    setup = binning.setup_from_meta(meta)
-    ly0, ly1 = _clip_rows(setup["tile_y0"], setup["tile_y1"], row0, rows)
-    setup = dict(setup, tile_y0=ly0, tile_y1=ly1,
-                 alive=setup["alive"] & (ly1 > ly0))
     pc = pair_cap or binning.default_pair_cap(T, ntx * nty)
     tc = tile_cap or min(binning.default_tile_cap(T, rw, rh, tile_h, tile_w),
                          cuda.MAX_TILE_CAP)
-    bins = binning.bin_triangles(setup, ntx, rows, pc, tc)
+    bins = binning.bin_tiles_meta(_stripe_meta(meta, row0, rows), ntx, rows,
+                                  pc, tc)
     pair_data = (bins["bin_rows"] if bins["layout"] == "dense"
                  else bins["pair_tri"])
     y_offset = row0 * tile_h
@@ -121,9 +129,9 @@ def _stripe_tile(g, rank, n, *, rw, rh, tile_h, tile_w, pair_cap, tile_cap,
         table, pair_data, bins["seg_start"], bins["seg_count"], g["effect"],
         g["view_position"], *g["lights"], height_padded=rows * tile_h,
         width_padded=ntx * tile_w, tile_h=tile_h, tile_w=tile_w,
-        layout=bins["layout"], mode=mode, y_offset=y_offset)
-    overflow = torch.stack([bins["pair_needed"], bins["tile_needed"]])
-    return out, key, overflow, y_offset, None
+        layout=bins["layout"], mode=mode, y_offset=y_offset,
+        worklist=(bins["worklist"], bins["k"]))
+    return out, key, bins["overflow"], y_offset, None
 
 
 def _stripe_micro(g, rank, n, *, rw, rh, pair_cap, mode, front_kw):
@@ -139,10 +147,7 @@ def _stripe_micro(g, rank, n, *, rw, rh, pair_cap, mode, front_kw):
     table, meta = front.front_end(g["pos_soa"], g["nrm_soa"], g["view_proj"],
                                   g["effect"], width=rw, height=rh, tile_h=8,
                                   tile_w=8, **front_kw)
-    x0, y0, rx, c = meta[0], meta[1], meta[2], meta[3]
-    ry = torch.div(c, torch.clamp(rx, min=1), rounding_mode="floor")
-    ly0, ly1 = _clip_rows(y0, y0 + ry, row0, rows)
-    c = torch.where(ly1 > ly0, rx * (ly1 - ly0), 0).to(I32)
+    x0, ly0, rx, c = _stripe_meta(meta, row0, rows)
     pc = pair_cap or binning.default_pair_cap_micro(T, ntx * nty * 16)
     bins = binning.bin_cells_sort_meta(c, rx, x0, ly0, ntx, rows, pc)
     y_offset = row0 * 8

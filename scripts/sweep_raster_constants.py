@@ -161,7 +161,7 @@ def timeline(cases):
     import torch
 
     from compute_renderer_torch import _build
-    from compute_renderer_torch.backends import raster
+    from compute_renderer_torch.backends import binning, raster
 
     kind, args, kw = cases["tile structured_tex mat"]
     heaviest = int(args[3].max())
@@ -196,7 +196,8 @@ extern "C" int read_probe(void* dst) {
     read.argtypes = [ctypes.c_void_p]
     stamps = torch.zeros(1024, dtype=torch.int64)
     for _ in range(3):  # the last of three launches
-        raster._raster_cuda(*args, **kw)
+        raster._raster_cuda(*args, worklist=binning.occupied_worklist(
+            args[3]), **kw)
     torch.cuda.synchronize()
     if read(stamps.data_ptr()) != 0:
         raise SystemExit("timeline: read_probe failed")
@@ -289,7 +290,8 @@ def main() -> int:
 
     def run(kind, args, kw):
         if kind == "raster":
-            return raster._raster_cuda(*args, **kw)
+            wl = binning.occupied_worklist(args[3])
+            return raster._raster_cuda(*args, worklist=wl, **kw)
         return micro._micro_cuda(*args, **kw)
 
     def twin(kind, args, kw):

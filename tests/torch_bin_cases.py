@@ -1,0 +1,91 @@
+"""The cases of the tile path's binning stage and of the rasters' shading
+parameters, made from seeds with numpy: ``tests/test_torch_tile_bins.py``
+holds the port's twins to the JAX package on them, and ``chip_smoke.py``
+the kernels (``csrc/bins.cu``) to the twins on the card. Imports neither
+pytest nor JAX."""
+
+import numpy as np
+
+NTX, NTY = 4, 12  # 1024x192 at 16x256 tiles
+
+
+def _rect_meta(x0, y0, rx, ry, alive):
+    """(4, T) int32 meta [x0, y0, rx, c] with c = rx * ry where alive, 0
+    elsewhere (a dead triangle keeps its rect columns, as the front's)."""
+    c = np.where(alive, rx * ry, 0)
+    return np.stack([x0, y0, rx, c]).astype(np.int32)
+
+
+def _random_meta(rng, T, ntx, nty, span=3, dead=0.25):
+    x0 = rng.integers(0, ntx, T)
+    y0 = rng.integers(0, nty, T)
+    rx = np.minimum(rng.integers(1, span + 1, T), ntx - x0)
+    ry = np.minimum(rng.integers(1, span + 1, T), nty - y0)
+    return _rect_meta(x0, y0, rx, ry, rng.random(T) >= dead)
+
+
+def meta_case(name):
+    """(meta (4, T) int32, ntx, nty, tile_cap, (c0, c1) or None): the
+    meta of a case, made from a seed; the last entry cuts a chunk view."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("random"):
+        seed = int(name[-1])
+        return (_random_meta(np.random.default_rng(seed), 700, NTX, NTY),
+                NTX, NTY, 128, None)
+    if name == "grid_edges":
+        # Rects that end on the grid's last column and row, and some that
+        # lie on them alone, at a ragged grid (5 x 7 tiles).
+        ntx, nty, T = 5, 7, 120
+        x0 = rng.integers(0, ntx, T)
+        y0 = rng.integers(0, nty, T)
+        rx, ry = ntx - x0, nty - y0
+        x0[::3], rx[::3] = ntx - 1, 1
+        y0[1::3], ry[1::3] = nty - 1, 1
+        return _rect_meta(x0, y0, rx, ry, rng.random(T) < 0.9), ntx, nty, \
+            96, None
+    if name == "tile_over_cap":
+        # 200 triangles on tile (1, 2) among scattered ones: one tile over
+        # C = 128, whose exact count the report carries.
+        meta = _random_meta(rng, 500, NTX, NTY, span=1)
+        hot = rng.choice(500, 200, replace=False)
+        meta[0, hot], meta[1, hot], meta[2, hot], meta[3, hot] = 1, 2, 1, 1
+        return meta, NTX, NTY, 128, None
+    if name == "none_alive":
+        meta = _random_meta(rng, 400, NTX, NTY)
+        meta[3] = 0
+        return meta, NTX, NTY, 128, None
+    if name == "one_triangle":
+        return _rect_meta(np.array([1]), np.array([3]), np.array([2]),
+                          np.array([4]), np.array([True])), NTX, NTY, 128, \
+            None
+    if name == "chunk_view":
+        return (_random_meta(rng, 900, NTX, NTY), NTX, NTY, 128, (300, 650))
+    raise KeyError(name)
+
+
+META_CASES = ["random0", "random1", "random2", "grid_edges", "tile_over_cap",
+              "none_alive", "one_triangle", "chunk_view"]
+BIN_KEYS = ("bin_rows", "seg_start", "seg_count", "total_pairs",
+            "pair_needed", "tile_needed", "worklist", "k", "overflow")
+
+
+def shading_case(pkg, effect):
+    """(effect, view_position, light pos, color, intensity) as numpy; the
+    effects of tests/test_torch_micro.py's parametrisation."""
+    E = pkg.effects.Effect
+    make = {
+        "none": None,
+        "voxelize": lambda: E.voxelize(0.5, 1.0),
+        "edge_melt": lambda: E.edge_melt(0.2, 1.0),
+        "mirage": lambda: E.mirage(0.6, 0.7, 0.3),
+    }[effect]
+    eff = np.zeros(6, np.float32)
+    if make is not None:
+        e = make()
+        e.update(0.35)
+        eff = np.asarray(e.uniform(scene_time=0.35).as_array(), np.float32)
+    rng = np.random.default_rng(3)
+    return (eff, rng.uniform(-4, 4, 4).astype(np.float32),
+            rng.uniform(-5, 5, (3, 3)).astype(np.float32),
+            rng.uniform(0, 1, (3, 3)).astype(np.float32),
+            rng.uniform(0, 2, 3).astype(np.float32))
