@@ -6,7 +6,7 @@
 Phases, each fatal on failure (nonzero exit, no result line):
 
 1. device — requires CUDA; prints the card's name and power limit;
-2. build — compiles the five hand-written kernel sources (csrc/*.cu)
+2. build — compiles the six hand-written kernel sources (csrc/*.cu)
    with nvcc, one process per source, all at once;
 3. kernel vs twin, tile path — the front end and the raster on the tile
    path's inputs (Suzanne and san_miguel_small at 1024x768, and a wave
@@ -72,8 +72,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    structured_scene_tex and a mirage frame of it (both layouts) and the
    micro raster on structured_scene.obj and the mirage frame: keys
    bitwise, RGBA within 1 LSB (mat), the G-buffer bitwise (texf; the
-   max ULP is printed if not); each mode
-   kernel's time beside its twin's at its main path's shapes;
+   max ULP is printed if not); on each raster's own G-buffer (its frame
+   window, read in place) the fused tail kernel (csrc/texture.cu
+   texture_tail, nearest and bilinear, the f32 and the u8-packed pool)
+   against its plain version, RGBA within 1 LSB with the differing
+   pixels printed; each mode kernel's time beside its twin's at its main
+   path's shapes, texture_tail's at the +textures row's (micro,
+   1024x768);
 10. main paths, extension rows — through Scene -> Renderer ->
    render_batch_device: structured_scene.obj +materials and +textures
    (micro path, three frames each), structured_scene_tex.obj +textures
@@ -82,15 +87,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
    within the pixel contract of
    tests/golden_data/torch_ext_structured_1024x768.npz and bitwise equal
    to the eager frame, no overflow, and each mode kernel of the row's path
-   launched (per-mode counts); the tuner's pick on the tile rows; the
+   launched (per-mode counts; texture_tail on the texf rows, no texture
+   stage on the others); the tuner's pick on the tile rows; the
    eager loop against the graph on the two micro rows;
 11. kernel vs twin, visibility (vis) and mip-filtered texture (texf_mip)
    modes — the front end's texf_mip at 8x8 and 16x256 (meta bitwise,
    coefficients 0 ULP), the tile raster on structured_scene_tex and its
    mirage frame (both layouts) and the micro raster on
    structured_scene.obj and the mirage frame: keys and vis ids / pair
-   indices bitwise, the texf_mip G-buffer bitwise; each mode kernel's
-   time beside its twin's at its main path's shapes;
+   indices bitwise, the texf_mip G-buffer bitwise; on each raster's own
+   output the texture stages against their plain versions: mip_rows
+   bitwise (and on wave frames of both scenes within 1 ULP), the fused
+   mip tail (texture_tail_mip, trilinear and anisotropic) and the deferred
+   tail (deferred_tail, all four filters, the micro path's pair indices
+   mapped through its pair list) with RGBA within 1 LSB; each mode
+   kernel's time beside its twin's at its main path's shapes, the
+   texture stages' at the micro rows' (texture_tail_mip trilinear and
+   anisotropic, deferred_tail trilinear and nearest, mip_rows over
+   1,023,442 triangles);
 12. main paths, mip and deferred rows — the six rows of
    tests/golden_data/torch_mip_structured_1024x768.npz (trilinear,
    anisotropic and tex_mode="deferred" on structured_scene_tex.obj, tile
@@ -98,7 +112,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    structured_scene.obj, micro path) through Scene -> Renderer ->
    render_batch_device, each within the pixel contract and bitwise equal
    to the eager frames, no overflow, its mode kernels launched and the
-   other path's raster never, the tuner's pick on the tile rows; then the
+   other path's raster never (texture_tail_mip and mip_rows on the fused
+   rows, deferred_tail and, under a mip filter, mip_rows on the deferred
+   rows), the tuner's pick on the tile rows; then the
    fused and deferred images of one frame bitwise equal (micro: trilinear
    and anisotropic; tile: trilinear, else at most 1 LSB, the differing
    pixels printed), and the eager loop (16 and 64 frames) against the
@@ -110,7 +126,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    split cells under voxelize, and triangles whose integer edges run along
    the tile raster's sub-rectangle borders, plain and under mirage; every
    mode of both rasters (both tile layouts) against its twin: keys, ids,
-   pair indices and G-buffers bitwise, RGBA within 1 LSB.
+   pair indices and G-buffers bitwise, RGBA within 1 LSB; and a texf and
+   a texf_mip G-buffer with NaN uv (and lod) in the uncovered and
+   untextured pixels, negative uv and uv past 1, through both fused tails
+   in every filter (both pools), RGBA within 1 LSB.
 
 14. graph — the eager-against-graph numbers of every main-path row
    together, the tuner's picks, and ``bench_torch.py`` run once (its JSON
@@ -123,7 +142,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    frames; the xla winner ids against its ids, as many allowed to
    differ), the xla frame against the engine's on Suzanne, Exterior,
    san_miguel_small and structured_tex +textures (the pixel contract, the
-   counts printed), ms/frame of each, no engine kernel launched; xla at
+   counts printed), ms/frame of each, no engine kernel launched (the four
+   texture stages' counters included); xla at
    chunks of 16, 64 and 256 on three scenes, bitwise equal, with ms/frame
    and peak memory;
 16. entry points — ``python3 -m compute_renderer_torch.cli`` in a
@@ -176,8 +196,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
 
 The suite rows and the CLI drive the kernels through the public entry
 points; the kernels' record below keeps the counts of phases 5, 6, 10
-and 12 (each main path's own run), and every kernel is held to its twin
-in phases 3, 4, 9, 11 and 13.
+and 12 (each main path's own run; the texture stages' counters stay 0 on
+the untextured rows of phases 5, 6 and 10), and every kernel is held to
+its twin in phases 3, 4, 9, 11 and 13.
 
 Every main path runs its rasters on the front's own table: no
 ``raster.kernel_table`` copy is counted in phases 5, 6, 10 and 12. On
@@ -275,7 +296,33 @@ KERNELS = {
         "replaces": ("pallas_raster.py", "raster_shade_tiles"),
         "symbol": "shading_params_kernel",
     },
+    # The texture stages (csrc/texture.cu), which the JAX package fuses
+    # with XLA ops: the fused tails, the deferred tail (common.py
+    # resolve_attributes, then textured_shade) and the frame's mip rows
+    # (vertex_stage -> uv_gradients -> mip_tri_rows).
+    "texture_tail": {
+        "source": "compute_renderer_torch/csrc/texture.cu",
+        "replaces": ("common.py", "fused_texture_tail"),
+        "symbol": "texture_tail_kernel",
+    },
+    "texture_tail_mip": {
+        "source": "compute_renderer_torch/csrc/texture.cu",
+        "replaces": ("common.py", "fused_texture_tail_mip"),
+        "symbol": "texture_tail_mip_kernel",
+    },
+    "deferred_tail": {
+        "source": "compute_renderer_torch/csrc/texture.cu",
+        "replaces": ("common.py", "textured_shade"),
+        "symbol": "deferred_tail_kernel",
+    },
+    "mip_rows": {
+        "source": "compute_renderer_torch/csrc/texture.cu",
+        "replaces": ("common.py", "mip_tri_rows"),
+        "symbol": "mip_rows_kernel",
+    },
 }
+TEXTURE_KERNELS = ("texture_tail", "texture_tail_mip", "deferred_tail",
+                   "mip_rows")
 # The modes of three kernels: one record each, "<kernel>.<mode>", the same
 # source and TPU kernel as the base record. The front has no vis mode
 # (the vis table is the base one).
@@ -350,13 +397,13 @@ def kernel_device_ms(fn, iters, symbol):
     it runs on the card when ``symbol`` is None, from torch.profiler; None
     when the profiler records no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from compute_renderer_torch.bench.profiling import device_profile
 
     fn()
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -393,9 +440,11 @@ def mangled_names(mangled):
 
 
 def ptxas_report(log):
-    """{kernel<mode>: "R registers, S/L B spill stores/loads, M B smem"}
-    from nvcc's -Xptxas -v output; the mode is the template argument
-    (0 base, 1 mat, 2 texf, 3 vis, 4 texf_mip)."""
+    """{kernel<args>: "R registers, S/L B spill stores/loads, M B smem"}
+    from nvcc's -Xptxas -v output; the args are the template arguments:
+    the rasters' mode (0 base, 1 mat, 2 texf, 3 vis, 4 texf_mip), the
+    texture kernels' filter (0 nearest, 1 bilinear, 2 trilinear, 3
+    anisotropic) and the fused tail's packed pool (0 or 1)."""
     import re
 
     out, cur = {}, None
@@ -405,8 +454,8 @@ def ptxas_report(log):
             sym = next((w for w in mangled_names(m.group(1))
                         if any(k["symbol"] in w for k in KERNELS.values())),
                        m.group(1))
-            mode = re.search(r"ILi(\d+)E", m.group(1))
-            cur = f"{sym}<{mode.group(1)}>" if mode else sym
+            args = re.findall(r"L[ib](\d+)E", m.group(1))
+            cur = f"{sym}<{','.join(args)}>" if args else sym
             out[cur] = {}
             continue
         if cur is None:
@@ -460,7 +509,7 @@ def frame_inputs(scene, device, **tex_options):
         "pos_soa": cuda.corner_soa(pos, tri), "nrm_soa": cuda.corner_soa(
             nrm, tri), "vp": vp, "vpos": vpos, "eff": eff, "lwp": lwp,
         "lc": lc, "li": li, "T": int(tri.shape[0]), "positions": pos,
-        "tri": tri,
+        "normals": nrm, "tri": tri,
         # The mesh's kd / texture inputs, as the renderer uploads them.
         "ext": cuda.mesh_ext_tensors(mesh, tri, device, **tex_options),
     }
@@ -561,10 +610,12 @@ def check_front(name, x, wave, report, tile=(16, 256), mode="base"):
     return ck, mk
 
 
-def check_raster(name, x, table, meta, caps, report, mode="base"):
+def check_raster(name, x, table, meta, caps, report, mode="base",
+                 outputs=None):
     """Raster kernel vs twin on one frame, both layouts, in ``mode``, on
     the front's table; returns each layout's inputs for the timing
-    runs."""
+    runs, and puts each layout's kernel outputs (out, key) in
+    ``outputs``."""
     import torch
 
     from compute_renderer_torch.backends import binning, raster
@@ -603,6 +654,8 @@ def check_raster(name, x, table, meta, caps, report, mode="base"):
               f"{int((bins['seg_count'] > 0).sum())}")
         report["max_abs_err"] = max(report.get("max_abs_err", 0.0), diff)
         inputs[layout] = (table, data, bins, params, lights, kw, layout)
+        if outputs is not None:
+            outputs[layout] = (rk, kk)
     return inputs
 
 
@@ -1075,9 +1128,11 @@ def expand_stress_meta(T, ntx, nty, device):
         np.int32)).to(device)
 
 
-def check_micro(name, x, table, bins, ntx, nty, report, mode="base"):
+def check_micro(name, x, table, bins, ntx, nty, report, mode="base",
+                outputs=None):
     """Micro raster kernel vs twin in ``mode``: keys bitwise, RGBA within
-    1 LSB or the G-buffer bitwise."""
+    1 LSB or the G-buffer bitwise; the kernel's (out, key) go in
+    ``outputs["micro"]``."""
     import torch
 
     from compute_renderer_torch.backends import micro, raster
@@ -1104,6 +1159,8 @@ def check_micro(name, x, table, bins, ntx, nty, report, mode="base"):
           f"pairs, mean occupied cell "
           f"{float(counts[counts > 0].float().mean()):.1f}")
     report["max_abs_err"] = max(report.get("max_abs_err", 0.0), diff)
+    if outputs is not None:
+        outputs["micro"] = (rk, kk)
     return params, lights
 
 
@@ -1271,6 +1328,8 @@ def phase_main_path(device, card, reports):
         require(n >= CAPTURE_LAUNCHES,
                 f"main path launched the {name} kernel {n} times")
         reports[name]["launches"] = n
+    check_texture_launches("main path", read_counts(), "base", "nearest",
+                           reports)
     require(not renderer.flush_overflow(), "overflow on the main path")
     check_golden("main", frames, golden)
     check_graph_equals_eager("main", renderer, batch, frames)
@@ -1446,7 +1505,7 @@ def phase_micro_main_path(device, card, reports):
 
     from compute_renderer_torch import Renderer
     from compute_renderer_torch.backends import cuda, expand, front, micro
-    from compute_renderer_torch.backends import raster
+    from compute_renderer_torch.backends import raster, texture
 
     scene = bench_scene(SAN_MIGUEL, eye=SAN_MIGUEL_EYE)
     require(scene.total_tris == 998_784, f"San Miguel has {scene.total_tris}"
@@ -1458,7 +1517,8 @@ def phase_micro_main_path(device, card, reports):
                 "expand_cells": expand.expand_cells,
                 "raster_shade_micro": micro.raster_shade_micro,
                 "shading_params": raster.shading_inputs,
-                "raster_shade_tiles": raster.raster_shade_tiles}
+                "raster_shade_tiles": raster.raster_shade_tiles,
+                **texture.WRAPPERS}
     for fn in counters.values():
         fn.launches = 0
     raster.kernel_table.copies = 0
@@ -1475,6 +1535,8 @@ def phase_micro_main_path(device, card, reports):
                 f"launched the {name} kernel {launches[name]} times")
     require(launches["raster_shade_tiles"] == 0,
             "the micro main path launched the tile raster")
+    check_texture_launches("micro main path", launches, "base", "nearest",
+                           reports)
     # One capture: calibration left no frame to retry and re-capture.
     require(launches["expand_cells"] == CAPTURE_LAUNCHES
             and launches["front_end"] == CAPTURE_LAUNCHES + 1,
@@ -1531,7 +1593,7 @@ def phase_san_miguel(device):
 def counters():
     """The launch-counted wrappers by record name."""
     from compute_renderer_torch.backends import (
-        binning, expand, front, micro, raster,
+        binning, expand, front, micro, raster, texture,
     )
 
     return {"front_end": front.front_end,
@@ -1539,7 +1601,8 @@ def counters():
             "expand_cells": expand.expand_cells,
             "raster_shade_micro": micro.raster_shade_micro,
             "bin_tiles_dense": binning.bin_tiles_meta,
-            "shading_params": raster.shading_inputs}
+            "shading_params": raster.shading_inputs,
+            **texture.WRAPPERS}
 
 
 def reset_counts():
@@ -1704,6 +1767,273 @@ def front_record(mode):
     return "front_end" if mode == "vis" else record("front_end", mode)
 
 
+# The texture stage each G-buffer or vis mode's tail launches.
+TEXTURE_STAGES = {"texf": "texture_tail", "texf_mip": "texture_tail_mip",
+                  "vis": "deferred_tail"}
+FLAT_FILTERS = ("nearest", "bilinear")
+MIP_FILTERS = ("trilinear", "anisotropic")
+# Compulsory bytes of the texture stages, as this frame needs them: a tail
+# reads every pixel's key (and the deferred tail its winner id) and writes
+# its 4 B of RGBA, and reads a covered pixel's G-buffer planes (8 or 10 +
+# 2 a light; the deferred tail its pair's triangle on the micro path);
+# the texel gathers and the winners' vertices are not counted. mip_rows
+# reads each vertex's position and uv once (20 B), a triangle's indices
+# and slot, and writes its 5 floats (36 B a triangle).
+MIP_ROWS_VERTEX_BYTES, MIP_ROWS_TRIANGLE_BYTES = 12 + 8, 12 + 4 + 20
+# Float operations counted from csrc/texture.cu, roughly, a covered pixel:
+# a bilinear tap ~30, the epilogue ~45 and ~20 a light (powf counted as
+# 10); the deferred resolve ~120 and ~40 a light; mip_rows ~150 a
+# triangle.
+TAP_OPS, EPILOGUE_OPS, LIGHT_OPS, RESOLVE_OPS = 30, 45, 20, 120
+FILTER_TAPS = {"nearest": 0.3, "bilinear": 1, "trilinear": 2,
+               "anisotropic": 8}
+MIP_ROWS_OPS = 150
+
+
+def stage_ops(stage, tex_filter, lights):
+    """Float operations a covered pixel of a texture tail."""
+    ops = (TAP_OPS * FILTER_TAPS[tex_filter] + EPILOGUE_OPS
+           + LIGHT_OPS * lights)
+    if stage == "deferred_tail":
+        ops += RESOLVE_OPS + 40 * lights
+    return ops
+
+
+def compare_rgba(tag, k, p, report):
+    """A texture stage's (H, W, 4) RGBA against its plain version's on the
+    same card tensors: within 1 LSB, the differing pixels printed (0
+    expected)."""
+    import torch
+
+    torch.cuda.synchronize()
+    require(k.shape == p.shape and k.dtype == p.dtype == torch.uint8,
+            f"{tag}: RGBA {tuple(k.shape)} {k.dtype} against "
+            f"{tuple(p.shape)} {p.dtype}")
+    d = (k.to(torch.int32) - p.to(torch.int32)).abs().amax(dim=-1)
+    n = int((d > 0).sum())
+    worst = int(d.max()) if d.numel() else 0
+    where = ""
+    if n:
+        ys, xs = torch.nonzero(d > 0, as_tuple=True)
+        where = "; first " + ", ".join(
+            f"({int(y)}, {int(x)}) {k[y, x].tolist()} vs {p[y, x].tolist()}"
+            for y, x in zip(ys[:6], xs[:6]))
+    print(f"[check] {tag}: RGBA max diff {worst} LSB, {n} px differ "
+          f"of {d.numel()}{where}")
+    require(worst <= 1, f"{tag}: RGBA differs by {worst} LSB from the "
+            "plain version")
+    report["max_abs_err"] = max(report.get("max_abs_err", 0.0),
+                                float(worst))
+
+
+_STAGE_EXT = {}
+
+
+def stage_ext(scene, x, device, tex_filter, tex_mode):
+    """The mesh's texture inputs for a filter and mode, as the renderer
+    uploads them (the mip pool built once a mesh)."""
+    from compute_renderer_torch.backends import cuda
+
+    k = (id(scene.mesh), tex_filter in MIP_FILTERS, tex_mode)
+    if k not in _STAGE_EXT:
+        _STAGE_EXT[k] = cuda.mesh_ext_tensors(
+            scene.mesh, x["tri"], device, tex_filter=tex_filter,
+            tex_mode=tex_mode)
+    return _STAGE_EXT[k]
+
+
+def check_mip_rows(tag, x, ext, tex_filter, report, wave=False):
+    """``mip_rows`` against its plain version on a frame: bitwise with NaN
+    positions equal (a wave frame within 1 ULP: its sinf inputs, as the
+    front's table). Returns the kernel's rows."""
+    import torch
+
+    from compute_renderer_torch.backends import texture
+
+    args = (x["positions"], x["tri"], ext["uvs"], ext["face_tex"],
+            ext["tex_mips"], x["vp"], x["eff"], W, H, tex_filter)
+    rk = texture.mip_rows(*args)
+    rp = texture.mip_rows_plain(*args)
+    torch.cuda.synchronize()
+    nan_k, nan_p = torch.isnan(rk), torch.isnan(rp)
+    require(torch.equal(nan_k, nan_p), f"mip_rows {tag}: NaN positions "
+            "differ from the plain version")
+    keep = ~nan_k
+    worst = int(ulps(rk[keep], rp[keep]).max()) if keep.any() else 0
+    limit = 1 if wave else 0
+    print(f"[check] mip_rows {tag} {tex_filter}: T={rk.shape[0]}, worst "
+          f"{worst} ULP (limit {limit}), {int(nan_k.any(1).sum())} rows "
+          f"with NaN, lod > 0 in {int((rk[:, 1] > 0).sum())} rows")
+    require(worst <= limit, f"mip_rows {tag}: {worst} ULP from the plain "
+            f"version (limit {limit})")
+    gap = torch.where(rk == rp, torch.zeros_like(rk), (rk - rp).abs())
+    report["max_abs_err"] = max(report.get("max_abs_err", 0.0),
+                                float(gap[keep].max()) if keep.any()
+                                else 0.0)
+    return rk
+
+
+def stage_calls(x, scene, mode, out, key, pair_tri, device, tex_filter):
+    """(kernel call, plain call) of the mode's texture stage on a raster's
+    output window ``out`` / ``key`` (H, W), under ``tex_filter``."""
+    from compute_renderer_torch.backends import common, texture
+
+    lights = (x["lc"], x["li"])
+    if mode == "texf":
+        ext = x["ext"]
+        return (lambda packed=None: texture.texture_tail(
+                    out, key, ext["texels"], *lights, tex_filter=tex_filter,
+                    texels_packed=packed),
+                lambda packed=None: texture.texture_tail_plain(
+                    out, key, ext["texels"], *lights, tex_filter=tex_filter,
+                    texels_packed=packed))
+    if mode == "texf_mip":
+        ext = x["ext"]
+        args = (out, key, ext["texels"], ext["tex_mips"], *lights)
+        return (lambda: texture.texture_tail_mip(*args,
+                                                 tex_filter=tex_filter),
+                lambda: texture.texture_tail_mip_plain(
+                    *args, tex_filter=tex_filter))
+    ext = stage_ext(scene, x, device, tex_filter, "deferred")
+    world, screen = common.vertex_stage(x["positions"], x["vp"], x["eff"],
+                                        W, H)
+    rows = None
+    if tex_filter in MIP_FILTERS:
+        rows = texture.mip_rows(x["positions"], x["tri"], ext["uvs"],
+                                ext["face_tex"], ext["tex_mips"], x["vp"],
+                                x["eff"], W, H, tex_filter)
+    args = (out, key, x["tri"], screen, world, x["normals"], ext["uvs"],
+            x["eff"], ext.get("face_kd"), ext["face_tex"], ext["texels"],
+            ext["tex_table"], x["vpos"], x["lwp"], *lights)
+    kw = dict(tex_filter=tex_filter, tex_mips=ext.get("tex_mips"),
+              rows=rows, pair_tri=pair_tri)
+    return (lambda: texture.deferred_tail(*args, **kw),
+            lambda: texture.deferred_tail_plain(*args, **kw))
+
+
+def check_texture_stage(tag, x, scene, mode, out, key, pair_tri, reports,
+                        device):
+    """The mode's texture stage kernel against its plain version on a
+    raster's real output (its (H, W) window, read in place), in every
+    filter of the mode (texf: both pools too; vis: the mip rows held
+    first); RGBA within 1 LSB."""
+    import torch
+
+    from compute_renderer_torch.backends import texture
+    from compute_renderer_torch.io.textures import pack_pool_u8
+
+    out, key = out[..., :H, :W], key[:H, :W]
+    stage = TEXTURE_STAGES[mode]
+    filters = {"texf": FLAT_FILTERS, "texf_mip": MIP_FILTERS,
+               "vis": FLAT_FILTERS + MIP_FILTERS}[mode]
+    for tex_filter in filters:
+        if tex_filter in MIP_FILTERS:
+            check_mip_rows(tag, x, x["ext"] if mode == "texf_mip" else
+                           stage_ext(scene, x, device, tex_filter,
+                                     "deferred"),
+                           tex_filter, reports["mip_rows"])
+        run, plain = stage_calls(x, scene, mode, out, key, pair_tri, device,
+                                 tex_filter)
+        before = texture.WRAPPERS[stage].launches
+        compare_rgba(f"{stage} {tag} {tex_filter}", run(), plain(),
+                     reports[stage])
+        require(texture.WRAPPERS[stage].launches == before + 1,
+                f"{stage} {tag}: the wrapper did not launch its kernel")
+        if mode == "texf":
+            packed = pack_pool_u8(scene.mesh.texels)
+            require(packed is not None, f"{tag}: the atlas is not u8")
+            packed = torch.from_numpy(packed).to(device)
+            compare_rgba(f"{stage} {tag} {tex_filter} packed pool",
+                         run(packed), plain(packed), reports[stage])
+
+
+def time_texture_stages(stage_inputs, device, reports, modes):
+    """Each texture stage's time beside its plain version's at the micro
+    main rows' shapes (structured_scene.obj, 1024x768): texture_tail
+    nearest (+textures), texture_tail_mip trilinear (+trilinear; the
+    anisotropic time printed beside it), deferred_tail trilinear
+    (+deferred trilinear) and mip_rows trilinear over 1,023,442
+    triangles."""
+    import torch
+
+    from compute_renderer_torch.backends import texture
+    from compute_renderer_torch.bench.profiling import event_ms, graph_ms
+
+    for mode in modes:
+        if mode not in TEXTURE_STAGES:
+            continue
+        x, scene, out, key, pair_tri = stage_inputs[mode]
+        out, key = out[..., :H, :W], key[:H, :W]
+        covered = int((key.view(torch.int32) != -1).sum())
+        stage = TEXTURE_STAGES[mode]
+        filters = {"texf": ("nearest", "bilinear"),
+                   "texf_mip": ("trilinear", "anisotropic"),
+                   "vis": ("trilinear", "nearest")}[mode]
+        L = x["lc"].shape[0]
+        for i, tex_filter in enumerate(filters):
+            run, plain = stage_calls(x, scene, mode, out, key, pair_tri,
+                                     device, tex_filter)
+            rep = reports[stage] if i == 0 else {}
+            rep["ms"] = kernel_device_ms(run, 20, KERNELS[stage]["symbol"])
+            # The call captured as a graph: its device time without the
+            # host's gaps (where the profiler records none, the kernel's).
+            ms_graph = graph_ms(run, 50)
+            if rep["ms"] is None:
+                rep["ms"] = ms_graph
+            print(f"[time] {stage} {tex_filter}: graph replay {ms_graph:.6f} "
+                  "ms")
+            rep["ms_events"] = event_ms(run, 50)
+            rep["plain_ms"] = event_ms(plain, 3)
+            # Every pixel's key (and id) and RGBA, a covered one's planes
+            # (or its pair's triangle).
+            per_pixel = 4 + 4 + (4 if mode == "vis" else 0)
+            per_covered = 4 if mode == "vis" else 4 * out.shape[0]
+            rep["bound_ms"], rep["bound_by"] = bound_ms(
+                W * H * per_pixel + covered * per_covered,
+                covered * stage_ops(stage, tex_filter, L))
+            print_time(f"{stage} {tex_filter}", rep, f"structured {W}x{H}, "
+                       f"{per_pixel} B a pixel and {per_covered} B a "
+                       f"covered one, {covered} covered")
+        if mode == "vis":
+            ext = stage_ext(scene, x, device, "trilinear", "deferred")
+            args = (x["positions"], x["tri"], ext["uvs"], ext["face_tex"],
+                    ext["tex_mips"], x["vp"], x["eff"], W, H, "trilinear")
+            rep = reports["mip_rows"]
+            rep["ms"] = kernel_device_ms(lambda: texture.mip_rows(*args), 20,
+                                         KERNELS["mip_rows"]["symbol"])
+            ms_graph = graph_ms(lambda: texture.mip_rows(*args), 50)
+            if rep["ms"] is None:
+                rep["ms"] = ms_graph
+            print(f"[time] mip_rows trilinear: graph replay {ms_graph:.6f} ms")
+            rep["ms_events"] = event_ms(lambda: texture.mip_rows(*args), 50)
+            rep["plain_ms"] = event_ms(lambda: texture.mip_rows_plain(*args),
+                                       3)
+            N = x["positions"].shape[0]
+            rep["bound_ms"], rep["bound_by"] = bound_ms(
+                N * MIP_ROWS_VERTEX_BYTES + x["T"] * MIP_ROWS_TRIANGLE_BYTES,
+                x["T"] * MIP_ROWS_OPS)
+            print_time("mip_rows trilinear", rep, f"structured, T={x['T']}, "
+                       f"N={N}: {MIP_ROWS_VERTEX_BYTES} B a vertex, "
+                       f"{MIP_ROWS_TRIANGLE_BYTES} B a triangle")
+
+
+def check_texture_launches(tag, launches, mode, tex_filter, reports):
+    """A main-path row's texture stages: the ones its mode runs launched
+    (their counts added to the kernels' records), the others never."""
+    ran = {TEXTURE_STAGES[mode]} if mode in TEXTURE_STAGES else set()
+    if mode in ("texf_mip", "vis") and tex_filter in MIP_FILTERS:
+        ran.add("mip_rows")
+    for name in TEXTURE_KERNELS:
+        n = launches[name]
+        if name in ran:
+            require(n >= CAPTURE_LAUNCHES, f"{tag}: the {name} kernel "
+                    f"launched {n} times")
+            reports[name]["launches"] = reports[name].get("launches", 0) + n
+        else:
+            require(n == 0, f"{tag}: the {name} kernel launched {n} times "
+                    "on a row that does not run it")
+
+
 def phase_mode_kernels(device, reports, scenes, modes):
     """The ``modes`` of the front, tile raster and micro kernels against
     their twins, then each mode kernel's time at its main path's shapes."""
@@ -1711,10 +2041,11 @@ def phase_mode_kernels(device, reports, scenes, modes):
     from compute_renderer_torch.backends import raster
     from compute_renderer_torch.bench.profiling import event_ms
 
-    timing = {}
+    timing, stage_inputs = {}, {}
     for name, scene, mode, path in mode_cases(scenes, modes):
         x = frame_inputs(scene, device, **MODE_OPTIONS[mode])
         fmode = "base" if mode == "vis" else mode
+        outputs = {}
         if path == "micro":
             ntx, nty = (W + 127) // 128, (H + 7) // 8
             table, meta = check_front(name, x, False,
@@ -1727,9 +2058,16 @@ def phase_mode_kernels(device, reports, scenes, modes):
             require(int(bins["pair_needed"]) == 0, f"micro {name}: overflow")
             params, lights = check_micro(
                 name, x, table, bins, ntx, nty,
-                reports[record("raster_shade_micro", mode)], mode=mode)
+                reports[record("raster_shade_micro", mode)], mode=mode,
+                outputs=outputs)
             timing.setdefault(("micro", mode), (x, table, bins, params,
                                                 lights))
+            if mode in TEXTURE_STAGES:
+                check_texture_stage(f"micro {name}", x, scene, mode,
+                                    *outputs["micro"], bins["pair_tri"],
+                                    reports, device)
+                stage_inputs.setdefault(mode, (x, scene, *outputs["micro"],
+                                               bins["pair_tri"]))
             continue
         table, meta = check_front(name, x, False,
                                   reports[front_record(mode)], mode=fmode)
@@ -1741,7 +2079,10 @@ def phase_mode_kernels(device, reports, scenes, modes):
         caps["pair_cap"] = max(caps["pair_cap"], int(need.sum()))
         inputs = check_raster(name, x, table, meta, caps,
                               reports[record("raster_shade_tiles", mode)],
-                              mode=mode)
+                              mode=mode, outputs=outputs)
+        if mode in TEXTURE_STAGES:
+            check_texture_stage(f"tile {name}", x, scene, mode,
+                                *outputs["dense"], None, reports, device)
         # The layout the main path's binning picks for this scene.
         layout = binning.bin_triangles(setup, ntx, nty, caps["pair_cap"],
                                        caps["tile_cap"])["layout"]
@@ -1823,6 +2164,19 @@ def phase_mode_kernels(device, reports, scenes, modes):
                                   50, KERNELS["front_end"]["symbol"])
             print(f"[time] {record('front_end', mode)} (structured_tex "
                   f"16x256, T={x['T']}): kernel {ms} ms")
+    if "texf_mip" in modes:
+        # The mip rows of wave frames: the corners move with the wave.
+        from compute_renderer_torch.core.effects import Effect, WaveDirection
+
+        for key in ("structured_tex+textures", "structured+textures"):
+            scene = scene_copy(scenes[key], effect=Effect.wave(
+                0.4, 3.0, 2.0, WaveDirection.VERTICAL))
+            scene.update(0.5)
+            x = frame_inputs(scene, device, tex_filter="anisotropic")
+            for tex_filter in MIP_FILTERS:
+                check_mip_rows(f"{key.split('+')[0]}+wave", x, x["ext"],
+                               tex_filter, reports["mip_rows"], wave=True)
+    time_texture_stages(stage_inputs, device, reports, modes)
 
 
 # (golden row, scene, frames, path, mode): the suite's extension rows
@@ -1871,6 +2225,8 @@ def phase_ext_main_paths(device, card, reports, scenes):
                     f"{record(name, mode)} kernel launched {n} times")
             reports[record(name, mode)]["launches"] = (
                 reports[record(name, mode)].get("launches", 0) + n)
+        check_texture_launches(f"ext {row}", launches, mode,
+                               scene.texture_filter, reports)
         other = ("raster_shade_tiles" if path == "micro"
                  else "raster_shade_micro")
         require(not any(launches[record(other, m)]
@@ -1967,6 +2323,8 @@ def phase_mip_main_paths(device, card, reports, scenes):
             if name != "front_end":  # the base front keeps its own count
                 reports[name]["launches"] = (
                     reports[name].get("launches", 0) + n)
+        check_texture_launches(f"mip {row}", launches, mode, tex_filter,
+                               reports)
         other = ("raster_shade_tiles" if path == "micro"
                  else "raster_shade_micro")
         require(not any(launches[record(other, m)]
@@ -1984,8 +2342,22 @@ def phase_mip_main_paths(device, card, reports, scenes):
         renderers[row] = (renderer, scene)
         first[row] = imgs[0]
 
+    # The eager loop of these rows runs at 7-18 ms a frame: its slope is
+    # taken over smaller batches.
+    for row, tag in (("textures_trilinear", "structured +trilinear"),
+                     ("textures_anisotropic", "structured +anisotropic"),
+                     ("textures_deferred_trilinear",
+                      "structured +deferred trilinear")):
+        renderer, scene = renderers[row]
+        compare_eager_graph(tag, renderer, scene, card, MICRO_LAYERS,
+                            eager_sizes=SLOW_EAGER_BATCHES)
+
     # Fused == deferred on one frame: the deferred tail samples through
-    # the fused tail's _sample_mip_px on the same mip rows.
+    # the fused tail's _sample_mip_px on the same mip rows. After the
+    # profiles: with these renderers made (and one dropped) before them,
+    # the +anisotropic row's profiled graph replay died with SIGSEGV in
+    # CUDAGraph.replay in 7 runs of 11 (a fault under the profiler, not
+    # isolated; none in the runs since the move).
     pairs = (("textures_trilinear", first["textures_deferred_trilinear"]),
              ("textures_anisotropic", None), ("tex_trilinear", None))
     for row, deferred in pairs:
@@ -2007,16 +2379,6 @@ def phase_mip_main_paths(device, card, reports, scenes):
         limit = 0 if path == "micro" else 1
         require(int(d.max()) <= limit, f"{row}: fused and deferred differ "
                 f"by {int(d.max())} LSB (limit {limit})")
-
-    # The eager loop of these rows runs at 7-18 ms a frame: its slope is
-    # taken over smaller batches.
-    for row, tag in (("textures_trilinear", "structured +trilinear"),
-                     ("textures_anisotropic", "structured +anisotropic"),
-                     ("textures_deferred_trilinear",
-                      "structured +deferred trilinear")):
-        renderer, scene = renderers[row]
-        compare_eager_graph(tag, renderer, scene, card, MICRO_LAYERS,
-                            eager_sizes=SLOW_EAGER_BATCHES)
 
 
 # Phase 13's frame and cases (tests/test_torch_walks.py runs them too).
@@ -2221,6 +2583,70 @@ def phase_stress(device, reports):
               f"{x['longest']}, densest cell {x['densest']} pairs (span "
               f"{micro.SPAN}), covered {covered} (tile) / {covered_m} "
               f"(micro) px")
+    stress_texture(device, reports)
+
+
+def stress_texture(device, reports):
+    """Phase 13's texture case, built on the card at STRESS_W x STRESS_H:
+    a texf and a texf_mip G-buffer over four textures of odd and unit
+    sizes, uv from -3.5 to 4.5 (negative and past 1), NaN uv (and a NaN
+    lod) in the uncovered and untextured pixels; both fused tails in
+    every filter (both pools) against their plain versions, RGBA within
+    1 LSB."""
+    import numpy as np
+    import torch
+
+    from compute_renderer_torch.backends import texture
+    from compute_renderer_torch.io.textures import (
+        pack_pool_u8, trilinear_tex_arrays,
+    )
+
+    rng = np.random.default_rng(2031)
+    sizes = ((5, 3), (1, 7), (6, 6), (16, 16))
+    offsets = np.cumsum([0] + [w * h for w, h in sizes])
+    table = np.array([[o, w, h] for o, (w, h) in zip(offsets, sizes)],
+                     np.int32)
+    texels = (rng.integers(0, 256, (offsets[-1], 3))
+              / np.float32(255.0)).astype(np.float32)
+    pool, mips = trilinear_tex_arrays(texels, table)
+    h, w, nl = STRESS_H, STRESS_W, 2
+    key = rng.integers(0, 2**31, (h, w)).astype(np.uint32)
+    clear = rng.random((h, w)) < 0.15
+    key[clear] = 0xFFFFFFFF
+    slot = rng.integers(-1, len(sizes), (h, w))
+    masked = clear | (slot < 0)
+    uv = rng.uniform(-3.5, 4.5, (2, h, w)).astype(np.float32)
+    uv[:, masked] = np.nan
+    kd = rng.uniform(0, 1, (3, h, w))
+    terms = rng.uniform(0, 1, (2 * nl, h, w))
+    rows = np.where((slot >= 0)[None],
+                    table[np.maximum(slot, 0)].transpose(2, 0, 1), 0)
+    g = np.concatenate([uv, kd, rows, terms]).astype(np.float32)
+    gm = np.concatenate([
+        uv, kd, slot[None], rng.uniform(0, mips.shape[1] - 1, (1, h, w)),
+        rng.uniform(-0.05, 0.05, (2, h, w)),
+        rng.choice([0.0, 0.5, 0.75], (1, h, w)), terms]).astype(np.float32)
+    gm[6, masked] = np.nan
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    keyd = dev(key.view(np.int32))
+    lights = (dev(np.array([[1.0, 0.9, 0.8], [0.3, 0.4, 0.5]], np.float32)),
+              dev(np.array([1.0, 0.5], np.float32)))
+    for tex_filter in FLAT_FILTERS:
+        for packed in (None, dev(pack_pool_u8(texels))):
+            args = (dev(g), keyd, dev(texels), *lights)
+            kw = dict(tex_filter=tex_filter, texels_packed=packed)
+            compare_rgba(f"stress texture_tail {tex_filter}"
+                         f"{'' if packed is None else ' packed pool'}",
+                         texture.texture_tail(*args, **kw),
+                         texture.texture_tail_plain(*args, **kw),
+                         reports["texture_tail"])
+    for tex_filter in MIP_FILTERS:
+        args = (dev(gm), keyd, dev(pool), dev(mips), *lights)
+        compare_rgba(f"stress texture_tail_mip {tex_filter}",
+                     texture.texture_tail_mip(*args, tex_filter=tex_filter),
+                     texture.texture_tail_mip_plain(
+                         *args, tex_filter=tex_filter),
+                     reports["texture_tail_mip"])
 
 
 def phase_graph_summary(card):
@@ -3549,7 +3975,10 @@ def phase_viewers(device, card):
                 f"({counts})")
         for k, v in counts.items():
             launched[k] = launched.get(k, 0) + v
-    require(all(launched.get(k, 0) > 0 for k in counters()),
+    # The viewers' scenes are untextured: every kernel but the texture
+    # stages', which never launch there.
+    require(all((launched.get(k, 0) > 0) != (k in TEXTURE_KERNELS)
+                for k in counters()),
             f"viewers: not every kernel launched ({launched})")
     counts = view_web(device, card)
     require(counts.get("front_end", 0) > 0
@@ -3566,8 +3995,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import faulthandler
+
     import torch
 
+    faulthandler.enable()  # a crash in native code prints the Python stack
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3584,30 +4016,41 @@ def main() -> int:
     from compute_renderer_torch import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["front", "raster", "expand", "micro", "bins"])
+    _build.build_all(["front", "raster", "expand", "micro", "bins",
+                      "texture"])
     print(f"[build] {time.perf_counter() - t0:.2f} s (in parallel)")
     for name, (secs, log) in _build.BUILD_LOG.items():
         print(f"[build] {name}.cu {secs:.2f} s: " + "; ".join(
             f"{k} {v}" for k, v in ptxas_report(log).items()))
 
     reports = {name: {} for name in KERNELS}
-    phase_kernels(device, reports)
-    phase_micro_kernels(device, reports)
-    phase_main_path(device, card, reports)
-    phase_micro_main_path(device, card, reports)
-    phase_san_miguel(device)
-    scenes = load_ext_scenes()
-    check_bins_structured(device, reports, scenes)
-    phase_mode_kernels(device, reports, scenes, MODES)
-    phase_ext_main_paths(device, card, reports, scenes)
-    phase_mode_kernels(device, reports, scenes, NEW_MODES)
-    phase_mip_main_paths(device, card, reports, scenes)
-    phase_stress(device, reports)
-    phase_graph_summary(card)
-    phase_comparators(device, card, scenes)
-    phase_cli_suite(device, card)
-    phase_parallel(device, card, scenes)
-    phase_viewers(device, card)
+    t_run = time.perf_counter()
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        now = time.perf_counter()
+        print(f"[phase] {phase.__name__}: {now - t0:.1f} s (run "
+              f"{now - t_run:.1f} s)", flush=True)
+        return out
+
+    run(phase_kernels, device, reports)
+    run(phase_micro_kernels, device, reports)
+    run(phase_main_path, device, card, reports)
+    run(phase_micro_main_path, device, card, reports)
+    run(phase_san_miguel, device)
+    scenes = run(load_ext_scenes)
+    run(check_bins_structured, device, reports, scenes)
+    run(phase_mode_kernels, device, reports, scenes, MODES)
+    run(phase_ext_main_paths, device, card, reports, scenes)
+    run(phase_mode_kernels, device, reports, scenes, NEW_MODES)
+    run(phase_mip_main_paths, device, card, reports, scenes)
+    run(phase_stress, device, reports)
+    run(phase_graph_summary, card)
+    run(phase_comparators, device, card, scenes)
+    run(phase_cli_suite, device, card)
+    run(phase_parallel, device, card, scenes)
+    run(phase_viewers, device, card)
 
     kernels = [{
         "name": name, "route": "cuda", "source": meta["source"],

@@ -10,22 +10,22 @@ tpu.py:196-206 and :618-627 pick it):
   shading): the raster kernels shade;
 - ``texf`` (a textured mesh, nearest or bilinear filter, fused texturing:
   44-column table): the kernels write a G-buffer and
-  ``common.fused_texture_tail`` samples the atlas and shades;
-- ``texf_mip`` (trilinear or anisotropic, fused): the frame's
-  ``common.mip_tri_rows`` ride a 46-column table and
-  ``common.fused_texture_tail_mip`` samples the mip pool;
+  ``texture.texture_tail`` samples the atlas and shades;
+- ``texf_mip`` (trilinear or anisotropic, fused): the frame's mip rows
+  (``texture.mip_rows``) ride a 46-column table and
+  ``texture.texture_tail_mip`` samples the mip pool;
 - ``vis`` (``tex_mode="deferred"``, which ``mesh_ext_tensors`` also picks
   for atlases of 2^24 texels or more): the kernels write the winner's id
-  on the base table, and the deferred tail (``common.resolve_attributes``,
-  ``common.textured_shade``) resolves, samples and shades it.
+  on the base table, and ``texture.deferred_tail`` resolves, samples and
+  shades it (under a mip filter on the frame's ``texture.mip_rows``).
 
 Tile path, per frame:
 
 1. ``front.front_end`` — vertex stage, setup and the coefficient table in
    one kernel, at tile granularity, in the layout the rasters read (no
-   copy between them; texf_mip and vis also run the torch
-   ``common.vertex_stage`` for the per-vertex screen and world the mip
-   rows and the deferred tail read);
+   copy between them); texf_mip and vis also launch ``texture.mip_rows``
+   under a mip filter, and vis runs the torch ``common.vertex_stage``
+   for the per-vertex screen and world the deferred tail reads;
 2. ``binning.bin_tiles_meta`` on the front's meta: the bins, the
    occupied-tile work list and the overflow report (dense at Suzanne
    scale, one kernel; the sort above ``DENSE_BINNING_OP_LIMIT``);
@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from compute_renderer_torch.backends import (
-    binning, common, front, micro, raster,
+    binning, common, front, micro, raster, texture,
 )
 
 F32 = torch.float32
@@ -164,6 +164,14 @@ TEX_MODES = ("fused", "deferred")
 # torch.profiler ranges around a frame's texture work: the per-frame
 # vertex stage and mip rows before the raster, the tail after it.
 TEXTURE_RANGES = ("texture_setup", "texture_tail")
+# The texture stages' kernels (``texture.py``) in each range. They launch
+# from their own library, outside any torch op, so a profile finds them
+# by name, not under the range.
+TEXTURE_RANGE_KERNELS = {
+    "texture_setup": ("mip_rows_kernel",),
+    "texture_tail": ("texture_tail_kernel", "texture_tail_mip_kernel",
+                     "deferred_tail_kernel"),
+}
 
 
 def check_texture_options(tex_filter: str, tex_mode: str) -> None:
@@ -190,11 +198,12 @@ def frame_mode(face_kd, texels, tex_filter: str, tex_mode: str) -> str:
 def _frame_texture(mode, positions, tri, view_proj, effect, width, height,
                    face_kd, uvs, uv_soa, tex_rows, face_tex, tex_mips,
                    tex_filter):
-    """A frame's per-vertex (world, screen) (vis and texf_mip only; None
-    otherwise) and the front end's mode inputs: kd rows, uv corners and
-    the TextureInfo rows (texf) or the frame's ``common.mip_tri_rows``
-    (texf_mip), built from ``common.uv_gradients`` over the screen
-    vertices. The vis table is the base one (kd applies in the tail)."""
+    """What the deferred tail reads (vis only, else None): the per-vertex
+    (world, screen) of ``common.vertex_stage`` and the frame's mip rows
+    (``texture.mip_rows``; None under nearest and bilinear); and the front
+    end's mode inputs: kd rows, uv corners and the TextureInfo rows (texf)
+    or the frame's mip rows (texf_mip). The vis table is the base one (kd
+    applies in the tail)."""
     if mode == "mat":
         return None, {"kd_rows": face_kd}
     if mode == "texf":
@@ -203,14 +212,17 @@ def _frame_texture(mode, positions, tri, view_proj, effect, width, height,
     if mode == "base":
         return None, {}
     with torch.profiler.record_function(TEXTURE_RANGES[0]):
-        vertex = common.vertex_stage(positions, view_proj, effect, width,
-                                     height)
-        if mode == "vis":
-            return vertex, {}
-        guv = common.uv_gradients(tri, vertex[1], uvs)
-        return vertex, {"kd_rows": face_kd, "uv_soa": uv_soa,
-                        "mip_rows": common.mip_tri_rows(face_tex, tex_mips,
-                                                        guv, tex_filter)}
+        rows = None
+        if tex_filter in common.MIP_FILTERS:
+            rows = texture.mip_rows(positions, tri, uvs, face_tex, tex_mips,
+                                    view_proj, effect, width, height,
+                                    tex_filter)
+        if mode == "texf_mip":
+            return None, {"kd_rows": face_kd, "uv_soa": uv_soa,
+                          "mip_rows": rows}
+        world, screen = common.vertex_stage(positions, view_proj, effect,
+                                            width, height)
+        return (world, screen, rows), {}
 
 
 def render_frame(positions, normals, tri, view_proj, view_position,
@@ -338,35 +350,25 @@ def finish_frame(mode, out, key, tex, vertex, tri, normals, effect,
     with torch.profiler.record_function(TEXTURE_RANGES[1]):
         lc, li = light_color.to(F32), light_intensity.to(F32)
         if mode == "texf":
-            return common.fused_texture_tail(
+            return texture.texture_tail(
                 out, key, tex["texels"], lc, li,
                 tex_filter=tex["tex_filter"],
                 texels_packed=tex.get("texels_packed"))
         if mode == "texf_mip":
-            return common.fused_texture_tail_mip(
+            return texture.texture_tail_mip(
                 out, key, tex["texels"], tex["tex_mips"], lc, li,
                 tex_filter=tex["tex_filter"])
         # The deferred tail (tpu.py:801-817; the micro path's is
         # tpu.micro_vis_tail, whose 3T virtual corner vertices hold the
         # floats the per-vertex arrays give through ``tri``).
-        best_tri = out
-        if pair_tri is not None:  # the winner's pair index -> its triangle
-            flag = key.view(torch.int32) != -1
-            best_tri = torch.where(
-                flag, pair_tri[torch.where(flag, out, 0).long()],
-                common.NO_TRI)
-        world, screen = vertex
-        height, width = best_tri.shape
-        gbuffer = common.resolve_attributes(best_tri, tri, screen, world,
-                                            normals, tex["uvs"], effect,
-                                            width, height, x_offset,
-                                            y_offset)
-        mip = tex["tex_filter"] in common.MIP_FILTERS
-        return common.textured_shade(
-            gbuffer, best_tri, tex["face_kd"], tex["face_tex"],
-            tex["texels"], tex["tex_table"], view_position, light_world_pos,
-            lc, li, tex_filter=tex["tex_filter"], tex_mips=tex["tex_mips"],
-            guv=common.uv_gradients(tri, screen, tex["uvs"]) if mip else None)
+        world, screen, rows = vertex
+        return texture.deferred_tail(
+            out, key, tri, screen, world, normals, tex["uvs"], effect,
+            tex["face_kd"], tex["face_tex"], tex["texels"], tex["tex_table"],
+            view_position, light_world_pos, lc, li,
+            tex_filter=tex["tex_filter"], tex_mips=tex["tex_mips"],
+            rows=rows, pair_tri=pair_tri, x_offset=x_offset,
+            y_offset=y_offset)
 
 
 def render_frame_micro(positions, normals, tri, view_proj, view_position,

@@ -70,20 +70,33 @@ def _require_cuda(device) -> torch.device:
     return device
 
 
+def device_profile(**kwargs):
+    """A torch.profiler session of the host and the card (``kwargs`` as
+    ``torch.profiler.profile`` takes them). CUPTI stays set up between
+    sessions (``TEARDOWN_CUPTI=0``), as torch keeps it for its own CUDA
+    graphs ("CUDA Graph does not work well with CUPTI teardown",
+    torch/profiler/profiler.py): the renderer replays graphs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.environ["TEARDOWN_CUPTI"] = "0"
+    kwargs.setdefault("activities", [ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+    return profile(**kwargs)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the host and, where there is a card, the device into
     ``log_dir`` (one ``*.pt.trace.json`` a trace). Yields the profiler."""
-    from torch.profiler import (
-        ProfilerActivity, profile, tensorboard_trace_handler,
-    )
+    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
 
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+    with device_profile(activities=activities,
+                        on_trace_ready=tensorboard_trace_handler(
+                            log_dir)) as prof:
         yield prof
 
 
@@ -342,13 +355,10 @@ def profile_batch(renderer, batch, layers, eager: bool = False) -> dict:
     ``texture_kernels`` ({range: kernels}); and ``wall_ms`` (the batch,
     profiler on), ``rows`` (the top kernels: ms a frame, count, name) and
     ``frames``."""
-    from torch.profiler import ProfilerActivity, profile
-
     _require_cuda(renderer.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         renderer.render_batch_device(batch, check=False, eager=eager)
         renderer.fence_pending()
     wall = (time.perf_counter() - t0) * 1e3
@@ -375,12 +385,20 @@ def profile_batch(renderer, batch, layers, eager: bool = False) -> dict:
                       if any(k in key.lower() for k in keys)), "other")
         by_layer[layer] += ms
     texture_kernels = {}
+    recorded = {e.name for e in events if e.name in cuda.TEXTURE_RANGES}
     for name in cuda.TEXTURE_RANGES:
+        if name not in recorded:  # a graph's replay records no range
+            continue
         ms, count = range_device_ms(events, name)
+        ms, count = ms / n, count / n
+        # The range's texture stage kernels, which no torch op launches.
+        for row_ms, row_count, key in rows:
+            if any(s in key for s in cuda.TEXTURE_RANGE_KERNELS[name]):
+                ms, count = ms + row_ms, count + row_count / n
         if count:
-            by_layer[name.replace("_", " ")] = ms / n
-            by_layer["other"] -= ms / n
-            texture_kernels[name] = count / n
+            by_layer[name.replace("_", " ")] = ms
+            by_layer["other"] -= ms
+            texture_kernels[name] = count
     return {
         "frames": n, "wall_ms": wall,
         "busy_ms": sum(r[0] for r in rows),
@@ -399,16 +417,13 @@ def host_calls_per_frame(renderer, make_batch, eager: bool = False,
     batch of ``frames``, over ``frames``, so the per-batch calls cancel.
     ``make_batch(n)`` gives n frames' uniforms. None when the profiler
     records no such call."""
-    from torch.profiler import ProfilerActivity, profile
-
     _require_cuda(renderer.device)
     counts = []
     for n in (frames, 2 * frames):
         batch = make_batch(n)
         renderer.render_batch_device(batch, check=False, eager=eager)
         renderer.fence_pending()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             renderer.render_batch_device(batch, check=False, eager=eager)
             renderer.fence_pending()
         counts.append(_launch_calls(prof.events()))

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""bench.py's frame in two checkouts of the port, in turns, on one card.
+"""bench.py's frame, or the structured scene's texture rows, in two
+checkouts of the port, in turns, on one card.
 
     git archive <commit> | tar -x -C build/other
-    python3 scripts/compare_main_path.py build/other
+    python3 scripts/compare_main_path.py build/other [--texture]
 
 Runs ``chip_smoke.phase_main_path`` (phase 5: Suzanne 1024x768 through
 ``Renderer``, held to the golden frames and to the eager frames, then the
 eager loop against the replayed graph: slopes, busy time, kernels a
 frame, idle share) and ``bench_torch.py`` in each checkout, one process a
 run (the two packages share a name), in the order other, this, this,
-other, so that drift on the card falls on both alike. Each checkout
-builds its own kernels into its own ``build/``. Prints one ``[compare]``
-JSON line a run, then a table. Needs a CUDA card; a run that fails its
-checks fails the script.
+other, so that drift on the card falls on both alike. With
+``--texture`` it runs instead ``chip_smoke.compare_eager_graph`` on the
+micro path's structured_scene.obj rows (+materials, +textures,
++trilinear, +anisotropic, +deferred trilinear; 1024x768, eager batches
+of 16 and 64): slopes, busy time and kernels a frame, idle share and the
+eager profile's layers with the texture ranges. Each checkout builds its
+own kernels into its own ``build/``. Prints one ``[compare]`` JSON line a
+run, then a table. Needs a CUDA card; a run that fails its checks fails
+the script.
 """
 
 import glob
@@ -24,8 +30,55 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def worker(tree: str, tag: str) -> int:
-    """One run in ``tree``: its kernels, its phase 5, its bench_torch.py."""
+# The --texture rows: (tag, texture filter, tex_mode); None drops the
+# atlas (the materials row).
+TEXTURE_ROWS = (
+    ("structured +materials", None, "fused"),
+    ("structured +textures", "nearest", "fused"),
+    ("structured +trilinear", "trilinear", "fused"),
+    ("structured +anisotropic", "anisotropic", "fused"),
+    ("structured +deferred trilinear", "trilinear", "deferred"),
+)
+
+
+def texture_rows(chip_smoke, card) -> dict:
+    """The structured scene's micro rows, each a fresh renderer's eager
+    loop against its graph (``chip_smoke.compare_eager_graph``)."""
+    import dataclasses
+
+    import torch
+
+    from compute_renderer_torch import CameraConfig, Renderer, Scene
+    from compute_renderer_torch import SceneConfig
+    from compute_renderer_torch.io import objgen
+
+    objgen.ensure_structured_scene()
+    base = Scene.from_config(SceneConfig(
+        model_path=objgen.STRUCTURED_NAME, enable_textures=True,
+        camera_config=CameraConfig.first_person(chip_smoke.STRUCTURED_EYE)),
+        chip_smoke.W, chip_smoke.H)
+    plain = dataclasses.replace(base.mesh, face_tex=None, texels=None,
+                                tex_table=None)
+    out = {}
+    for tag, tex_filter, tex_mode in TEXTURE_ROWS:
+        scene = chip_smoke.scene_copy(base, texture_filter=tex_filter
+                                      or "nearest")
+        mesh = base.mesh if tex_filter else plain
+        renderer = Renderer(mesh, chip_smoke.W, chip_smoke.H,
+                            device=torch.device("cuda:0"), tex_mode=tex_mode,
+                            **scene.renderer_options())
+        chip_smoke.compare_eager_graph(
+            tag, renderer, scene, card, chip_smoke.MICRO_LAYERS,
+            eager_sizes=chip_smoke.SLOW_EAGER_BATCHES)
+        out[tag] = chip_smoke.GRAPH_ROWS[tag]
+        del renderer
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker(tree: str, tag: str, texture: bool) -> int:
+    """One run in ``tree``: its kernels, then its phase 5 and its
+    bench_torch.py, or its texture rows."""
     sys.path.insert(0, tree)
     os.chdir(tree)
     import torch
@@ -39,6 +92,15 @@ def worker(tree: str, tag: str) -> int:
         os.path.basename(p)[:-3]
         for p in glob.glob(os.path.join("compute_renderer_torch", "csrc",
                                         "*.cu"))))
+    if texture:
+        try:
+            rows = texture_rows(chip_smoke, card)
+        except chip_smoke.SmokeFailure as e:
+            print(f"compare_main_path: {tag}: FAILED: {e}", file=sys.stderr)
+            return 1
+        print("[compare] " + json.dumps({"tree": tag, "card": card,
+                                         "rows": rows}), flush=True)
+        return 0
     reports = {name: {} for name in chip_smoke.KERNELS}
     try:
         chip_smoke.phase_main_path(torch.device("cuda:0"), card, reports)
@@ -61,21 +123,23 @@ def worker(tree: str, tag: str) -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--worker":
-        return worker(os.path.abspath(sys.argv[2]), sys.argv[3])
-    if len(sys.argv) != 2:
+    texture = "--texture" in sys.argv
+    args = [a for a in sys.argv[1:] if a != "--texture"]
+    if len(args) == 3 and args[0] == "--worker":
+        return worker(os.path.abspath(args[1]), args[2], texture)
+    if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
-    other = os.path.abspath(sys.argv[1])
+    other = os.path.abspath(args[0])
     results = []
     for tree, tag in ((other, "other"), (ROOT, "this"), (ROOT, "this"),
                       (other, "other")):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
-             tag], capture_output=True, text=True)
+             tag] + ["--texture"] * texture, capture_output=True, text=True)
         sys.stdout.write("".join(
             ln + "\n" for ln in proc.stdout.splitlines()
-            if ln.startswith(("[compare]", "[bench]", "[profile] suzanne",
+            if ln.startswith(("[compare]", "[bench]", "[profile]",
                               "[main]"))))
         if proc.returncode != 0:
             sys.stderr.write(proc.stderr[-4000:])
@@ -83,6 +147,18 @@ def main() -> int:
         results += [json.loads(ln[len("[compare] "):])
                     for ln in proc.stdout.splitlines()
                     if ln.startswith("[compare] ")]
+    if texture:
+        print("tree | row | graph slope ms | busy ms (kernels) | idle | "
+              "eager slope ms (busy, kernels) | card")
+        for r in results:
+            for row, m in r["rows"].items():
+                g, e = m["graph"], m["eager"]
+                print(f"{r['tree']} | {row} | {g['slope_ms']:.6f} | "
+                      f"{g['busy_ms']:.6f} ({g['kernels']:.2f}) | "
+                      f"{g['idle']:.4f} | {e['slope_ms']:.6f} "
+                      f"({e['busy_ms']:.6f}, {e['kernels']:.2f}) | "
+                      f"{r['card']}")
+        return 0
     print("tree | graph slope ms | busy ms (kernels) | idle | eager slope "
           "ms (busy, kernels) | bench_torch.py ms | card")
     for r in results:
