@@ -6,7 +6,7 @@
 Phases, each fatal on failure (nonzero exit, no result line):
 
 1. device — requires CUDA; prints the card's name and power limit;
-2. build — compiles the six hand-written kernel sources (csrc/*.cu)
+2. build — compiles the seven hand-written kernel sources (csrc/*.cu)
    with nvcc, one process per source, all at once;
 3. kernel vs twin, tile path — the front end and the raster on the tile
    path's inputs (Suzanne and san_miguel_small at 1024x768, and a wave
@@ -30,9 +30,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    single-cell ones, within and past the capacity) and
    the micro raster (keys bitwise, RGBA within 1 LSB) on the San Miguel
    stand-in (998,784 triangles), san_miguel_small forced onto the micro
-   path, a mirage frame and a voxelize frame; each kernel's time beside
-   its twin's at San Miguel's shapes (beside the expansion,
-   torch.repeat_interleave of its triangle ids);
+   path, a mirage frame and a voxelize frame, and the bin sort
+   (csrc/sort.cu) on each case's expanded pairs, bitwise with its twin;
+   each kernel's time beside its twin's at San Miguel's shapes (beside
+   the expansion, torch.repeat_interleave of its triangle ids; beside
+   the bin sort, torch.sort(stable) with the gather and the searchsorted
+   it replaces);
 5. main path, tile — bench.py's scene through Scene.from_config ->
    Renderer -> three render() frames (the first tunes the tile shape,
    capturing each candidate's CUDA graph; the frames replay the
@@ -51,13 +54,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
 6. main path, micro — the San Miguel benchmark configuration through
    Renderer: calibration, one capture, three frames against
    tests/golden_data/torch_micro_san_miguel_1024x768.npz and bitwise
-   against the eager frames, the front, expand and micro launch counts
-   advance and the tile raster's stays 0, no overflow, the micro merge
-   scratch clear after the replays; the eager loop against the graph,
-   the eager profile split into front / expand / sort+segments / micro /
-   other;
+   against the eager frames, the front, expand, bin sort and micro launch
+   counts advance and the tile raster's stays 0, no overflow, the micro
+   merge scratch clear after the replays; the eager loop against the
+   graph, the eager profile split into front / expand / bin sort / micro
+   / other; no main path's graph runs torch's sort, searchsorted or
+   running max (every compare_eager_graph row);
 7. san_miguel_small on the tile path against the CPU twin path, with the
-   tuner's pick;
+   tuner's pick, the flat layout's bin sort launched and its graph
+   profiled (no torch sort in it);
 8. the structured scenes of the reference suite's extension rows
    (bench/suite.py:101-144), synthesized (io/objgen.py) and loaded from
    disk through Model.load (the native parser, io/native.py) once each
@@ -66,7 +71,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
    drop the atlas (the Kd rows are the same); each file parsed again by
    the native parser and by the Python loader (io/obj.py), every array
    (positions, normals, uvs, indices, face_kd, face_tex, texels,
-   tex_table) equal, the seconds of each parse printed;
+   tex_table) equal, the seconds of each parse printed; then the bin
+   sort (csrc/sort.cu) and the deferred vertex stage (csrc/texture.cu
+   vertex_stage_kernel) against their twins, bitwise: the cases of
+   tests/test_torch_bin_sort.py on both layouts with the stress segment
+   of SORT_STRESS pairs (sorted in chunks merged in device memory), pair
+   and tile overflow; the micro layout on structured_scene.obj within
+   and past its pair capacity; the flat layout (the expansion in
+   row-major tile ids, then the sort) on structured_scene_tex.obj and
+   san_miguel_small at both tuner tile shapes, at the default caps, the
+   frame's exact need and half its pairs; the vertex stage on structured
+   +deferred trilinear's frame and a wave frame; the vertex stage's and
+   the flat sort's times beside their twins' (the flat sort also beside
+   torch.sort(stable) + gather + two searchsorted);
 9. kernel vs twin, material and fused-texture modes — the front end at
    8x8 and 16x256 (meta bitwise, coefficients 0 ULP), the tile raster on
    structured_scene_tex and a mirage frame of it (both layouts) and the
@@ -88,8 +105,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
    tests/golden_data/torch_ext_structured_1024x768.npz and bitwise equal
    to the eager frame, no overflow, and each mode kernel of the row's path
    launched (per-mode counts; texture_tail on the texf rows, no texture
-   stage on the others); the tuner's pick on the tile rows; the
-   eager loop against the graph on the two micro rows;
+   stage on the others); the bin sort launched on every row (the micro
+   rows' cells, the tile rows' flat layout), and each tile row's graph
+   profiled with the flat bin sort as a layer and no torch sort in it;
+   the tuner's pick on the tile rows; the eager loop against the graph
+   on the two micro rows;
 11. kernel vs twin, visibility (vis) and mip-filtered texture (texf_mip)
    modes — the front end's texf_mip at 8x8 and 16x256 (meta bitwise,
    coefficients 0 ULP), the tile raster on structured_scene_tex and its
@@ -113,8 +133,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    render_batch_device, each within the pixel contract and bitwise equal
    to the eager frames, no overflow, its mode kernels launched and the
    other path's raster never (texture_tail_mip and mip_rows on the fused
-   rows, deferred_tail and, under a mip filter, mip_rows on the deferred
-   rows), the tuner's pick on the tile rows; then the
+   rows, deferred_tail, vertex_stage and, under a mip filter, mip_rows
+   on the deferred rows; the bin sort on every row, the tile rows' graphs
+   profiled as in phase 10), the tuner's pick on the tile rows; then the
    fused and deferred images of one frame bitwise equal (micro: trilinear
    and anisotropic; tile: trilinear, else at most 1 LSB, the differing
    pixels printed), and the eager loop (16 and 64 frames) against the
@@ -320,9 +341,29 @@ KERNELS = {
         "replaces": ("common.py", "mip_tri_rows"),
         "symbol": "mip_rows_kernel",
     },
+    # The deferred mode's per-vertex stage (common.py vertex_stage), and
+    # the bin sort (csrc/sort.cu) of the two sort layouts: the micro
+    # path's cells (binning.py bin_cells_sort_meta's lax.sort and
+    # segments, and its work list) and the tile path's flat layout
+    # (binning.py bin_triangles_sort), its pairs from the expansion kernel.
+    "vertex_stage": {
+        "source": "compute_renderer_torch/csrc/texture.cu",
+        "replaces": ("common.py", "vertex_stage"),
+        "symbol": "vertex_stage_kernel",
+    },
+    "bin_sort": {
+        "source": "compute_renderer_torch/csrc/sort.cu",
+        "replaces": ("binning.py", "bin_cells_sort_meta"),
+        "symbol": "bin_sort_",  # its four kernels
+    },
+    "bin_sort.flat": {
+        "source": "compute_renderer_torch/csrc/sort.cu",
+        "replaces": ("binning.py", "bin_triangles_sort"),
+        "symbol": "bin_sort_",
+    },
 }
 TEXTURE_KERNELS = ("texture_tail", "texture_tail_mip", "deferred_tail",
-                   "mip_rows")
+                   "mip_rows", "vertex_stage")
 # The modes of three kernels: one record each, "<kernel>.<mode>", the same
 # source and TPU kernel as the base record. The front has no vis mode
 # (the vis table is the base one).
@@ -452,7 +493,8 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             sym = next((w for w in mangled_names(m.group(1))
-                        if any(k["symbol"] in w for k in KERNELS.values())),
+                        if any(k["symbol"] in w for k in KERNELS.values())
+                        and not w.startswith("_GLOBAL__N")),
                        m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             cur = f"{sym}<{','.join(args)}>" if args else sym
@@ -875,6 +917,295 @@ def check_bins_structured(device, reports, scenes):
           f"{bins['bin_rows'].shape[1]}")
 
 
+# The bin sort's bound (csrc/sort.cu): each valid slot's bin and triangle
+# in (8 B) and the sorted list out (4 B a slot of it), 8 B a bin of
+# segments, and a tile's work-list entry (4 B; the micro layout also its
+# tile count and window base, 12 B); the total and scal. Operations: about
+# SORT_SLOT_OPS integer operations a valid slot (the count's and the
+# scatter's match, atomic and stores) and SORT_CE_OPS a compare-exchange
+# of each segment's bitonic network (a power of two of at least 32 pairs
+# under binning.SORT_WARP_CAP). The vertex stage: a vertex's 12 B in and
+# 28 B out, about 40 operations (three 4-term rows and the divides; a wave
+# frame's sinf not counted).
+SORT_SLOT_IN_BYTES = 8
+SORT_BIN_BYTES = 8
+SORT_TILE_BYTES = {"micro": 12, "flat": 4}
+SORT_SLOT_OPS = 12
+SORT_CE_OPS = 4
+VERTEX_BYTES = 12 + 28
+VERTEX_OPS = 40
+# The stress segment: pairs on one bin, far past the kernel's
+# shared-memory sort (binning.SORT_BLOCK_CAP), so that it is sorted in
+# chunks merged in device memory.
+SORT_STRESS = 20_000
+
+
+def sort_bound(keys, total, num_bins, layout):
+    """(bound ms, "bytes" or "operations") of the bin sort on this pair
+    list, from its counts."""
+    import torch
+
+    from compute_renderer_torch.backends import binning
+
+    n = min(int(total), keys.shape[0])
+    counts = torch.bincount(keys[:n].long(), minlength=num_bins)
+    counts = counts[counts > 1].double()
+    lg = torch.ceil(torch.log2(counts))
+    lg = torch.where(counts <= binning.SORT_WARP_CAP,
+                     torch.clamp(lg, min=5), lg)
+    exchanges = float((2 ** lg / 2 * lg * (lg + 1) / 2).sum())
+    tiles = num_bins // (16 if layout == "micro" else 1)
+    nbytes = (n * SORT_SLOT_IN_BYTES + keys.shape[0] * 4
+              + num_bins * SORT_BIN_BYTES
+              + tiles * SORT_TILE_BYTES[layout] + 24)
+    return bound_ms(nbytes, n * SORT_SLOT_OPS + SORT_CE_OPS * exchanges)
+
+
+def compare_bins(tag, got, want, n):
+    """Two bin dicts equal: ``pair_tri`` bitwise on [0, n), every other
+    output bitwise."""
+    import torch
+
+    keys = set(want) - {"layout"}
+    require(keys == set(got) - {"layout"},
+            f"{tag}: outputs {sorted(set(got) ^ set(want))} differ")
+    for key in sorted(keys):
+        a, b = got[key], want[key]
+        if key == "pair_tri":
+            a, b = a[:n], b[:n]
+        require(a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b), f"{tag}: {key} differs from the twin")
+
+
+def check_bin_sort(tag, keys, tris, total, num_bins, report, **kw):
+    """``bin_sort``'s kernel against its twin (``bin_sort_plain``, with the
+    flat layout's exact counts) on the same card tensors: ``pair_tri``
+    bitwise on the valid prefix, every other output bitwise. Returns the
+    kernel's bins."""
+    import torch
+
+    from compute_renderer_torch.backends import binning
+
+    before = binning.bin_sort.launches
+    got = binning.bin_sort(keys, tris, total, num_bins, **kw)
+    require(binning.bin_sort.launches == before + 1,
+            f"bin_sort {tag}: the wrapper did not launch the kernel")
+    exact = None
+    if kw.get("meta") is not None:
+        exact = binning.exact_tile_counts(
+            binning.setup_from_meta(kw["meta"]), kw["ntx"],
+            num_bins // kw["ntx"])
+    want = binning.bin_sort_plain(keys, tris, total, num_bins,
+                                  group=kw.get("group", 1),
+                                  cap=kw.get("cap", binning.CAP_NONE),
+                                  exact=exact)
+    torch.cuda.synchronize()
+    n = min(int(total), keys.shape[0])
+    compare_bins(f"bin_sort {tag}", got, want, n)
+    counts = torch.bincount(keys[:n].long(), minlength=num_bins)
+    print(f"[check] bin_sort {tag}: {num_bins} bins, {n} of "
+          f"{keys.shape[0]} slots, total {int(total)}: pair_tri, segments, "
+          f"work list (k {int(got['k'])}) and overflow "
+          f"{got['overflow'].tolist()} bitwise; longest segment "
+          f"{int(counts.max()) if counts.numel() else 0}, "
+          f"{int((counts > binning.SORT_WARP_CAP).sum())} over "
+          f"{binning.SORT_WARP_CAP}, "
+          f"{int((counts > binning.SORT_BLOCK_CAP).sum())} over "
+          f"{binning.SORT_BLOCK_CAP}")
+    report["max_abs_err"] = 0.0  # every output bitwise
+    return got
+
+
+def check_flat_bins(tag, meta, ntx, nty, pair_cap, tile_cap, report):
+    """The flat layout's card path (the expansion in row-major tile ids,
+    then the bin sort) against its twin (``bin_triangles_sort`` and the
+    work list) on the same meta, every output bitwise (``pair_tri`` on
+    its valid prefix), and the bin sort alone on the kernel's pairs."""
+    import torch
+
+    from compute_renderer_torch.backends import binning, expand
+
+    got = binning._bin_tiles_flat_cuda(meta, ntx, nty, pair_cap, tile_cap)
+    want = binning._with_worklist(binning.bin_triangles_sort(
+        binning.setup_from_meta(meta), ntx, nty, pair_cap, tile_cap))
+    torch.cuda.synchronize()
+    n = min(int(want["total_pairs"]), pair_cap)
+    compare_bins(f"flat bins {tag}", got, want, n)
+    keys, tris, total = expand._expand_cuda(
+        meta[3], meta[2], meta[0], meta[1], pair_cap=pair_cap, ntx_t=0,
+        num_cells=ntx * nty, row_width=ntx)
+    check_bin_sort(f"flat {tag}", keys, tris, total, ntx * nty, report,
+                   cap=tile_cap, meta=meta, ntx=ntx)
+    print(f"[check] flat bins {tag}: {ntx}x{nty} tiles, pair_cap "
+          f"{pair_cap}, tile_cap {tile_cap}: equal to bin_triangles_sort "
+          f"(longest list {int(want['seg_count'].max())}, overflow "
+          f"{got['overflow'].tolist()})")
+    return keys, tris, total
+
+
+def phase_sort_kernels(device, reports, scenes):
+    """The bin sort (csrc/sort.cu) and the vertex stage
+    (csrc/texture.cu vertex_stage_kernel) against their twins on the
+    card, bitwise: the cases of tests/test_torch_bin_sort.py and the
+    stress segment of SORT_STRESS pairs on both layouts; the micro layout
+    on structured_scene.obj within and past its pair capacity; the flat
+    layout on structured_scene_tex.obj and san_miguel_small at both tuner
+    tile shapes, at the default caps (structured_tex's heaviest tiles
+    overflow C), at the frame's exact need and at half its pairs; the
+    vertex stage on structured +deferred trilinear's frame and on a wave
+    frame; then the vertex stage's and the flat sort's times at the main
+    rows' shapes (the micro sort's are phase 4's)."""
+    import torch
+
+    from compute_renderer_torch.backends import (
+        binning, common, cuda, expand, front, texture,
+    )
+    from compute_renderer_torch.bench.profiling import event_ms
+    from compute_renderer_torch.core.effects import Effect, WaveDirection
+    from tests.torch_bin_cases import (
+        LONG, MICRO_SORT_CASES, SORT_CASES, sort_case, sort_pairs,
+    )
+
+    def on(a):
+        return torch.from_numpy(a).to(device)
+
+    for layout, names in (("micro", MICRO_SORT_CASES),
+                          ("flat", SORT_CASES)):
+        rec = "bin_sort" if layout == "micro" else "bin_sort.flat"
+        for name in names:
+            for long in ((LONG, SORT_STRESS) if name == "long" else (LONG,)):
+                meta, ntx, nty, pair_cap, cap = sort_case(layout, name,
+                                                          long=long)
+                keys, tris, total = sort_pairs(meta, ntx, ntx * nty,
+                                               pair_cap)
+                kw = (dict(group=16) if layout == "micro"
+                      else dict(cap=cap, meta=on(meta), ntx=ntx))
+                check_bin_sort(
+                    f"{layout} {name}{f' {long}' if name == 'long' else ''}",
+                    on(keys), on(tris),
+                    torch.full((), total, dtype=torch.int32, device=device),
+                    ntx * nty, reports[rec], **kw)
+
+    x = frame_inputs(scene_copy(scenes["structured+textures"]), device)
+    _, meta = front._front_end_cuda(x["pos_soa"], x["nrm_soa"], x["vp"],
+                                    x["eff"], width=W, height=H, tile_h=8,
+                                    tile_w=8)
+    ntx_t, nty_t = (W + 127) // 128, (H + 7) // 8
+    num_cells = ntx_t * nty_t * 16
+    total = int(meta[3].sum())
+    for pair_cap in (cuda.grow_pair_cap(0, max(total, num_cells, 1024)),
+                     total // 2):
+        keys, tris, tot = expand.expand_cells(
+            meta[3], meta[2], meta[0], meta[1], pair_cap=pair_cap,
+            ntx_t=ntx_t, num_cells=num_cells)
+        check_bin_sort(f"micro structured pair_cap {pair_cap}", keys, tris,
+                       tot, num_cells, reports["bin_sort"], group=16)
+
+    timing = None
+    for tag, scene in (
+            ("structured_tex", scene_copy(scenes["structured_tex+textures"])),
+            ("san_miguel_small", bench_scene("san_miguel_small.obj"))):
+        x = frame_inputs(scene, device)
+        for th, tw in cuda.TILE_CANDIDATES:
+            _, meta = front._front_end_cuda(
+                x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"], width=W,
+                height=H, tile_h=th, tile_w=tw)
+            ntx, nty = -(-W // tw), -(-H // th)
+            caps = cuda.default_caps("tile", x["T"], W, H, th, tw)
+            require(not binning.dense_layout(ntx, nty, caps["tile_cap"],
+                                             x["T"]),
+                    f"{tag} {th}x{tw}: the dense rule picks the dense layout")
+            need = binning.exact_tile_counts(binning.setup_from_meta(meta),
+                                             ntx, nty)
+            fit = (int(need.sum()), max(caps["tile_cap"], int(need.max())))
+            for label, pc, tc in (
+                    ("default caps", caps["pair_cap"], caps["tile_cap"]),
+                    ("exact need", *fit),
+                    ("half the pairs", fit[0] // 2, fit[1])):
+                pairs = check_flat_bins(f"{tag} {th}x{tw} {label}", meta,
+                                        ntx, nty, pc, tc,
+                                        reports["bin_sort.flat"])
+                if (tag, (th, tw), label) == ("structured_tex", (16, 256),
+                                              "exact need"):
+                    timing = (meta, ntx, nty, tc, pairs)
+
+    rep_v = reports["vertex_stage"]
+    for tag, effect in (("structured +deferred trilinear", None),
+                        ("structured +deferred trilinear, wave",
+                         Effect.wave(0.4, 3.0, 2.0, WaveDirection.VERTICAL))):
+        scene = scene_copy(scenes["structured+textures"],
+                           texture_filter="trilinear")
+        if effect is not None:
+            scene = scene_copy(scene, effect=effect)
+        x = frame_inputs(scene, device)
+        args = (x["positions"], x["vp"], x["eff"], W, H)
+        before = texture.vertex_stage.launches
+        wk, sk = texture.vertex_stage(*args)
+        wp, sp = common.vertex_stage(*args)
+        torch.cuda.synchronize()
+        require(texture.vertex_stage.launches == before + 1,
+                f"vertex_stage {tag}: the wrapper did not launch its kernel")
+        i32 = torch.int32
+        require(torch.equal(wk.view(i32), wp.view(i32))
+                and torch.equal(sk.view(i32), sp.view(i32)),
+                f"vertex_stage {tag}: differs from common.vertex_stage "
+                f"(world {int(ulps(wk, wp).max())} ULP, screen "
+                f"{int(ulps(sk, sp).max())} ULP)")
+        print(f"[check] vertex_stage {tag}: N={wk.shape[0]}, world and "
+              f"screen bitwise (NaN in screen: "
+              f"{int(torch.isnan(sk).any(1).sum())} rows)")
+        rep_v["max_abs_err"] = 0.0
+
+    # Times: the vertex stage over structured_scene.obj's vertices.
+    N = x["positions"].shape[0]
+    args = (x["positions"], x["vp"], x["eff"], W, H)
+    rep_v["ms"] = kernel_device_ms(lambda: texture.vertex_stage(*args), 50,
+                                   KERNELS["vertex_stage"]["symbol"])
+    rep_v["ms_events"] = event_ms(lambda: texture.vertex_stage(*args), 200)
+    rep_v["plain_ms"] = event_ms(lambda: common.vertex_stage(*args), 20)
+    rep_v["library_ms"] = None  # no PyTorch call computes this stage
+    rep_v["bound_ms"], rep_v["bound_by"] = bound_ms(N * VERTEX_BYTES,
+                                                    N * VERTEX_OPS)
+    print_time("vertex_stage", rep_v, f"structured, N={N}")
+
+    # The flat sort at structured_tex 16x256, capacities at the frame's
+    # need: the kernel, its twin (the exact counts included) and torch's
+    # stable sort with the gather and the two searchsorted it replaces.
+    meta, ntx, nty, tc, (keys, tris, total) = timing
+    num_tiles = ntx * nty
+    rep_f = reports["bin_sort.flat"]
+    run = lambda: binning._bin_sort_cuda(keys, tris, total, num_tiles, 1,  # noqa: E731
+                                         tc, meta, ntx)
+    rep_f["ms"] = kernel_device_ms(run, 50, KERNELS["bin_sort"]["symbol"])
+    rep_f["ms_events"] = event_ms(run, 200)
+
+    def plain():
+        exact = binning.exact_tile_counts(binning.setup_from_meta(meta), ntx,
+                                          nty)
+        return binning.bin_sort_plain(keys, tris, total, num_tiles, cap=tc,
+                                      exact=exact)
+
+    rep_f["plain_ms"] = event_ms(plain, 20)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=device)
+
+    def library():
+        skeys, order = torch.sort(keys, stable=True)
+        return (tris[order],
+                torch.searchsorted(skeys, ids, side="left", out_int32=True),
+                torch.searchsorted(skeys, ids, side="right", out_int32=True))
+
+    rep_f["library_ms"] = kernel_device_ms(library, 50, None)
+    if rep_f["library_ms"] is None:
+        rep_f["library_ms"] = event_ms(library, 50)
+    rep_f["bound_ms"], rep_f["bound_by"] = sort_bound(keys, total,
+                                                      num_tiles, "flat")
+    print_time("bin_sort.flat", rep_f, f"structured_tex 16x256, "
+               f"{int(total)} pairs, tile_cap {tc}")
+    print(f"[time] bin_sort.flat (structured_tex): torch.sort(stable) + "
+          f"gather + 2 searchsorted {rep_f['library_ms']} ms (device time "
+          f"of all their launches)")
+
+
 def phase_kernels(device, reports):
     from compute_renderer_torch.backends import binning, cuda, front, raster
     from compute_renderer_torch.bench.profiling import event_ms
@@ -1198,6 +1529,11 @@ def phase_micro_kernels(device, reports):
             for cap in (cuda.grow_pair_cap(0, need), x["T"] // 3 + 20_000):
                 check_expand("one 40,000-cell triangle", stress, cap, ntx,
                              num_cells, reports["expand_cells"])
+        keys, tris, total_t = expand.expand_cells(
+            meta[3], meta[2], meta[0], meta[1], pair_cap=pair_cap,
+            ntx_t=ntx, num_cells=num_cells)
+        check_bin_sort(f"micro {name}", keys, tris, total_t, num_cells,
+                       reports["bin_sort"], group=16)
         bins = binning.bin_cells_sort_meta(meta[3], meta[2], meta[0],
                                            meta[1], ntx, nty, pair_cap)
         require(int(bins["pair_needed"]) == 0, f"micro {name}: overflow")
@@ -1256,6 +1592,33 @@ def phase_micro_kernels(device, reports):
           f"c ({total} pairs, tri_of_pair alone) {rep['library_ms']} ms "
           f"(device time of all its launches), {event_ms(library, 50):.6f} "
           f"ms (events, call included)")
+
+    # The bin sort at San Miguel's shapes: the kernel, its twin and torch's
+    # stable sort with the gather and the searchsorted it replaces.
+    keys, tris, total_t = expand._expand_cuda(*eargs, **ekw)
+    run = lambda: binning._bin_sort_cuda(keys, tris, total_t, num_cells,  # noqa: E731
+                                         16, binning.CAP_NONE, None, 0)
+    rep = reports["bin_sort"]
+    rep["ms"] = kernel_device_ms(run, 50, KERNELS["bin_sort"]["symbol"])
+    rep["ms_events"] = event_ms(run, 200)
+    rep["plain_ms"] = event_ms(lambda: binning.bin_sort_plain(
+        keys, tris, total_t, num_cells, group=16), 20)
+    bounds = torch.arange(num_cells + 1, dtype=torch.int32, device=device)
+
+    def library():
+        skeys, order = torch.sort(keys, stable=True)
+        return tris[order], torch.searchsorted(skeys, bounds, side="left",
+                                               out_int32=True)
+
+    rep["library_ms"] = kernel_device_ms(library, 50, None)
+    if rep["library_ms"] is None:
+        rep["library_ms"] = event_ms(library, 50)
+    rep["bound_ms"], rep["bound_by"] = sort_bound(keys, total_t, num_cells,
+                                                  "micro")
+    print_time("bin_sort", rep, f"san_miguel, {int(total_t)} pairs")
+    print(f"[time] bin_sort (san_miguel): torch.sort(stable) + gather + "
+          f"searchsorted {rep['library_ms']} ms (device time of all their "
+          f"launches)")
 
     margs = (table, bins["pair_tri"], bins["seg_start"], bins["seg_count"])
     mkw = dict(height_padded=nty * 8, width_padded=ntx * 128)
@@ -1349,6 +1712,7 @@ def phase_main_path(device, card, reports):
 TILE_LAYERS = {
     "front_end": ("front_kernel",),
     "bin_tiles_dense": ("bin_rows_kernel", "bin_scan_kernel"),
+    "flat bin sort": ("expand_kernel", "bin_sort_"),
     "shading_params": ("shading_params_kernel",),
     "raster_shade_tiles": ("raster_kernel",),
 }
@@ -1466,6 +1830,8 @@ def compare_eager_graph(tag, renderer, scene, card, layers,
     require(not renderer.flush_overflow(), f"{tag}: overflow in the runs")
     for mode in ("eager", "graph"):
         print_profile(f"{tag} {mode}", prof[mode], slopes[mode][0])
+    glue = torch_glue_kernels(prof["graph"]["rows"])
+    require(not glue, f"{tag}: the graph runs torch's {glue}")
     row = {mode: {"slope_ms": slopes[mode][0], "wall_ms": slopes[mode][1],
                   "busy_ms": prof[mode]["busy_ms"],
                   "kernels": prof[mode]["kernels"],
@@ -1487,6 +1853,30 @@ def compare_eager_graph(tag, renderer, scene, card, layers,
           f"graph {g['host_calls']}, eager {e['host_calls']} ; card: {card}")
 
 
+def torch_glue_kernels(rows):
+    """The kernels among a profile's rows (``profile_batch``'s) that are
+    torch's sort, searchsorted or running max (``TORCH_GLUE``), not the
+    bin sort's own."""
+    return sorted({key for _, _, key in rows if "bin_sort_" not in key
+                   and any(g in key.lower() for g in TORCH_GLUE)})
+
+
+def profile_flat_graph(tag, renderer, scene):
+    """A flat-layout tile row's replayed graph, profiled over 16 frames:
+    its layers (the expansion and the bin sort as "flat bin sort"), and
+    no torch sort, searchsorted or running max in it."""
+    from compute_renderer_torch.bench import profiling
+
+    p = profiling.profile_batch(renderer, [scene.update(DT)
+                                           for _ in range(16)], TILE_LAYERS)
+    require(not renderer.flush_overflow(), f"{tag}: overflow")
+    print_profile(f"{tag} graph", p, p["wall_ms"] / p["frames"])
+    glue = torch_glue_kernels(p["rows"])
+    require(not glue, f"{tag}: the graph runs torch's {glue}")
+    require(p["by_layer"]["flat bin sort"] > 0 or not p["busy_ms"],
+            f"{tag}: the graph runs no flat bin sort kernel")
+
+
 def note_tuner(tag, renderer):
     """Prints and keeps a tile-path row's tuned tile shape and the tuner's
     timings (best seconds of each candidate on the row's first frames)."""
@@ -1504,8 +1894,8 @@ def phase_micro_main_path(device, card, reports):
     import numpy as np
 
     from compute_renderer_torch import Renderer
-    from compute_renderer_torch.backends import cuda, expand, front, micro
-    from compute_renderer_torch.backends import raster, texture
+    from compute_renderer_torch.backends import binning, cuda, expand, front
+    from compute_renderer_torch.backends import micro, raster, texture
 
     scene = bench_scene(SAN_MIGUEL, eye=SAN_MIGUEL_EYE)
     require(scene.total_tris == 998_784, f"San Miguel has {scene.total_tris}"
@@ -1515,6 +1905,7 @@ def phase_micro_main_path(device, card, reports):
     golden = np.load(GOLDEN_MICRO)["rgba"]
     counters = {"front_end": front.front_end,
                 "expand_cells": expand.expand_cells,
+                "bin_sort": binning.bin_sort,
                 "raster_shade_micro": micro.raster_shade_micro,
                 "shading_params": raster.shading_inputs,
                 "raster_shade_tiles": raster.raster_shade_tiles,
@@ -1529,8 +1920,8 @@ def phase_micro_main_path(device, card, reports):
           f"the graph's capture; replays tick no counter): {launches}; "
           f"table copies {raster.kernel_table.copies}")
     require_front_tables("micro main path")
-    for name in ("front_end", "expand_cells", "raster_shade_micro",
-                 "shading_params"):
+    for name in ("front_end", "expand_cells", "bin_sort",
+                 "raster_shade_micro", "shading_params"):
         require(launches[name] >= CAPTURE_LAUNCHES, f"the micro main path "
                 f"launched the {name} kernel {launches[name]} times")
     require(launches["raster_shade_tiles"] == 0,
@@ -1541,7 +1932,7 @@ def phase_micro_main_path(device, card, reports):
     require(launches["expand_cells"] == CAPTURE_LAUNCHES
             and launches["front_end"] == CAPTURE_LAUNCHES + 1,
             "a frame overflowed and was captured again")
-    for name in ("expand_cells", "raster_shade_micro"):
+    for name in ("expand_cells", "bin_sort", "raster_shade_micro"):
         reports[name]["launches"] = launches[name]
     require(not renderer.flush_overflow(), "overflow on the micro main path")
     caps = cuda.default_caps("micro", scene.total_tris, W, H)
@@ -1556,11 +1947,11 @@ def phase_micro_main_path(device, card, reports):
     compare_eager_graph("san_miguel", renderer, scene, card, MICRO_LAYERS)
 
 
-def phase_san_miguel(device):
+def phase_san_miguel(device, reports):
     import numpy as np
 
     from compute_renderer_torch import Renderer
-    from compute_renderer_torch.backends import front, raster
+    from compute_renderer_torch.backends import binning, front, raster
 
     scene = bench_scene("san_miguel_small.obj")
     uniforms = scene.update(DT)
@@ -1568,12 +1959,19 @@ def phase_san_miguel(device):
                    **scene.renderer_options())
     front.front_end.launches = 0
     raster.raster_shade_tiles.launches = 0
+    binning.bin_sort.launches = 0
     # The first frame tunes the tile shape and settles the capacities
     # (one retry at most); the second replays the winner's graph.
     gpu.render(uniforms)
     img = gpu.render(uniforms)
-    launches = (front.front_end.launches, raster.raster_shade_tiles.launches)
+    launches = (front.front_end.launches, raster.raster_shade_tiles.launches,
+                binning.bin_sort.launches)
+    require(launches[2] >= CAPTURE_LAUNCHES, f"san_miguel_small: the flat "
+            f"layout's bin sort launched {launches[2]} times")
+    reports["bin_sort.flat"]["launches"] = (
+        reports["bin_sort.flat"].get("launches", 0) + launches[2])
     note_tuner("san_miguel_small", gpu)
+    profile_flat_graph("san_miguel_small", gpu, scene)
     cpu = Renderer(scene.mesh, W, H, device="cpu",
                    **scene.renderer_options())
     ref = cpu.render(uniforms)
@@ -1585,8 +1983,8 @@ def phase_san_miguel(device):
     covered = int((img != np.array([0, 0, 255, 255], np.uint8))
                   .any(axis=-1).sum())
     require(covered > 0, "san_miguel_small: nothing rendered")
-    print(f"[san_miguel_small] T={scene.total_tris} launches (front, raster)"
-          f"={launches} covered {covered} px, {ndiff} px differ from the CPU "
+    print(f"[san_miguel_small] T={scene.total_tris} launches (front, raster, "
+          f"bin sort)={launches} covered {covered} px, {ndiff} px differ from the CPU "
           f"twin path (max {int(d.max())} LSB), caps {gpu.options}")
 
 
@@ -1602,6 +2000,7 @@ def counters():
             "raster_shade_micro": micro.raster_shade_micro,
             "bin_tiles_dense": binning.bin_tiles_meta,
             "shading_params": raster.shading_inputs,
+            "bin_sort": binning.bin_sort,
             **texture.WRAPPERS}
 
 
@@ -2023,6 +2422,8 @@ def check_texture_launches(tag, launches, mode, tex_filter, reports):
     ran = {TEXTURE_STAGES[mode]} if mode in TEXTURE_STAGES else set()
     if mode in ("texf_mip", "vis") and tex_filter in MIP_FILTERS:
         ran.add("mip_rows")
+    if mode == "vis":
+        ran.add("vertex_stage")
     for name in TEXTURE_KERNELS:
         n = launches[name]
         if name in ran:
@@ -2191,6 +2592,17 @@ EXT_ROWS = (
 )
 
 
+def note_bin_sort(row, path, launches, reports):
+    """A structured row's bin sort: launched by its captures, on the micro
+    path (its cells) or the tile path's flat layout (the dense rule sends
+    these frames there); the count goes to that layout's record."""
+    n = launches["bin_sort"]
+    require(n >= CAPTURE_LAUNCHES, f"{row}: the bin sort kernel launched "
+            f"{n} times")
+    rec = "bin_sort" if path == "micro" else "bin_sort.flat"
+    reports[rec]["launches"] = reports[rec].get("launches", 0) + n
+
+
 def phase_ext_main_paths(device, card, reports, scenes):
     """Each extension row through Scene -> Renderer ->
     render_batch_device against the JAX package's golden frames, with the
@@ -2235,6 +2647,7 @@ def phase_ext_main_paths(device, card, reports, scenes):
         if path == "micro":
             require(launches["expand_cells"] >= CAPTURE_LAUNCHES,
                     f"{row}: the expansion kernel did not run")
+        note_bin_sort(row, path, launches, reports)
         require(not renderer.flush_overflow(), f"{row}: overflow")
         require(golden[row].shape[0] == frames,
                 f"{row}: {golden[row].shape[0]} golden frames")
@@ -2242,6 +2655,7 @@ def phase_ext_main_paths(device, card, reports, scenes):
         check_graph_equals_eager(f"ext {row}", renderer, batch, imgs)
         if path == "tile":
             note_tuner(f"structured_tex {row}", renderer)
+            profile_flat_graph(f"ext {row}", renderer, scene)
         renderers[row] = (renderer, scene)
 
     for row in ("materials", "textures"):
@@ -2269,10 +2683,14 @@ MIP_ROWS = (
 MICRO_LAYERS = {
     "front": ("front_kernel",),
     "expand": ("expand_kernel",),
-    "sort+segments": ("sort", "searchsorted"),
+    "bin sort": ("bin_sort_",),
     "micro": ("micro_kernel",),
     "shading params": ("shading_params_kernel",),
 }
+# Kernels no main path's graph may hold since the bin sort and the vertex
+# stage run on the card: torch's sort, searchsorted and running max (the
+# bin sort's own kernels are named bin_sort_*).
+TORCH_GLUE = ("sort", "searchsorted", "cummax")
 
 
 def render_row(device, scene, frames, **options):
@@ -2333,12 +2751,14 @@ def phase_mip_main_paths(device, card, reports, scenes):
         if path == "micro":
             require(launches["expand_cells"] >= CAPTURE_LAUNCHES,
                     f"{row}: the expansion kernel did not run")
+        note_bin_sort(row, path, launches, reports)
         require(golden[row].shape[0] == frames,
                 f"{row}: {golden[row].shape[0]} golden frames")
         check_golden(f"mip {row}", imgs, golden[row])
         check_graph_equals_eager(f"mip {row}", renderer, batch, imgs)
         if path == "tile":
             note_tuner(f"structured_tex {row}", renderer)
+            profile_flat_graph(f"mip {row}", renderer, scene)
         renderers[row] = (renderer, scene)
         first[row] = imgs[0]
 
@@ -3117,7 +3537,8 @@ def par_check_counts(tag, counts, path):
     need = (("front_end", "bin_tiles_dense", "shading_params",
              "raster_shade_tiles") if path == "tile" else
             ("front_end", "expand_cells", "shading_params",
-             "raster_shade_micro"))
+             "raster_shade_micro") + (("bin_sort",) if path == "micro"
+                                      else ()))
     for name in need:
         require(counts.get(name, 0) > 0,
                 f"{tag}: the {name} kernel was not launched ({counts})")
@@ -4017,7 +4438,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all(["front", "raster", "expand", "micro", "bins",
-                      "texture"])
+                      "texture", "sort"])
     print(f"[build] {time.perf_counter() - t0:.2f} s (in parallel)")
     for name, (secs, log) in _build.BUILD_LOG.items():
         print(f"[build] {name}.cu {secs:.2f} s: " + "; ".join(
@@ -4038,9 +4459,10 @@ def main() -> int:
     run(phase_micro_kernels, device, reports)
     run(phase_main_path, device, card, reports)
     run(phase_micro_main_path, device, card, reports)
-    run(phase_san_miguel, device)
+    run(phase_san_miguel, device, reports)
     scenes = run(load_ext_scenes)
     run(check_bins_structured, device, reports, scenes)
+    run(phase_sort_kernels, device, reports, scenes)
     run(phase_mode_kernels, device, reports, scenes, MODES)
     run(phase_ext_main_paths, device, card, reports, scenes)
     run(phase_mode_kernels, device, reports, scenes, NEW_MODES)

@@ -20,12 +20,17 @@ On the tile path ``bin_tiles_meta`` bins straight from the front end's
 meta and adds what the raster and the retry read besides: the
 occupied-tile work list and the (2,) overflow report. On a CUDA tensor
 its dense layout is the hand-written kernel ``csrc/bins.cu``
-(``bin_tiles_dense``), its flat layout the torch sort; a CPU tensor takes
-the twin, ``bin_tiles_meta_plain``.
+(``bin_tiles_dense``), its flat layout the pair expansion
+(``csrc/expand.cu``, row-major tile ids) and the bin sort
+(``csrc/sort.cu``); a CPU tensor takes the twin, ``bin_tiles_meta_plain``.
 
 The micro path bins at 8x8 cells instead (``bin_cells_sort_meta``): the
-pair expansion is a kernel (``expand.py``), the rest one stable sort and
-searchsorted segments.
+pair expansion, then the same bin sort, 16 cells a tile.
+
+``bin_sort`` is the stable sort of a pair list by bin, with its segments,
+work list and overflow report: the kernel ``csrc/sort.cu`` on a CUDA
+tensor, its twin ``bin_sort_plain`` (one stable ``torch.sort`` and
+searchsorted segments) on a CPU tensor.
 
 Every integer output equals the JAX package's bit for bit. The TPU-only
 padding of the outputs (8-row blocks, 1024-element DMA windows) is not
@@ -44,6 +49,15 @@ I32 = torch.int32
 # both packages pick the same layout; the cost balance on the GPU is not
 # measured yet.
 DENSE_BINNING_OP_LIMIT = 600_000_000
+
+# The bin sort kernel's tiers (csrc/sort.cu): a warp sorts a segment of up
+# to SORT_WARP_CAP pairs, a block one of up to SORT_BLOCK_CAP, each in its
+# registers; a longer one sorts as SORT_BLOCK_CAP chunks, each element
+# then placed by its rank in the other chunks.
+SORT_WARP_CAP = 256
+SORT_BLOCK_CAP = 2048
+# No per-bin cap (the micro layout's ``cap``).
+CAP_NONE = 2**31 - 1
 
 
 def cover_counts(setup):
@@ -211,36 +225,16 @@ def bin_triangles_sort(setup, ntx: int, nty: int, pair_cap: int,
     tile_of_pair = torch.where(valid, tile_of_pair, num_tiles).to(I32)
 
     # Stable: pairs are generated in triangle order, so each tile keeps
-    # ascending triangle ids.
-    sorted_tile, order = torch.sort(tile_of_pair, stable=True)
-    sorted_tri = tri_of_pair[order]
-
-    tile_ids = torch.arange(num_tiles, dtype=I32, device=device)
-    seg_start = torch.searchsorted(sorted_tile, tile_ids, side="left",
-                                   out_int32=True)
-    seg_end = torch.searchsorted(sorted_tile, tile_ids, side="right",
-                                 out_int32=True)
-    count = seg_end - seg_start
-
-    pair_overflow = total > pair_cap
-    if num_tiles > 0:
-        # Counts above come from the pair_cap-bounded list and under-report
-        # when it overflows; then the exact corner-scatter counts decide.
-        max_count = torch.where(pair_overflow,
-                                exact_tile_counts(setup, ntx, nty).max(),
-                                count.max())
-    else:
-        max_count = torch.zeros((), dtype=I32, device=device)
-    tile_overflow = max_count > tile_cap
-    return {
-        "pair_tri": sorted_tri,
-        "seg_start": seg_start,
-        "seg_count": torch.clamp(count, max=tile_cap),
-        "total_pairs": total,
-        "pair_needed": torch.where(pair_overflow, total, 0).to(I32),
-        "tile_needed": torch.where(tile_overflow, max_count, 0).to(I32),
-        "layout": "flat",
-    }
+    # ascending triangle ids. Counts from the pair_cap-bounded list
+    # under-report when it overflows; then the exact corner-scatter counts
+    # decide the tile need.
+    exact = exact_tile_counts(setup, ntx, nty) if num_tiles > 0 else None
+    bins = bin_sort_plain(tile_of_pair, tri_of_pair, total, num_tiles,
+                          cap=tile_cap, exact=exact)
+    out = {k: bins[k] for k in ("pair_tri", "seg_start", "seg_count",
+                                "total_pairs", "pair_needed", "tile_needed")}
+    out["layout"] = "flat"
+    return out
 
 
 def occupied_worklist(seg_count):
@@ -265,6 +259,212 @@ def _with_worklist(bins):
     bins["worklist"], bins["k"] = occupied_worklist(bins["seg_count"])
     bins["overflow"] = torch.stack([bins["pair_needed"], bins["tile_needed"]])
     return bins
+
+
+# ---------------------------------------------------------------------------
+# The bin sort: a pair list in (bin, triangle) order, both layouts
+# ---------------------------------------------------------------------------
+
+def _bin_extras(counts, seg_start, total, pair_cap: int, group: int,
+                cap: int, exact):
+    """What the bin sort adds to the segments: the clamped counts, the
+    group's tile counts and window bases (group 16), the occupied-tile
+    work list, the total, the needed capacities and the overflow report."""
+    device = counts.device
+    num_bins = counts.shape[0]
+    total = total.to(I32)
+    over = total > pair_cap
+    if num_bins == 0:
+        most = torch.zeros((), dtype=I32, device=device)
+    elif exact is not None:
+        most = torch.where(over, exact.max(), counts.max())
+    else:
+        most = counts.max()
+    out = {"seg_start": seg_start, "seg_count": torch.clamp(counts, max=cap),
+           "total_pairs": total,
+           "pair_needed": torch.where(over, total, 0).to(I32),
+           "tile_needed": torch.where(most > cap, most, 0).to(I32)}
+    occupied = out["seg_count"]
+    if group == 16:
+        out["tile_count"], out["win_start"] = _cell_tiles(
+            counts, seg_start, num_bins // 16)
+        occupied = torch.clamp(out["tile_count"], max=cap)
+    out["worklist"], out["k"] = occupied_worklist(occupied)
+    out["overflow"] = torch.stack([out["pair_needed"], out["tile_needed"]])
+    return out
+
+
+def bin_sort_plain(keys, tris, total, num_bins: int, *, group: int = 1,
+                   cap: int = CAP_NONE, exact=None):
+    """The twin of ``bin_sort``: one stable ``torch.sort`` of the keys
+    carrying the triangles, then searchsorted segments
+    (``segments_from_sorted_cells`` at 16 cells a tile) and
+    ``_bin_extras``; ``exact`` is the (num_bins,) exact counts the tile
+    need takes under pair overflow (the flat layout's), or None."""
+    sorted_bin, order = torch.sort(keys, stable=True)
+    if group == 16:
+        seg_start, counts, _, _ = segments_from_sorted_cells(
+            sorted_bin, num_bins, num_bins // 16)
+    else:
+        ids = torch.arange(num_bins, dtype=I32, device=keys.device)
+        seg_start = torch.searchsorted(sorted_bin, ids, side="left",
+                                       out_int32=True)
+        counts = torch.searchsorted(sorted_bin, ids, side="right",
+                                    out_int32=True) - seg_start
+    out = _bin_extras(counts, seg_start, total, keys.shape[0], group, cap,
+                      exact)
+    out["pair_tri"] = tris[order]
+    return out
+
+
+def _merge_chunks_plain(seg, width: int):
+    """``seg`` sorted as the kernel sorts a long segment: chunks of
+    ``width`` sorted alone, then each element placed at its index in its
+    chunk plus the count of each other chunk's elements below it (the
+    triangle ids of a segment are distinct)."""
+    chunks = [torch.sort(seg[c0:c0 + width]).values
+              for c0 in range(0, seg.shape[0], width)]
+    out = torch.empty_like(seg)
+    for c, chunk in enumerate(chunks):
+        pos = torch.arange(chunk.shape[0])
+        for d, other in enumerate(chunks):
+            if d != c:
+                pos = pos + torch.searchsorted(other, chunk)
+        out[pos] = chunk
+    return out
+
+
+def bin_sort_steps_plain(keys, tris, total, num_bins: int, *,
+                         group: int = 1, cap: int = CAP_NONE, exact=None,
+                         arrival=None, block_cap: int = SORT_BLOCK_CAP):
+    """The kernel's decomposition of ``bin_sort_plain`` in torch (tests
+    only, CPU): count the valid slots' bins, scan the counts, scatter each
+    triangle at its bin's cursor in the order ``arrival`` (a permutation
+    of the valid slots, standing in for the order the kernel's atomics
+    take; slot order when None), then sort each segment by triangle id
+    (a segment longer than ``block_cap`` as the kernel sorts it,
+    ``_merge_chunks_plain``). Equal to ``bin_sort_plain`` on the valid
+    prefix of ``pair_tri`` and on every other output."""
+    pair_cap = keys.shape[0]
+    n = max(min(int(total), pair_cap), 0)
+    k = keys[:n].long()
+    counts = torch.zeros((num_bins,), dtype=I32).index_add_(
+        0, k, torch.ones((n,), dtype=I32))
+    seg_start = torch.cumsum(counts, 0, dtype=I32) - counts
+    arrival = torch.arange(n) if arrival is None else arrival
+    ka, ta = k[arrival], tris[:n][arrival]
+    # Each arrival's slot: its bin's cursor, advanced by the arrivals of
+    # that bin before it.
+    rank = torch.empty((n,), dtype=torch.long)
+    by_bin = torch.sort(ka, stable=True).indices
+    rank[by_bin] = torch.arange(n) - seg_start.long()[ka[by_bin]]
+    pair_tri = torch.zeros((pair_cap,), dtype=I32)
+    pair_tri[seg_start.long()[ka] + rank] = ta.to(I32)
+    for b in torch.nonzero(counts > 1).flatten().tolist():
+        s0, cnt = int(seg_start[b]), int(counts[b])
+        seg = pair_tri[s0:s0 + cnt]
+        pair_tri[s0:s0 + cnt] = (torch.sort(seg).values if cnt <= block_cap
+                                 else _merge_chunks_plain(seg, block_cap))
+    out = _bin_extras(counts, seg_start, total, pair_cap, group, cap, exact)
+    out["pair_tri"] = pair_tri
+    return out
+
+
+def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx):
+    from compute_renderer_torch import _build
+
+    device = keys.device
+    pair_cap = keys.shape[0]
+    keys = keys.to(I32).contiguous()
+    tris = tris.to(I32).contiguous()
+    total = total.to(I32).reshape(())
+    if total.device != device or tris.shape != (pair_cap,):
+        raise ValueError(f"bin_sort: tris {tuple(tris.shape)} on "
+                         f"{tris.device}, total on {total.device}, keys "
+                         f"({pair_cap},) on {device}")
+    rows = [None] * 4
+    T = 0
+    if meta is not None:
+        T = meta.shape[1]
+        if meta.dtype != I32 or (T > 1 and meta.stride(1) != 1):
+            meta = meta.to(I32).contiguous()
+        rows = [meta[3], meta[2], meta[0], meta[1]]  # c, rx, x0, y0
+    num_tiles = num_bins // group
+    counts = torch.empty((num_bins * (2 if meta is not None else 1),),
+                         dtype=I32, device=device)
+    seg = torch.empty((3, num_bins), dtype=I32, device=device)
+    # The long segments' chunks, (bin, chunk) pairs: a bin of more than
+    # SORT_WARP_CAP pairs has ceil(count / SORT_BLOCK_CAP) of them.
+    chunks = torch.empty((2 * (num_bins + pair_cap // SORT_BLOCK_CAP + 1),),
+                         dtype=I32, device=device)
+    other = torch.empty((pair_cap,), dtype=I32, device=device)
+    pair_tri = torch.empty((pair_cap,), dtype=I32, device=device)
+    worklist = torch.empty((num_tiles,), dtype=I32, device=device)
+    tile_count = win_start = None
+    if group == 16:
+        tile_count, win_start = torch.empty((2, num_tiles), dtype=I32,
+                                            device=device)
+    scal = torch.empty((5,), dtype=I32, device=device)
+    ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+    fn = _build.entry("sort", "bin_sort", pointers=18, ints=6)
+    bin_sort.launches += 1
+    _build.check(
+        fn(keys.data_ptr(), tris.data_ptr(), total.data_ptr(),
+           *(ptr(r) for r in rows), counts.data_ptr(), seg[2].data_ptr(),
+           chunks.data_ptr(), other.data_ptr(), pair_tri.data_ptr(),
+           seg[0].data_ptr(), seg[1].data_ptr(), ptr(tile_count),
+           ptr(win_start), worklist.data_ptr(),
+           scal.data_ptr(), T, pair_cap, num_bins, group, int(cap), ntx,
+           torch.cuda.current_stream(device).cuda_stream),
+        "bin_sort",
+    )
+    out = {"pair_tri": pair_tri, "seg_start": seg[0], "seg_count": seg[1],
+           "total_pairs": scal[2], "pair_needed": scal[0],
+           "tile_needed": scal[1], "worklist": worklist, "k": scal[3],
+           "overflow": scal[0:2]}
+    if group == 16:
+        out["tile_count"], out["win_start"] = tile_count, win_start
+    return out
+
+
+def bin_sort(keys, tris, total, num_bins: int, *, group: int = 1,
+             cap: int = CAP_NONE, meta=None, ntx: int = 0):
+    """Stable sort of a pair list by bin, with its segments and work list.
+
+    ``keys`` / ``tris`` (pair_cap,) i32: each pair slot's bin and
+    triangle, the first n = min(total, pair_cap) valid and in triangle
+    order, the rest holding the ``num_bins`` sentinel (``expand.py``'s
+    contract); ``total`` () the pairs in all. ``group`` bins make a tile
+    of the work list (16 cells on the micro path, 1 on the flat layout);
+    ``cap`` clamps ``seg_count`` and sets the tile need; ``meta`` (4, T)
+    [x0, y0, rx, c] with ``ntx`` gives the flat layout's rects, whose
+    exact per-tile counts decide the tile need under pair overflow.
+
+    Returns a dict: ``pair_tri`` (pair_cap,) (in (bin, triangle) order on
+    [0, n); the rest unspecified), ``seg_start`` / ``seg_count``
+    (num_bins,), ``total_pairs``, ``pair_needed``, ``tile_needed``,
+    ``worklist`` (num_bins / group,) and ``k``, ``overflow`` (2,), and at
+    group 16 ``tile_count`` and ``win_start``.
+
+    CPU tensors take the twin, ``bin_sort_plain``; CUDA tensors the kernel
+    ``csrc/sort.cu`` (``bin_sort.launches`` counts its calls, five
+    launches and a memset each; a CUDA graph's capture ticks it, its
+    replays do not)."""
+    if group not in (1, 16) or num_bins % group:
+        raise ValueError(f"bin_sort: {num_bins} bins in groups of {group}")
+    if keys.device.type == "cpu":
+        exact = None
+        if meta is not None and num_bins > 0:
+            exact = exact_tile_counts(setup_from_meta(meta), ntx,
+                                      num_bins // ntx)
+        return bin_sort_plain(keys, tris, total, num_bins, group=group,
+                              cap=cap, exact=exact)
+    if keys.device.type != "cuda":
+        raise ValueError(f"bin_sort: no kernel for device {keys.device}")
+    return _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx)
+
+
+bin_sort.launches = 0
 
 
 def bin_tiles_meta_plain(meta, ntx: int, nty: int, pair_cap: int,
@@ -311,6 +511,23 @@ def _bin_tiles_cuda(meta, ntx: int, nty: int, tile_cap: int):
     }
 
 
+def _bin_tiles_flat_cuda(meta, ntx: int, nty: int, pair_cap: int,
+                         tile_cap: int):
+    """The flat layout on the card: the pair expansion with row-major tile
+    ids (``csrc/expand.cu``), then ``bin_sort`` with the rects' exact
+    counts."""
+    from compute_renderer_torch.backends import expand
+
+    num_tiles = ntx * nty
+    keys, tris, total = expand._expand_cuda(
+        meta[3], meta[2], meta[0], meta[1], pair_cap=pair_cap, ntx_t=0,
+        num_cells=num_tiles, row_width=ntx)
+    bins = bin_sort(keys, tris, total, num_tiles, cap=tile_cap, meta=meta,
+                    ntx=ntx)
+    bins["layout"] = "flat"
+    return bins
+
+
 def bin_tiles_meta(meta, ntx: int, nty: int, pair_cap: int, tile_cap: int):
     """Tile binning from the front end's meta rows (4, T) = [tile_x0,
     tile_y0, rx, c], which may be a chunk ``meta[:, c0:c1]`` of a frame's
@@ -322,15 +539,18 @@ def bin_tiles_meta(meta, ntx: int, nty: int, pair_cap: int, tile_cap: int):
     CPU tensors take the twin. CUDA tensors take the kernel
     ``csrc/bins.cu`` when ``dense_layout`` picks the dense layout
     (``bin_tiles_meta.launches`` counts its calls, two launches each; a
-    CUDA graph's capture ticks it, its replays do not), else the torch
-    sort."""
+    CUDA graph's capture ticks it, its replays do not), else the pair
+    expansion and the bin sort (``_bin_tiles_flat_cuda``; their own
+    counters tick). The card's flat layout takes the front's meta
+    contract: an alive triangle's rect lies in the grid and c = rx * ry."""
     if meta.shape[0] != 4:
         raise ValueError(f"meta has {meta.shape[0]} rows, expected 4")
-    if (meta.device.type == "cpu"
-            or not dense_layout(ntx, nty, tile_cap, meta.shape[1])):
+    if meta.device.type == "cpu":
         return bin_tiles_meta_plain(meta, ntx, nty, pair_cap, tile_cap)
     if meta.device.type != "cuda":
         raise ValueError(f"bin_tiles_meta: no kernel for device {meta.device}")
+    if not dense_layout(ntx, nty, tile_cap, meta.shape[1]):
+        return _bin_tiles_flat_cuda(meta, ntx, nty, pair_cap, tile_cap)
     return _bin_tiles_cuda(meta, ntx, nty, tile_cap)
 
 
@@ -378,10 +598,16 @@ def segments_from_sorted_cells(sorted_cell, num_cells: int, num_tiles: int):
         side="left", out_int32=True)
     seg_start = bounds[:-1]
     counts = bounds[1:] - bounds[:-1]
+    return (seg_start, counts) + _cell_tiles(counts, seg_start, num_tiles)
+
+
+def _cell_tiles(counts, seg_start, num_tiles: int):
+    """(tile_count, win_start) of the cells' segments, 16 cells a tile:
+    each tile's summed counts and the 16-aligned base of its first
+    segment."""
     tile_count = counts.reshape(num_tiles, 16).sum(dim=1, dtype=I32)
     first = seg_start.reshape(num_tiles, 16)[:, 0]
-    win_start = torch.div(first, 16, rounding_mode="floor") * 16
-    return seg_start, counts, tile_count, win_start
+    return tile_count, torch.div(first, 16, rounding_mode="floor") * 16
 
 
 def bin_cells_sort_meta(c, rx, x0, y0, ntx_t: int, nty_t: int,
@@ -400,25 +626,17 @@ def bin_cells_sort_meta(c, rx, x0, y0, ntx_t: int, nty_t: int,
     (defined on [0, min(total, pair_cap))), ``seg_start`` / ``seg_count``
     (num_cells,), ``win_start`` / ``tile_count`` (num_tiles,),
     ``total_pairs``, ``pair_needed`` and ``tile_needed`` (always 0: no
-    per-tile cap)."""
+    per-tile cap), and the occupied-tile ``worklist`` (num_tiles,) with
+    ``k`` and the (2,) ``overflow`` report. CPU tensors take the twins
+    (``expand.expand_cells_plain``, ``bin_sort_plain``), CUDA tensors the
+    kernels (``csrc/expand.cu``, ``csrc/sort.cu``)."""
     num_tiles = ntx_t * nty_t
     num_cells = num_tiles * 16
     cell_of_pair, tri_of_pair, total = expand_cells_meta(
         c, rx, x0, y0, ntx_t, num_cells, pair_cap)
-    sorted_cell, order = torch.sort(cell_of_pair, stable=True)
-    seg_start, counts, tile_count, win_start = segments_from_sorted_cells(
-        sorted_cell, num_cells, num_tiles)
-    return {
-        "pair_tri": tri_of_pair[order],
-        "seg_start": seg_start,
-        "seg_count": counts,
-        "win_start": win_start,
-        "tile_count": tile_count,
-        "total_pairs": total,
-        "pair_needed": torch.where(total > pair_cap, total, 0).to(I32),
-        "tile_needed": torch.zeros((), dtype=I32, device=total.device),
-        "layout": "micro",
-    }
+    bins = bin_sort(cell_of_pair, tri_of_pair, total, num_cells, group=16)
+    bins["layout"] = "micro"
+    return bins
 
 
 def bin_cells_sort(setup, ntx_t: int, nty_t: int, pair_cap: int):

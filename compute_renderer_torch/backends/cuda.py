@@ -24,11 +24,12 @@ Tile path, per frame:
 1. ``front.front_end`` — vertex stage, setup and the coefficient table in
    one kernel, at tile granularity, in the layout the rasters read (no
    copy between them); texf_mip and vis also launch ``texture.mip_rows``
-   under a mip filter, and vis runs the torch ``common.vertex_stage``
-   for the per-vertex screen and world the deferred tail reads;
+   under a mip filter, and vis launches ``texture.vertex_stage`` for the
+   per-vertex screen and world the deferred tail reads;
 2. ``binning.bin_tiles_meta`` on the front's meta: the bins, the
    occupied-tile work list and the overflow report (dense at Suzanne
-   scale, one kernel; the sort above ``DENSE_BINNING_OP_LIMIT``);
+   scale, one kernel; above ``DENSE_BINNING_OP_LIMIT`` the flat layout:
+   the pair expansion and the bin sort, ``csrc/sort.cu``);
 3. ``raster.raster_shade_tiles`` over the occupied tiles, its shading
    parameters built by one kernel (``raster.shading_inputs``);
 4. ``raster.unpack_rgba``, or the mode's texture tail.
@@ -37,8 +38,8 @@ Micro path (``render_frame_micro``), for scenes above
 ``TILE_PATH_MAX_TRIANGLES``:
 
 1. ``front.front_end`` at 8x8-cell granularity;
-2. ``binning.bin_cells_sort_meta`` — the pair-expansion kernel, one
-   stable sort by cell, searchsorted segments;
+2. ``binning.bin_cells_sort_meta`` — the pair-expansion kernel, then the
+   bin sort kernel: the cell-sorted pairs, segments and work list;
 3. ``micro.raster_shade_micro`` over the occupied 8x128 tiles;
 4. as on the tile path (vis maps the winner's pair index to its triangle
    through the sorted pair list first).
@@ -168,7 +169,7 @@ TEXTURE_RANGES = ("texture_setup", "texture_tail")
 # from their own library, outside any torch op, so a profile finds them
 # by name, not under the range.
 TEXTURE_RANGE_KERNELS = {
-    "texture_setup": ("mip_rows_kernel",),
+    "texture_setup": ("mip_rows_kernel", "vertex_stage_kernel"),
     "texture_tail": ("texture_tail_kernel", "texture_tail_mip_kernel",
                      "deferred_tail_kernel"),
 }
@@ -199,7 +200,7 @@ def _frame_texture(mode, positions, tri, view_proj, effect, width, height,
                    face_kd, uvs, uv_soa, tex_rows, face_tex, tex_mips,
                    tex_filter):
     """What the deferred tail reads (vis only, else None): the per-vertex
-    (world, screen) of ``common.vertex_stage`` and the frame's mip rows
+    (world, screen) of ``texture.vertex_stage`` and the frame's mip rows
     (``texture.mip_rows``; None under nearest and bilinear); and the front
     end's mode inputs: kd rows, uv corners and the TextureInfo rows (texf)
     or the frame's mip rows (texf_mip). The vis table is the base one (kd
@@ -220,8 +221,8 @@ def _frame_texture(mode, positions, tri, view_proj, effect, width, height,
         if mode == "texf_mip":
             return None, {"kd_rows": face_kd, "uv_soa": uv_soa,
                           "mip_rows": rows}
-        world, screen = common.vertex_stage(positions, view_proj, effect,
-                                            width, height)
+        world, screen = texture.vertex_stage(positions, view_proj, effect,
+                                             width, height)
         return (world, screen, rows), {}
 
 
@@ -409,8 +410,8 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
         bins["seg_count"], bins["tile_count"], effect,
         view_position.to(F32), light_world_pos, light_color,
         light_intensity, height_padded=nty * 8, width_padded=ntx * 128,
-        mode=mode)
-    overflow = torch.stack([bins["pair_needed"], bins["tile_needed"]])
+        mode=mode, worklist=(bins["worklist"], bins["k"]))
+    overflow = bins["overflow"]
     key = key_p[:height, :width]
     rgba = finish_frame(mode, out_p[..., :height, :width], key, tex, vertex,
                         tri, normals, effect, view_position.to(F32),

@@ -56,7 +56,11 @@ def expand_cells_plain(c, rx, x0, y0, *, pair_cap: int, ntx_t: int,
     return cell, tri_of_pair, total
 
 
-def _expand_cuda(c, rx, x0, y0, *, pair_cap, ntx_t, num_cells):
+def _expand_cuda(c, rx, x0, y0, *, pair_cap, ntx_t, num_cells,
+                 row_width=None):
+    """The kernel: cell ids as the micro path numbers them, or with
+    ``row_width`` the row-major ids ``cy * row_width + cx`` (the tile
+    path's flat layout, ``binning.bin_tiles_meta``)."""
     from compute_renderer_torch import _build
 
     device = c.device
@@ -67,12 +71,13 @@ def _expand_cuda(c, rx, x0, y0, *, pair_cap, ntx_t, num_cells):
     total = torch.empty((1,), dtype=I32, device=device)
     cell = torch.empty((pair_cap,), dtype=I32, device=device)
     tri = torch.empty((pair_cap,), dtype=I32, device=device)
-    fn = _build.entry("expand", "expand_cells_i32", pointers=8, ints=5)
+    fn = _build.entry("expand", "expand_rows_i32", pointers=8, ints=5)
     expand_cells.launches += 1
     _build.check(
         fn(c.data_ptr(), rx.data_ptr(), x0.data_ptr(), y0.data_ptr(),
            sums.data_ptr(), total.data_ptr(), cell.data_ptr(),
-           tri.data_ptr(), T, blocks, pair_cap, ntx_t, num_cells,
+           tri.data_ptr(), T, blocks, pair_cap,
+           16 * ntx_t if row_width is None else row_width, num_cells,
            torch.cuda.current_stream(device).cuda_stream),
         "expand_cells",
     )

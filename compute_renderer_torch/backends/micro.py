@@ -113,7 +113,8 @@ def merge_scratch(device, height_padded, width_padded):
 
 
 def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
-                params, lights, *, height_padded, width_padded, mode="base"):
+                params, lights, *, height_padded, width_padded, mode="base",
+                worklist=None):
     from compute_renderer_torch import _build
 
     device = tri_table.device
@@ -127,8 +128,11 @@ def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
     pairs = pair_tri.to(I32).contiguous()
     starts = seg_start.to(I32).contiguous()
     counts = seg_count.to(I32).contiguous()
-    wl, k = binning.occupied_worklist(tile_count.to(I32))
-    k = k.reshape(1).contiguous()
+    if worklist is None:
+        worklist = binning.occupied_worklist(tile_count.to(I32))
+    wl, k = worklist
+    wl = wl.to(I32).contiguous()
+    k = k.to(I32).reshape(1).contiguous()
     out, key = raster.cleared_outputs(mode, lights.shape[0], height_padded,
                                       width_padded, device,
                                       no_id=raster.PAIR_IDX_CLEAR)
@@ -152,7 +156,7 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
                        effect, view_position, light_world_pos, light_color,
                        light_intensity, *, height_padded: int,
                        width_padded: int, mode: str = "base",
-                       y_offset: int = 0):
+                       y_offset: int = 0, worklist=None):
     """Raster + shade the padded (Hp, Wp) framebuffer, Hp a multiple of 8
     and Wp of 128, in ``mode`` (as ``raster.raster_shade_tiles``) from the
     (T, R) table, the cell-sorted ``pair_tri``, per-cell ``seg_start`` /
@@ -165,8 +169,10 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
     CPU tensors take the twin, CUDA tensors the kernel
     (``raster_shade_micro.launches`` counts its launches,
     ``mode_launches`` per mode; a CUDA graph's capture ticks them, its
-    replays do not), launched over the occupied-tile work list of
-    ``tile_count``."""
+    replays do not), launched over the occupied-tile work list:
+    ``worklist`` = (ids, k) as ``binning.bin_cells_sort_meta`` gives them
+    (``occupied_worklist`` of ``tile_count``), built here when None. The
+    twin walks the occupied tiles itself."""
     raster.check_mode(tri_table, mode)
     params, lights = raster.shading_inputs(effect, view_position,
                                            light_world_pos, light_color,
@@ -179,7 +185,8 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
             tri_table, pair_tri, seg_start, seg_count, params, lights, **kw)
     elif device.type == "cuda":
         out, key = _micro_cuda(tri_table, pair_tri, seg_start, seg_count,
-                               tile_count, params, lights, **kw)
+                               tile_count, params, lights, worklist=worklist,
+                               **kw)
     else:
         raise ValueError(f"raster_shade_micro: no kernel for device {device}")
     return raster.public_outputs(mode, out, key)

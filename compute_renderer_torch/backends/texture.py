@@ -1,5 +1,5 @@
-"""The texture stages of a frame: the fused tails, the deferred tail and
-the per-frame mip rows.
+"""The texture stages of a frame: the fused tails, the deferred tail, the
+per-frame mip rows and the deferred mode's vertex stage.
 
 The JAX package fuses these with XLA ops inside its compiled step; here
 each is one launch of a hand-written kernel of ``csrc/texture.cu`` for a
@@ -19,7 +19,9 @@ ticks it, its replays do not).
   sampler, ``common._sample_mip_px``);
 - ``mip_rows``: the frame's (T, 5) mip rows from the positions
   (``common.vertex_stage`` -> ``common.uv_gradients`` ->
-  ``common.mip_tri_rows``).
+  ``common.mip_tri_rows``);
+- ``vertex_stage``: the per-vertex world and screen the deferred tail
+  reads (``common.vertex_stage``).
 
 The kernels and the plain versions compute the same IEEE values (see the
 kernels' header). The G-buffer, ids and keys are read through their row
@@ -379,7 +381,38 @@ def mip_rows(positions, tri, uvs, face_tex, mip_table, view_proj, effect,
 mip_rows.launches = 0
 
 
-# The four launch-counted wrappers, by kernel name.
+# ---------------------------------------------------------------------------
+# 5. The per-vertex stage of the deferred mode
+# ---------------------------------------------------------------------------
+
+def vertex_stage(positions, view_proj, effect, width: int, height: int):
+    """``common.vertex_stage`` of ``positions`` (N, 3): (world (N, 3),
+    screen (N, 4)) f32, screen = (x_px, y_px_flipped, ndc_z, clip_w),
+    under the frame's ``view_proj`` and ``effect`` (the wave moves the
+    vertices). CPU tensors take ``common.vertex_stage`` itself.
+    ``vertex_stage.launches`` counts the kernel's launches."""
+    device = _device_of(positions, "vertex_stage")
+    if device.type == "cpu":
+        return common.vertex_stage(positions, view_proj, effect, width,
+                                   height)
+    pos = _on(positions, device, F32, "positions")
+    if pos.dim() != 2 or pos.shape[1] != 3:
+        raise ValueError(f"positions {tuple(pos.shape)}: (N, 3)")
+    N = pos.shape[0]
+    world = torch.empty((N, 3), dtype=F32, device=device)
+    screen = torch.empty((N, 4), dtype=F32, device=device)
+    vertex_stage.launches += 1
+    _launch("vertex_stage", (pos, _on(view_proj, device, F32, "view_proj"),
+                             _on(effect, device, F32, "effect"), world,
+                             screen), (N, int(width), int(height)), device)
+    return world, screen
+
+
+vertex_stage.launches = 0
+
+
+# The five launch-counted wrappers, by kernel name.
 WRAPPERS = {"texture_tail": texture_tail,
             "texture_tail_mip": texture_tail_mip,
-            "deferred_tail": deferred_tail, "mip_rows": mip_rows}
+            "deferred_tail": deferred_tail, "mip_rows": mip_rows,
+            "vertex_stage": vertex_stage}

@@ -209,7 +209,8 @@ def stage_timings_micro(mesh, uniforms, width: int, height: int,
                         iters: int = 8, device="cuda") -> dict:
     """Device ms of the micro path's layers on one frame — ``front_ms``
     (8x8 cells), ``expand_ms`` (the pair expansion, both launches),
-    ``binning_ms`` (the expansion, the stable sort and the segments),
+    ``binning_ms`` (the expansion and the bin sort: the cell-sorted pairs,
+    segments and work list),
     ``raster_shade_ms`` — and ``total_fused_ms``, the replayed frame; the
     pair capacity is the renderer's calibrated one."""
     device = _require_cuda(device)
@@ -241,7 +242,8 @@ def stage_timings_micro(mesh, uniforms, width: int, height: int,
         return micro.raster_shade_micro(
             table, bins["pair_tri"], bins["seg_start"], bins["seg_count"],
             bins["tile_count"], eff, vpos, lwp, lc, li,
-            height_padded=nty * 8, width_padded=ntx * 128)
+            height_padded=nty * 8, width_padded=ntx * 128,
+            worklist=(bins["worklist"], bins["k"]))
 
     return {
         "front_ms": graph_ms(run_front, iters),

@@ -1,5 +1,6 @@
-// Pair expansion of the micro path: per-triangle cover meta -> the
-// (cell, triangle) pair list, the scan of the cover counts included.
+// Pair expansion: per-triangle cover meta -> the (bin, triangle) pair
+// list of the micro path's cells or of the tile path's flat layout, the
+// scan of the cover counts included.
 //
 // Replaces the TPU kernel of the JAX package's backends/pallas_expand.py
 // (_expand_kernel, launched by expand_cells) together with the scan that
@@ -8,9 +9,15 @@
 // Triangle t owns slots [starts[t], starts[t] + c[t]) (starts: exclusive
 // cumsum of the cover counts); slot starts[t] + local covers the cell
 // (cx, cy) = (x0 + local % rx, y0 + local / rx) of the triangle's cell
-// rectangle, id (cy * ntx_t + cx / 16) * 16 + cx % 16. Slots at or past the
-// total get the num_cells sentinel and triangle 0; no slot at or past
-// pair_cap is written; the total is exact even past pair_cap.
+// rectangle, id (cy * ntx_t + cx / 16) * 16 + cx % 16, which is the
+// row-major id cy * 16 ntx_t + cx. Slots at or past the total get the
+// num_cells sentinel and triangle 0; no slot at or past pair_cap is
+// written; the total is exact even past pair_cap.
+//
+// The entry, expand_rows_i32, takes the row width: 16 ntx_t for the micro
+// path's cells, ntx for the tile path's flat layout, whose (tile,
+// triangle) pairs have the ids cy * ntx + cx (binning.py
+// bin_triangles_sort's tile_of_pair) and the num_tiles sentinel.
 //
 // What bounds it on an H100: memory. Each triangle's count is read (4
 // bytes), the rect (12 bytes) only of each live triangle, and each slot's
@@ -38,9 +45,10 @@
 // calls in flight share nothing.
 //
 // Exactness: integer arithmetic only. local >= 0 and rx >= 1, so C's
-// truncating division equals floor division there; the 16-column split
-// uses an arithmetic shift and a mask, which are floor division and floor
-// modulo for any sign, as the JAX package's // and %.
+// truncating division equals floor division there; the cell id is written
+// as cy * 16 ntx_t + cx, which equals the JAX package's
+// (cy * ntx_t + cx // 16) * 16 + cx % 16 for any sign of cx (floor
+// division and modulo recombine to cx).
 
 #include <cuda_runtime.h>
 
@@ -95,7 +103,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) expand_kernel(
     int* __restrict__ total_out,     // () number of pairs
     int* __restrict__ cell_of_pair,  // (pair_cap,)
     int* __restrict__ tri_of_pair,   // (pair_cap,)
-    int T, int blocks, int pair_cap, int ntx_t, int num_cells) {
+    int T, int blocks, int pair_cap, int row_width, int num_cells) {
   __shared__ int s_c[pad(TRIS)];
   __shared__ int s_start[TRIS];
   __shared__ int s_rx[TRIS];
@@ -186,7 +194,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) expand_kernel(
     const int q = local / w;
     const int cx = s_x0[lo] + (local - q * w);
     const int cy = s_y0[lo] + q;
-    cell_of_pair[off + s] = (cy * ntx_t + (cx >> 4)) * 16 + (cx & 15);
+    cell_of_pair[off + s] = cy * row_width + cx;
     tri_of_pair[off + s] = t0 + lo;
   }
 
@@ -202,13 +210,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) expand_kernel(
 
 }  // namespace
 
-// sums: scratch of `blocks` ints, blocks = ceil(T / TRIS) (expand.TRIS).
-extern "C" int expand_cells_i32(const void* c, const void* rx,
-                                const void* x0, const void* y0, void* sums,
-                                void* total, void* cell_of_pair,
-                                void* tri_of_pair, int T, int blocks,
-                                int pair_cap, int ntx_t, int num_cells,
-                                void* stream) {
+// sums: scratch of `blocks` ints, blocks = ceil(T / TRIS) (expand.TRIS);
+// pair ids cy * row_width + cx.
+extern "C" int expand_rows_i32(const void* c, const void* rx, const void* x0,
+                               const void* y0, void* sums, void* total,
+                               void* cell_of_pair, void* tri_of_pair, int T,
+                               int blocks, int pair_cap, int row_width,
+                               int num_cells, void* stream) {
   if (T < 0 || blocks != (T + TRIS - 1) / TRIS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -219,6 +227,6 @@ extern "C" int expand_cells_i32(const void* c, const void* rx,
   expand_kernel<<<blocks > 0 ? blocks : 1, THREADS, 0, s>>>(
       (const int*)c, (const int*)rx, (const int*)x0, (const int*)y0,
       (const int*)sums, (int*)total, (int*)cell_of_pair, (int*)tri_of_pair,
-      T, blocks, pair_cap, ntx_t, num_cells);
+      T, blocks, pair_cap, row_width, num_cells);
   return (int)cudaGetLastError();
 }

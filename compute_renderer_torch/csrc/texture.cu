@@ -15,16 +15,22 @@
 // filter it reads the winner's row of mip_rows_kernel's output.
 // mip_rows_kernel<FILTER> replaces vertex_stage -> uv_gradients ->
 // mip_tri_rows, the (T, 5) [tid, lod, mu, mv, spread] rows of a frame.
+// vertex_stage_kernel replaces common.py vertex_stage (the JAX package's
+// common.py vertex_stage, tpu.py:691, and vertex_stage_soa, tpu.py:295),
+// the per-vertex world and screen the deferred tail reads; both kernels
+// run one vertex through the same vertex_screen.
 //
 // What bounds them on an H100: memory traffic. A tail reads a pixel's
 // G-buffer planes (48-64 B with two lights) or its id, and its key, and
 // writes 4 B of RGBA; the texel gathers mostly hit L2 (the atlases are a
 // few MB). mip_rows reads a triangle's 3 indices, tex slot, and its
-// corners' positions and uvs and writes 20 B. The arithmetic is a few
+// corners' positions and uvs and writes 20 B; vertex_stage reads a
+// vertex's 12 B and writes 28 B. The arithmetic is a few
 // hundred float operations a pixel at most (anisotropic: 8 bilinear taps),
 // far under the card's rate.
 //
-// Design: one thread a pixel (the tails) or a triangle (mip_rows), 256 to
+// Design: one thread a pixel (the tails), a triangle (mip_rows) or a
+// vertex (vertex_stage), 256 to
 // a block, every value in registers; no shared memory, no state between
 // launches, no host synchronisation, so a frame's graph captures them.
 // The G-buffer, id and key are read through their row strides, so the
@@ -418,6 +424,47 @@ __global__ void __launch_bounds__(THREADS) deferred_tail_kernel(
   });
 }
 
+// common.vertex_stage of one vertex: the wave (apply_wave_effect, sinf as
+// torch.sin), the clip-space sums (m0 x + m1 y) + (m2 z + m3), the divides
+// by cw and the screen mapping; world (3) and screen (4) =
+// (x_px, y_px_flipped, ndc_z, clip_w).
+__device__ __forceinline__ void vertex_screen(const float* __restrict__ vp,
+                                              const float* __restrict__ effect,
+                                              float x, float y, float z,
+                                              int width, int height,
+                                              float (&world)[3],
+                                              float (&screen)[4]) {
+  const float etype = effect[0], amplitude = effect[1],
+              frequency = effect[2], phase = effect[3],
+              direction = effect[4];
+  const bool is_wave = etype == EFFECT_WAVE;
+  const bool vertical = direction < 0.5f;
+  const bool horizontal = (direction >= 0.5f) && (direction < 1.5f);
+  float wx = x, wy = y, wz = z;
+  if (is_wave) {
+    const float dy = amplitude * sinf(frequency * x + phase);
+    const float dx = amplitude * sinf(frequency * y + phase);
+    const float dist = sqrtf(x * x + y * y);
+    const float dz = amplitude * sinf(frequency * dist + phase);
+    if (horizontal) wx = x + dx;
+    if (vertical) wy = y + dy;
+    if (!(vertical || horizontal)) wz = z + dz;
+  }
+  const float cx = (vp[0] * wx + vp[1] * wy) + (vp[2] * wz + vp[3]);
+  const float cy = (vp[4] * wx + vp[5] * wy) + (vp[6] * wz + vp[7]);
+  const float cz = (vp[8] * wx + vp[9] * wy) + (vp[10] * wz + vp[11]);
+  const float cw = (vp[12] * wx + vp[13] * wy) + (vp[14] * wz + vp[15]);
+  const float ndc_x = cx / cw;
+  const float ndc_y = cy / cw;
+  world[0] = wx;
+  world[1] = wy;
+  world[2] = wz;
+  screen[0] = (ndc_x + 1.0f) * 0.5f * (float)width;
+  screen[1] = (1.0f - ndc_y) * 0.5f * (float)height;
+  screen[2] = cz / cw;
+  screen[3] = cw;
+}
+
 template <int FILTER>
 __global__ void __launch_bounds__(THREADS) mip_rows_kernel(
     const float* __restrict__ positions,  // (N, 3)
@@ -431,36 +478,16 @@ __global__ void __launch_bounds__(THREADS) mip_rows_kernel(
     int T, int levels, int width, int height) {
   const int t = blockIdx.x * THREADS + threadIdx.x;
   if (t >= T) return;
-  // vertex_stage on the three corners: the wave, view_proj, the screen.
-  const float etype = effect[0], amplitude = effect[1],
-              frequency = effect[2], phase = effect[3],
-              direction = effect[4];
-  const bool is_wave = etype == EFFECT_WAVE;
-  const bool vertical = direction < 0.5f;
-  const bool horizontal = (direction >= 0.5f) && (direction < 1.5f);
+  // vertex_stage on the three corners.
   float sx[3], sy[3], uv[3][2];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const size_t i = (size_t)tri[3 * (size_t)t + k];
-    const float x = positions[3 * i], y = positions[3 * i + 1],
-                z = positions[3 * i + 2];
-    float wx = x, wy = y, wz = z;
-    if (is_wave) {
-      const float dy = amplitude * sinf(frequency * x + phase);
-      const float dx = amplitude * sinf(frequency * y + phase);
-      const float dist = sqrtf(x * x + y * y);
-      const float dz = amplitude * sinf(frequency * dist + phase);
-      if (horizontal) wx = x + dx;
-      if (vertical) wy = y + dy;
-      if (!(vertical || horizontal)) wz = z + dz;
-    }
-    const float cx = (vp[0] * wx + vp[1] * wy) + (vp[2] * wz + vp[3]);
-    const float cy = (vp[4] * wx + vp[5] * wy) + (vp[6] * wz + vp[7]);
-    const float cw = (vp[12] * wx + vp[13] * wy) + (vp[14] * wz + vp[15]);
-    const float ndc_x = cx / cw;
-    const float ndc_y = cy / cw;
-    sx[k] = (ndc_x + 1.0f) * 0.5f * (float)width;
-    sy[k] = (1.0f - ndc_y) * 0.5f * (float)height;
+    float world[3], screen[4];
+    vertex_screen(vp, effect, positions[3 * i], positions[3 * i + 1],
+                  positions[3 * i + 2], width, height, world, screen);
+    sx[k] = screen[0];
+    sy[k] = screen[1];
     uv[k][0] = uvs[2 * i];
     uv[k][1] = uvs[2 * i + 1];
   }
@@ -512,6 +539,27 @@ __global__ void __launch_bounds__(THREADS) mip_rows_kernel(
   r[2] = mu;
   r[3] = mv;
   r[4] = spread;
+}
+
+// common.vertex_stage over the vertices: world (N, 3) and screen (N, 4),
+// what the deferred tail reads.
+__global__ void __launch_bounds__(THREADS) vertex_stage_kernel(
+    const float* __restrict__ positions,  // (N, 3)
+    const float* __restrict__ vp,         // (4, 4) view_proj
+    const float* __restrict__ effect,     // (6,)
+    float* __restrict__ world,            // (N, 3)
+    float4* __restrict__ screen,          // (N, 4)
+    int N, int width, int height) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= N) return;
+  const size_t b = 3 * (size_t)i;
+  float w[3], s[4];
+  vertex_screen(vp, effect, positions[b], positions[b + 1], positions[b + 2],
+                width, height, w, s);
+  world[b] = w[0];
+  world[b + 1] = w[1];
+  world[b + 2] = w[2];
+  screen[i] = make_float4(s[0], s[1], s[2], s[3]);
 }
 
 unsigned blocks(int n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -623,5 +671,18 @@ extern "C" int mip_rows(const void* positions, const void* tri,
   else
     mip_rows_kernel<ANISOTROPIC><<<blocks(T), THREADS, 0, s>>>(ROW_ARGS);
 #undef ROW_ARGS
+  return (int)cudaGetLastError();
+}
+
+// The per-vertex world and screen of the deferred tail; screen 16-byte
+// aligned.
+extern "C" int vertex_stage(const void* positions, const void* vp,
+                            const void* effect, void* world, void* screen,
+                            int N, int width, int height, void* stream) {
+  if (N < 0 || ((size_t)screen & 15) != 0) return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaSuccess;
+  vertex_stage_kernel<<<blocks(N), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)positions, (const float*)vp, (const float*)effect,
+      (float*)world, (float4*)screen, N, width, height);
   return (int)cudaGetLastError();
 }

@@ -50,7 +50,7 @@ BACKENDS = ("gloo", "nccl")
 DEFAULT_TIMEOUT_S = 300.0
 # The kernels a rank on the card loads: the parent builds them before it
 # spawns, so that the ranks do not each run nvcc.
-KERNELS = ("front", "raster", "expand", "micro")
+KERNELS = ("front", "raster", "expand", "micro", "sort")
 
 
 def rank_device(device, rank: int) -> torch.device:

@@ -155,9 +155,8 @@ def _stripe_micro(g, rank, n, *, rw, rh, pair_cap, mode, front_kw):
         table, bins["pair_tri"], bins["seg_start"], bins["seg_count"],
         bins["tile_count"], g["effect"], g["view_position"], *g["lights"],
         height_padded=rows * 8, width_padded=ntx * 128, mode=mode,
-        y_offset=y_offset)
-    overflow = torch.stack([bins["pair_needed"], bins["tile_needed"]])
-    return out, key, overflow, y_offset, bins["pair_tri"]
+        y_offset=y_offset, worklist=(bins["worklist"], bins["k"]))
+    return out, key, bins["overflow"], y_offset, bins["pair_tri"]
 
 
 def _slice_rows(a, dim: int, start: int, stop: int, length: int, fill=0):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""bench.py's frame, or the structured scene's texture rows, in two
-checkouts of the port, in turns, on one card.
+"""bench.py's frame, the structured scene's texture rows or the sort
+layouts' rows, in two checkouts of the port, in turns, on one card.
 
     git archive <commit> | tar -x -C build/other
-    python3 scripts/compare_main_path.py build/other [--texture]
+    python3 scripts/compare_main_path.py build/other [--texture | --bins]
 
 Runs ``chip_smoke.phase_main_path`` (phase 5: Suzanne 1024x768 through
 ``Renderer``, held to the golden frames and to the eager frames, then the
@@ -15,7 +15,12 @@ other, so that drift on the card falls on both alike. With
 micro path's structured_scene.obj rows (+materials, +textures,
 +trilinear, +anisotropic, +deferred trilinear; 1024x768, eager batches
 of 16 and 64): slopes, busy time and kernels a frame, idle share and the
-eager profile's layers with the texture ranges. Each checkout builds its
+eager profile's layers with the texture ranges. With ``--bins`` it runs
+``compare_eager_graph`` on the rows of the two sort layouts: San Miguel
+and structured +deferred trilinear (micro path, the cells' sort; the
+latter's per-vertex stage too) and structured_scene_tex.obj +textures
+and san_miguel_small (tile path, flat layout; each tuned by a first
+frame), with each checkout's own layer names. Each checkout builds its
 own kernels into its own ``build/``. Prints one ``[compare]`` JSON line a
 run, then a table. Needs a CUDA card; a run that fails its checks fails
 the script.
@@ -76,7 +81,60 @@ def texture_rows(chip_smoke, card) -> dict:
     return out
 
 
-def worker(tree: str, tag: str, texture: bool) -> int:
+def bins_rows(chip_smoke, card) -> dict:
+    """The sort layouts' rows, each a fresh renderer's eager loop against
+    its graph (``chip_smoke.compare_eager_graph``): the micro rows with
+    ``MICRO_LAYERS``, the flat tile rows with ``TILE_LAYERS`` after a
+    first frame that tunes the tile shape."""
+    import torch
+
+    from compute_renderer_torch import CameraConfig, Renderer, Scene
+    from compute_renderer_torch import SceneConfig
+    from compute_renderer_torch.io import objgen
+
+    objgen.ensure_structured_scene()
+    objgen.ensure_textured_scene()
+
+    def structured(name, tex_filter):
+        return Scene.from_config(SceneConfig(
+            model_path=name, enable_textures=True, texture_filter=tex_filter,
+            camera_config=CameraConfig.first_person(
+                chip_smoke.STRUCTURED_EYE)), chip_smoke.W, chip_smoke.H)
+
+    rows = (
+        ("san_miguel", lambda: chip_smoke.bench_scene(
+            chip_smoke.SAN_MIGUEL, eye=chip_smoke.SAN_MIGUEL_EYE), {},
+         chip_smoke.MICRO_LAYERS, (chip_smoke.BATCH_SMALL,
+                                   chip_smoke.BATCH_LARGE)),
+        ("structured +deferred trilinear",
+         lambda: structured(objgen.STRUCTURED_NAME, "trilinear"),
+         {"tex_mode": "deferred"}, chip_smoke.MICRO_LAYERS,
+         chip_smoke.SLOW_EAGER_BATCHES),
+        ("structured_tex +textures",
+         lambda: structured(objgen.STRUCTURED_TEX_NAME, "nearest"), {},
+         chip_smoke.TILE_LAYERS, (chip_smoke.BATCH_SMALL,
+                                  chip_smoke.BATCH_LARGE)),
+        ("san_miguel_small",
+         lambda: chip_smoke.bench_scene("san_miguel_small.obj"), {},
+         chip_smoke.TILE_LAYERS, (chip_smoke.BATCH_SMALL,
+                                  chip_smoke.BATCH_LARGE)),
+    )
+    out = {}
+    for tag, make, options, layers, eager_sizes in rows:
+        scene = make()
+        renderer = Renderer(scene.mesh, chip_smoke.W, chip_smoke.H,
+                            device=torch.device("cuda:0"),
+                            **scene.renderer_options(), **options)
+        renderer.render(scene.update(chip_smoke.DT))
+        chip_smoke.compare_eager_graph(tag, renderer, scene, card, layers,
+                                       eager_sizes=eager_sizes)
+        out[tag] = chip_smoke.GRAPH_ROWS[tag]
+        del renderer
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker(tree: str, tag: str, mode: str) -> int:
     """One run in ``tree``: its kernels, then its phase 5 and its
     bench_torch.py, or its texture rows."""
     sys.path.insert(0, tree)
@@ -92,9 +150,10 @@ def worker(tree: str, tag: str, texture: bool) -> int:
         os.path.basename(p)[:-3]
         for p in glob.glob(os.path.join("compute_renderer_torch", "csrc",
                                         "*.cu"))))
-    if texture:
+    if mode in ("--texture", "--bins"):
         try:
-            rows = texture_rows(chip_smoke, card)
+            rows = (texture_rows if mode == "--texture" else bins_rows)(
+                chip_smoke, card)
         except chip_smoke.SmokeFailure as e:
             print(f"compare_main_path: {tag}: FAILED: {e}", file=sys.stderr)
             return 1
@@ -123,10 +182,14 @@ def worker(tree: str, tag: str, texture: bool) -> int:
 
 
 def main() -> int:
-    texture = "--texture" in sys.argv
-    args = [a for a in sys.argv[1:] if a != "--texture"]
+    modes = [a for a in sys.argv[1:] if a in ("--texture", "--bins")]
+    args = [a for a in sys.argv[1:] if a not in modes]
+    if len(modes) > 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    mode = modes[0] if modes else ""
     if len(args) == 3 and args[0] == "--worker":
-        return worker(os.path.abspath(args[1]), args[2], texture)
+        return worker(os.path.abspath(args[1]), args[2], mode)
     if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -136,7 +199,7 @@ def main() -> int:
                       (other, "other")):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
-             tag] + ["--texture"] * texture, capture_output=True, text=True)
+             tag] + modes, capture_output=True, text=True)
         sys.stdout.write("".join(
             ln + "\n" for ln in proc.stdout.splitlines()
             if ln.startswith(("[compare]", "[bench]", "[profile]",
@@ -147,7 +210,7 @@ def main() -> int:
         results += [json.loads(ln[len("[compare] "):])
                     for ln in proc.stdout.splitlines()
                     if ln.startswith("[compare] ")]
-    if texture:
+    if mode:
         print("tree | row | graph slope ms | busy ms (kernels) | idle | "
               "eager slope ms (busy, kernels) | card")
         for r in results:

@@ -133,7 +133,7 @@ def timeline(lib, tris, meta, pair_cap, ntx, num_cells, tag):
 
     T = meta.shape[1]
     blocks = -(-T // tris)
-    fn = c_fn(lib, "expand_cells_i32", 8, 5)
+    fn = c_fn(lib, "expand_rows_i32", 8, 5)
     read = getattr(ctypes.CDLL(lib), "read_stamps")
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     read.restype = ctypes.c_int
@@ -145,7 +145,7 @@ def timeline(lib, tris, meta, pair_cap, ntx, num_cells, tag):
         status = fn(meta[3].data_ptr(), meta[2].data_ptr(),
                     meta[0].data_ptr(), meta[1].data_ptr(), sums.data_ptr(),
                     total.data_ptr(), cell.data_ptr(), tri.data_ptr(), T,
-                    blocks, pair_cap, ntx, num_cells,
+                    blocks, pair_cap, 16 * ntx, num_cells,
                     torch.cuda.current_stream().cuda_stream)
         assert status == 0, status
     torch.cuda.synchronize()
@@ -244,7 +244,7 @@ def main() -> int:
         status = fn(meta[3].data_ptr(), meta[2].data_ptr(),
                     meta[0].data_ptr(), meta[1].data_ptr(), sums.data_ptr(),
                     total.data_ptr(), cell.data_ptr(), tri.data_ptr(), T,
-                    blocks, pair_cap, ntx, num_cells, stream())
+                    blocks, pair_cap, 16 * ntx, num_cells, stream())
         cs.require(status == 0, f"expand variant: CUDA error {status}")
         return cell, tri, total[0]
 
@@ -268,7 +268,7 @@ def main() -> int:
         runs = {}
         for threads, items, min_blocks, loads in EXPAND_VARIANTS:
             tag = f"{threads}x{items}_{min_blocks}_{loads}"
-            fn = c_fn(libs[tag][0], "expand_cells_i32", 8, 5)
+            fn = c_fn(libs[tag][0], "expand_rows_i32", 8, 5)
             runs[f"{threads}x{items}, {min_blocks} an SM, {loads} rects"] = (
                 lambda fn=fn, tris=threads * items: pairs(
                     fn, tris, meta, pair_cap, ntx, num_cells))

@@ -315,8 +315,9 @@ def _textured_scenes(port, small, tex_filter):
 ENGINE_CASES = [
     ("bilinear", "fused", "tile", {"texture_tail"}),
     ("trilinear", "fused", "micro", {"texture_tail_mip", "mip_rows"}),
-    ("anisotropic", "deferred", "tile", {"deferred_tail", "mip_rows"}),
-    ("nearest", "deferred", "micro", {"deferred_tail"}),
+    ("anisotropic", "deferred", "tile",
+     {"deferred_tail", "mip_rows", "vertex_stage"}),
+    ("nearest", "deferred", "micro", {"deferred_tail", "vertex_stage"}),
 ]
 
 
@@ -331,7 +332,7 @@ def test_engine_calls_the_stages_and_xla_does_not(
         called):
     # The engine's frame reaches the stage wrappers (the kernels on the
     # card); the xla comparator never does, so its frames launch none of
-    # the four kernels (its own common.* chain).
+    # the five kernels (its own common.* chain).
     calls = dict.fromkeys(texture.WRAPPERS, 0)
     for name, fn in texture.WRAPPERS.items():
         def counted(*a, _name=name, _fn=fn, **k):

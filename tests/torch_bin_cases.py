@@ -1,8 +1,9 @@
-"""The cases of the tile path's binning stage and of the rasters' shading
-parameters, made from seeds with numpy: ``tests/test_torch_tile_bins.py``
-holds the port's twins to the JAX package on them, and ``chip_smoke.py``
-the kernels (``csrc/bins.cu``) to the twins on the card. Imports neither
-pytest nor JAX."""
+"""The cases of the tile path's binning stage, of the rasters' shading
+parameters and of the bin sort, made from seeds with numpy:
+``tests/test_torch_tile_bins.py`` and ``tests/test_torch_bin_sort.py``
+hold the port's twins to the JAX package on them, and ``chip_smoke.py``
+the kernels (``csrc/bins.cu``, ``csrc/sort.cu``) to the twins on the
+card. Imports neither pytest nor JAX."""
 
 import numpy as np
 
@@ -89,3 +90,67 @@ def shading_case(pkg, effect):
             rng.uniform(-5, 5, (3, 3)).astype(np.float32),
             rng.uniform(0, 1, (3, 3)).astype(np.float32),
             rng.uniform(0, 2, 3).astype(np.float32))
+
+
+# The bin sort's cases: the micro layout at 2 x 3 tiles of 16 cells
+# (256x24 px), the flat one on NTX x NTY tiles; LONG pairs in the long
+# segment, past the kernel's shared-memory sort (binning.SORT_BLOCK_CAP).
+NTX_T, NTY_T = 2, 3
+LONG = 5000
+
+
+def _sort_meta(rng, T, ntx, nty, span=4, dead=0.25):
+    """(4, T) int32 meta [x0, y0, rx, c], rects inside the grid, c = rx *
+    ry for alive triangles, 0 for dead ones (the front's contract)."""
+    x0 = rng.integers(0, ntx, T)
+    y0 = rng.integers(0, nty, T)
+    rx = np.minimum(rng.integers(1, span + 1, T), ntx - x0)
+    ry = np.minimum(rng.integers(1, span + 1, T), nty - y0)
+    c = np.where(rng.random(T) >= dead, rx * ry, 0)
+    return np.stack([x0, y0, rx, c]).astype(np.int32)
+
+
+def sort_case(layout, name, long=LONG):
+    """(meta, ntx, nty, pair_cap, cap) of a bin sort case
+    (tests/test_torch_bin_sort.py, chip_smoke.py): ``ntx`` is the grid's
+    bins across (16 cells a tile on the micro layout), ``cap`` the flat
+    layout's tile cap (None on the micro layout); the "long" case puts
+    ``long`` single-bin triangles on one bin."""
+    rng = np.random.default_rng(sum(map(ord, layout + name)))
+    ntx, nty = (NTX_T * 16, NTY_T) if layout == "micro" else (NTX, NTY)
+    cap = None if layout == "micro" else 8192
+    meta = _sort_meta(rng, 700, ntx, nty)
+    if name == "long":
+        hot = np.zeros((4, long), np.int32)
+        hot[0], hot[1], hot[2], hot[3] = ntx // 2, nty // 2, 1, 1
+        meta = np.concatenate([meta[:, :300], hot, meta[:, 300:]], axis=1)
+    elif name == "empty":
+        meta[3] = 0
+    total = int(meta[3].sum())
+    pair_cap = total + 64
+    if name == "pair_overflow":
+        pair_cap = total // 2
+    elif name == "tile_overflow":
+        cap = 24
+    return meta, ntx, nty, pair_cap, cap
+
+
+SORT_CASES = ["random", "long", "empty", "pair_overflow", "tile_overflow"]
+MICRO_SORT_CASES = ["random", "long", "empty", "pair_overflow"]
+
+
+def sort_pairs(meta, ntx, num_bins, pair_cap):
+    """The pair list in triangle order, numpy: each alive triangle's rect
+    walked row by row (bin = cy * ntx + cx, which on the micro layout is
+    the cell id), the num_bins sentinel and triangle 0 past the total."""
+    x0, y0, rx, c = (meta[i].astype(np.int64) for i in range(4))
+    tri = np.repeat(np.arange(c.shape[0]), c)
+    start = np.cumsum(c) - c
+    local = np.arange(tri.shape[0]) - start[tri]
+    w = np.maximum(rx[tri], 1)
+    key = (y0[tri] + local // w) * ntx + x0[tri] + local % w
+    keys = np.full(pair_cap, num_bins, np.int32)
+    tris = np.zeros(pair_cap, np.int32)
+    n = min(tri.shape[0], pair_cap)
+    keys[:n], tris[:n] = key[:n], tri[:n]
+    return keys, tris, int(c.sum())
