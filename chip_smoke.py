@@ -75,15 +75,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
    sort (csrc/sort.cu) and the deferred vertex stage (csrc/texture.cu
    vertex_stage_kernel) against their twins, bitwise: the cases of
    tests/test_torch_bin_sort.py on both layouts with the stress segment
-   of SORT_STRESS pairs (sorted in chunks merged in device memory), pair
-   and tile overflow; the micro layout on structured_scene.obj within
-   and past its pair capacity; the flat layout (the expansion in
+   of SORT_STRESS pairs (across several of the kernel's chunks), pair
+   and tile overflow, one bin holding every pair and every pair in a bin
+   of its own; the micro layout on structured_scene.obj within and past
+   its pair capacity; the flat layout (the expansion in
    row-major tile ids, then the sort) on structured_scene_tex.obj and
    san_miguel_small at both tuner tile shapes, at the default caps, the
    frame's exact need and half its pairs; the vertex stage on structured
    +deferred trilinear's frame and a wave frame; the vertex stage's and
    the flat sort's times beside their twins' (the flat sort also beside
-   torch.sort(stable) + gather + two searchsorted);
+   torch.sort(stable) + gather + two searchsorted) and each bin_sort
+   kernel's time ([sort] lines);
 9. kernel vs twin, material and fused-texture modes — the front end at
    8x8 and 16x256 (meta bitwise, coefficients 0 ULP), the tile raster on
    structured_scene_tex and a mirage frame of it (both layouts) and the
@@ -354,7 +356,7 @@ KERNELS = {
     "bin_sort": {
         "source": "compute_renderer_torch/csrc/sort.cu",
         "replaces": ("binning.py", "bin_cells_sort_meta"),
-        "symbol": "bin_sort_",  # its four kernels
+        "symbol": "bin_sort_",  # its kernels: hist, scan, place
     },
     "bin_sort.flat": {
         "source": "compute_renderer_torch/csrc/sort.cu",
@@ -432,11 +434,11 @@ def bound_ms(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_device_ms(fn, iters, symbol):
-    """Device time per call of ``fn`` of every kernel whose name holds
-    ``symbol`` (all its launches in a call), or of every kernel and copy
-    it runs on the card when ``symbol`` is None, from torch.profiler; None
-    when the profiler records no device time."""
+def kernel_split_ms(fn, iters, symbol):
+    """{kernel name: (device ms, launches) per call of ``fn``} of every
+    kernel whose name holds ``symbol``, or of every kernel and copy it
+    runs on the card when ``symbol`` is None, from torch.profiler; {} when
+    the profiler records no device time."""
     import torch
 
     from compute_renderer_torch.bench.profiling import device_profile
@@ -451,8 +453,8 @@ def kernel_device_ms(fn, iters, symbol):
         averages = prof.key_averages()
     except (RuntimeError, AssertionError) as e:  # optional here
         print(f"[time] profiler unavailable: {e!r}")
-        return None
-    total = 0.0
+        return {}
+    out = {}
     for ev in averages:
         if symbol is None:
             match = str(getattr(ev, "device_type", "")).endswith("CUDA")
@@ -460,8 +462,19 @@ def kernel_device_ms(fn, iters, symbol):
             match = symbol in ev.key
         if match and ev.count:
             t = getattr(ev, "device_time_total", None)
-            total += ev.cuda_time_total if t is None else t
-    return total / iters / 1e3 if total else None
+            t = ev.cuda_time_total if t is None else t
+            if t:
+                out[ev.key] = (t / iters / 1e3, ev.count / iters)
+    return out
+
+
+def kernel_device_ms(fn, iters, symbol):
+    """Device time per call of ``fn`` of every kernel whose name holds
+    ``symbol`` (all its launches in a call), or of every kernel and copy
+    it runs on the card when ``symbol`` is None, from torch.profiler; None
+    when the profiler records no device time."""
+    split = kernel_split_ms(fn, iters, symbol)
+    return sum(ms for ms, _ in split.values()) or None
 
 
 def mangled_names(mangled):
@@ -917,48 +930,39 @@ def check_bins_structured(device, reports, scenes):
           f"{bins['bin_rows'].shape[1]}")
 
 
-# The bin sort's bound (csrc/sort.cu): each valid slot's bin and triangle
-# in (8 B) and the sorted list out (4 B a slot of it), 8 B a bin of
-# segments, and a tile's work-list entry (4 B; the micro layout also its
-# tile count and window base, 12 B); the total and scal. Operations: about
-# SORT_SLOT_OPS integer operations a valid slot (the count's and the
-# scatter's match, atomic and stores) and SORT_CE_OPS a compare-exchange
-# of each segment's bitonic network (a power of two of at least 32 pairs
-# under binning.SORT_WARP_CAP). The vertex stage: a vertex's 12 B in and
-# 28 B out, about 40 operations (three 4-term rows and the divides; a wave
-# frame's sinf not counted).
-SORT_SLOT_IN_BYTES = 8
+# The bin sort's bound: the bytes the function must move, whatever the
+# design. Each valid slot's bin and triangle in (8 B) and its triangle out
+# (4 B); each bin's segment start and count out (8 B); each tile's
+# work-list entry (4 B; the micro layout also its tile count and window
+# base, 12 B); the total in, scal out. Under pair overflow of the flat
+# layout also each triangle's rect (16 B of meta) for the exact counts.
+# Integer work of a few operations a slot, far below the bytes' time. The
+# vertex stage: a vertex's 12 B in and 28 B out, about 40 operations
+# (three 4-term rows and the divides; a wave frame's sinf not counted).
+SORT_SLOT_BYTES = 12
 SORT_BIN_BYTES = 8
 SORT_TILE_BYTES = {"micro": 12, "flat": 4}
-SORT_SLOT_OPS = 12
-SORT_CE_OPS = 4
+SORT_RECT_BYTES = 16
 VERTEX_BYTES = 12 + 28
 VERTEX_OPS = 40
-# The stress segment: pairs on one bin, far past the kernel's
-# shared-memory sort (binning.SORT_BLOCK_CAP), so that it is sorted in
-# chunks merged in device memory.
+# The stress segment: pairs on one bin, across several of the kernel's
+# chunks (binning.SORT_CHUNK).
 SORT_STRESS = 20_000
+# The bin sort's kernels a call (csrc/sort.cu): count, scan, place.
+SORT_LAUNCHES = 3
 
 
-def sort_bound(keys, total, num_bins, layout):
-    """(bound ms, "bytes" or "operations") of the bin sort on this pair
-    list, from its counts."""
-    import torch
-
-    from compute_renderer_torch.backends import binning
-
+def sort_bound(keys, total, num_bins, layout, T=0):
+    """(bound ms, "bytes") of the bin sort on this pair list: its
+    compulsory bytes; ``T`` the flat layout's triangles, whose rects are
+    read under pair overflow."""
     n = min(int(total), keys.shape[0])
-    counts = torch.bincount(keys[:n].long(), minlength=num_bins)
-    counts = counts[counts > 1].double()
-    lg = torch.ceil(torch.log2(counts))
-    lg = torch.where(counts <= binning.SORT_WARP_CAP,
-                     torch.clamp(lg, min=5), lg)
-    exchanges = float((2 ** lg / 2 * lg * (lg + 1) / 2).sum())
     tiles = num_bins // (16 if layout == "micro" else 1)
-    nbytes = (n * SORT_SLOT_IN_BYTES + keys.shape[0] * 4
-              + num_bins * SORT_BIN_BYTES
-              + tiles * SORT_TILE_BYTES[layout] + 24)
-    return bound_ms(nbytes, n * SORT_SLOT_OPS + SORT_CE_OPS * exchanges)
+    over = int(total) > keys.shape[0]
+    nbytes = (n * SORT_SLOT_BYTES + num_bins * SORT_BIN_BYTES
+              + tiles * SORT_TILE_BYTES[layout] + 4 + 16
+              + (T * SORT_RECT_BYTES if over else 0))
+    return bound_ms(nbytes, 0)
 
 
 def compare_bins(tag, got, want, n):
@@ -1008,10 +1012,8 @@ def check_bin_sort(tag, keys, tris, total, num_bins, report, **kw):
           f"work list (k {int(got['k'])}) and overflow "
           f"{got['overflow'].tolist()} bitwise; longest segment "
           f"{int(counts.max()) if counts.numel() else 0}, "
-          f"{int((counts > binning.SORT_WARP_CAP).sum())} over "
-          f"{binning.SORT_WARP_CAP}, "
-          f"{int((counts > binning.SORT_BLOCK_CAP).sum())} over "
-          f"{binning.SORT_BLOCK_CAP}")
+          f"{int((counts > 0).sum())} bins occupied, "
+          f"{-(-n // binning.SORT_CHUNK)} chunks of {binning.SORT_CHUNK}")
     report["max_abs_err"] = 0.0  # every output bitwise
     return got
 
@@ -1043,11 +1045,35 @@ def check_flat_bins(tag, meta, ntx, nty, pair_cap, tile_cap, report):
     return keys, tris, total
 
 
+def extreme_sort_lists(device):
+    """Two extremes of the key distribution, at the frame's cells (16 a
+    tile) and at the flat layout's 192 tiles: 100,000 pairs all in one
+    bin, and every pair in a bin of its own; the num_bins sentinel past
+    the total. Yields (tag, keys, tris, total, num_bins, group)."""
+    import torch
+
+    num_cells = ((W + 127) // 128) * ((H + 7) // 8) * 16
+    for num_bins, group in ((num_cells, 16), (192, 1)):
+        for label, n in (("one bin", 100_000), ("distinct bins", num_bins)):
+            pair_cap = n + 4096
+            keys = torch.full((pair_cap,), num_bins, dtype=torch.int32,
+                              device=device)
+            keys[:n] = (num_bins // 3 if label == "one bin"
+                        else torch.arange(n, dtype=torch.int32,
+                                          device=device))
+            tris = torch.arange(pair_cap, dtype=torch.int32,
+                                device=device) * 3
+            yield (f"{label} ({num_bins} bins, group {group})", keys, tris,
+                   torch.full((), n, dtype=torch.int32, device=device),
+                   num_bins, group)
+
+
 def phase_sort_kernels(device, reports, scenes):
     """The bin sort (csrc/sort.cu) and the vertex stage
     (csrc/texture.cu vertex_stage_kernel) against their twins on the
     card, bitwise: the cases of tests/test_torch_bin_sort.py and the
-    stress segment of SORT_STRESS pairs on both layouts; the micro layout
+    stress segment of SORT_STRESS pairs on both layouts, the lists of
+    ``extreme_sort_lists``; the micro layout
     on structured_scene.obj within and past its pair capacity; the flat
     layout on structured_scene_tex.obj and san_miguel_small at both tuner
     tile shapes, at the default caps (structured_tex's heaviest tiles
@@ -1086,12 +1112,17 @@ def phase_sort_kernels(device, reports, scenes):
                     torch.full((), total, dtype=torch.int32, device=device),
                     ntx * nty, reports[rec], **kw)
 
+    for tag, keys, tris, total, num_bins, group in extreme_sort_lists(
+            device):
+        check_bin_sort(tag, keys, tris, total, num_bins, reports["bin_sort"],
+                       group=group)
+
+    ntx_t, nty_t = (W + 127) // 128, (H + 7) // 8
+    num_cells = ntx_t * nty_t * 16
     x = frame_inputs(scene_copy(scenes["structured+textures"]), device)
     _, meta = front._front_end_cuda(x["pos_soa"], x["nrm_soa"], x["vp"],
                                     x["eff"], width=W, height=H, tile_h=8,
                                     tile_w=8)
-    ntx_t, nty_t = (W + 127) // 128, (H + 7) // 8
-    num_cells = ntx_t * nty_t * 16
     total = int(meta[3].sum())
     for pair_cap in (cuda.grow_pair_cap(0, max(total, num_cells, 1024)),
                      total // 2):
@@ -1197,13 +1228,29 @@ def phase_sort_kernels(device, reports, scenes):
     rep_f["library_ms"] = kernel_device_ms(library, 50, None)
     if rep_f["library_ms"] is None:
         rep_f["library_ms"] = event_ms(library, 50)
-    rep_f["bound_ms"], rep_f["bound_by"] = sort_bound(keys, total,
-                                                      num_tiles, "flat")
+    rep_f["bound_ms"], rep_f["bound_by"] = sort_bound(
+        keys, total, num_tiles, "flat", meta.shape[1])
     print_time("bin_sort.flat", rep_f, f"structured_tex 16x256, "
                f"{int(total)} pairs, tile_cap {tc}")
     print(f"[time] bin_sort.flat (structured_tex): torch.sort(stable) + "
           f"gather + 2 searchsorted {rep_f['library_ms']} ms (device time "
           f"of all their launches)")
+    print_sort_split(f"flat structured_tex 16x256, {int(total)} pairs",
+                     run)
+
+
+def print_sort_split(tag, run):
+    """Each bin_sort_* kernel's device time a call of ``run``, printed."""
+    split = kernel_split_ms(run, 50, KERNELS["bin_sort"]["symbol"])
+    print(f"[sort] {tag}: " + "; ".join(
+        f"{short_name(name)} {ms:.6f} ms x{count:g}"
+        for name, (ms, count) in sorted(split.items(),
+                                        key=lambda kv: -kv[1][0])))
+
+
+def short_name(kernel):
+    """A kernel's name without its namespace and parameters."""
+    return kernel.replace("(anonymous namespace)::", "").split("(")[0]
 
 
 def phase_kernels(device, reports):
@@ -1616,6 +1663,7 @@ def phase_micro_kernels(device, reports):
     rep["bound_ms"], rep["bound_by"] = sort_bound(keys, total_t, num_cells,
                                                   "micro")
     print_time("bin_sort", rep, f"san_miguel, {int(total_t)} pairs")
+    print_sort_split(f"micro san_miguel, {int(total_t)} pairs", run)
     print(f"[time] bin_sort (san_miguel): torch.sort(stable) + gather + "
           f"searchsorted {rep['library_ms']} ms (device time of all their "
           f"launches)")
@@ -1830,6 +1878,7 @@ def compare_eager_graph(tag, renderer, scene, card, layers,
     require(not renderer.flush_overflow(), f"{tag}: overflow in the runs")
     for mode in ("eager", "graph"):
         print_profile(f"{tag} {mode}", prof[mode], slopes[mode][0])
+    note_sort_kernels(f"{tag} graph", prof["graph"])
     glue = torch_glue_kernels(prof["graph"]["rows"])
     require(not glue, f"{tag}: the graph runs torch's {glue}")
     row = {mode: {"slope_ms": slopes[mode][0], "wall_ms": slopes[mode][1],
@@ -1853,6 +1902,31 @@ def compare_eager_graph(tag, renderer, scene, card, layers,
           f"graph {g['host_calls']}, eager {e['host_calls']} ; card: {card}")
 
 
+# Each profiled graph's bin sort kernels: {row: {kernel: (ms, launches) a
+# frame}}, printed again at the end.
+SORT_PROFILES = {}
+
+
+def note_sort_kernels(tag, p):
+    """The bin sort's kernels (bin_sort_*) in a profiled batch of frames
+    that each sort once: each kernel's device ms and launches a frame,
+    printed and kept; at most SORT_LAUNCHES launches a frame."""
+    frames = p["frames"]
+    split = {key: (ms, count / frames) for ms, count, key in p["rows"]
+             if "bin_sort_" in key}
+    if not split:
+        return
+    launches = sum(c for _, c in split.values())
+    SORT_PROFILES[tag] = split
+    print(f"[sort] {tag}: {launches:g} bin_sort kernels a frame, "
+          f"{sum(ms for ms, _ in split.values()):.6f} ms: " + "; ".join(
+              f"{short_name(k)} {ms:.6f} ms x{c:g}" for k, (ms, c) in sorted(
+                  split.items(), key=lambda kv: -kv[1][0])))
+    require(launches <= SORT_LAUNCHES,
+            f"{tag}: {launches:g} bin_sort kernels a frame (at most "
+            f"{SORT_LAUNCHES})")
+
+
 def torch_glue_kernels(rows):
     """The kernels among a profile's rows (``profile_batch``'s) that are
     torch's sort, searchsorted or running max (``TORCH_GLUE``), not the
@@ -1871,6 +1945,7 @@ def profile_flat_graph(tag, renderer, scene):
                                            for _ in range(16)], TILE_LAYERS)
     require(not renderer.flush_overflow(), f"{tag}: overflow")
     print_profile(f"{tag} graph", p, p["wall_ms"] / p["frames"])
+    note_sort_kernels(f"{tag} graph", p)
     glue = torch_glue_kernels(p["rows"])
     require(not glue, f"{tag}: the graph runs torch's {glue}")
     require(p["by_layer"]["flat bin sort"] > 0 or not p["busy_ms"],
@@ -3086,6 +3161,10 @@ def phase_graph_summary(card):
               f"{g['host_calls']} | {e['host_calls']} ; card: {card}")
     for tag, (shape, timings) in TUNED_ROWS.items():
         print(f"[tune] {tag}: {shape[0]}x{shape[1]} of {timings} (ms)")
+    for tag, split in SORT_PROFILES.items():
+        print(f"[sort] {tag}: " + "; ".join(
+            f"{short_name(k)} {ms:.6f} ms x{c:g}"
+            for k, (ms, c) in split.items()) + f" ; card: {card}")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable,
                            os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,

@@ -50,12 +50,16 @@ I32 = torch.int32
 # measured yet.
 DENSE_BINNING_OP_LIMIT = 600_000_000
 
-# The bin sort kernel's tiers (csrc/sort.cu): a warp sorts a segment of up
-# to SORT_WARP_CAP pairs, a block one of up to SORT_BLOCK_CAP, each in its
-# registers; a longer one sorts as SORT_BLOCK_CAP chunks, each element
-# then placed by its rank in the other chunks.
-SORT_WARP_CAP = 256
-SORT_BLOCK_CAP = 2048
+# The bin sort kernel (csrc/sort.cu): the pair slots are sorted stably by
+# bin in chunks of SORT_CHUNK, one block of SORT_WARPS warps each, and
+# counted in table chunks of 1, 2 or 4 chunks (``sort_table_chunk``: the
+# fewest that keep the (table chunk, bin) table within SORT_TABLE_CELLS);
+# the scan takes SORT_SCAN_TILE bins a block.
+SORT_CHUNK = 2048
+SORT_MAX_FACTOR = 4
+SORT_TABLE_CELLS = 1 << 21
+SORT_WARPS = 8
+SORT_SCAN_TILE = 128
 # No per-bin cap (the micro layout's ``cap``).
 CAP_NONE = 2**31 - 1
 
@@ -317,57 +321,125 @@ def bin_sort_plain(keys, tris, total, num_bins: int, *, group: int = 1,
     return out
 
 
-def _merge_chunks_plain(seg, width: int):
-    """``seg`` sorted as the kernel sorts a long segment: chunks of
-    ``width`` sorted alone, then each element placed at its index in its
-    chunk plus the count of each other chunk's elements below it (the
-    triangle ids of a segment are distinct)."""
-    chunks = [torch.sort(seg[c0:c0 + width]).values
-              for c0 in range(0, seg.shape[0], width)]
-    out = torch.empty_like(seg)
-    for c, chunk in enumerate(chunks):
-        pos = torch.arange(chunk.shape[0])
-        for d, other in enumerate(chunks):
-            if d != c:
-                pos = pos + torch.searchsorted(other, chunk)
-        out[pos] = chunk
-    return out
+def sort_chunk_plain(keys, vals, span: int, warps: int = SORT_WARPS):
+    """csrc/sort.cu's ``sort_chunk`` in torch (tests only, CPU): a chunk's
+    slots sorted stably by key, the keys rebased to the chunk's lowest
+    bin, a key outside [0, span) becoming span. Least-significant-digit
+    passes of D <= 8 bits over the bits of span; in each, the chunk's
+    slots are ``warps`` contiguous groups, and a slot goes to the
+    exclusive scan of the (digit, group) counts in (digit, group) order
+    plus its rank among its group's earlier slots of its digit. Returns
+    (keys, vals)."""
+    L = keys.shape[0]
+    k = torch.where((keys >= 0) & (keys < span), keys, span).long()
+    v = vals.clone()
+    bits = span.bit_length()
+    passes = -(-bits // 8)
+    width = -(-bits // passes) if passes else 0
+    group = torch.arange(L) * warps // max(L, 1)
+    for s in range(passes):
+        cell = ((k >> (s * width)) & ((1 << width) - 1)) * warps + group
+        # The rank among the group's earlier slots of the digit: the
+        # slot's place in slot order within its (digit, group) cell.
+        by_cell = torch.argsort(cell * L + torch.arange(L))
+        counts = torch.bincount(cell, minlength=warps << width)
+        base = torch.cumsum(counts, 0) - counts
+        rank = torch.empty((L,), dtype=torch.long)
+        rank[by_cell] = torch.arange(L) - base[cell[by_cell]]
+        dest = base[cell] + rank
+        k2, v2 = torch.empty_like(k), torch.empty_like(v)
+        k2[dest], v2[dest] = k, v
+        k, v = k2, v2
+    return k, v
+
+
+def run_ranks_plain(sorted_keys):
+    """Each slot's place in its run of equal keys of a sorted list: the
+    slot less the first slot of its run (csrc/sort.cu ``place_chunk``)."""
+    L = sorted_keys.shape[0]
+    q = torch.arange(L)
+    start = torch.ones((L,), dtype=torch.bool)
+    start[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    first = torch.cummax(torch.where(start, q, 0), 0).values
+    return q - first
 
 
 def bin_sort_steps_plain(keys, tris, total, num_bins: int, *,
                          group: int = 1, cap: int = CAP_NONE, exact=None,
-                         arrival=None, block_cap: int = SORT_BLOCK_CAP):
+                         chunk: int = SORT_CHUNK, wide: int = 0):
     """The kernel's decomposition of ``bin_sort_plain`` in torch (tests
-    only, CPU): count the valid slots' bins, scan the counts, scatter each
-    triangle at its bin's cursor in the order ``arrival`` (a permutation
-    of the valid slots, standing in for the order the kernel's atomics
-    take; slot order when None), then sort each segment by triangle id
-    (a segment longer than ``block_cap`` as the kernel sorts it,
-    ``_merge_chunks_plain``). Equal to ``bin_sort_plain`` on the valid
-    prefix of ``pair_tri`` and on every other output."""
+    only, CPU): the valid slots cut into table chunks of ``wide`` slots, a
+    multiple of ``chunk`` (0: ``sort_table_chunk``'s); each table chunk's count
+    of each bin (a (table chunk, bin) table); the table scanned in (bin,
+    table chunk) order, which gives each bin's segment start and its base
+    in each table chunk; then each chunk of ``chunk`` slots sorted by bin
+    as the kernel sorts it (``sort_chunk_plain`` on the keys less the
+    chunk's lowest bin, the slots past the list holding the sentinel) and
+    each pair placed at its bin's base in the table chunk, plus the bin's
+    pairs in the table chunk's slots ahead of the chunk, plus its rank
+    among the chunk's pairs of that bin. Equal to ``bin_sort_plain`` on
+    the valid prefix of ``pair_tri`` and on every other output."""
     pair_cap = keys.shape[0]
     n = max(min(int(total), pair_cap), 0)
+    wide = wide or sort_table_chunk(pair_cap, num_bins)
+    nt = -(-n // wide)
     k = keys[:n].long()
-    counts = torch.zeros((num_bins,), dtype=I32).index_add_(
-        0, k, torch.ones((n,), dtype=I32))
-    seg_start = torch.cumsum(counts, 0, dtype=I32) - counts
-    arrival = torch.arange(n) if arrival is None else arrival
-    ka, ta = k[arrival], tris[:n][arrival]
-    # Each arrival's slot: its bin's cursor, advanced by the arrivals of
-    # that bin before it.
-    rank = torch.empty((n,), dtype=torch.long)
-    by_bin = torch.sort(ka, stable=True).indices
-    rank[by_bin] = torch.arange(n) - seg_start.long()[ka[by_bin]]
+    ok = (k >= 0) & (k < num_bins)
+    table = torch.zeros((nt, num_bins), dtype=torch.long)
+    table.index_put_((torch.arange(n)[ok] // wide, k[ok]),
+                     torch.ones((int(ok.sum()),), dtype=torch.long),
+                     accumulate=True)
+    flat = table.t().reshape(-1)  # (bin, table chunk) order
+    base = (torch.cumsum(flat, 0) - flat).reshape(num_bins, nt).t()
+    counts = table.sum(0)
     pair_tri = torch.zeros((pair_cap,), dtype=I32)
-    pair_tri[seg_start.long()[ka] + rank] = ta.to(I32)
-    for b in torch.nonzero(counts > 1).flatten().tolist():
-        s0, cnt = int(seg_start[b]), int(counts[b])
-        seg = pair_tri[s0:s0 + cnt]
-        pair_tri[s0:s0 + cnt] = (torch.sort(seg).values if cnt <= block_cap
-                                 else _merge_chunks_plain(seg, block_cap))
-    out = _bin_extras(counts, seg_start, total, pair_cap, group, cap, exact)
+    warps = min(SORT_WARPS, chunk)
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        live = k[c0:c1][ok[c0:c1]]
+        if live.numel() == 0:
+            continue
+        lo, span = int(live.min()), int(live.max() - live.min()) + 1
+        fill = chunk - (c1 - c0)
+        sk, sv = sort_chunk_plain(
+            torch.cat([keys[c0:c1].long() - lo,
+                       torch.full((fill,), -1, dtype=torch.long)]),
+            torch.cat([tris[c0:c1], torch.zeros((fill,), dtype=tris.dtype)]),
+            span, warps)
+        t0 = c0 // wide * wide
+        ahead = k[t0:c0][ok[t0:c0]]
+        at = sk < span
+        b = sk[at] + lo
+        pos = (base[c0 // wide][b] + (ahead[:, None] == b[None, :]).sum(0)
+               + run_ranks_plain(sk)[at])
+        pair_tri[pos] = sv[at].to(I32)
+    seg_start = (torch.cumsum(counts, 0) - counts).to(I32)
+    out = _bin_extras(counts.to(I32), seg_start, total, pair_cap, group,
+                      cap, exact)
     out["pair_tri"] = pair_tri
     return out
+
+
+def sort_table_chunk(pair_cap: int, num_bins: int) -> int:
+    """The bin sort kernel's table chunk, in slots: ``SORT_CHUNK`` times
+    the least factor of 1, 2 or 4 whose (table chunk, bin) table holds at
+    most ``SORT_TABLE_CELLS`` cells (csrc/sort.cu's ``bin_sort``)."""
+    wide = SORT_CHUNK
+    while (wide < SORT_CHUNK * SORT_MAX_FACTOR
+           and max(-(-pair_cap // wide), 1) * num_bins > SORT_TABLE_CELLS):
+        wide *= 2
+    return wide
+
+
+def sort_scratch_ints(pair_cap: int, num_bins: int, rects: bool) -> int:
+    """The bin sort kernel's scratch, in int32 words (csrc/sort.cu's
+    ``bin_sort``): four a scan tile of ``SORT_SCAN_TILE`` bins (its
+    look-back words), the exact counts with the rects, then each table
+    chunk's range of bins and the (table chunk, bin) table."""
+    tiles = max(-(-num_bins // SORT_SCAN_TILE), 1)
+    chunks = max(-(-pair_cap // sort_table_chunk(pair_cap, num_bins)), 1)
+    return (4 * tiles + (num_bins if rects else 0) + 2 * chunks
+            + chunks * num_bins)
 
 
 def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx):
@@ -390,31 +462,26 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx):
             meta = meta.to(I32).contiguous()
         rows = [meta[3], meta[2], meta[0], meta[1]]  # c, rx, x0, y0
     num_tiles = num_bins // group
-    counts = torch.empty((num_bins * (2 if meta is not None else 1),),
-                         dtype=I32, device=device)
-    seg = torch.empty((3, num_bins), dtype=I32, device=device)
-    # The long segments' chunks, (bin, chunk) pairs: a bin of more than
-    # SORT_WARP_CAP pairs has ceil(count / SORT_BLOCK_CAP) of them.
-    chunks = torch.empty((2 * (num_bins + pair_cap // SORT_BLOCK_CAP + 1),),
-                         dtype=I32, device=device)
-    other = torch.empty((pair_cap,), dtype=I32, device=device)
+    scratch = torch.empty(
+        (sort_scratch_ints(pair_cap, num_bins, meta is not None),),
+        dtype=I32, device=device)
+    seg = torch.empty((2, num_bins), dtype=I32, device=device)
     pair_tri = torch.empty((pair_cap,), dtype=I32, device=device)
     worklist = torch.empty((num_tiles,), dtype=I32, device=device)
     tile_count = win_start = None
     if group == 16:
         tile_count, win_start = torch.empty((2, num_tiles), dtype=I32,
                                             device=device)
-    scal = torch.empty((5,), dtype=I32, device=device)
+    scal = torch.empty((4,), dtype=I32, device=device)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    fn = _build.entry("sort", "bin_sort", pointers=18, ints=6)
+    fn = _build.entry("sort", "bin_sort", pointers=15, ints=6)
     bin_sort.launches += 1
     _build.check(
         fn(keys.data_ptr(), tris.data_ptr(), total.data_ptr(),
-           *(ptr(r) for r in rows), counts.data_ptr(), seg[2].data_ptr(),
-           chunks.data_ptr(), other.data_ptr(), pair_tri.data_ptr(),
+           *(ptr(r) for r in rows), scratch.data_ptr(), pair_tri.data_ptr(),
            seg[0].data_ptr(), seg[1].data_ptr(), ptr(tile_count),
-           ptr(win_start), worklist.data_ptr(),
-           scal.data_ptr(), T, pair_cap, num_bins, group, int(cap), ntx,
+           ptr(win_start), worklist.data_ptr(), scal.data_ptr(), T,
+           pair_cap, num_bins, group, int(cap), ntx,
            torch.cuda.current_stream(device).cuda_stream),
         "bin_sort",
     )
@@ -447,9 +514,9 @@ def bin_sort(keys, tris, total, num_bins: int, *, group: int = 1,
     group 16 ``tile_count`` and ``win_start``.
 
     CPU tensors take the twin, ``bin_sort_plain``; CUDA tensors the kernel
-    ``csrc/sort.cu`` (``bin_sort.launches`` counts its calls, five
-    launches and a memset each; a CUDA graph's capture ticks it, its
-    replays do not)."""
+    ``csrc/sort.cu`` (``bin_sort.launches`` counts its calls, three
+    launches each; a CUDA graph's capture ticks it, its replays do
+    not)."""
     if group not in (1, 16) or num_bins % group:
         raise ValueError(f"bin_sort: {num_bins} bins in groups of {group}")
     if keys.device.type == "cpu":

@@ -8,8 +8,7 @@
 // pallas_micro.py occupied_worklist, and the sort and segments of
 // binning.py bin_triangles_sort (lax.sort, two searchsorted, the exact
 // corner-scatter counts under pair overflow) with pallas_raster.py
-// occupied_worklist. The port ran these as eager torch ops (a stable
-// torch.sort, searchsorted, a reshape-sum, a cumsum and a scatter).
+// occupied_worklist.
 //
 // Input: keys (pair_cap,) — the bin of each pair slot — and tris
 // (pair_cap,), whose first n = min(total, pair_cap) slots are valid and in
@@ -17,8 +16,8 @@
 // sentinel and are not read). Output, equal to the twin's
 // (binning.bin_sort_plain):
 // - pair_tri: on [0, n) the triangle ids in (bin, triangle) order — what
-//   tris[torch.sort(keys, stable=True).indices] gives there; 0 on
-//   [n, pair_cap);
+//   tris[torch.sort(keys, stable=True).indices] gives there; [n, pair_cap)
+//   is not written;
 // - seg_start (num_bins,): the exclusive scan of the bins' counts (the
 //   left searchsorted of each bin in the sorted keys); seg_count: the
 //   counts, clamped to cap;
@@ -27,91 +26,108 @@
 //   first segment;
 // - worklist (num_bins / group,): the ascending ids of the tiles whose
 //   (clamped) count is above 0, padded with 0;
-// - scal = [pair_needed, tile_needed, total, k, long segments]: pair_needed
-//   is total where it exceeds pair_cap, tile_needed the largest count where
-//   it exceeds cap (exact under pair overflow: with the flat layout's rects
+// - scal = [pair_needed, tile_needed, total, k]: pair_needed is total
+//   where it exceeds pair_cap, tile_needed the largest count where it
+//   exceeds cap (exact under pair overflow: with the flat layout's rects
 //   given, counted over every rect rather than the capped list), k the
 //   work list's length. (scal[0], scal[1]) is the frame's overflow report.
 //
-// What bounds it on an H100: memory. Each valid slot's key and triangle
-// are read (8 B; the key twice, for the count and the scatter) and its
-// triangle written and sorted in place (8 B), and each bin's 16 B of
-// segments, cursor and work list written: San Miguel's 327,695 pairs over
-// 12,288 cells move about 5 MB, 1.5 us at 3.35 TB/s. The work is a few
-// integer operations a pair and a log^2 sorting network a segment.
+// What bounds it on an H100: memory, and at a frame's few hundred
+// thousand pairs the latency of its steps. The function must read each
+// valid slot's key and triangle (8 B) and write its triangle (4 B), and
+// write each bin's 8 B of segments and each tile's work-list entry: San
+// Miguel's 327,695 pairs over 12,288 cells are about 4 MB, 1.2 us at
+// 3.35 TB/s.
 //
-// Design: five launches and one memset, every one capturable.
-// 1. bin_sort_count_kernel: each valid slot adds one to its bin's count,
-//    with one atomicAdd a run of equal keys in a warp (__match_any_sync).
-//    Under pair overflow of the flat layout it also counts, per alive
-//    triangle, every tile of its rect into the exact counts.
-// 2. bin_sort_scan_kernel (one block; each thread scans 16 consecutive
-//    bins — a micro tile — staged in shared memory so that device memory
-//    is read and written coalesced): the exclusive scan of the counts into
-//    seg_start and each bin's scatter cursor, the clamped counts, the
-//    group extras, the work list, the chunks of the long segments (over
-//    WARP_CAP pairs; one a BLOCK_CAP pairs) and scal.
-// 3. bin_sort_scatter_kernel: each valid slot writes its triangle at its
-//    bin's cursor, claimed with one atomicAdd a run of equal keys in a
-//    warp; the order within a bin is whatever order the atomics took.
-// 4. bin_sort_order_kernel (1,024 threads a block): sorts each segment by
-//    triangle id, with bitonic networks that hold E = 1..8 slots a thread
-//    in registers (a warp's stages are register swaps and shuffles, a
-//    block's widest ones go through shared memory). The first LONG_BLOCKS
-//    blocks take the long segments' chunks, one a block: a segment of up
-//    to BLOCK_CAP pairs is sorted in place, the chunks of a longer one
-//    into a scratch list at the same offsets. In the blocks after them
-//    warp w of block i sorts bin 32 i + w when it holds 2..WARP_CAP pairs.
-// 5. bin_sort_merge_kernel: each element of a segment longer than
-//    BLOCK_CAP goes from its sorted chunk to its index there plus, in each
-//    other chunk (staged in shared memory), the count of elements below
-//    it: one pass, a block a chunk, with no merge tree.
-// The segments' lengths spread the work: the micro path's densest cell
-// holds 1,718 pairs on San Miguel and 7,113 on structured_scene.obj, the
-// flat layout's heaviest tile 3,140 on structured_scene_tex.obj, against
-// a mean of 27-57.
-// Why this is the stable sort's order: a triangle covers a bin at most
-// once, so the triangle ids within a segment are distinct, and a segment
-// sorted by triangle id is the order in which the stable sort leaves
-// them, whatever order the atomics took.
+// Design: a stable counting sort, so that the order the pairs arrive in
+// (triangle order) is kept rather than thrown away and rebuilt. A pair at
+// slot p of bin b goes to seg_start[b] + (the pairs of bin b in slots
+// before p): that is the stable sort's order by construction. The slots
+// are cut into chunks of CHUNK (binning.SORT_CHUNK) and counted in table
+// chunks of 1, 2 or 4 chunks (the fewest that keep the (table chunk,
+// bin) table within TABLE_CELLS). Three launches in series, every one
+// capturable (a memset and five before this design):
+// 1. bin_sort_hist_kernel (a block a table chunk): the range [lo, hi] of
+//    the table chunk's bins and its count of each bin of the range
+//    (shared-memory atomics), written to its row of the table — only the
+//    range, which triangle order keeps narrow; it also clears the scan's
+//    look-back words (and the flat layout's exact counts), so that no
+//    memset is needed.
+// 2. bin_sort_scan_kernel (a block a tile of SCAN_TILE bins, SCAN_GROUPS
+//    threads a bin, each over a range of the table chunks): the bins'
+//    counts (a row outside its range reads as 0), each bin's column
+//    rewritten in place within the rows' ranges as its pairs in the table
+//    chunks before; the pairs and occupied tiles before the tile by a
+//    decoupled look-back over the tiles (single-pass scan; persistent
+//    blocks, at most one an SM, take the tiles in order); then seg_start,
+//    seg_count, the group extras and the work list; the last tile writes
+//    scal and the work list's padding. Under pair overflow of the flat
+//    layout every block first walks its share of the alive rects into
+//    the exact counts.
+// 3. bin_sort_place_kernel (a block a chunk): the chunk sorted stably by
+//    bin in shared memory — a least-significant-digit radix sort over the
+//    bits of its hi - lo + 1, one or two passes of up to 8 bits, each
+//    pass ranked with __match_any_sync within a warp's step, a running
+//    count per (digit, warp) and an exclusive scan of the counts — then
+//    each bin's base staged in shared memory (seg_start, plus the row of
+//    its table chunk, plus its pairs among the table chunk's slots ahead
+//    of the chunk, counted there) and each pair written at its bin's base
+//    plus its rank among the chunk's pairs of that bin.
+// A one-launch variant for the flat layout's short lists (a block a
+// chunk, the blocks meeting at a counter between the steps) was built and
+// measured no faster than these three launches (PERF.md), and dropped.
+// No step sorts a segment, so the longest segment (7,113 pairs on
+// structured_scene.obj) costs what any pairs cost.
 //
-// State: the counts are cleared by the memset inside each call; the
-// cursors and the chunk list are written by the scan, and the chunk
-// scratch by the order kernel, before anything reads them; all are
-// scratch the wrapper allocates for each call, so two calls in flight
-// share nothing. Nothing reads back to the host.
+// State: the look-back words (and the exact counts) are cleared by the
+// first launch of each call; the ranges and the table are written before
+// they are read; all are scratch the wrapper allocates for each call, so
+// two calls in flight share nothing. Nothing reads back to the host.
 //
 // Exactness: integer arithmetic only; the rect walk of the exact counts
 // uses c / max(rx, 1) rows as setup_from_meta does.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int THREADS = 256;               // count, scatter kernels
-constexpr int SCAN_THREADS = 512;          // bin_sort_scan_kernel
+constexpr int CHUNK = 2048;                // binning.SORT_CHUNK
+constexpr int THREADS = 256;               // bin_sort_place_kernel
+constexpr int WARPS = THREADS / 32;
+constexpr int ITEMS = CHUNK / THREADS;     // slots a thread in a chunk
+// A table chunk is 1, 2 or 4 chunks (binning.sort_table_chunk): the
+// fewest that keep the (table chunk, bin) table within TABLE_CELLS.
+constexpr int MAX_FACTOR = 4;              // binning.SORT_MAX_FACTOR
+constexpr int TABLE_CELLS = 1 << 21;       // binning.SORT_TABLE_CELLS
+constexpr int HIST_THREADS = 1024;         // bin_sort_hist_kernel
+constexpr int HIST_ITEMS = CHUNK * MAX_FACTOR / HIST_THREADS;
+// Bins of a chunk's bases a place block stages in shared memory at once.
+constexpr int BASE_STAGE = 8192;
+constexpr int SCAN_TILE = 128;             // bins a scan block (16 | it)
+constexpr int SCAN_THREADS = 1024;         // bin_sort_scan_kernel
 constexpr int SCAN_WARPS = SCAN_THREADS / 32;
-// Consecutive bins a scan thread owns: one micro tile of 16 cells, so a
-// tile's count is a thread's own sum; a round of the one block covers
-// SCAN_BINS bins (San Miguel's 12,288 cells in two), staged in static
-// shared memory (a round of 16,384 in dynamic shared memory measured
-// slower on every frame: 7.3-9.9 against 3.9-9.6 us).
-constexpr int SCAN_ITEMS = 16;
-constexpr int SCAN_BINS = SCAN_THREADS * SCAN_ITEMS;
-constexpr int ORDER_THREADS = 1024;        // bin_sort_order_kernel
-constexpr int ORDER_WARPS = ORDER_THREADS / 32;
-constexpr int WARP_CAP = 256;              // binning.SORT_WARP_CAP
-constexpr int BLOCK_CAP = 2048;            // binning.SORT_BLOCK_CAP
-constexpr int BLOCK_E = BLOCK_CAP / ORDER_THREADS;  // slots a thread: 2
-// Blocks that take the long segments' chunks, launched first so that the
-// longest sorts start at once: more than a frame has chunks (San Miguel
-// 273), one each; those without one exit at once.
-constexpr int LONG_BLOCKS = 1024;
-constexpr int MERGE_THREADS = 1024;        // bin_sort_merge_kernel
-constexpr int MERGE_BLOCKS = 264;
-constexpr int SLOT_BLOCKS = 132 * 16;      // the slot loops' largest grid
+constexpr int SCAN_GROUPS = SCAN_THREADS / SCAN_TILE;  // chunk ranges
+constexpr int MAX_DIGITS = 256;            // 8 bits a radix pass
+constexpr int HIST_WINDOW = 16384;         // bins a pass of the count
+// The table chunks' ranges a scan block stages in shared memory.
+constexpr int RANGE_STAGE = 1024;
+// A sorted chunk's arrays in shared memory hold slot q at pad(q), one pad
+// word every 32, so that a thread's ITEMS consecutive slots sit on
+// distinct banks across a warp.
+constexpr int PADDED = CHUNK + CHUNK / 32;
+__host__ __device__ constexpr int pad(int q) { return q + (q >> 5); }
+// The (digit, warp) counts of a radix pass sit at warp (digits + 1) +
+// digit: a warp's leaders (distinct digits) hit distinct banks.
+__host__ __device__ constexpr int cnt_at(int d, int w, int digits) {
+  return w * (digits + 1) + d;
+}
+constexpr int CNT_WORDS = WARPS * (MAX_DIGITS + 1);
+// Dynamic shared memory of the place kernel: the chunk's keys, triangles
+// and places, the (digit, warp) counts, the warps' scan totals, the
+// chunk's range and the staged bases.
+constexpr int SORT_SMEM = (3 * PADDED + CNT_WORDS + WARPS + 2 + BASE_STAGE)
+                          * 4;
 
 // Inclusive warp scan of v.
 __device__ __forceinline__ int warp_scan(int v, int lane) {
@@ -123,38 +139,33 @@ __device__ __forceinline__ int warp_scan(int v, int lane) {
   return v;
 }
 
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
 // The valid slots: min(total, pair_cap), at least 0.
 __device__ __forceinline__ int valid_slots(const int* total, int pair_cap) {
   return max(min(*total, pair_cap), 0);
 }
 
-__global__ void __launch_bounds__(THREADS) bin_sort_count_kernel(
-    const int* __restrict__ keys, const int* __restrict__ total,
-    int* __restrict__ counts,      // (num_bins,), cleared by the memset
-    const int* __restrict__ c,     // flat layout: (T,) meta rows, else null
-    const int* __restrict__ rx, const int* __restrict__ x0,
-    const int* __restrict__ y0,
-    int* __restrict__ exact,       // flat layout: (num_bins,), cleared
-    int pair_cap, int num_bins, int T, int ntx) {
-  const int n = valid_slots(total, pair_cap);
-  const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * THREADS;
-  // Warp-uniform bounds, so that every lane joins the match.
-  for (int base = blockIdx.x * THREADS + (threadIdx.x & ~31); base < n;
-       base += stride) {
-    const int p = base + lane;
-    int b = p < n ? keys[p] : -1;
-    if ((unsigned)b >= (unsigned)num_bins) b = -1;
-    const unsigned run = __match_any_sync(FULL, b);
-    if (b >= 0 && lane == __ffs(run) - 1) atomicAdd(&counts[b], __popc(run));
-  }
-  if (exact == nullptr || *total <= pair_cap) return;
-  // Pair overflow: the list holds only the first pair_cap pairs, and the
-  // retry needs every tile's whole count. Each alive triangle counts the
-  // tiles of its rect [x0, x0 + rx) x [y0, y0 + c / max(rx, 1)), clipped
-  // to the grid.
+// A slot's bin, or -1 past the valid slots or out of range.
+__device__ __forceinline__ int bin_of(const int* keys, int p, int n,
+                                      int num_bins) {
+  const int b = p < n ? keys[p] : -1;
+  return (unsigned)b < (unsigned)num_bins ? b : -1;
+}
+
+// Pair overflow of the flat layout: the list holds only the first pair_cap
+// pairs, and the retry needs every tile's whole count. Triangles t0,
+// t0 + stride, ... below T each add one to every tile of their rect
+// [x0, x0 + rx) x [y0, y0 + c / max(rx, 1)), clipped to the grid.
+__device__ void walk_rects(const int* c, const int* rx, const int* x0,
+                           const int* y0, int* exact, int T, int t0,
+                           int stride, int num_bins, int ntx) {
   const int nty = num_bins / ntx;
-  for (int t = blockIdx.x * THREADS + threadIdx.x; t < T; t += stride) {
+  for (int t = t0; t < T; t += stride) {
     const int ct = c[t];
     if (ct <= 0) continue;
     const int w = rx[t], tx = x0[t], ty = y0[t];
@@ -166,431 +177,694 @@ __global__ void __launch_bounds__(THREADS) bin_sort_count_kernel(
   }
 }
 
-// The long-segment chunks of a bin of cnt pairs: none up to WARP_CAP (a
-// warp sorts it whole), else one a BLOCK_CAP pairs.
-__device__ __forceinline__ int chunks_of(int cnt) {
-  return cnt > WARP_CAP ? (cnt + BLOCK_CAP - 1) / BLOCK_CAP : 0;
-}
+// ---------------------------------------------------------------------------
+// One block's scan of NT consecutive bins (a thread a bin)
+// ---------------------------------------------------------------------------
 
-// Shared-memory index of a round's bin i, one pad word every 16: a
-// thread's 16 consecutive bins then sit on distinct banks across a warp.
-__host__ __device__ constexpr int pad16(int i) { return i + (i >> 4); }
+struct BinScan {
+  int start;     // the bin's pairs before it within the block's bins
+  int occ_at;    // the occupied tiles before its tile within them
+  int sum16;     // group 16: its tile's count
+  bool occ;      // group 1: the bin; group 16: its tile, on its first bin
+  int pairs;     // the block's bins' pairs
+  int occupied;  // ... and occupied tiles
+  int most;      // ... and largest count
+};
 
-__global__ void __launch_bounds__(SCAN_THREADS) bin_sort_scan_kernel(
-    const int* __restrict__ counts, const int* __restrict__ exact,
-    const int* __restrict__ total, int pair_cap, int num_bins, int group,
-    int cap, int* __restrict__ seg_start, int* __restrict__ seg_count,
-    int* __restrict__ cursor, int* __restrict__ tile_count,
-    int* __restrict__ win_start, int* __restrict__ worklist,
-    int* __restrict__ long_list, int* __restrict__ scal) {
-  // A round's counts, then its segment starts, staged so that device
-  // memory is read and written coalesced.
-  __shared__ int s_bin[pad16(SCAN_BINS)];
-  __shared__ int s_sum[32];
-  __shared__ int s_occ[32];
-  __shared__ int s_long[32];
-  __shared__ int s_all[3];
+// s_red: 3 * (NT / 32) ints. Every thread of the block calls it; cnt is 0
+// for a thread past num_bins (a whole tile of 16 lies in or out).
+template <int NT>
+__device__ BinScan scan_bins(int cnt, int group, int cap, int* s_red) {
+  constexpr int NW = NT / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int num_tiles = num_bins / group;
-  int carry = 0, carry_occ = 0, carry_long = 0, most = 0;
-  for (int base = 0; base < num_bins; base += SCAN_BINS) {
-    const int in_round = min(SCAN_BINS, num_bins - base);
-    for (int i = threadIdx.x; i < SCAN_BINS; i += SCAN_THREADS)
-      s_bin[pad16(i)] = i < in_round ? counts[base + i] : 0;
-    __syncthreads();
-    // This thread's bins [b0, b0 + SCAN_ITEMS): with group 16, one tile.
-    const int i0 = threadIdx.x * SCAN_ITEMS;
-    const int b0 = base + i0;
-    int cnt[SCAN_ITEMS];
-    int sum = 0, occ = 0, lng = 0;
+  BinScan r;
+  r.sum16 = cnt;
 #pragma unroll
-    for (int k = 0; k < SCAN_ITEMS; ++k) {
-      cnt[k] = s_bin[pad16(i0 + k)];
-      sum += cnt[k];
-      lng += chunks_of(cnt[k]);
-      most = max(most, cnt[k]);
-      if (group == 1) occ += min(cnt[k], cap) > 0;
-    }
-    if (group == 16) occ = b0 < num_bins && min(sum, cap) > 0;
-    // The block's exclusive scan of (pairs, occupied tiles, long bins):
-    // within each warp, then warp 0 over the warps' totals.
-    const int incl = warp_scan(sum, lane);
-    const int incl_occ = warp_scan(occ, lane);
-    const int incl_long = warp_scan(lng, lane);
-    if (lane == 31) {
-      s_sum[warp] = incl;
-      s_occ[warp] = incl_occ;
-      s_long[warp] = incl_long;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const bool w = lane < SCAN_WARPS;
-      const int v = w ? s_sum[lane] : 0, vo = w ? s_occ[lane] : 0,
-                vl = w ? s_long[lane] : 0;
-      const int iv = warp_scan(v, lane), io = warp_scan(vo, lane),
-                il = warp_scan(vl, lane);
-      s_sum[lane] = iv - v;
-      s_occ[lane] = io - vo;
-      s_long[lane] = il - vl;
-      if (lane == 31) {
-        s_all[0] = iv;
-        s_all[1] = io;
-        s_all[2] = il;
-      }
-    }
-    __syncthreads();
-    int start = carry + s_sum[warp] + incl - sum;
-    int at_occ = carry_occ + s_occ[warp] + incl_occ - occ;
-    int at_long = carry_long + s_long[warp] + incl_long - lng;
-    if (group == 16 && b0 < num_bins) {
-      const int tile = b0 / 16;
-      tile_count[tile] = sum;
-      win_start[tile] = (start >> 4) << 4;  // start >= 0
-      if (occ) worklist[at_occ] = tile;
-    }
-#pragma unroll
-    for (int k = 0; k < SCAN_ITEMS; ++k) {
-      const int b = b0 + k;
-      s_bin[pad16(i0 + k)] = start;
-      if (b < num_bins) {
-        for (int c = 0; c < chunks_of(cnt[k]); ++c, ++at_long) {
-          long_list[2 * at_long] = b;
-          long_list[2 * at_long + 1] = c;
-        }
-        if (group == 1 && min(cnt[k], cap) > 0) worklist[at_occ++] = b;
-      }
-      start += cnt[k];
-    }
-    __syncthreads();
-    // Each bin's count is the next start less its own; the round's last
-    // bin ends at the round's total.
-    const int end_all = carry + s_all[0];
-    for (int i = threadIdx.x; i < in_round; i += SCAN_THREADS) {
-      const int b = base + i;
-      const int st = s_bin[pad16(i)];
-      const int next = i + 1 < in_round ? s_bin[pad16(i + 1)] : end_all;
-      seg_start[b] = st;
-      cursor[b] = st;
-      seg_count[b] = min(next - st, cap);
-    }
-    carry += s_all[0];
-    carry_occ += s_all[1];
-    carry_long += s_all[2];
-    __syncthreads();  // s_bin and the totals are rewritten next round
+  for (int o = 8; o > 0; o >>= 1)
+    r.sum16 += __shfl_xor_sync(FULL, r.sum16, o);
+  const int occ = group == 16 ? ((lane & 15) == 0 && min(r.sum16, cap) > 0)
+                              : min(cnt, cap) > 0;
+  r.occ = occ;
+  const int incl = warp_scan(cnt, lane), incl_occ = warp_scan(occ, lane);
+  const int most = warp_max(cnt);
+  if (lane == 31) {
+    s_red[warp] = incl;
+    s_red[NW + warp] = incl_occ;
   }
-  // The work list's padding: every slot past the occupied count is 0.
-  for (int i = carry_occ + threadIdx.x; i < num_tiles; i += SCAN_THREADS)
-    worklist[i] = 0;
-  const int all_pairs = *total;
-  const bool over = all_pairs > pair_cap;
-  if (exact != nullptr && over) {
-    most = 0;
-    for (int b = threadIdx.x; b < num_bins; b += SCAN_THREADS)
-      most = max(most, exact[b]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    most = max(most, __shfl_xor_sync(FULL, most, o));
-  if (lane == 0) s_sum[warp] = most;
+  if (lane == 0) s_red[2 * NW + warp] = most;
   __syncthreads();
+  if (warp == 0) {
+    const bool w = lane < NW;
+    const int v = w ? s_red[lane] : 0, vo = w ? s_red[NW + lane] : 0;
+    const int iv = warp_scan(v, lane), io = warp_scan(vo, lane);
+    const int m = warp_max(w ? s_red[2 * NW + lane] : 0);
+    __syncwarp();
+    if (w) {
+      s_red[lane] = iv - v;
+      s_red[NW + lane] = io - vo;
+    }
+    if (lane == 31) {
+      s_red[2 * NW] = iv;        // the block's pairs
+      s_red[2 * NW + 1] = io;    // ... occupied tiles
+      s_red[2 * NW + 2] = m;     // ... largest count
+    }
+  }
+  __syncthreads();
+  r.start = s_red[warp] + incl - cnt;
+  r.occ_at = s_red[NW + warp] + incl_occ - occ;
+  r.pairs = s_red[2 * NW];
+  r.occupied = s_red[2 * NW + 1];
+  r.most = s_red[2 * NW + 2];
+  __syncthreads();  // s_red is rewritten by the next call
+  return r;
+}
+
+// Bin b's outputs, its segment starting at start and its work-list entry
+// (if any) at occ_at.
+__device__ __forceinline__ void write_bin(
+    int b, int cnt, int start, int occ_at, const BinScan& r, int group,
+    int cap, int* seg_start, int* seg_count, int* tile_count,
+    int* win_start, int* worklist) {
+  seg_start[b] = start;
+  seg_count[b] = min(cnt, cap);
+  if (group == 16) {
+    if ((b & 15) == 0) {
+      tile_count[b >> 4] = r.sum16;
+      win_start[b >> 4] = (start >> 4) << 4;  // start >= 0
+    }
+  }
+  if (r.occ) worklist[occ_at] = group == 16 ? b >> 4 : b;
+}
+
+// scal and the work list's padding, once the totals are known; every
+// thread of the block calls it.
+__device__ void write_totals(const int* total, int pair_cap, int cap,
+                             int most, int k, int num_tiles, int* worklist,
+                             int* scal) {
+  for (int i = k + threadIdx.x; i < num_tiles; i += blockDim.x)
+    worklist[i] = 0;
   if (threadIdx.x == 0) {
-    int m = 0;
-    for (int w = 0; w < SCAN_WARPS; ++w) m = max(m, s_sum[w]);
+    const int all_pairs = *total;
+    const bool over = all_pairs > pair_cap;
     scal[0] = over ? all_pairs : 0;
-    scal[1] = m > cap ? m : 0;
+    scal[1] = most > cap ? most : 0;
     scal[2] = all_pairs;
-    scal[3] = carry_occ;
-    scal[4] = carry_long;
+    scal[3] = k;
   }
 }
 
-__global__ void __launch_bounds__(THREADS) bin_sort_scatter_kernel(
-    const int* __restrict__ keys, const int* __restrict__ tris,
-    const int* __restrict__ total, int* __restrict__ cursor,
-    int* __restrict__ pair_tri, int pair_cap, int num_bins) {
-  const int n = valid_slots(total, pair_cap);
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  const int stride = gridDim.x * THREADS;
-  for (int base = blockIdx.x * THREADS + (threadIdx.x & ~31); base < pair_cap;
-       base += stride) {
-    const int p = base + lane;
-    int b = p < n ? keys[p] : -1;
-    if ((unsigned)b >= (unsigned)num_bins) b = -1;
-    const unsigned run = __match_any_sync(FULL, b);
-    const int leader = __ffs(run) - 1;
-    int slot = 0;
-    if (b >= 0 && lane == leader) slot = atomicAdd(&cursor[b], __popc(run));
-    slot = __shfl_sync(FULL, slot, leader);
-    if (b >= 0) {
-      pair_tri[slot + __popc(run & below)] = tris[p];
-    } else if (p >= n && p < pair_cap) {
-      pair_tri[p] = 0;
-    }
-  }
-}
+// ---------------------------------------------------------------------------
+// The stable sort of one chunk in shared memory, and its placement
+// ---------------------------------------------------------------------------
 
-// Bitonic sorting networks over L = 32 E (a warp) or ORDER_THREADS E (a
-// block) slots, each thread holding E consecutive ones (slot i = t E + e
-// of thread t) in registers, padded with INT_MAX. Stage (k, j) pairs slot
-// i with i ^ j, ascending where bit k of i is clear: for j < E both are
-// the thread's own; for j < 32 E the partner is lane ^ (j / E) of the
-// same warp (a shuffle); wider stages exchange through shared memory.
-
-// Stage (k, j < E): the thread's own pairs.
-template <int E>
-__device__ __forceinline__ void stage_regs(int (&v)[E], int t, int k, int j) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    if (e & j) continue;
-    const int a = v[e], b = v[e | j];
-    if ((a > b) == (((t * E + e) & k) == 0)) {
-      v[e] = b;
-      v[e | j] = a;
-    }
-  }
-}
-
-// Stage (k, E <= j < 32 E): one shuffle a slot; the lower slot of a pair
-// keeps the smaller value in an ascending run, the larger in a
-// descending one.
-template <int E>
-__device__ __forceinline__ void stage_lanes(int (&v)[E], int t, int k,
-                                            int j) {
-  const int d = j / E;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int o = __shfl_xor_sync(FULL, v[e], d);
-    const int i = t * E + e;
-    v[e] = ((i & j) == 0) == ((i & k) == 0) ? min(v[e], o) : max(v[e], o);
-  }
-}
-
-// Sort seg[0, cnt), cnt <= 32 E, in one warp's registers.
-template <int E>
-__device__ void warp_sort(int* seg, int cnt, int lane) {
-  int v[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int i = lane * E + e;
-    v[e] = i < cnt ? seg[i] : INT_MAX;
-  }
-#pragma unroll
-  for (int k = 2; k <= 32 * E; k <<= 1)
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (j < E) {
-        stage_regs<E>(v, lane, k, j);
-      } else {
-        stage_lanes<E>(v, lane, k, j);
-      }
-    }
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int i = lane * E + e;
-    if (i < cnt) seg[i] = v[e];
-  }
-}
-
-// Shared-memory index of exchange slot i, one pad word every 32: a
-// thread's E consecutive slots then sit on distinct banks across a warp.
-__host__ __device__ constexpr int pad32(int i) { return i + (i >> 5); }
-
-// Sort src[0, cnt), cnt <= ORDER_THREADS E, in the block's registers into
-// dst[0, cnt) (src itself or not), with the shared memory s for the wide
-// stages.
-template <int E>
-__device__ void block_sort(const int* src, int* dst, int cnt, int* s) {
-  constexpr int L = ORDER_THREADS * E;
-  const int t = threadIdx.x;
-  int v[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int i = t * E + e;
-    v[e] = i < cnt ? src[i] : INT_MAX;
-  }
-#pragma unroll
-  for (int k = 2; k <= L; k <<= 1)
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (j < E) {
-        stage_regs<E>(v, t, k, j);
-      } else if (j < 32 * E) {
-        stage_lanes<E>(v, t, k, j);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) s[pad32(t * E + e)] = v[e];
-        __syncthreads();
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const int i = t * E + e;
-          const int o = s[pad32(i ^ j)];
-          v[e] = ((i & j) == 0) == ((i & k) == 0) ? min(v[e], o)
-                                                  : max(v[e], o);
-        }
-        __syncthreads();  // s is rewritten by the next wide stage
-      }
-    }
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int i = t * E + e;
-    if (i < cnt) dst[i] = v[e];
-  }
-}
-
-// A chunk of cnt <= BLOCK_CAP pairs: the smallest network that holds it.
-__device__ void block_sort_any(const int* src, int* dst, int cnt, int* s) {
-  if (cnt <= ORDER_THREADS) {
-    block_sort<1>(src, dst, cnt, s);
-  } else {
-    block_sort<BLOCK_E>(src, dst, cnt, s);
-  }
-}
-
-__global__ void __launch_bounds__(ORDER_THREADS) bin_sort_order_kernel(
-    const int* __restrict__ counts, const int* __restrict__ seg_start,
-    const int* __restrict__ long_list, const int* __restrict__ scal,
-    int* pair_tri, int* other, int num_bins) {
-  __shared__ int s[pad32(BLOCK_CAP)];  // the wide stages' exchange
-  if ((int)blockIdx.x < LONG_BLOCKS) {
-    // Chunk c of a long bin: sorted whole in place when the bin fits one
-    // chunk, else into the merge's scratch at the same offsets.
-    const int n_chunks = scal[4];
-    for (int u = blockIdx.x; u < n_chunks; u += LONG_BLOCKS) {
-      const int b = long_list[2 * u], c = long_list[2 * u + 1];
-      const int cnt = counts[b];
-      const int at = seg_start[b] + c * BLOCK_CAP;
-      block_sort_any(pair_tri + at,
-                     (cnt > BLOCK_CAP ? other : pair_tri) + at,
-                     min(BLOCK_CAP, cnt - c * BLOCK_CAP), s);
-    }
-    return;
-  }
+// Exclusive scan in place of the (digit, warp) counts in (digit, warp)
+// order, THREADS threads, each a run of consecutive entries; s_warp:
+// WARPS ints.
+__device__ void scan_counts(unsigned* a, int digits, int* s_warp) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = (blockIdx.x - LONG_BLOCKS) * ORDER_WARPS + warp;
-  if (b >= num_bins) return;
-  const int cnt = counts[b];
-  if (cnt < 2 || cnt > WARP_CAP) return;  // nothing to do, or long
-  int* seg = pair_tri + seg_start[b];
-  if (cnt <= 32) {
-    warp_sort<1>(seg, cnt, lane);
-  } else if (cnt <= 64) {
-    warp_sort<2>(seg, cnt, lane);
-  } else if (cnt <= 128) {
-    warp_sort<4>(seg, cnt, lane);
-  } else {
-    warp_sort<8>(seg, cnt, lane);
+  const int len = digits * WARPS;
+  const int per = (len + THREADS - 1) / THREADS;
+  const int i0 = threadIdx.x * per, i1 = min(i0 + per, len);
+  int sum = 0;
+  for (int i = i0; i < i1; ++i) sum += a[cnt_at(i / WARPS, i % WARPS, digits)];
+  const int incl = warp_scan(sum, lane);
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < WARPS ? s_warp[lane] : 0;
+    const int iv = warp_scan(v, lane);
+    __syncwarp();
+    if (lane < WARPS) s_warp[lane] = iv - v;
+  }
+  __syncthreads();
+  int run = s_warp[warp] + incl - sum;
+  for (int i = i0; i < i1; ++i) {
+    unsigned* at = &a[cnt_at(i / WARPS, i % WARPS, digits)];
+    const unsigned x = *at;
+    *at = run;
+    run += x;
   }
 }
 
-// The bins of more than BLOCK_CAP pairs, whose chunks the order kernel
-// sorted into other: each element of chunk c goes to its index in the
-// chunk plus, in every other chunk, the count of elements below it (the
-// ids of a bin are distinct), into pair_tri. One block a chunk; each
-// other chunk is staged in shared memory for the binary searches.
-__global__ void __launch_bounds__(MERGE_THREADS) bin_sort_merge_kernel(
-    const int* __restrict__ counts, const int* __restrict__ seg_start,
-    const int* __restrict__ long_list, const int* __restrict__ scal,
-    const int* __restrict__ other, int* __restrict__ pair_tri) {
-  constexpr int PER = BLOCK_CAP / MERGE_THREADS;  // elements a thread
-  __shared__ int s_run[BLOCK_CAP];
-  const int n_chunks = scal[4];
-  for (int u = blockIdx.x; u < n_chunks; u += gridDim.x) {
-    const int b = long_list[2 * u], c = long_list[2 * u + 1];
-    const int cnt = counts[b];
-    if (cnt <= BLOCK_CAP) continue;  // block-uniform
-    const int start = seg_start[b];
-    const int* seg = other + start;
-    const int chunks = (cnt + BLOCK_CAP - 1) / BLOCK_CAP;
-    const int c0 = c * BLOCK_CAP, m = min(BLOCK_CAP, cnt - c0);
-    int v[PER], pos[PER];
+// Sorts the chunk's m slots (keys[0, m), vals[0, m)) stably by key into
+// s_key / s_val (slot q at pad(q), q < CHUNK), the keys rebased to lo: a
+// key outside [lo, lo + span), and the CHUNK - m slots past the chunk,
+// become span and sort last. LSD radix passes of D <= 8 bits over the
+// bits of span; slot p of a pass is item (p / 32) % ITEMS of lane p % 32
+// of warp p / (32 ITEMS), so that a warp's items in order, then the warps
+// in order, are the slots in order, and the counts scanned in (digit,
+// warp) order give each digit's run of a warp its place. Every thread of
+// the block calls it; it ends synced.
+__device__ void sort_chunk(const int* keys, const int* vals, int m, int lo,
+                           int span, int* s_key, int* s_val,
+                           unsigned* s_cnt, int* s_warp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int bits = 32 - __clz(span);  // span itself fits
+  const int passes = (bits + 7) / 8;
+  const int D = (bits + passes - 1) / passes;
+  const int mask = (1 << D) - 1;
+  const int digits = 1 << D;
+  int k[ITEMS], v[ITEMS], r[ITEMS];
 #pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      const int j = threadIdx.x + q * MERGE_THREADS;
-      v[q] = j < m ? seg[c0 + j] : INT_MAX;
-      pos[q] = j;
-    }
-    for (int d = 0; d < chunks; ++d) {
-      if (d == c) continue;
-      const int len = min(BLOCK_CAP, cnt - d * BLOCK_CAP);
-      for (int i = threadIdx.x; i < len; i += MERGE_THREADS)
-        s_run[i] = seg[d * BLOCK_CAP + i];
-      __syncthreads();
+  for (int i = 0; i < ITEMS; ++i) {
+    const int p = (warp * ITEMS + i) * 32 + lane;
+    const int key = (p < m ? keys[p] : lo - 1) - lo;
+    k[i] = (unsigned)key < (unsigned)span ? key : span;
+    v[i] = p < m ? vals[p] : 0;
+  }
+  for (int pass = 0; pass < passes; ++pass) {
+    const int shift = pass * D;
+    if (pass > 0) {
 #pragma unroll
-      for (int q = 0; q < PER; ++q) {
-        int a = 0, e = len;  // elements of chunk d below v[q]
-        while (a < e) {
-          const int mid = (a + e) >> 1;
-          if (s_run[mid] < v[q]) {
-            a = mid + 1;
-          } else {
-            e = mid;
-          }
-        }
-        pos[q] += a;
+      for (int i = 0; i < ITEMS; ++i) {
+        const int p = pad((warp * ITEMS + i) * 32 + lane);
+        k[i] = s_key[p];
+        v[i] = s_val[p];
       }
-      __syncthreads();  // s_run is rewritten by the next chunk
     }
+    for (int i = threadIdx.x; i < WARPS * (digits + 1); i += THREADS)
+      s_cnt[i] = 0;
+    __syncthreads();  // also: every load above is done before the stores
+    unsigned run[ITEMS];
 #pragma unroll
-    for (int q = 0; q < PER; ++q)
-      if (threadIdx.x + q * MERGE_THREADS < m) pair_tri[start + pos[q]] = v[q];
+    for (int i = 0; i < ITEMS; ++i)
+      run[i] = __match_any_sync(FULL, (k[i] >> shift) & mask);
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int leader = __ffs(run[i]) - 1;
+      unsigned old = 0;
+      if (lane == leader) {
+        unsigned* at = &s_cnt[cnt_at((k[i] >> shift) & mask, warp, digits)];
+        old = *at;
+        *at = old + __popc(run[i]);
+      }
+      old = __shfl_sync(FULL, old, leader);
+      r[i] = old + __popc(run[i] & below);
+      __syncwarp();
+    }
+    __syncthreads();
+    scan_counts(s_cnt, digits, s_warp);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int d = (k[i] >> shift) & mask;
+      const int at = pad(s_cnt[cnt_at(d, warp, digits)] + r[i]);
+      s_key[at] = k[i];
+      s_val[at] = v[i];
+    }
+    __syncthreads();
   }
 }
 
-unsigned slot_blocks(int n) {
-  const int b = (n + THREADS - 1) / THREADS;
-  return (unsigned)(b < 1 ? 1 : b > SLOT_BLOCKS ? SLOT_BLOCKS : b);
+// Places the sorted chunk: slot q of rebased key b < span goes to
+// out[base(b) + q - (the first slot of b's run)], through s_pos so that a
+// warp's stores are of consecutive slots. base(b) is bin lo + b's segment
+// start, plus its pairs in the table chunks before (row[lo + b]), plus
+// its pairs among the before slots of its table chunk ahead of this
+// chunk (prior[0, before)), staged in s_base BASE_STAGE bins at a time
+// and read at the runs' starts. A thread
+// walks ITEMS consecutive slots for the runs, carrying in the start of
+// the run its first slot lies in (an exclusive max-scan over the block of
+// each thread's last run start). Every thread of the block calls it.
+__device__ void place_chunk(const int* s_key, const int* s_val, int* s_pos,
+                            int* s_warp, int* s_base, int lo, int span,
+                            const int* seg_start, const int* row,
+                            const int* prior, int before, int* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = threadIdx.x * ITEMS;
+  int key[ITEMS], at[ITEMS];
+  bool start[ITEMS];
+  int last = -1;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int q = q0 + j;
+    key[j] = s_key[pad(q)];
+    start[j] = q == 0 || s_key[pad(q - 1)] != key[j];
+    if (start[j]) last = q;
+    at[j] = 0;
+  }
+  int incl = last;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl = max(incl, up);
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  // The bases of the runs that start in the thread's slots (and of the
+  // run its first slot lies in).
+  for (int w0 = 0; w0 < span; w0 += BASE_STAGE) {
+    const int len = min(BASE_STAGE, span - w0);
+    for (int i = threadIdx.x; i < len; i += THREADS)
+      s_base[i] =
+          __ldcg(&seg_start[lo + w0 + i]) + __ldcg(&row[lo + w0 + i]);
+    __syncthreads();
+    for (int p0 = 0; p0 < before; p0 += 16 * THREADS) {
+      int k[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int p = p0 + u * THREADS + threadIdx.x;
+        k[u] = p < before ? prior[p] - lo - w0 : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if ((unsigned)k[u] < (unsigned)len) atomicAdd(&s_base[k[u]], 1);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j)
+      if ((start[j] || j == 0) && (unsigned)(key[j] - w0) < (unsigned)len)
+        at[j] = s_base[key[j] - w0];
+    __syncthreads();  // s_base is rewritten by the next window
+  }
+  if (warp == 0) {
+    const int v = lane < WARPS ? s_warp[lane] : -1;
+    int iv = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(FULL, iv, o);
+      if (lane >= o) iv = max(iv, up);
+    }
+    const int ex = __shfl_up_sync(FULL, iv, 1);
+    __syncwarp();
+    if (lane < WARPS) s_warp[lane] = lane == 0 ? -1 : ex;
+  }
+  __syncthreads();
+  const int ex_lane = __shfl_up_sync(FULL, incl, 1);
+  int first = max(s_warp[warp], lane == 0 ? -1 : ex_lane);
+  int from = at[0];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int q = q0 + j;
+    if (start[j]) {
+      first = q;
+      from = at[j];
+    }
+    s_pos[pad(q)] = key[j] < span ? from + (q - first) : -1;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < CHUNK; q += THREADS) {
+    const int to = s_pos[pad(q)];
+    if (to >= 0) out[to] = s_val[pad(q)];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The kernels
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(HIST_THREADS) bin_sort_hist_kernel(
+    const int* __restrict__ keys, const int* __restrict__ total,
+    int* __restrict__ ranges,   // (chunks, 2): [lo, hi] of each chunk
+    int* __restrict__ table,    // (chunks, num_bins)
+    int* __restrict__ clear,    // the scan's scratch, clear_len ints
+    int clear_len, int pair_cap, int num_bins, int tchunk) {
+  extern __shared__ int s_hist[];  // min(HIST_WINDOW, num_bins) bins
+  __shared__ int s_range[2];
+  for (int i = blockIdx.x * HIST_THREADS + threadIdx.x; i < clear_len;
+       i += gridDim.x * HIST_THREADS)
+    clear[i] = 0;
+  const int n = valid_slots(total, pair_cap);
+  const int c0 = blockIdx.x * tchunk;
+  if (c0 >= n) return;  // the scan reads no row past the valid chunks
+  const int lane = threadIdx.x & 31;
+  const int m = min(tchunk, n - c0);
+  if (threadIdx.x == 0) {
+    s_range[0] = num_bins;
+    s_range[1] = -1;
+  }
+  int b[HIST_ITEMS];
+  int lo = num_bins, hi = -1;
+#pragma unroll
+  for (int i = 0; i < HIST_ITEMS; ++i) {
+    b[i] = bin_of(keys + c0, i * HIST_THREADS + threadIdx.x, m, num_bins);
+    if (b[i] >= 0) {
+      lo = min(lo, b[i]);
+      hi = max(hi, b[i]);
+    }
+  }
+  lo = -warp_max(-lo);
+  hi = warp_max(hi);
+  __syncthreads();  // s_range is set
+  if (lane == 0) {
+    atomicMin(&s_range[0], lo);
+    atomicMax(&s_range[1], hi);
+  }
+  __syncthreads();
+  lo = s_range[0];
+  hi = s_range[1];
+  if (threadIdx.x == 0) {
+    ranges[2 * blockIdx.x] = lo;
+    ranges[2 * blockIdx.x + 1] = hi;
+  }
+  __syncthreads();  // every thread has the range before s_hist is cleared
+  // The table chunk's counts over [lo, hi], HIST_WINDOW bins at a time.
+  int* row = table + (size_t)blockIdx.x * num_bins;
+  for (int w0 = lo; w0 <= hi; w0 += HIST_WINDOW) {
+    const int len = min(HIST_WINDOW, hi + 1 - w0);
+    for (int i = threadIdx.x; i < len; i += HIST_THREADS) s_hist[i] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < HIST_ITEMS; ++i)
+      if ((unsigned)(b[i] - w0) < (unsigned)len)
+        atomicAdd(&s_hist[b[i] - w0], 1);
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += HIST_THREADS)
+      row[w0 + i] = s_hist[i];
+    __syncthreads();  // s_hist is cleared for the next window
+  }
+}
+
+// The look-back word of a tile: a flag (1: the tile's own sums, 2: the
+// sums of every tile up to it) over 31 bits of occupied tiles and 31 bits
+// of pairs (each below 2^31: pairs <= pair_cap, tiles <= num_bins). A
+// tile's largest count goes in a second word, flag 1.
+__device__ __forceinline__ unsigned long long pack(unsigned long long flag,
+                                                   int occ, int pairs) {
+  return flag << 62 | (unsigned long long)occ << 31 | (unsigned)pairs;
+}
+
+// Whether bin b lies in table chunk c's range.
+__device__ __forceinline__ bool in_range(const int* ranges, int c, int b) {
+  return b >= ranges[2 * c] && b <= ranges[2 * c + 1];
+}
+
+// One tile of the scan: thread (g, i) is bin i of the tile over the g-th
+// range of the valid table chunks. Called by every thread of the block.
+__device__ void scan_tile(
+    int tile, int ntiles, int* table, const int* ranges, const int* total,
+    const int* c, const int* rx, const int* x0, const int* y0, int* exact,
+    unsigned long long* status, int* seg_start, int* seg_count,
+    int* tile_count, int* win_start, int* worklist, int* scal, int T,
+    int pair_cap, int num_bins, int group, int cap, int ntx, int tchunk,
+    int (*s_part)[SCAN_TILE], int* s_red, int* s_before, int* s_ranges) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = valid_slots(total, pair_cap);
+  const int nc = (n + tchunk - 1) / tchunk;
+  const int i = threadIdx.x % SCAN_TILE, g = threadIdx.x / SCAN_TILE;
+  const int b = tile * SCAN_TILE + i;
+  const bool live = b < num_bins;
+  const int per = (nc + SCAN_GROUPS - 1) / SCAN_GROUPS;
+  const int c_lo = min(g * per, nc), c_hi = min(c_lo + per, nc);
+  int* col = table + b;
+  // The first 16 cells of the range, loaded beside the ranges (a cell
+  // outside its chunk's range is read but counts 0).
+  int first[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    first[j] = live && c_lo + j < c_hi ? col[(size_t)(c_lo + j) * num_bins]
+                                       : 0;
+  if (nc <= RANGE_STAGE) {
+    for (int j = threadIdx.x; j < 2 * nc; j += SCAN_THREADS)
+      s_ranges[j] = ranges[j];
+    ranges = s_ranges;
+  }
+  __syncthreads();
+  unsigned hit = 0;  // the first 16 cells' chunks whose range holds b
+  int part = 0;
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (c_lo + j < c_hi && in_range(ranges, c_lo + j, b)) {
+        hit |= 1u << j;
+        part += first[j];
+      }
+    for (int c0 = c_lo + 16; c0 < c_hi; ++c0)
+      if (in_range(ranges, c0, b)) part += col[(size_t)c0 * num_bins];
+  }
+  s_part[g][i] = part;
+  __syncthreads();
+  int run = 0, cnt = 0;
+  for (int h = 0; h < SCAN_GROUPS; ++h) {
+    if (h < g) run += s_part[h][i];
+    cnt += s_part[h][i];
+  }
+  // The bin's column, in place: within each chunk's range, the bin's
+  // pairs in the table chunks before (its base there less its segment
+  // start).
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (hit >> j & 1) {
+        col[(size_t)(c_lo + j) * num_bins] = run;
+        run += first[j];
+      }
+    for (int c0 = c_lo + 16; c0 < c_hi; ++c0)
+      if (in_range(ranges, c0, b)) {
+        int* at = &col[(size_t)c0 * num_bins];
+        const int v = *at;
+        *at = run;
+        run += v;
+      }
+  }
+  // The first range's threads carry the tile's bins into the scan.
+  const bool in = g == 0 && live;
+  const bool rects = exact != nullptr && *total > pair_cap;
+  if (rects) {
+    walk_rects(c, rx, x0, y0, exact, T, tile * SCAN_THREADS + threadIdx.x,
+               ntiles * SCAN_THREADS, num_bins, ntx);
+    __threadfence();  // every thread's rects in before the tile publishes
+  }
+  const BinScan r =
+      scan_bins<SCAN_THREADS>(in ? cnt : 0, group, cap, s_red);
+  const bool last = tile == ntiles - 1;
+  // Warp 0 publishes the tile's sums, then looks back over the tiles
+  // before it, a warp of them at a time, to the nearest whose inclusive
+  // sums are out, adding the own sums of those on the way. In the last
+  // tile warp 1 meanwhile takes the largest count over the tiles' words.
+  if (warp == 0) {
+    if (lane == 0) {
+      *(volatile unsigned long long*)&status[ntiles + tile] =
+          pack(1, 0, r.most);
+      *(volatile unsigned long long*)&status[tile] =
+          pack(tile == 0 ? 2 : 1, r.occupied, r.pairs);
+    }
+    int pairs = 0, occ = 0;
+    for (int j = tile - 1; j >= 0; j -= 32) {
+      const int at = j - lane;
+      unsigned long long w = pack(2, 0, 0);  // before tile 0: nothing
+      if (at >= 0) {
+        do {
+          w = *(volatile unsigned long long*)&status[at];
+        } while ((w >> 62) == 0);
+      }
+      const unsigned done = __ballot_sync(FULL, (w >> 62) == 2);
+      const int stop = done ? __ffs(done) - 1 : 31;
+      int p = lane <= stop ? (int)(w & 0x7fffffffu) : 0;
+      int o = lane <= stop ? (int)((w >> 31) & 0x7fffffffu) : 0;
+#pragma unroll
+      for (int sh = 16; sh > 0; sh >>= 1) {
+        p += __shfl_xor_sync(FULL, p, sh);
+        o += __shfl_xor_sync(FULL, o, sh);
+      }
+      pairs += p;
+      occ += o;
+      if (done) break;
+    }
+    if (lane == 0) {
+      if (tile > 0)
+        *(volatile unsigned long long*)&status[tile] =
+            pack(2, occ + r.occupied, pairs + r.pairs);
+      s_before[0] = pairs;
+      s_before[1] = occ;
+    }
+  } else if (warp == 1 && last && !rects) {
+    int most = r.most;
+    for (int t = lane; t < ntiles - 1; t += 32) {
+      unsigned long long w;
+      do {
+        w = *(volatile unsigned long long*)&status[ntiles + t];
+      } while ((w >> 62) == 0);
+      most = max(most, (int)(w & 0x7fffffffu));
+    }
+    most = warp_max(most);
+    if (lane == 0) s_before[2] = most;
+  }
+  __syncthreads();
+  if (in)
+    write_bin(b, cnt, s_before[0] + r.start, s_before[1] + r.occ_at, r,
+              group, cap, seg_start, seg_count, tile_count, win_start,
+              worklist);
+  if (last) {
+    int most = s_before[2];
+    if (rects) {
+      // Under pair overflow the largest exact count: every tile's rects
+      // are in once every tile has published.
+      __threadfence();
+      most = 0;
+      for (int j = threadIdx.x; j < num_bins; j += SCAN_THREADS)
+        most = max(most, exact[j]);
+      most = warp_max(most);
+      if (lane == 0) s_red[warp] = most;
+      __syncthreads();
+      most = 0;
+      for (int w = 0; w < SCAN_WARPS; ++w) most = max(most, s_red[w]);
+    }
+    write_totals(total, pair_cap, cap, most, s_before[1] + r.occupied,
+                 num_bins / group, worklist, scal);
+  }
+  __syncthreads();  // the shared arrays are rewritten next tile
+}
+
+// Persistent blocks, no more than the card holds at once, each taking
+// the tiles blockIdx.x, blockIdx.x + gridDim.x, ... in order: a tile's
+// look-back then waits only on tiles whose blocks are running.
+__global__ void __launch_bounds__(SCAN_THREADS) bin_sort_scan_kernel(
+    int* __restrict__ table, const int* ranges,
+    const int* __restrict__ total, const int* __restrict__ c,
+    const int* __restrict__ rx, const int* __restrict__ x0,
+    const int* __restrict__ y0,
+    int* exact,                       // flat layout: (num_bins,), cleared
+    unsigned long long* status,       // (2 ntiles,), cleared
+    int* __restrict__ seg_start, int* __restrict__ seg_count,
+    int* __restrict__ tile_count, int* __restrict__ win_start,
+    int* __restrict__ worklist, int* __restrict__ scal, int T, int pair_cap,
+    int num_bins, int group, int cap, int ntx, int ntiles, int tchunk) {
+  __shared__ int s_part[SCAN_GROUPS][SCAN_TILE];
+  __shared__ int s_red[3 * SCAN_WARPS];
+  __shared__ int s_before[3];
+  __shared__ int s_ranges[2 * RANGE_STAGE];
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+    scan_tile(tile, ntiles, table, ranges, total, c, rx, x0, y0, exact,
+              status, seg_start, seg_count, tile_count, win_start, worklist,
+              scal, T, pair_cap, num_bins, group, cap, ntx, tchunk, s_part,
+              s_red, s_before, s_ranges);
+}
+
+// The chunk's range of bins [lo, hi] (hi < lo: none), every thread.
+__device__ void chunk_range(const int* keys, int m, int num_bins,
+                            int* s_range, int& lo, int& hi) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    s_range[0] = num_bins;
+    s_range[1] = -1;
+  }
+  lo = num_bins;
+  hi = -1;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int b = bin_of(keys, i * THREADS + threadIdx.x, m, num_bins);
+    if (b >= 0) {
+      lo = min(lo, b);
+      hi = max(hi, b);
+    }
+  }
+  lo = -warp_max(-lo);
+  hi = warp_max(hi);
+  __syncthreads();  // s_range is set
+  if (lane == 0) {
+    atomicMin(&s_range[0], lo);
+    atomicMax(&s_range[1], hi);
+  }
+  __syncthreads();
+  lo = s_range[0];
+  hi = s_range[1];
+  __syncthreads();  // s_range is read before anything reuses it
+}
+
+__global__ void __launch_bounds__(THREADS) bin_sort_place_kernel(
+    const int* __restrict__ keys, const int* __restrict__ tris,
+    const int* __restrict__ total, const int* __restrict__ table,
+    const int* __restrict__ seg_start, int* __restrict__ pair_tri,
+    int pair_cap, int num_bins, int tchunk) {
+  extern __shared__ int smem[];
+  int* s_key = smem;
+  int* s_val = smem + PADDED;
+  int* s_pos = smem + 2 * PADDED;
+  unsigned* s_cnt = (unsigned*)(smem + 3 * PADDED);
+  int* s_warp = smem + 3 * PADDED + CNT_WORDS;
+  int* s_range = s_warp + WARPS;
+  int* s_base = s_range + 2;
+  const int n = valid_slots(total, pair_cap);
+  const int c0 = blockIdx.x * CHUNK;
+  if (c0 >= n) return;
+  const int m = min(CHUNK, n - c0);
+  int lo, hi;
+  chunk_range(keys + c0, m, num_bins, s_range, lo, hi);
+  if (hi < lo) return;  // no pair of the chunk lies in a bin
+  sort_chunk(keys + c0, tris + c0, m, lo, hi - lo + 1, s_key, s_val, s_cnt,
+             s_warp);
+  // The table chunk this chunk lies in, and its slots ahead of it.
+  const int tc = c0 / tchunk;
+  place_chunk(s_key, s_val, s_pos, s_warp, s_base, lo, hi - lo + 1,
+              seg_start, table + (size_t)tc * num_bins, keys + tc * tchunk,
+              c0 - tc * tchunk, pair_tri);
+}
+
+unsigned chunks_of(int pair_cap, int chunk) {
+  const int b = (pair_cap + chunk - 1) / chunk;
+  return (unsigned)(b < 1 ? 1 : b);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
 
-// keys, tris: (pair_cap,) pairs; total: () pairs in all. counts: scratch
-// of num_bins ints, followed by num_bins more (the exact counts) when the
-// rect rows c, rx, x0, y0 are given (the flat layout; null on the micro
-// layout); cursor: scratch of num_bins ints; long_list: scratch of
-// 2 (num_bins + pair_cap / BLOCK_CAP + 1) ints (the long segments'
-// chunks, (bin, chunk) pairs); other: scratch of pair_cap ints.
-// tile_count and win_start (num_bins / 16,) only with group 16, else null.
-// scal: 5 ints. Five launches and a memset.
+// keys, tris: (pair_cap,) pairs; total: () pairs in all; c, rx, x0, y0:
+// the flat layout's rect rows (T,) each, or null (the micro layout);
+// scratch (binning.sort_scratch_ints): the look-back words (four ints a
+// tile of SCAN_TILE bins) and the exact counts (num_bins ints, only with
+// the rects) — cleared by the first launch — then each table chunk's
+// [lo, hi] and the (table chunk, bin) table. tile_count and win_start
+// (num_bins / 16,) only with group 16, else null; scal: 4 ints.
 extern "C" int bin_sort(const void* keys, const void* tris,
                         const void* total, const void* c, const void* rx,
-                        const void* x0, const void* y0, void* counts,
-                        void* cursor, void* long_list, void* other,
-                        void* pair_tri, void* seg_start,
-                        void* seg_count, void* tile_count, void* win_start,
-                        void* worklist, void* scal, int T, int pair_cap,
-                        int num_bins, int group, int cap, int ntx,
-                        void* stream) {
-  const bool flat_rects = c != nullptr;
+                        const void* x0, const void* y0, void* scratch,
+                        void* pair_tri, void* seg_start, void* seg_count,
+                        void* tile_count, void* win_start, void* worklist,
+                        void* scal, int T, int pair_cap, int num_bins,
+                        int group, int cap, int ntx, void* stream) {
+  const bool rects = c != nullptr;
   if (pair_cap < 0 || num_bins < 0 || T < 0 || cap < 0 ||
       (group != 1 && group != 16) || num_bins % group != 0 ||
       (group == 16) != (tile_count != nullptr) ||
-      (flat_rects && (ntx <= 0 || num_bins % ntx != 0)))
+      (rects && (ntx <= 0 || num_bins % ntx != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int* cnt = (int*)counts;
-  int* exact = flat_rects ? cnt + num_bins : nullptr;
-  const cudaError_t e = cudaMemsetAsync(
-      counts, 0, sizeof(int) * (size_t)num_bins * (flat_rects ? 2 : 1), s);
+  cudaError_t e = allow_smem(bin_sort_place_kernel, SORT_SMEM);
   if (e != cudaSuccess) return (int)e;
-  bin_sort_count_kernel<<<slot_blocks(pair_cap > T ? pair_cap : T), THREADS,
-                          0, s>>>(
-      (const int*)keys, (const int*)total, cnt, (const int*)c,
-      (const int*)rx, (const int*)x0, (const int*)y0, exact, pair_cap,
-      num_bins, T, ntx);
-  bin_sort_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(
-      cnt, exact, (const int*)total, pair_cap, num_bins, group, cap,
-      (int*)seg_start, (int*)seg_count, (int*)cursor, (int*)tile_count,
-      (int*)win_start, (int*)worklist, (int*)long_list, (int*)scal);
-  bin_sort_scatter_kernel<<<slot_blocks(pair_cap), THREADS, 0, s>>>(
-      (const int*)keys, (const int*)tris, (const int*)total, (int*)cursor,
-      (int*)pair_tri, pair_cap, num_bins);
-  const int short_blocks = (num_bins + ORDER_WARPS - 1) / ORDER_WARPS;
-  bin_sort_order_kernel<<<LONG_BLOCKS + short_blocks, ORDER_THREADS, 0, s>>>(
-      cnt, (const int*)seg_start, (const int*)long_list, (const int*)scal,
-      (int*)pair_tri, (int*)other, num_bins);
-  bin_sort_merge_kernel<<<MERGE_BLOCKS, MERGE_THREADS, 0, s>>>(
-      cnt, (const int*)seg_start, (const int*)long_list, (const int*)scal,
-      (const int*)other, (int*)pair_tri);
+  const int hist_bytes =
+      4 * (num_bins < HIST_WINDOW ? (num_bins > 0 ? num_bins : 1)
+                                  : HIST_WINDOW);
+  e = allow_smem(bin_sort_hist_kernel, hist_bytes);
+  if (e != cudaSuccess) return (int)e;
+  // The scan's persistent blocks: one an SM holds them all at once.
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned chunks = chunks_of(pair_cap, CHUNK);
+  const int tiles = num_bins > 0 ? (num_bins + SCAN_TILE - 1) / SCAN_TILE
+                                 : 1;
+  const int clear_len = 4 * tiles + (rects ? num_bins : 0);
+  int tchunk = CHUNK;
+  while (tchunk < CHUNK * MAX_FACTOR &&
+         (long long)chunks_of(pair_cap, tchunk) * num_bins > TABLE_CELLS)
+    tchunk *= 2;
+  const unsigned tchunks = chunks_of(pair_cap, tchunk);
+  int* base = (int*)scratch;
+  unsigned long long* status = (unsigned long long*)base;
+  int* exact = rects ? base + 4 * tiles : nullptr;
+  int* ranges = base + clear_len;
+  int* table = ranges + 2 * tchunks;
+  bin_sort_hist_kernel<<<tchunks, HIST_THREADS, hist_bytes, s>>>(
+      (const int*)keys, (const int*)total, ranges, table, base, clear_len,
+      pair_cap, num_bins, tchunk);
+  bin_sort_scan_kernel<<<tiles < sms ? tiles : sms, SCAN_THREADS, 0, s>>>(
+      table, ranges, (const int*)total, (const int*)c, (const int*)rx,
+      (const int*)x0, (const int*)y0, exact, status, (int*)seg_start,
+      (int*)seg_count, (int*)tile_count, (int*)win_start, (int*)worklist,
+      (int*)scal, T, pair_cap, num_bins, group, cap, ntx, tiles, tchunk);
+  bin_sort_place_kernel<<<chunks, THREADS, SORT_SMEM, s>>>(
+      (const int*)keys, (const int*)tris, (const int*)total, table,
+      (const int*)seg_start, (int*)pair_tri, pair_cap, num_bins, tchunk);
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,9 @@ Parts, each named on the command line (both when none is):
   the canaries must be untouched (no write out of bounds) and the
   outputs equal to the twins' (as ``chip_smoke.py`` checks them), on the
   bin sort cases of tests/test_torch_bin_sort.py (the stress segment of
-  ``chip_smoke.SORT_STRESS`` pairs included), San Miguel's stand-in's
+  ``chip_smoke.SORT_STRESS`` pairs included), the one-bin and
+  distinct-bin lists of ``chip_smoke.extreme_sort_lists``, San Miguel's
+  stand-in's
   cells and tiles, and Suzanne's vertices, plain and under the wave;
 - ``anisotropic``: ``chip_smoke.py`` phase 12's +anisotropic row
   (structured_scene.obj through ``Renderer`` on the micro path): one
@@ -84,8 +86,8 @@ class Guarded:
 
 def guarded_bin_sort(cs, device, keys, tris, total, num_bins, group, cap,
                      meta, ntx, tag):
-    """``binning._bin_sort_cuda``'s call with every buffer guarded;
-    returns the outputs as ``bin_sort`` gives them."""
+    """``binning._bin_sort_cuda``'s call with every buffer guarded (its
+    scratch included); returns the outputs as ``bin_sort`` gives them."""
     import torch
 
     from compute_renderer_torch import _build
@@ -101,20 +103,18 @@ def guarded_bin_sort(cs, device, keys, tris, total, num_bins, group, cap,
         T = meta.shape[1]
         rows = [g.like(meta[i].contiguous()) for i in (3, 2, 0, 1)]
     num_tiles = num_bins // group
-    counts = g.new(num_bins * (2 if meta is not None else 1))
-    cursor = g.new(num_bins)
-    long_list = g.new(2 * (num_bins + pair_cap // binning.SORT_BLOCK_CAP + 1))
-    other, pair_tri = g.new(pair_cap), g.new(pair_cap)
+    scratch = g.new(binning.sort_scratch_ints(pair_cap, num_bins,
+                                              meta is not None))
+    pair_tri = g.new(pair_cap)
     seg_start, seg_count = g.new(num_bins), g.new(num_bins)
     tile_count = g.new(num_tiles) if group == 16 else None
     win_start = g.new(num_tiles) if group == 16 else None
-    worklist, scal = g.new(num_tiles), g.new(5)
+    worklist, scal = g.new(num_tiles), g.new(4)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    fn = _build.entry("sort", "bin_sort", pointers=18, ints=6)
+    fn = _build.entry("sort", "bin_sort", pointers=15, ints=6)
     _build.check(fn(
         keys.data_ptr(), tris.data_ptr(), total.data_ptr(),
-        *(ptr(r) for r in rows), counts.data_ptr(), cursor.data_ptr(),
-        long_list.data_ptr(), other.data_ptr(), pair_tri.data_ptr(),
+        *(ptr(r) for r in rows), scratch.data_ptr(), pair_tri.data_ptr(),
         seg_start.data_ptr(), seg_count.data_ptr(), ptr(tile_count),
         ptr(win_start), worklist.data_ptr(), scal.data_ptr(), T, pair_cap,
         num_bins, group, cap, ntx,
@@ -147,14 +147,14 @@ def part_guard(cs, device):
 
     def sort_and_check(tag, keys, tris, total, num_bins, group, cap, meta,
                        ntx):
-        got = guarded_bin_sort(cs, device, keys, tris, total, num_bins,
-                               group, cap, meta, ntx, tag)
         exact = None
         if meta is not None:
             exact = binning.exact_tile_counts(binning.setup_from_meta(meta),
                                               ntx, num_bins // ntx)
         want = binning.bin_sort_plain(keys, tris, total, num_bins,
                                       group=group, cap=cap, exact=exact)
+        got = guarded_bin_sort(cs, device, keys, tris, total, num_bins,
+                               group, cap, meta, ntx, tag)
         cs.compare_bins(f"guard {tag}", got, want,
                         min(int(total), keys.shape[0]))
         print(f"[memcheck] guard bin_sort {tag}: canaries intact, outputs "
@@ -176,6 +176,11 @@ def part_guard(cs, device):
                     ntx * nty, 16 if micro else 1,
                     binning.CAP_NONE if micro else cap,
                     None if micro else on(meta), ntx)
+
+    for tag, keys, tris, total, num_bins, group in cs.extreme_sort_lists(
+            device):
+        sort_and_check(tag, keys, tris, total, num_bins, group,
+                       binning.CAP_NONE, None, 0)
 
     scene = cs.bench_scene(cs.SAN_MIGUEL, eye=cs.SAN_MIGUEL_EYE)
     x = cs.frame_inputs(scene, device)

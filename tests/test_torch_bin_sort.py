@@ -4,15 +4,20 @@ sort layouts, and the deferred mode's vertex stage
 ``csrc/texture.cu``), against their plain versions and the JAX package.
 
 - The kernel's decomposition written in torch
-  (``binning.bin_sort_steps_plain``: count, scan, scatter in a random
-  arrival order standing in for the atomics, then each segment sorted by
-  triangle id, a long one as sorted chunks, each element placed by its
-  rank in the other chunks) against the
-  twin ``bin_sort_plain`` (a stable ``torch.sort`` and searchsorted):
-  ``pair_tri`` bitwise on the valid prefix, every other output bitwise,
-  on random rects of both layouts, a segment longer than the kernel's
-  shared-memory sort (``SORT_BLOCK_CAP``), an empty frame, and pair and
-  tile overflow.
+  (``binning.bin_sort_steps_plain``: table chunks, each one's count of
+  each bin, the (bin, table chunk) scan, each chunk sorted by bin as the
+  kernel sorts it and each pair placed at its bin's base in the table
+  chunk, plus the bin's pairs ahead of the chunk there, plus its rank in
+  the chunk) against the twin ``bin_sort_plain`` (a stable
+  ``torch.sort`` and searchsorted): ``pair_tri`` bitwise on the valid
+  prefix, every other output bitwise, on random rects of both layouts, a
+  segment of ``LONG`` pairs, an empty frame, and pair and tile overflow,
+  at two chunk widths (16, so that every case crosses many chunks, and
+  the kernel's, ``SORT_CHUNK``).
+- The in-chunk sort on its own (``binning.sort_chunk_plain``, the
+  kernel's radix passes, and ``run_ranks_plain``) against a stable
+  ``torch.sort``: long runs, one bin, every key distinct, keys out of
+  range, one and two passes.
 - ``bin_cells_sort_meta`` (the micro layout) and ``bin_triangles_sort``
   (the flat layout, as ``bin_tiles_meta`` reaches it) on CPU tensors
   against the JAX package's ``binning.bin_cells_sort_meta`` /
@@ -72,25 +77,23 @@ def _exact(port, kw, num_bins):
                                num_bins // kw["ntx"])
 
 
-@pytest.mark.parametrize("block_cap", [16, 2048])
+@pytest.mark.parametrize("chunk,wide", [(16, 64), (2048, 0)])
 @pytest.mark.parametrize("layout,name", CASES)
-def test_sort_steps_equal_stable_sort(port, layout, name, block_cap):
-    # Tolerance: none; integers.
+def test_sort_steps_equal_stable_sort(port, layout, name, chunk, wide):
+    # Tolerance: none; integers. Chunks of 16 slots in table chunks of 64
+    # cross many of both; 2048 is the kernel's chunk, in its table chunk.
     keys, tris, total, num_bins, kw = _sort_inputs(port, layout, name)
     b = port.binning
     twin = b.bin_sort(keys, tris, total, num_bins, **kw)
     n = min(int(total), keys.shape[0])
-    rng = np.random.default_rng(n + block_cap)
-    for _ in range(2):  # two arrival orders of the atomics
-        arrival = port.torch.from_numpy(rng.permutation(n))
-        steps = b.bin_sort_steps_plain(
-            keys, tris, total, num_bins, group=kw.get("group", 1),
-            cap=kw.get("cap", b.CAP_NONE), exact=_exact(port, kw, num_bins),
-            arrival=arrival, block_cap=block_cap)
-        _assert_bins(twin, steps, n, (layout, name, block_cap))
+    steps = b.bin_sort_steps_plain(
+        keys, tris, total, num_bins, group=kw.get("group", 1),
+        cap=kw.get("cap", b.CAP_NONE), exact=_exact(port, kw, num_bins),
+        chunk=chunk, wide=wide)
+    _assert_bins(twin, steps, n, (layout, name, chunk))
     counts = twin["seg_count"]
     if name == "long":
-        assert int(counts.max()) >= LONG > b.SORT_BLOCK_CAP
+        assert int(counts.max()) >= LONG > chunk
     if name == "empty":
         assert int(twin["k"]) == 0 and int(twin["total_pairs"]) == 0
     if name == "pair_overflow":
@@ -99,14 +102,43 @@ def test_sort_steps_equal_stable_sort(port, layout, name, block_cap):
         assert int(twin["tile_needed"]) > kw["cap"] == int(counts.max())
 
 
-def test_merge_chunks_plain(port):
-    # The long segments' merge on its own: distinct ids, uneven chunks.
+def _chunk_keys(name, rng):
+    """(keys, span) of an in-chunk sort case: keys rebased to the chunk's
+    lowest bin, span the chunk's range of bins."""
+    if name == "runs":  # long runs of few bins, then a tail of many
+        keys = np.repeat(rng.integers(0, 40, 60), rng.integers(1, 200, 60))
+        return np.concatenate([keys, rng.integers(0, 40, 300)]), 40
+    if name == "one_bin":
+        return np.full(3000, 0), 1
+    if name == "distinct":
+        return rng.permutation(12288)[:2048], 12288
+    if name == "out_of_range":  # become span and sort last
+        return rng.integers(-3, 600, 2000), 512
+    if name == "two_passes":
+        return rng.integers(0, 12288, 2048), 12288
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["runs", "one_bin", "distinct",
+                                  "out_of_range", "two_passes"])
+def test_sort_chunk_plain(port, name):
+    # The in-chunk rank step on its own, against a stable torch.sort.
     t = port.torch
-    rng = np.random.default_rng(5)
-    for n, width in ((1, 4), (37, 4), (64, 8), (1000, 7)):
-        seg = t.from_numpy(rng.permutation(5 * n)[:n].astype(np.int32))
-        got = port.binning._merge_chunks_plain(seg, width)
-        assert t.equal(got, t.sort(seg).values), (n, width)
+    b = port.binning
+    keys, span = _chunk_keys(name, np.random.default_rng(len(name)))
+    k = t.from_numpy(keys.astype(np.int64))
+    vals = t.arange(k.shape[0], dtype=t.int32)
+    for warps in (1, b.SORT_WARPS):
+        sk, sv = b.sort_chunk_plain(k, vals, span, warps)
+        clean = t.where((k >= 0) & (k < span), k, span)
+        want_k, order = t.sort(clean, stable=True)
+        assert t.equal(sk, want_k) and t.equal(sv, vals[order]), (name,
+                                                                  warps)
+    rank = b.run_ranks_plain(sk)
+    first = {}
+    for q, key in enumerate(sk.tolist()):
+        first.setdefault(key, q)
+        assert int(rank[q]) == q - first[key]
 
 
 @pytest.mark.parametrize("name", MICRO_CASES)

@@ -94,7 +94,7 @@ def shading_case(pkg, effect):
 
 # The bin sort's cases: the micro layout at 2 x 3 tiles of 16 cells
 # (256x24 px), the flat one on NTX x NTY tiles; LONG pairs in the long
-# segment, past the kernel's shared-memory sort (binning.SORT_BLOCK_CAP).
+# segment, across several of the kernel's chunks (binning.SORT_CHUNK).
 NTX_T, NTY_T = 2, 3
 LONG = 5000
 
