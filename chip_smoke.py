@@ -776,10 +776,10 @@ def check_bins(tag, meta, ntx, nty, tile_cap, report, direct=False):
         want = binning._with_worklist(binning.bin_triangles_dense(
             binning.setup_from_meta(meta), ntx, nty, 0, tile_cap))
     else:
-        launches = binning.bin_tiles_meta.launches
+        launches = launch_count("bin_tiles_meta")
         got = binning.bin_tiles_meta(meta, ntx, nty, 0, tile_cap)
         require(got["layout"] == "dense"
-                and binning.bin_tiles_meta.launches == launches + 1,
+                and launch_count("bin_tiles_meta") == launches + 1,
                 f"bins {tag}: the wrapper did not launch the kernel")
         want = binning.bin_tiles_meta_plain(meta, ntx, nty, 0, tile_cap)
     torch.cuda.synchronize()
@@ -990,9 +990,9 @@ def check_bin_sort(tag, keys, tris, total, num_bins, report, **kw):
 
     from compute_renderer_torch.backends import binning
 
-    before = binning.bin_sort.launches
+    before = launch_count("bin_sort")
     got = binning.bin_sort(keys, tris, total, num_bins, **kw)
-    require(binning.bin_sort.launches == before + 1,
+    require(launch_count("bin_sort") == before + 1,
             f"bin_sort {tag}: the wrapper did not launch the kernel")
     exact = None
     if kw.get("meta") is not None:
@@ -1170,11 +1170,11 @@ def phase_sort_kernels(device, reports, scenes):
             scene = scene_copy(scene, effect=effect)
         x = frame_inputs(scene, device)
         args = (x["positions"], x["vp"], x["eff"], W, H)
-        before = texture.vertex_stage.launches
+        before = launch_count("vertex_stage")
         wk, sk = texture.vertex_stage(*args)
         wp, sp = common.vertex_stage(*args)
         torch.cuda.synchronize()
-        require(texture.vertex_stage.launches == before + 1,
+        require(launch_count("vertex_stage") == before + 1,
                 f"vertex_stage {tag}: the wrapper did not launch its kernel")
         i32 = torch.int32
         require(torch.equal(wk.view(i32), wp.view(i32))
@@ -1727,7 +1727,8 @@ def phase_main_path(device, card, reports):
     reset_counts()
     batch = [scene.update(DT) for _ in range(3)]
     frames = [renderer.render(u) for u in batch]
-    launches = {name: counters()[name].launches for name in tile_kernels}
+    launches = {name: launch_count(counters()[name])
+                for name in tile_kernels}
     # The first frame tunes the tile shape: each candidate's graph is
     # captured (an eager warm-up and the capture); the frames replay the
     # winner's.
@@ -1969,8 +1970,7 @@ def phase_micro_main_path(device, card, reports):
     import numpy as np
 
     from compute_renderer_torch import Renderer
-    from compute_renderer_torch.backends import binning, cuda, expand, front
-    from compute_renderer_torch.backends import micro, raster, texture
+    from compute_renderer_torch.backends import cuda, micro, raster, texture
 
     scene = bench_scene(SAN_MIGUEL, eye=SAN_MIGUEL_EYE)
     require(scene.total_tris == 998_784, f"San Miguel has {scene.total_tris}"
@@ -1978,19 +1978,12 @@ def phase_micro_main_path(device, card, reports):
     renderer = Renderer(scene.mesh, W, H, device=device,
                         **scene.renderer_options())
     golden = np.load(GOLDEN_MICRO)["rgba"]
-    counters = {"front_end": front.front_end,
-                "expand_cells": expand.expand_cells,
-                "bin_sort": binning.bin_sort,
-                "raster_shade_micro": micro.raster_shade_micro,
-                "shading_params": raster.shading_inputs,
-                "raster_shade_tiles": raster.raster_shade_tiles,
-                **texture.WRAPPERS}
-    for fn in counters.values():
-        fn.launches = 0
-    raster.kernel_table.copies = 0
+    names = ("front_end", "expand_cells", "bin_sort", "raster_shade_micro",
+             "shading_params", "raster_shade_tiles", *texture.WRAPPERS)
+    reset_counts()
     batch = [scene.update(DT) for _ in range(3)]
     frames = [renderer.render(u) for u in batch]
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = {name: launch_count(counters()[name]) for name in names}
     print(f"[main-micro] launches over 3 render() frames (calibration and "
           f"the graph's capture; replays tick no counter): {launches}; "
           f"table copies {raster.kernel_table.copies}")
@@ -2025,22 +2018,19 @@ def phase_micro_main_path(device, card, reports):
 def phase_san_miguel(device, reports):
     import numpy as np
 
-    from compute_renderer_torch import Renderer
-    from compute_renderer_torch.backends import binning, front, raster
+    from compute_renderer_torch import Renderer, tracing
 
     scene = bench_scene("san_miguel_small.obj")
     uniforms = scene.update(DT)
     gpu = Renderer(scene.mesh, W, H, device=device,
                    **scene.renderer_options())
-    front.front_end.launches = 0
-    raster.raster_shade_tiles.launches = 0
-    binning.bin_sort.launches = 0
+    tracing.reset()
     # The first frame tunes the tile shape and settles the capacities
     # (one retry at most); the second replays the winner's graph.
     gpu.render(uniforms)
     img = gpu.render(uniforms)
-    launches = (front.front_end.launches, raster.raster_shade_tiles.launches,
-                binning.bin_sort.launches)
+    launches = (launch_count("front_end"), launch_count("raster_shade_tiles"),
+                launch_count("bin_sort"))
     require(launches[2] >= CAPTURE_LAUNCHES, f"san_miguel_small: the flat "
             f"layout's bin sort launched {launches[2]} times")
     reports["bin_sort.flat"]["launches"] = (
@@ -2064,29 +2054,34 @@ def phase_san_miguel(device, reports):
 
 
 def counters():
-    """The launch-counted wrappers by record name."""
-    from compute_renderer_torch.backends import (
-        binning, expand, front, micro, raster, texture,
-    )
+    """The launch-counted wrappers' names (``launches.<wrapper>`` of
+    ``tracing.counters()``) by record name."""
+    from compute_renderer_torch.backends import texture
 
-    return {"front_end": front.front_end,
-            "raster_shade_tiles": raster.raster_shade_tiles,
-            "expand_cells": expand.expand_cells,
-            "raster_shade_micro": micro.raster_shade_micro,
-            "bin_tiles_dense": binning.bin_tiles_meta,
-            "shading_params": raster.shading_inputs,
-            "bin_sort": binning.bin_sort,
-            **texture.WRAPPERS}
+    return {"front_end": "front_end",
+            "raster_shade_tiles": "raster_shade_tiles",
+            "expand_cells": "expand_cells",
+            "raster_shade_micro": "raster_shade_micro",
+            "bin_tiles_dense": "bin_tiles_meta",
+            "shading_params": "shading_inputs",
+            "bin_sort": "bin_sort",
+            **{name: name for name in texture.WRAPPERS}}
+
+
+def launch_count(wrapper, mode=None):
+    """A kernel wrapper's calls (in ``mode``) since ``reset_counts()``."""
+    from compute_renderer_torch import tracing
+
+    return tracing.count(f"launches.{wrapper}"
+                         + ("" if mode is None else f".{mode}"))
 
 
 def reset_counts():
+    from compute_renderer_torch import tracing
     from compute_renderer_torch.backends import raster
 
     raster.kernel_table.copies = 0
-    for fn in counters().values():
-        fn.launches = 0
-        if hasattr(fn, "mode_launches"):
-            fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
+    tracing.reset()
 
 
 def require_front_tables(tag):
@@ -2102,13 +2097,17 @@ def require_front_tables(tag):
 def read_counts():
     """{record name: launches since reset_counts()}, per mode for the
     kernels that have modes."""
+    from compute_renderer_torch.backends import front, raster
+
+    modes = {"front_end": front.MODES, "raster_shade_tiles": raster.MODES,
+             "raster_shade_micro": raster.MODES}
     out = {}
-    for name, fn in counters().items():
-        if hasattr(fn, "mode_launches"):
-            for mode, n in fn.mode_launches.items():
-                out[record(name, mode)] = n
+    for name, wrapper in counters().items():
+        if wrapper in modes:
+            for mode in modes[wrapper]:
+                out[record(name, mode)] = launch_count(wrapper, mode)
         else:
-            out[name] = fn.launches
+            out[name] = launch_count(wrapper)
     return out
 
 
@@ -2393,7 +2392,6 @@ def check_texture_stage(tag, x, scene, mode, out, key, pair_tri, reports,
     first); RGBA within 1 LSB."""
     import torch
 
-    from compute_renderer_torch.backends import texture
     from compute_renderer_torch.io.textures import pack_pool_u8
 
     out, key = out[..., :H, :W], key[:H, :W]
@@ -2408,10 +2406,10 @@ def check_texture_stage(tag, x, scene, mode, out, key, pair_tri, reports,
                            tex_filter, reports["mip_rows"])
         run, plain = stage_calls(x, scene, mode, out, key, pair_tri, device,
                                  tex_filter)
-        before = texture.WRAPPERS[stage].launches
+        before = launch_count(stage)
         compare_rgba(f"{stage} {tag} {tex_filter}", run(), plain(),
                      reports[stage])
-        require(texture.WRAPPERS[stage].launches == before + 1,
+        require(launch_count(stage) == before + 1,
                 f"{stage} {tag}: the wrapper did not launch its kernel")
         if mode == "texf":
             packed = pack_pool_u8(scene.mesh.texels)
@@ -3482,7 +3480,7 @@ def par_digest(*arrays):
 
 
 def par_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: launch_count(w) for name, w in counters().items()}
 
 
 def parallel_rank(rank, world, meshes, plan):
@@ -3496,6 +3494,7 @@ def parallel_rank(rank, world, meshes, plan):
     import torch
     import torch.distributed as dist
 
+    from compute_renderer_torch import tracing
     from compute_renderer_torch.backends import cuda
     from compute_renderer_torch.engine.renderer import Renderer
     from compute_renderer_torch.parallel import (
@@ -3593,7 +3592,8 @@ def parallel_rank(rank, world, meshes, plan):
                 out["ms"][tag] = ((time.perf_counter() - t0) * 1e3
                                   / len(seq))
                 if member:
-                    out["replays"][tag] = (renderers[key].replays,
+                    # Replays since the renderer's reset_counts().
+                    out["replays"][tag] = (tracing.count("replays"),
                                            len(renderers[key]._graphs))
     return out
 

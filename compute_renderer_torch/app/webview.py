@@ -41,6 +41,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from compute_renderer_torch import tracing
 from compute_renderer_torch.app.headless import encode_png
 from compute_renderer_torch.app.window import FLUSH_INTERVAL, FramePipe
 from compute_renderer_torch.bench.collector import PerformanceCollector
@@ -301,8 +302,13 @@ class WebViewerApp:
             return self._png, self._frame_no, hud
 
     def stats(self) -> dict:
+        """The page's figures, and beside fps the process's host counters
+        of ``tracing.counters()``: captures, graph drops, retries,
+        calibrations, tunings and replays."""
+        counts = tracing.counters()
         return {
             "fps": round(self._fps, 1),
+            **{name: counts[name] for name in tracing.EVENTS},
             "scene": self.scene_configs[self.scene_index].scene_name(),
             "scene_index": self.scene_index,
             "width": self.width,

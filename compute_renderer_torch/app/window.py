@@ -38,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from compute_renderer_torch import tracing
 from compute_renderer_torch.bench.collector import PerformanceCollector
 from compute_renderer_torch.engine.renderer import Renderer
 from compute_renderer_torch.engine.scene import Scene, SceneConfig
@@ -90,33 +91,37 @@ class FramePipe:
     def push(self, frames) -> None:
         """Enqueue the copy of ``frames[0]``, a device (1, H, W, 4) u8
         frame that the renderer returned fresh (never a graph's static
-        output), into the next host buffer."""
-        frame = frames[0]
-        if self._host is None or self._host[0].shape != frame.shape:
-            pinned = self.device.type == "cuda"
-            self._host = [torch.empty(frame.shape, dtype=torch.uint8,
-                                      pin_memory=pinned) for _ in range(2)]
-        slot = self._slot
-        self._slot ^= 1
-        if self.device.type == "cuda":
-            self._host[slot].copy_(frame, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        else:
-            self._host[slot].copy_(frame)
-            event = None
-        self._inflight.append((frames, slot, event))
+        output), into the next host buffer (the span ``pipe.push``)."""
+        with tracing.span("pipe.push"):
+            frame = frames[0]
+            if self._host is None or self._host[0].shape != frame.shape:
+                pinned = self.device.type == "cuda"
+                self._host = [torch.empty(frame.shape, dtype=torch.uint8,
+                                          pin_memory=pinned)
+                              for _ in range(2)]
+            slot = self._slot
+            self._slot ^= 1
+            if self.device.type == "cuda":
+                self._host[slot].copy_(frame, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            else:
+                self._host[slot].copy_(frame)
+                event = None
+            self._inflight.append((frames, slot, event))
 
     def fetch(self) -> np.ndarray:
         """THE one blocking wait of a tick: the oldest frame in flight
         (frame k-1, or on warm-up frame k) as a host (H, W, 4) u8 array.
-        Its device frame is released once its copy has ended."""
-        frames, slot, event = self._inflight[0]
-        if event is not None:
-            event.synchronize()
-        if len(self._inflight) > 1:
-            del self._inflight[0]
-        return self._host[slot].numpy()
+        Its device frame is released once its copy has ended (the span
+        ``pipe.fetch``)."""
+        with tracing.span("pipe.fetch"):
+            frames, slot, event = self._inflight[0]
+            if event is not None:
+                event.synchronize()
+            if len(self._inflight) > 1:
+                del self._inflight[0]
+            return self._host[slot].numpy()
 
 
 class InteractiveApp:

@@ -32,6 +32,14 @@ work list and overflow report: the kernel ``csrc/sort.cu`` on a CUDA
 tensor, its twin ``bin_sort_plain`` (one stable ``torch.sort`` and
 searchsorted segments) on a CPU tensor.
 
+Each binning entry takes an optional ``acc``, a (4,) int64 tensor that
+a batch of frames shares: [pair need, tile need, pairs, occupied tiles].
+The step that ends the binning folds its frame (or triangle chunk) into
+it: the needs by max, the pairs (``total_pairs``) and the occupied tiles
+(``k``) by sum. On the card the kernel that writes the overflow report
+does it (64-bit atomics); the twins fold with torch ops
+(``fold_counts``).
+
 Every integer output equals the JAX package's bit for bit. The TPU-only
 padding of the outputs (8-row blocks, 1024-element DMA windows) is not
 carried: the raster kernel here reads exactly ``seg_count`` entries.
@@ -41,6 +49,8 @@ Nothing here synchronises with the host: overflow reports stay tensors.
 from __future__ import annotations
 
 import torch
+
+from compute_renderer_torch import tracing
 
 I32 = torch.int32
 
@@ -257,6 +267,30 @@ def occupied_worklist(seg_count):
     return wl[:num_tiles], k
 
 
+def fold_counts(acc, bins):
+    """Fold ``bins``' overflow report, ``total_pairs`` and ``k`` into
+    ``acc`` (see the module docstring) with torch ops: the twins' fold;
+    a None ``acc`` folds nothing."""
+    if acc is None:
+        return
+    i64 = torch.int64
+    needs = acc[:2]
+    torch.maximum(needs, bins["overflow"].to(i64), out=needs)
+    acc[2:].add_(torch.stack([bins["total_pairs"], bins["k"]]).to(i64))
+
+
+def _acc_pointer(acc, device):
+    """``acc``'s device pointer for a kernel (None, a null pointer, when
+    ``acc`` is None), its dtype, shape and device checked."""
+    if acc is None:
+        return None
+    if (acc.dtype != torch.int64 or tuple(acc.shape) != (4,)
+            or acc.device != device or not acc.is_contiguous()):
+        raise ValueError(f"acc: {acc.dtype} {tuple(acc.shape)} on "
+                         f"{acc.device}; expected (4,) int64 on {device}")
+    return acc.data_ptr()
+
+
 def _with_worklist(bins):
     """``bins`` with the occupied-tile work list (``worklist``, ``k``) and
     the (2,) overflow report [pair_needed, tile_needed]."""
@@ -299,12 +333,13 @@ def _bin_extras(counts, seg_start, total, pair_cap: int, group: int,
 
 
 def bin_sort_plain(keys, tris, total, num_bins: int, *, group: int = 1,
-                   cap: int = CAP_NONE, exact=None):
+                   cap: int = CAP_NONE, exact=None, acc=None):
     """The twin of ``bin_sort``: one stable ``torch.sort`` of the keys
     carrying the triangles, then searchsorted segments
     (``segments_from_sorted_cells`` at 16 cells a tile) and
     ``_bin_extras``; ``exact`` is the (num_bins,) exact counts the tile
-    need takes under pair overflow (the flat layout's), or None."""
+    need takes under pair overflow (the flat layout's), or None. Folds
+    into ``acc`` (``fold_counts``)."""
     sorted_bin, order = torch.sort(keys, stable=True)
     if group == 16:
         seg_start, counts, _, _ = segments_from_sorted_cells(
@@ -318,6 +353,7 @@ def bin_sort_plain(keys, tris, total, num_bins: int, *, group: int = 1,
     out = _bin_extras(counts, seg_start, total, keys.shape[0], group, cap,
                       exact)
     out["pair_tri"] = tris[order]
+    fold_counts(acc, out)
     return out
 
 
@@ -442,7 +478,8 @@ def sort_scratch_ints(pair_cap: int, num_bins: int, rects: bool) -> int:
             + chunks * num_bins)
 
 
-def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx):
+def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
+                   acc=None):
     from compute_renderer_torch import _build
 
     device = keys.device
@@ -474,14 +511,15 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx):
                                             device=device)
     scal = torch.empty((4,), dtype=I32, device=device)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    fn = _build.entry("sort", "bin_sort", pointers=15, ints=6)
-    bin_sort.launches += 1
+    fn = _build.entry("sort", "bin_sort", pointers=16, ints=6)
+    tracing.launch("bin_sort")
     _build.check(
         fn(keys.data_ptr(), tris.data_ptr(), total.data_ptr(),
            *(ptr(r) for r in rows), scratch.data_ptr(), pair_tri.data_ptr(),
            seg[0].data_ptr(), seg[1].data_ptr(), ptr(tile_count),
-           ptr(win_start), worklist.data_ptr(), scal.data_ptr(), T,
-           pair_cap, num_bins, group, int(cap), ntx,
+           ptr(win_start), worklist.data_ptr(), scal.data_ptr(),
+           _acc_pointer(acc, device), T, pair_cap, num_bins, group, int(cap),
+           ntx,
            torch.cuda.current_stream(device).cuda_stream),
         "bin_sort",
     )
@@ -495,7 +533,7 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx):
 
 
 def bin_sort(keys, tris, total, num_bins: int, *, group: int = 1,
-             cap: int = CAP_NONE, meta=None, ntx: int = 0):
+             cap: int = CAP_NONE, meta=None, ntx: int = 0, acc=None):
     """Stable sort of a pair list by bin, with its segments and work list.
 
     ``keys`` / ``tris`` (pair_cap,) i32: each pair slot's bin and
@@ -511,12 +549,13 @@ def bin_sort(keys, tris, total, num_bins: int, *, group: int = 1,
     [0, n); the rest unspecified), ``seg_start`` / ``seg_count``
     (num_bins,), ``total_pairs``, ``pair_needed``, ``tile_needed``,
     ``worklist`` (num_bins / group,) and ``k``, ``overflow`` (2,), and at
-    group 16 ``tile_count`` and ``win_start``.
+    group 16 ``tile_count`` and ``win_start``. Folds into ``acc`` (the
+    module docstring), None for none.
 
     CPU tensors take the twin, ``bin_sort_plain``; CUDA tensors the kernel
-    ``csrc/sort.cu`` (``bin_sort.launches`` counts its calls, three
-    launches each; a CUDA graph's capture ticks it, its replays do
-    not)."""
+    ``csrc/sort.cu`` (``launches.bin_sort`` of ``tracing.counters()``
+    counts its calls, three launches each; a CUDA graph's capture ticks
+    it, its replays do not)."""
     if group not in (1, 16) or num_bins % group:
         raise ValueError(f"bin_sort: {num_bins} bins in groups of {group}")
     if keys.device.type == "cpu":
@@ -525,24 +564,26 @@ def bin_sort(keys, tris, total, num_bins: int, *, group: int = 1,
             exact = exact_tile_counts(setup_from_meta(meta), ntx,
                                       num_bins // ntx)
         return bin_sort_plain(keys, tris, total, num_bins, group=group,
-                              cap=cap, exact=exact)
+                              cap=cap, exact=exact, acc=acc)
     if keys.device.type != "cuda":
         raise ValueError(f"bin_sort: no kernel for device {keys.device}")
-    return _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx)
+    return _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
+                          acc)
 
-
-bin_sort.launches = 0
 
 
 def bin_tiles_meta_plain(meta, ntx: int, nty: int, pair_cap: int,
-                         tile_cap: int):
+                         tile_cap: int, acc=None):
     """The twin of ``bin_tiles_meta``: ``bin_triangles`` on
-    ``setup_from_meta``, then ``occupied_worklist``."""
-    return _with_worklist(bin_triangles(setup_from_meta(meta), ntx, nty,
+    ``setup_from_meta``, then ``occupied_worklist``, folded into ``acc``
+    (``fold_counts``)."""
+    bins = _with_worklist(bin_triangles(setup_from_meta(meta), ntx, nty,
                                         pair_cap, tile_cap))
+    fold_counts(acc, bins)
+    return bins
 
 
-def _bin_tiles_cuda(meta, ntx: int, nty: int, tile_cap: int):
+def _bin_tiles_cuda(meta, ntx: int, nty: int, tile_cap: int, acc=None):
     from compute_renderer_torch import _build
 
     device = meta.device
@@ -555,12 +596,13 @@ def _bin_tiles_cuda(meta, ntx: int, nty: int, tile_cap: int):
     bin_rows = torch.empty((num_tiles, C), dtype=I32, device=device)
     seg = torch.empty((3, num_tiles), dtype=I32, device=device)
     scal = torch.empty((4,), dtype=I32, device=device)
-    fn = _build.entry("bins", "bin_tiles_dense", pointers=7, ints=5)
-    bin_tiles_meta.launches += 1
+    fn = _build.entry("bins", "bin_tiles_dense", pointers=8, ints=5)
+    tracing.launch("bin_tiles_meta")
     _build.check(
         fn(meta.data_ptr(), counts.data_ptr(), bin_rows.data_ptr(),
            seg[0].data_ptr(), seg[1].data_ptr(), seg[2].data_ptr(),
-           scal.data_ptr(), meta.stride(0), T, ntx, num_tiles, C,
+           scal.data_ptr(), _acc_pointer(acc, device), meta.stride(0), T,
+           ntx, num_tiles, C,
            torch.cuda.current_stream(device).cuda_stream),
         "bin_tiles_dense",
     )
@@ -579,7 +621,7 @@ def _bin_tiles_cuda(meta, ntx: int, nty: int, tile_cap: int):
 
 
 def _bin_tiles_flat_cuda(meta, ntx: int, nty: int, pair_cap: int,
-                         tile_cap: int):
+                         tile_cap: int, acc=None):
     """The flat layout on the card: the pair expansion with row-major tile
     ids (``csrc/expand.cu``), then ``bin_sort`` with the rects' exact
     counts."""
@@ -590,22 +632,24 @@ def _bin_tiles_flat_cuda(meta, ntx: int, nty: int, pair_cap: int,
         meta[3], meta[2], meta[0], meta[1], pair_cap=pair_cap, ntx_t=0,
         num_cells=num_tiles, row_width=ntx)
     bins = bin_sort(keys, tris, total, num_tiles, cap=tile_cap, meta=meta,
-                    ntx=ntx)
+                    ntx=ntx, acc=acc)
     bins["layout"] = "flat"
     return bins
 
 
-def bin_tiles_meta(meta, ntx: int, nty: int, pair_cap: int, tile_cap: int):
+def bin_tiles_meta(meta, ntx: int, nty: int, pair_cap: int, tile_cap: int,
+                   acc=None):
     """Tile binning from the front end's meta rows (4, T) = [tile_x0,
     tile_y0, rx, c], which may be a chunk ``meta[:, c0:c1]`` of a frame's
     (read in place; triangle ids are chunk-local). Returns
     ``bin_triangles``'s dict plus ``worklist`` (num_tiles,) and ``k`` ()
     (``occupied_worklist`` of ``seg_count``) and ``overflow`` (2,)
-    = [pair_needed, tile_needed].
+    = [pair_needed, tile_needed], folded into ``acc`` (the module
+    docstring).
 
     CPU tensors take the twin. CUDA tensors take the kernel
     ``csrc/bins.cu`` when ``dense_layout`` picks the dense layout
-    (``bin_tiles_meta.launches`` counts its calls, two launches each; a
+    (``launches.bin_tiles_meta`` counts its calls, two launches each; a
     CUDA graph's capture ticks it, its replays do not), else the pair
     expansion and the bin sort (``_bin_tiles_flat_cuda``; their own
     counters tick). The card's flat layout takes the front's meta
@@ -613,15 +657,13 @@ def bin_tiles_meta(meta, ntx: int, nty: int, pair_cap: int, tile_cap: int):
     if meta.shape[0] != 4:
         raise ValueError(f"meta has {meta.shape[0]} rows, expected 4")
     if meta.device.type == "cpu":
-        return bin_tiles_meta_plain(meta, ntx, nty, pair_cap, tile_cap)
+        return bin_tiles_meta_plain(meta, ntx, nty, pair_cap, tile_cap, acc)
     if meta.device.type != "cuda":
         raise ValueError(f"bin_tiles_meta: no kernel for device {meta.device}")
     if not dense_layout(ntx, nty, tile_cap, meta.shape[1]):
-        return _bin_tiles_flat_cuda(meta, ntx, nty, pair_cap, tile_cap)
-    return _bin_tiles_cuda(meta, ntx, nty, tile_cap)
+        return _bin_tiles_flat_cuda(meta, ntx, nty, pair_cap, tile_cap, acc)
+    return _bin_tiles_cuda(meta, ntx, nty, tile_cap, acc)
 
-
-bin_tiles_meta.launches = 0
 
 
 def default_pair_cap(num_triangles: int, num_tiles: int) -> int:
@@ -678,7 +720,7 @@ def _cell_tiles(counts, seg_start, num_tiles: int):
 
 
 def bin_cells_sort_meta(c, rx, x0, y0, ntx_t: int, nty_t: int,
-                        pair_cap: int):
+                        pair_cap: int, acc=None):
     """Cell-granularity binning for the micro path, from cover meta.
 
     Cells are 8x8 px and an (8, 128) tile holds 16 side by side; cell ids
@@ -694,14 +736,16 @@ def bin_cells_sort_meta(c, rx, x0, y0, ntx_t: int, nty_t: int,
     (num_cells,), ``win_start`` / ``tile_count`` (num_tiles,),
     ``total_pairs``, ``pair_needed`` and ``tile_needed`` (always 0: no
     per-tile cap), and the occupied-tile ``worklist`` (num_tiles,) with
-    ``k`` and the (2,) ``overflow`` report. CPU tensors take the twins
+    ``k`` and the (2,) ``overflow`` report, folded into ``acc`` (the
+    module docstring). CPU tensors take the twins
     (``expand.expand_cells_plain``, ``bin_sort_plain``), CUDA tensors the
     kernels (``csrc/expand.cu``, ``csrc/sort.cu``)."""
     num_tiles = ntx_t * nty_t
     num_cells = num_tiles * 16
     cell_of_pair, tri_of_pair, total = expand_cells_meta(
         c, rx, x0, y0, ntx_t, num_cells, pair_cap)
-    bins = bin_sort(cell_of_pair, tri_of_pair, total, num_cells, group=16)
+    bins = bin_sort(cell_of_pair, tri_of_pair, total, num_cells, group=16,
+                    acc=acc)
     bins["layout"] = "micro"
     return bins
 

@@ -46,10 +46,12 @@ Micro path (``render_frame_micro``), for scenes above
 
 Nothing in a frame waits for the host: the overflow report stays a device
 tensor, and the occupied-tile count is read by the kernels themselves. So
-a frame can be captured into a CUDA graph, as the renderer does. The
-texture work of a frame runs inside ``torch.profiler`` ranges named
-``TEXTURE_RANGES``, so that a profile of eager frames can split it out (a
-graph's replay records no ranges).
+a frame can be captured into a CUDA graph, as the renderer does; ``acc``,
+a (4,) int64 device tensor, gathers a batch's needs, pairs and occupied
+tiles from the binning of each frame (``binning``'s module docstring).
+The texture work of a frame runs inside the spans named
+``TEXTURE_RANGES`` (``tracing.span``), so that a profile of eager frames
+can split it out (a graph's replay records no ranges).
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from compute_renderer_torch import tracing
 from compute_renderer_torch.backends import (
     binning, common, front, micro, raster, texture,
 )
@@ -162,7 +165,7 @@ def texf_eligible(tex_table) -> bool:
 
 TEX_FILTERS = ("nearest", "bilinear") + common.MIP_FILTERS
 TEX_MODES = ("fused", "deferred")
-# torch.profiler ranges around a frame's texture work: the per-frame
+# The spans around a frame's texture work: the per-frame
 # vertex stage and mip rows before the raster, the tail after it.
 TEXTURE_RANGES = ("texture_setup", "texture_tail")
 # The texture stages' kernels (``texture.py``) in each range. They launch
@@ -212,7 +215,7 @@ def _frame_texture(mode, positions, tri, view_proj, effect, width, height,
                       "tex_rows": tex_rows}
     if mode == "base":
         return None, {}
-    with torch.profiler.record_function(TEXTURE_RANGES[0]):
+    with tracing.span(TEXTURE_RANGES[0]):
         rows = None
         if tex_filter in common.MIP_FILTERS:
             rows = texture.mip_rows(positions, tri, uvs, face_tex, tex_mips,
@@ -233,7 +236,8 @@ def render_frame(positions, normals, tri, view_proj, view_position,
                  path: str = "auto", pos_soa=None, nrm_soa=None,
                  face_kd=None, texels=None, tex_filter: str = "nearest",
                  tex_mode: str = "fused", uv_soa=None, tex_rows=None,
-                 uvs=None, face_tex=None, tex_table=None, tex_mips=None):
+                 uvs=None, face_tex=None, tex_table=None, tex_mips=None,
+                 acc=None):
     """Render one frame on the path ``resolve_path`` picks (the micro path
     is ``render_frame_micro``); returns ((H, W, 4) u8 RGBA,
     depth key (H, W) u32, overflow (2,) i32 = [pair_cap_needed,
@@ -253,7 +257,8 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     (strict < keeps the lowest index on ties; a G-buffer merges
     channel-wise, vis ids are offset by the chunk first). ``pos_soa`` /
     ``nrm_soa`` are the (3, 3, T) corner-SoA geometry, built from ``tri``
-    when absent."""
+    when absent. ``acc`` (4,) int64, or None, takes the binning's fold of
+    every chunk: the needs by max, the pairs and occupied tiles by sum."""
     device = positions.device
     T = int(tri.shape[0])
     if T == 0:
@@ -267,7 +272,7 @@ def render_frame(positions, normals, tri, view_proj, view_position,
             positions, normals, tri, view_proj, view_position,
             light_world_pos, light_color, light_intensity, effect,
             width=width, height=height, pair_cap=pair_cap, pos_soa=pos_soa,
-            nrm_soa=nrm_soa, **tex)
+            nrm_soa=nrm_soa, acc=acc, **tex)
     mode = frame_mode(face_kd, texels, tex_filter, tex_mode)
     if tri_chunk == 0:
         # Chunks sized for the table this mode builds (tpu.py:628-641).
@@ -298,7 +303,8 @@ def render_frame(positions, normals, tri, view_proj, view_position,
         tc = tile_cap or min(
             binning.default_tile_cap(T, width, height, tile_h, tile_w),
             MAX_TILE_CAP)
-        bins = binning.bin_tiles_meta(meta[:, c0:c1], ntx, nty, pc, tc)
+        bins = binning.bin_tiles_meta(meta[:, c0:c1], ntx, nty, pc, tc,
+                                      acc)
         pair_data = (bins["bin_rows"] if bins["layout"] == "dense"
                      else bins["pair_tri"])
         out_c, key_c = raster.raster_shade_tiles(
@@ -348,7 +354,7 @@ def finish_frame(mode, out, key, tex, vertex, tri, normals, effect,
     sharded render), for the deferred tail's sample positions."""
     if mode in ("base", "mat"):
         return raster.unpack_rgba(out)
-    with torch.profiler.record_function(TEXTURE_RANGES[1]):
+    with tracing.span(TEXTURE_RANGES[1]):
         lc, li = light_color.to(F32), light_intensity.to(F32)
         if mode == "texf":
             return texture.texture_tail(
@@ -379,7 +385,7 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
                        texels=None, tex_filter: str = "nearest",
                        tex_mode: str = "fused", uv_soa=None, tex_rows=None,
                        uvs=None, face_tex=None, tex_table=None,
-                       tex_mips=None):
+                       tex_mips=None, acc=None):
     """Render one nonempty frame on the micro path (``render_frame``
     dispatches here); the same contract and modes as ``render_frame``
     (the overflow report's tile entry is always 0: there is no per-tile
@@ -404,7 +410,7 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
                                   width=width, height=height, tile_h=8,
                                   tile_w=8, **front_kw)
     bins = binning.bin_cells_sort_meta(meta[3], meta[2], meta[0], meta[1],
-                                       ntx, nty, pair_cap)
+                                       ntx, nty, pair_cap, acc)
     out_p, key_p = micro.raster_shade_micro(
         table, bins["pair_tri"], bins["seg_start"],
         bins["seg_count"], bins["tile_count"], effect,

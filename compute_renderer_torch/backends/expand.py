@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from compute_renderer_torch import tracing
+
 from compute_renderer_torch.backends import binning
 
 I32 = torch.int32
@@ -72,7 +74,7 @@ def _expand_cuda(c, rx, x0, y0, *, pair_cap, ntx_t, num_cells,
     cell = torch.empty((pair_cap,), dtype=I32, device=device)
     tri = torch.empty((pair_cap,), dtype=I32, device=device)
     fn = _build.entry("expand", "expand_rows_i32", pointers=8, ints=5)
-    expand_cells.launches += 1
+    tracing.launch("expand_cells")
     _build.check(
         fn(c.data_ptr(), rx.data_ptr(), x0.data_ptr(), y0.data_ptr(),
            sums.data_ptr(), total.data_ptr(), cell.data_ptr(),
@@ -89,7 +91,7 @@ def expand_cells(c, rx, x0, y0, *, pair_cap: int, ntx_t: int,
     """(cell_of_pair (pair_cap,) i32, tri_of_pair (pair_cap,) i32, total
     () i32) from (T,) cover meta; see the module docstring for the
     contract. CPU tensors take the twin, CUDA tensors the kernel
-    (``expand_cells.launches`` counts its calls, two launches each; a
+    (``launches.expand_cells`` counts its calls, two launches each; a
     CUDA graph's capture ticks it, its replays do not)."""
     kw = dict(pair_cap=pair_cap, ntx_t=ntx_t, num_cells=num_cells)
     if c.device.type == "cpu":
@@ -98,5 +100,3 @@ def expand_cells(c, rx, x0, y0, *, pair_cap: int, ntx_t: int,
         raise ValueError(f"expand_cells: no kernel for device {c.device}")
     return _expand_cuda(c, rx, x0, y0, **kw)
 
-
-expand_cells.launches = 0

@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from compute_renderer_torch import tracing
+
 from compute_renderer_torch.backends import binning, common, raster
 
 F32 = torch.float32
@@ -118,8 +120,7 @@ def _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, *, width, height,
     meta = torch.empty((4, T), dtype=torch.int32, device=device)
     ptr = lambda a: None if a is None else a.data_ptr()
     fn = _build.entry("front", "front_end", pointers=8, ints=6)
-    front_end.launches += 1
-    front_end.mode_launches[mode] += 1
+    tracing.launch("front_end", mode)
     _build.check(
         fn(pos.data_ptr(), nrm.data_ptr(), scal.data_ptr(), ptr(kd), ptr(uv),
            ptr(tex), table.data_ptr(), meta.data_ptr(),
@@ -138,9 +139,9 @@ def front_end(pos_soa, nrm_soa, view_proj, effect, *, width: int,
     the material rows, ``uv_soa`` (3 corners, 2, T) with ``tex_rows``
     (T, 3) the fused-texture rows, ``uv_soa`` with ``mip_rows`` (T, 5)
     the mip-filtered ones. CPU tensors take the plain twin, CUDA tensors the
-    kernel (``front_end.launches`` counts its launches,
-    ``front_end.mode_launches`` per mode; a CUDA graph's capture ticks
-    them, its replays do not)."""
+    kernel (``launches.front_end`` of ``tracing.counters()`` counts its
+    launches, ``launches.front_end.<mode>`` per mode; a CUDA graph's
+    capture ticks them, its replays do not)."""
     kw = dict(width=width, height=height, tile_h=tile_h, tile_w=tile_w,
               kd_rows=kd_rows, uv_soa=uv_soa, tex_rows=tex_rows,
               mip_rows=mip_rows)
@@ -151,6 +152,3 @@ def front_end(pos_soa, nrm_soa, view_proj, effect, *, width: int,
         raise ValueError(f"front_end: no kernel for device {pos_soa.device}")
     return _front_end_cuda(pos_soa, nrm_soa, view_proj, effect, **kw)
 
-
-front_end.launches = 0
-front_end.mode_launches = dict.fromkeys(MODES, 0)

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from compute_renderer_torch import tracing
+
 from compute_renderer_torch.backends import binning, common, raster
 
 I32 = torch.int32
@@ -138,8 +140,7 @@ def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
                                       no_id=raster.PAIR_IDX_CLEAR)
     words, arrivals = merge_scratch(device, height_padded, width_padded)
     fn = _build.entry("micro", "raster_shade_micro", pointers=12, ints=7)
-    raster_shade_micro.launches += 1
-    raster_shade_micro.mode_launches[mode] += 1
+    tracing.launch("raster_shade_micro", mode)
     _build.check(
         fn(table.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
            counts.data_ptr(), wl.data_ptr(), k.data_ptr(), params.data_ptr(),
@@ -167,9 +168,10 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
     where none covers).
 
     CPU tensors take the twin, CUDA tensors the kernel
-    (``raster_shade_micro.launches`` counts its launches,
-    ``mode_launches`` per mode; a CUDA graph's capture ticks them, its
-    replays do not), launched over the occupied-tile work list:
+    (``launches.raster_shade_micro`` of ``tracing.counters()`` counts its
+    launches, ``launches.raster_shade_micro.<mode>`` per mode; a CUDA
+    graph's capture ticks them, its replays do not), launched over the
+    occupied-tile work list:
     ``worklist`` = (ids, k) as ``binning.bin_cells_sort_meta`` gives them
     (``occupied_worklist`` of ``tile_count``), built here when None. The
     twin walks the occupied tiles itself."""
@@ -191,6 +193,3 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
         raise ValueError(f"raster_shade_micro: no kernel for device {device}")
     return raster.public_outputs(mode, out, key)
 
-
-raster_shade_micro.launches = 0
-raster_shade_micro.mode_launches = dict.fromkeys(raster.MODES, 0)

@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import torch
 
+from compute_renderer_torch import tracing
+
 from compute_renderer_torch.backends import common
 from compute_renderer_torch.backends.binning import occupied_worklist
 from compute_renderer_torch.core.effects import EFFECT_MIRAGE
@@ -232,7 +234,7 @@ def _shading_cuda(effect, view_position, light_world_pos, light_color,
     params = torch.empty((11,), dtype=F32, device=device)
     lights = torch.empty((L, 8), dtype=F32, device=device)
     fn = _build.entry("bins", "shading_params", pointers=7, ints=2)
-    shading_inputs.launches += 1
+    tracing.launch("shading_inputs")
     _build.check(
         fn(*(a.data_ptr() for a in inputs), params.data_ptr(),
            lights.data_ptr(), L, y_offset,
@@ -253,7 +255,8 @@ def shading_inputs(effect, view_position, light_world_pos, light_color,
     integer.
 
     CPU tensors take the twin, CUDA tensors the kernel ``csrc/bins.cu``
-    (``shading_params``; ``shading_inputs.launches`` counts its launches)."""
+    (``shading_params``; ``launches.shading_inputs`` of
+    ``tracing.counters()`` counts its launches)."""
     args = (effect, view_position, light_world_pos, light_color,
             light_intensity, int(y_offset))
     if effect.device.type == "cpu":
@@ -263,8 +266,6 @@ def shading_inputs(effect, view_position, light_world_pos, light_color,
                          f"{effect.device}")
     return _shading_cuda(*args)
 
-
-shading_inputs.launches = 0
 
 
 def shade_pixels(attrs, params, lights, kd=None):
@@ -684,8 +685,7 @@ def _raster_cuda(tri_table, pair_data, seg_start, seg_count, params, lights,
     out, key = cleared_outputs(mode, lights.shape[0], height_padded,
                                width_padded, device)
     fn = _build.entry("raster", "raster_shade_tiles", pointers=10, ints=10)
-    raster_shade_tiles.launches += 1
-    raster_shade_tiles.mode_launches[mode] += 1
+    tracing.launch("raster_shade_tiles", mode)
     _build.check(
         fn(table.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
            counts.data_ptr(), wl.data_ptr(), k.data_ptr(), params.data_ptr(),
@@ -716,9 +716,10 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
     G-buffer (texf, texf_mip).
 
     CPU tensors take the twin, CUDA tensors the kernel
-    (``raster_shade_tiles.launches`` counts its launches,
-    ``mode_launches`` per mode; a CUDA graph's capture ticks them, its
-    replays do not), launched over the occupied-tile work list:
+    (``launches.raster_shade_tiles`` of ``tracing.counters()`` counts its
+    launches, ``launches.raster_shade_tiles.<mode>`` per mode; a CUDA
+    graph's capture ticks them, its replays do not), launched over the
+    occupied-tile work list:
     ``worklist`` = (ids, k) as ``occupied_worklist`` gives them for
     ``seg_count``. The main path passes the one ``binning.bin_tiles_meta``
     returns; a caller that bins by hand may pass None, and it is built
@@ -743,9 +744,6 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
         raise ValueError(f"raster_shade_tiles: no kernel for device {device}")
     return public_outputs(mode, out, key)
 
-
-raster_shade_tiles.launches = 0
-raster_shade_tiles.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def unpack_rgba(packed):

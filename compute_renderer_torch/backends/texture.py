@@ -5,8 +5,9 @@ The JAX package fuses these with XLA ops inside its compiled step; here
 each is one launch of a hand-written kernel of ``csrc/texture.cu`` for a
 CUDA tensor, and its plain version — the ``common`` composition the JAX
 package runs — for a CPU tensor. Any other device raises. Each wrapper
-counts its kernel's launches in ``.launches`` (a CUDA graph's capture
-ticks it, its replays do not).
+counts its kernel's launches as ``launches.<wrapper>`` of
+``tracing.counters()`` (a CUDA graph's capture ticks it, its replays do
+not).
 
 - ``texture_tail``: a texf G-buffer -> RGBA, nearest or bilinear
   (``common.fused_texture_tail``), over the (P, 3) f32 pool or the
@@ -32,6 +33,8 @@ place. No wrapper reads a value back to the host: each is capturable.
 from __future__ import annotations
 
 import torch
+
+from compute_renderer_torch import tracing
 
 from compute_renderer_torch.backends import common
 
@@ -139,7 +142,7 @@ def texture_tail(gbuf, key, texels, light_color, light_intensity,
     background): nearest or bilinear repeat-wrap samples of ``texels``
     (P, 3) f32, or of ``texels_packed`` (P,) i32 when given, kd
     modulated, the material epilogue. Returns (H, W, 4) u8 RGBA.
-    ``texture_tail.launches`` counts the kernel's launches."""
+    ``launches.texture_tail`` counts the kernel's launches."""
     _check_filter(tex_filter, FLAT_FILTERS, "texture_tail")
     device = _device_of(gbuf, "texture_tail")
     if device.type == "cpu":
@@ -155,14 +158,12 @@ def texture_tail(gbuf, key, texels, light_color, light_intensity,
         pool, packed = _on(texels, device, F32, "texels"), None
     H, W = key.shape
     out = _rgba(H, W, device)
-    texture_tail.launches += 1
+    tracing.launch("texture_tail")
     _launch("texture_tail", (gbuf, key, pool, packed, lc, li, out),
             (H, W, gbuf.stride(0), gbuf.stride(1), key.stride(0), L,
              FILTERS[tex_filter]), device)
     return out
 
-
-texture_tail.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +184,7 @@ def texture_tail_mip(gbuf, key, texels, mip_table, light_color,
     the carried tid / lod / mu / mv / spread over the mip pool ``texels``
     (P, 3) and its level table ``mip_table`` (M, L, 3) i32, kd modulated,
     the material epilogue. Returns (H, W, 4) u8 RGBA.
-    ``texture_tail_mip.launches`` counts the kernel's launches."""
+    ``launches.texture_tail_mip`` counts the kernel's launches."""
     _check_filter(tex_filter, common.MIP_FILTERS, "texture_tail_mip")
     device = _device_of(gbuf, "texture_tail_mip")
     if device.type == "cpu":
@@ -199,7 +200,7 @@ def texture_tail_mip(gbuf, key, texels, mip_table, light_color,
         raise ValueError(f"mip_table {tuple(mips.shape)}: (M, L, 3)")
     H, W = key.shape
     out = _rgba(H, W, device)
-    texture_tail_mip.launches += 1
+    tracing.launch("texture_tail_mip")
     _launch("texture_tail_mip",
             (gbuf, key, _on(texels, device, F32, "texels"), mips, lc, li,
              out),
@@ -207,8 +208,6 @@ def texture_tail_mip(gbuf, key, texels, mip_table, light_color,
              mips.shape[1], FILTERS[tex_filter]), device)
     return out
 
-
-texture_tail_mip.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -276,8 +275,8 @@ def deferred_tail(ids, key, tri, screen, world, normals, uvs, effect,
     the mip pool with ``tex_mips`` (M, L, 3) and the frame's ``rows``
     (T, 5) of ``mip_rows`` (trilinear, anisotropic); the offsets place
     the window at its global pixel (a stripe of a sharded render).
-    Returns (H, W, 4) u8 RGBA. ``deferred_tail.launches`` counts the
-    kernel's launches."""
+    Returns (H, W, 4) u8 RGBA. ``launches.deferred_tail`` counts
+    the kernel's launches."""
     _check_filter(tex_filter, tuple(FILTERS), "deferred_tail")
     mip = tex_filter in common.MIP_FILTERS
     if mip and (tex_mips is None or rows is None):
@@ -309,7 +308,7 @@ def deferred_tail(ids, key, tri, screen, world, normals, uvs, effect,
     table = _on(tex_mips if mip else tex_table, device, I32,
                 "tex_mips" if mip else "tex_table")
     out = _rgba(H, W, device)
-    deferred_tail.launches += 1
+    tracing.launch("deferred_tail")
     _launch("deferred_tail", (
         ids, key,
         None if pair_tri is None else _on(pair_tri, device, I32, "pair_tri"),
@@ -325,8 +324,6 @@ def deferred_tail(ids, key, tri, screen, world, normals, uvs, effect,
          FILTERS[tex_filter]), device)
     return out
 
-
-deferred_tail.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +348,7 @@ def mip_rows(positions, tri, uvs, face_tex, mip_table, view_proj, effect,
     ``uvs`` (N, 2), ``face_tex`` (T,) (-1 untextured: padding rows of
     (0, 0, 0) triangles included), ``mip_table`` (M, L, 3) i32 and the
     frame's ``view_proj`` and ``effect`` (the wave moves the corners).
-    ``mip_rows.launches`` counts the kernel's launches."""
+    ``launches.mip_rows`` counts the kernel's launches."""
     _check_filter(tex_filter, common.MIP_FILTERS, "mip_rows")
     device = _device_of(positions, "mip_rows")
     if device.type == "cpu":
@@ -367,7 +364,7 @@ def mip_rows(positions, tri, uvs, face_tex, mip_table, view_proj, effect,
                          f"{tuple(face_tex.shape)}, mip_table "
                          f"{tuple(mip_table.shape)}")
     out = torch.empty((T, 5), dtype=F32, device=device)
-    mip_rows.launches += 1
+    tracing.launch("mip_rows")
     _launch("mip_rows", (
         _on(positions, device, F32, "positions"), tri_c,
         _on(uvs, device, F32, "uvs"), face_tex_c, mips,
@@ -377,8 +374,6 @@ def mip_rows(positions, tri, uvs, face_tex, mip_table, view_proj, effect,
         device)
     return out
 
-
-mip_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +385,7 @@ def vertex_stage(positions, view_proj, effect, width: int, height: int):
     screen (N, 4)) f32, screen = (x_px, y_px_flipped, ndc_z, clip_w),
     under the frame's ``view_proj`` and ``effect`` (the wave moves the
     vertices). CPU tensors take ``common.vertex_stage`` itself.
-    ``vertex_stage.launches`` counts the kernel's launches."""
+    ``launches.vertex_stage`` counts the kernel's launches."""
     device = _device_of(positions, "vertex_stage")
     if device.type == "cpu":
         return common.vertex_stage(positions, view_proj, effect, width,
@@ -401,14 +396,11 @@ def vertex_stage(positions, view_proj, effect, width: int, height: int):
     N = pos.shape[0]
     world = torch.empty((N, 3), dtype=F32, device=device)
     screen = torch.empty((N, 4), dtype=F32, device=device)
-    vertex_stage.launches += 1
+    tracing.launch("vertex_stage")
     _launch("vertex_stage", (pos, _on(view_proj, device, F32, "view_proj"),
                              _on(effect, device, F32, "effect"), world,
                              screen), (N, int(width), int(height)), device)
     return world, screen
-
-
-vertex_stage.launches = 0
 
 
 # The five launch-counted wrappers, by kernel name.

@@ -15,7 +15,8 @@
 //   C), the occupied-tile work list (ascending ids, padded with 0);
 // - scal = [pair_needed (0), tile_needed, total_pairs, k]: tile_needed is
 //   the largest count where it exceeds C, else 0; (scal[0], scal[1]) is
-//   the frame's overflow report.
+//   the frame's overflow report. With an accumulator given, the thread
+//   that writes scal folds it in (frame_counts.cuh).
 //
 // shading_params replaces the (11,) params and (L, 8) light rows that
 // pallas_raster.py raster_shade_tiles and pallas_micro.py
@@ -48,6 +49,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "frame_counts.cuh"
 
 namespace {
 
@@ -119,7 +122,7 @@ __device__ __forceinline__ int warp_scan(int v, int lane) {
 __global__ void __launch_bounds__(SCAN_THREADS) bin_scan_kernel(
     const int* __restrict__ counts, int num_tiles, int C,
     int* __restrict__ seg_start, int* __restrict__ seg_count,
-    int* __restrict__ worklist, int* __restrict__ scal) {
+    int* __restrict__ worklist, int* __restrict__ scal, long long* acc) {
   __shared__ int s_sum[SCAN_WARPS];
   __shared__ int s_occ[SCAN_WARPS];
   __shared__ int s_max[SCAN_WARPS];
@@ -172,6 +175,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) bin_scan_kernel(
     scal[1] = m > C ? m : 0;
     scal[2] = carry;
     scal[3] = carry_occ;
+    fold_counts(acc, 0, scal[1], carry, carry_occ);
   }
 }
 
@@ -212,12 +216,13 @@ __global__ void __launch_bounds__(PARAM_THREADS) shading_params_kernel(
 }  // namespace
 
 // counts: scratch of num_tiles ints; seg_start, seg_count and worklist
-// (num_tiles,), bin_rows (num_tiles, C), scal (4,). Two launches.
+// (num_tiles,), bin_rows (num_tiles, C), scal (4,), acc (4,) long longs
+// (frame_counts.cuh) or null. Two launches.
 extern "C" int bin_tiles_dense(const void* meta, void* counts,
                                void* bin_rows, void* seg_start,
                                void* seg_count, void* worklist, void* scal,
-                               int ld, int T, int ntx, int num_tiles, int C,
-                               void* stream) {
+                               void* acc, int ld, int T, int ntx,
+                               int num_tiles, int C, void* stream) {
   if (ld < 0 || T < 0 || ntx <= 0 || num_tiles < 0 || C < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -227,7 +232,7 @@ extern "C" int bin_tiles_dense(const void* meta, void* counts,
         (int*)counts);
   bin_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(
       (const int*)counts, num_tiles, C, (int*)seg_start, (int*)seg_count,
-      (int*)worklist, (int*)scal);
+      (int*)worklist, (int*)scal, (long long*)acc);
   return (int)cudaGetLastError();
 }
 

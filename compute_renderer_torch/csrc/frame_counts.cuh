@@ -1,0 +1,18 @@
+// The fold of one frame's binning (or one triangle chunk's) into the
+// caller's accumulator, by the kernel that writes the frame's overflow
+// report (bins.cu's bin_scan_kernel, sort.cu's bin_sort_scan_kernel).
+// acc is 4 64-bit words that a batch of frames shares: [pair need, tile
+// need, pairs, occupied tiles]. The needs fold by max, the pairs and the
+// occupied tiles by sum (binning.fold_counts is the twins' fold). One
+// thread calls it; a null acc folds nothing.
+#pragma once
+
+__device__ __forceinline__ void fold_counts(long long* acc, int pair_needed,
+                                            int tile_needed, int pairs,
+                                            int tiles) {
+  if (acc == nullptr) return;
+  atomicMax(&acc[0], (long long)pair_needed);
+  atomicMax(&acc[1], (long long)tile_needed);
+  atomicAdd((unsigned long long*)&acc[2], (unsigned long long)pairs);
+  atomicAdd((unsigned long long*)&acc[3], (unsigned long long)tiles);
+}

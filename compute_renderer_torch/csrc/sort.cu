@@ -30,7 +30,9 @@
 //   where it exceeds pair_cap, tile_needed the largest count where it
 //   exceeds cap (exact under pair overflow: with the flat layout's rects
 //   given, counted over every rect rather than the capped list), k the
-//   work list's length. (scal[0], scal[1]) is the frame's overflow report.
+//   work list's length. (scal[0], scal[1]) is the frame's overflow report;
+//   with an accumulator given, the same thread folds scal into it
+//   (frame_counts.cuh).
 //
 // What bounds it on an H100: memory, and at a frame's few hundred
 // thousand pairs the latency of its steps. The function must read each
@@ -88,6 +90,8 @@
 // uses c / max(rx, 1) rows as setup_from_meta does.
 
 #include <cuda_runtime.h>
+
+#include "frame_counts.cuh"
 
 namespace {
 
@@ -256,11 +260,11 @@ __device__ __forceinline__ void write_bin(
   if (r.occ) worklist[occ_at] = group == 16 ? b >> 4 : b;
 }
 
-// scal and the work list's padding, once the totals are known; every
-// thread of the block calls it.
+// scal and the work list's padding, once the totals are known, and scal
+// folded into acc; every thread of the block calls it.
 __device__ void write_totals(const int* total, int pair_cap, int cap,
                              int most, int k, int num_tiles, int* worklist,
-                             int* scal) {
+                             int* scal, long long* acc) {
   for (int i = k + threadIdx.x; i < num_tiles; i += blockDim.x)
     worklist[i] = 0;
   if (threadIdx.x == 0) {
@@ -270,6 +274,7 @@ __device__ void write_totals(const int* total, int pair_cap, int cap,
     scal[1] = most > cap ? most : 0;
     scal[2] = all_pairs;
     scal[3] = k;
+    fold_counts(acc, scal[0], scal[1], all_pairs, k);
   }
 }
 
@@ -555,8 +560,9 @@ __device__ void scan_tile(
     int tile, int ntiles, int* table, const int* ranges, const int* total,
     const int* c, const int* rx, const int* x0, const int* y0, int* exact,
     unsigned long long* status, int* seg_start, int* seg_count,
-    int* tile_count, int* win_start, int* worklist, int* scal, int T,
-    int pair_cap, int num_bins, int group, int cap, int ntx, int tchunk,
+    int* tile_count, int* win_start, int* worklist, int* scal,
+    long long* acc, int T, int pair_cap, int num_bins, int group, int cap,
+    int ntx, int tchunk,
     int (*s_part)[SCAN_TILE], int* s_red, int* s_before, int* s_ranges) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n = valid_slots(total, pair_cap);
@@ -701,7 +707,7 @@ __device__ void scan_tile(
       for (int w = 0; w < SCAN_WARPS; ++w) most = max(most, s_red[w]);
     }
     write_totals(total, pair_cap, cap, most, s_before[1] + r.occupied,
-                 num_bins / group, worklist, scal);
+                 num_bins / group, worklist, scal, acc);
   }
   __syncthreads();  // the shared arrays are rewritten next tile
 }
@@ -718,8 +724,10 @@ __global__ void __launch_bounds__(SCAN_THREADS) bin_sort_scan_kernel(
     unsigned long long* status,       // (2 ntiles,), cleared
     int* __restrict__ seg_start, int* __restrict__ seg_count,
     int* __restrict__ tile_count, int* __restrict__ win_start,
-    int* __restrict__ worklist, int* __restrict__ scal, int T, int pair_cap,
-    int num_bins, int group, int cap, int ntx, int ntiles, int tchunk) {
+    int* __restrict__ worklist, int* __restrict__ scal,
+    long long* acc,                   // (4,) or null: frame_counts.cuh
+    int T, int pair_cap, int num_bins, int group, int cap, int ntx,
+    int ntiles, int tchunk) {
   __shared__ int s_part[SCAN_GROUPS][SCAN_TILE];
   __shared__ int s_red[3 * SCAN_WARPS];
   __shared__ int s_before[3];
@@ -727,8 +735,8 @@ __global__ void __launch_bounds__(SCAN_THREADS) bin_sort_scan_kernel(
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
     scan_tile(tile, ntiles, table, ranges, total, c, rx, x0, y0, exact,
               status, seg_start, seg_count, tile_count, win_start, worklist,
-              scal, T, pair_cap, num_bins, group, cap, ntx, tchunk, s_part,
-              s_red, s_before, s_ranges);
+              scal, acc, T, pair_cap, num_bins, group, cap, ntx, tchunk,
+              s_part, s_red, s_before, s_ranges);
 }
 
 // The chunk's range of bins [lo, hi] (hi < lo: none), every thread.
@@ -810,14 +818,16 @@ cudaError_t allow_smem(K kernel, int bytes) {
 // tile of SCAN_TILE bins) and the exact counts (num_bins ints, only with
 // the rects) — cleared by the first launch — then each table chunk's
 // [lo, hi] and the (table chunk, bin) table. tile_count and win_start
-// (num_bins / 16,) only with group 16, else null; scal: 4 ints.
+// (num_bins / 16,) only with group 16, else null; scal: 4 ints; acc: 4
+// long longs (frame_counts.cuh) or null.
 extern "C" int bin_sort(const void* keys, const void* tris,
                         const void* total, const void* c, const void* rx,
                         const void* x0, const void* y0, void* scratch,
                         void* pair_tri, void* seg_start, void* seg_count,
                         void* tile_count, void* win_start, void* worklist,
-                        void* scal, int T, int pair_cap, int num_bins,
-                        int group, int cap, int ntx, void* stream) {
+                        void* scal, void* acc, int T, int pair_cap,
+                        int num_bins, int group, int cap, int ntx,
+                        void* stream) {
   const bool rects = c != nullptr;
   if (pair_cap < 0 || num_bins < 0 || T < 0 || cap < 0 ||
       (group != 1 && group != 16) || num_bins % group != 0 ||
@@ -862,7 +872,8 @@ extern "C" int bin_sort(const void* keys, const void* tris,
       table, ranges, (const int*)total, (const int*)c, (const int*)rx,
       (const int*)x0, (const int*)y0, exact, status, (int*)seg_start,
       (int*)seg_count, (int*)tile_count, (int*)win_start, (int*)worklist,
-      (int*)scal, T, pair_cap, num_bins, group, cap, ntx, tiles, tchunk);
+      (int*)scal, (long long*)acc, T, pair_cap, num_bins, group, cap, ntx,
+      tiles, tchunk);
   bin_sort_place_kernel<<<chunks, THREADS, SORT_SMEM, s>>>(
       (const int*)keys, (const int*)tris, (const int*)total, table,
       (const int*)seg_start, (int*)pair_tri, pair_cap, num_bins, tchunk);

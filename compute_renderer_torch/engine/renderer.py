@@ -24,13 +24,22 @@ in static outputs, which the renderer copies out, so no returned frame
 aliases them. A batch uploads its uniform stack once and costs the host
 three calls a frame (the uniforms into the input buffer, the replay, the
 frame into the output stack); the overflow maximum is taken inside the
-graph, as the scan's loop carry takes it. On the CPU frames run eagerly
-through the kernels' twins. A capture that fails raises: there is no
-eager fall-back on the card (``eager=True`` asks for the eager loop).
+graph, as the scan's loop carry takes it: the binning's last kernel folds
+each frame's needs, pairs and occupied tiles into the graph's static
+accumulator (``cuda.render_frame``'s ``acc``). On the CPU frames run
+eagerly through the kernels' twins, which fold alike. A capture that
+fails raises: there is no eager fall-back on the card (``eager=True``
+asks for the eager loop).
 
-The kernels' launch counters (``front.front_end.launches`` and the
-others) count the wrappers' calls: the eager warm-up and the capture of a
-graph tick them, its replays do not.
+Tracing (``tracing``): the host stages run in spans (``renderer.pack``,
+``renderer.upload``, ``renderer.replay``, ``renderer.capture``,
+``renderer.calibrate``, ``renderer.tune``, ``renderer.retry``,
+``renderer.flush``), which cost one flag check off a profiler session;
+captures, graph drops, retries, calibrations, tunings and replays tick
+``tracing.counters()``, and the kernels' launch counters there count the
+wrappers' calls (the eager warm-up and the capture of a graph tick them,
+its replays do not). While a profiler session records, each batch adds
+its frames, pairs and occupied tiles to ``tracing.frame_counts()``.
 
 On the micro path the pair capacity settles to the first checked frame's
 measured need (``_maybe_calibrate``), and a tile path whose per-tile list
@@ -58,6 +67,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from compute_renderer_torch import tracing
 from compute_renderer_torch.backends import (
     cuda, front, get_backend, normalize_backend,
 )
@@ -101,8 +111,9 @@ def box_downsample(rgba, s: int):
 class FrameGraph:
     """One captured frame: replaying ``graph`` renders the uniforms in
     ``packed`` into ``rgba`` (H, W, 4) u8, ``key`` (rh, rw) u32 and
-    ``overflow`` (2,) i32, and folds ``overflow`` into ``overflow_max``
-    (the batch's running maximum). All five tensors are static: the graph
+    ``overflow`` (2,) i32, and its binning folds the frame into ``acc``
+    (4,) i64: the batch's running maximum of the needs, then its sums of
+    pairs and occupied tiles. All five tensors are static: the graph
     reads and writes them in place at every replay."""
 
     graph: torch.cuda.CUDAGraph
@@ -110,7 +121,7 @@ class FrameGraph:
     rgba: torch.Tensor
     key: torch.Tensor
     overflow: torch.Tensor
-    overflow_max: torch.Tensor
+    acc: torch.Tensor
 
 
 class Renderer:
@@ -172,8 +183,6 @@ class Renderer:
         self._tile_tuned = self._user_tile or not self._tile_autotune
         # The tuner's best seconds per candidate shape, once it has run.
         self.tile_timings: dict = {}
-        # Graph replays so far (a frame each; 0 off the card).
-        self.replays = 0
         self._pending_overflow = None
         self._upload(mesh)
 
@@ -276,15 +285,17 @@ class Renderer:
         make every dispatch wait for the frames before it (the viewers'
         pipelined present, ``app/window.py``). Stream order still puts
         the copy before the frame that reads it."""
-        t = torch.from_numpy(array)
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        with tracing.span("renderer.upload"):
+            t = torch.from_numpy(array)
+            if self.device.type != "cuda":
+                return t.to(self.device)
+            return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _frame(self, packed, L: int):
+    def _frame(self, packed, L: int, acc=None):
         """One frame from a packed device buffer, eagerly: (rgba, key,
         overflow); a comparator's key is its depth buffer and its overflow
-        report zero."""
+        report zero. The engine's binning folds the frame into ``acc``
+        ((4,) int64, or None)."""
         vpos, vp, eff, lwp, lc, li = unpack_uniforms(packed, L)
         if not self.engine:
             rgba, key = self.backend.render_frame(
@@ -299,7 +310,7 @@ class Renderer:
         rgba, key, overflow = cuda.render_frame(
             self.positions, self.normals, self.tri, vp, vpos, lwp, lc, li,
             eff, width=self.rw, height=self.rh, pos_soa=self.pos_soa,
-            nrm_soa=self.nrm_soa, **self.ext, **self.options,
+            nrm_soa=self.nrm_soa, acc=acc, **self.ext, **self.options,
         )
         if self.ssaa > 1:
             rgba = box_downsample(rgba, self.ssaa)
@@ -328,28 +339,29 @@ class Renderer:
         raster's merge scratch), so that nothing is allocated or filled
         for the first time inside the graph, whose private pool would
         otherwise hold it and fill it only at replay."""
-        static_in = torch.empty_like(packed)
-        static_in.copy_(packed)
-        overflow_max = torch.zeros((2,), dtype=torch.int32,
-                                   device=self.device)
-        stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            self._frame(static_in, L)
-        stream.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            rgba, key, overflow = self._frame(static_in, L)
-            torch.maximum(overflow_max, overflow, out=overflow_max)
-        return FrameGraph(graph, static_in, rgba, key, overflow,
-                          overflow_max)
+        tracing.tick("captures")
+        with tracing.span("renderer.capture"):
+            static_in = torch.empty_like(packed)
+            static_in.copy_(packed)
+            acc = torch.zeros((4,), dtype=torch.int64, device=self.device)
+            tracing.prepare(acc.device)
+            stream = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                self._frame(static_in, L, acc)
+            stream.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                rgba, key, overflow = self._frame(static_in, L, acc)
+        return FrameGraph(graph, static_in, rgba, key, overflow, acc)
 
     def _drop_graphs(self, keep=lambda key: False) -> None:
         """Drop the cached graphs whose key ``keep`` refuses, and free
         their memory pools (the JAX engine clears its step cache)."""
         for key in [k for k in self._graphs if not keep(k)]:
             self._graphs.pop(key).graph.reset()
+            tracing.tick("graph_drops")
 
     def close(self) -> None:
         """Drop the cached graphs and free their memory pools (a later
@@ -361,7 +373,8 @@ class Renderer:
         with the uniforms in its input buffer: a replay renders them. On
         the card only; for tools that replay it themselves
         (``bench/profiling.py``)."""
-        packed, L = self.pack_uniforms(uniforms)
+        with tracing.span("renderer.pack"):
+            packed, L = self.pack_uniforms(uniforms)
         packed = self._to_device(packed)
         graph = self._frame_graph(packed, L)
         graph.packed.copy_(packed)
@@ -373,11 +386,12 @@ class Renderer:
         (see ``_checked``). On the card it replays the frame's graph and
         returns copies of its outputs; a comparator renders eagerly."""
         if self.device.type != "cuda" or not self.engine:
-            packed, L = self.pack_uniforms(uniforms)
+            with tracing.span("renderer.pack"):
+                packed, L = self.pack_uniforms(uniforms)
             return self._frame(torch.from_numpy(packed).to(self.device), L)
         graph = self.frame_graph(uniforms)
         graph.graph.replay()
-        self.replays += 1
+        tracing.tick("replays")
         return graph.rgba.clone(), graph.key.clone(), graph.overflow.clone()
 
     def _checked(self, uniforms: FrameUniforms, max_retries: int = 3):
@@ -408,18 +422,20 @@ class Renderer:
                 or self._path() != "micro"):
             return
         self._calibrate_pair_cap = False
-        packed, L = self.pack_uniforms(uniforms)
-        vpos, vp, eff, *_ = unpack_uniforms(
-            torch.from_numpy(packed).to(self.device), L)
-        _, meta = front.front_end(self.pos_soa, self.nrm_soa, vp, eff,
-                                  width=self.rw, height=self.rh, tile_h=8,
-                                  tile_w=8)
-        total = int(meta[3].sum(dtype=torch.int64))
-        # Keep the cell-count floor of default_pair_cap_micro.
-        num_cells = ((self.rw + 127) // 128) * ((self.rh + 7) // 8) * 16
-        self.options["pair_cap"] = cuda.grow_pair_cap(
-            0, max(total, num_cells, 1024))
-        self._drop_graphs()
+        tracing.tick("calibrations")
+        with tracing.span("renderer.calibrate"):
+            packed, L = self.pack_uniforms(uniforms)
+            vpos, vp, eff, *_ = unpack_uniforms(
+                torch.from_numpy(packed).to(self.device), L)
+            _, meta = front.front_end(self.pos_soa, self.nrm_soa, vp, eff,
+                                      width=self.rw, height=self.rh,
+                                      tile_h=8, tile_w=8)
+            total = int(meta[3].sum(dtype=torch.int64))
+            # Keep the cell-count floor of default_pair_cap_micro.
+            num_cells = ((self.rw + 127) // 128) * ((self.rh + 7) // 8) * 16
+            self.options["pair_cap"] = cuda.grow_pair_cap(
+                0, max(total, num_cells, 1024))
+            self._drop_graphs()
 
     def _tile_tunable(self) -> bool:
         """Whether the tile shape may be chosen by timing (the JAX
@@ -454,58 +470,65 @@ class Renderer:
         warm-up first captures the candidate and settles its capacities,
         so no retry is timed; a tile->micro fallback during it ends the
         tuning (the shape is then moot)."""
-        batched = len(uniforms_seq) > 1
-        rounds = 3 if batched else 6
-        results = {}
-        for shape in cuda.TILE_CANDIDATES:
-            self.options["tile_h"], self.options["tile_w"] = shape
-            if batched:
-                self.render_batch_device(uniforms_seq)
-            else:
-                self._checked(uniforms_seq[0])
-            if self.options.get("path") == "micro":
-                return
-            best = float("inf")
-            for _ in range(rounds):
-                t0 = time.perf_counter()
+        tracing.tick("tunes")
+        with tracing.span("renderer.tune"):
+            batched = len(uniforms_seq) > 1
+            rounds = 3 if batched else 6
+            results = {}
+            for shape in cuda.TILE_CANDIDATES:
+                self.options["tile_h"], self.options["tile_w"] = shape
                 if batched:
-                    self.render_batch_device(uniforms_seq, check=False)
+                    self.render_batch_device(uniforms_seq)
                 else:
-                    self.render_device(uniforms_seq[0])
-                self.fence_pending()
-                best = min(best, time.perf_counter() - t0)
-            results[shape] = best
-        winner = min(results, key=results.get)
-        self.options["tile_h"], self.options["tile_w"] = winner
-        self.tile_timings = results
-        self._drop_graphs(keep=lambda key: key == self.graph_key(key[0]))
+                    self._checked(uniforms_seq[0])
+                if self.options.get("path") == "micro":
+                    return
+                best = float("inf")
+                for _ in range(rounds):
+                    t0 = time.perf_counter()
+                    if batched:
+                        self.render_batch_device(uniforms_seq, check=False)
+                    else:
+                        self.render_device(uniforms_seq[0])
+                    self.fence_pending()
+                    best = min(best, time.perf_counter() - t0)
+                results[shape] = best
+            winner = min(results, key=results.get)
+            self.options["tile_h"], self.options["tile_w"] = winner
+            self.tile_timings = results
+            self._drop_graphs(
+                keep=lambda key: key == self.graph_key(key[0]))
 
     def _grow_caps(self, pair_needed: int = 0, tile_needed: int = 0) -> None:
         """Grow the binning capacities to the reported need (0 = leave);
-        on the micro path only ``pair_cap`` exists."""
-        self._drop_graphs()
-        path = self._path()
-        if (path != "micro" and tile_needed > cuda.MAX_TILE_CAP
-                and self.options.get("path", "auto") == "auto"):
-            # The tile kernel's list cap is exceeded at any legal tile_cap
-            # (the triangle-count split cannot see screen density).
-            self._switch_to_micro()
-            return
-        caps = cuda.default_caps(path, max(self.num_triangles, 1),
-                                 self.rw, self.rh,
-                                 self.options.get("tile_h", 0),
-                                 self.options.get("tile_w", 0))
-        pc = self.options.get("pair_cap") or caps["pair_cap"]
-        if pair_needed:
-            pc = cuda.grow_pair_cap(pc, pair_needed)
-        self.options["pair_cap"] = pc
-        if path == "micro":
-            return
-        tc = self.options.get("tile_cap") or caps["tile_cap"]
-        if tile_needed:
-            tc = cuda.grow_tile_cap(tc, tile_needed, caps["tile_h"],
-                                    caps["tile_w"])
-        self.options["tile_cap"] = tc
+        on the micro path only ``pair_cap`` exists. A retry: it ticks
+        ``retries`` of ``tracing.counters()``."""
+        tracing.tick("retries")
+        with tracing.span("renderer.retry"):
+            self._drop_graphs()
+            path = self._path()
+            if (path != "micro" and tile_needed > cuda.MAX_TILE_CAP
+                    and self.options.get("path", "auto") == "auto"):
+                # The tile kernel's list cap is exceeded at any legal
+                # tile_cap (the triangle-count split cannot see screen
+                # density).
+                self._switch_to_micro()
+                return
+            caps = cuda.default_caps(path, max(self.num_triangles, 1),
+                                     self.rw, self.rh,
+                                     self.options.get("tile_h", 0),
+                                     self.options.get("tile_w", 0))
+            pc = self.options.get("pair_cap") or caps["pair_cap"]
+            if pair_needed:
+                pc = cuda.grow_pair_cap(pc, pair_needed)
+            self.options["pair_cap"] = pc
+            if path == "micro":
+                return
+            tc = self.options.get("tile_cap") or caps["tile_cap"]
+            if tile_needed:
+                tc = cuda.grow_tile_cap(tc, tile_needed, caps["tile_h"],
+                                        caps["tile_w"])
+            self.options["tile_cap"] = tc
 
     def _switch_to_micro(self) -> None:
         """Tile->micro fallback for over-dense scenes (see _grow_caps).
@@ -524,26 +547,29 @@ class Renderer:
         """The frames of a packed (K, P) device stack and their overflow
         maximum: replays of one graph on the card (three host calls a
         frame), or ``_frame`` op by op on the CPU, with ``eager`` and for a
-        comparator."""
-        K = stack.shape[0]
-        frames = torch.empty((K, self.height, self.width, 4),
-                             dtype=torch.uint8, device=self.device)
-        if eager or self.device.type != "cuda" or not self.engine:
-            overflow = torch.zeros((2,), dtype=torch.int32,
-                                   device=self.device)
-            for i in range(K):
-                rgba, _, ovf = self._frame(stack[i], L)
-                frames[i] = rgba
-                overflow = torch.maximum(overflow, ovf)
-            return frames, overflow
-        graph = self._frame_graph(stack[0], L)
-        graph.overflow_max.zero_()
-        for i in range(K):
-            graph.packed.copy_(stack[i])
-            graph.graph.replay()
-            frames[i].copy_(graph.rgba)
-        self.replays += K
-        return frames, graph.overflow_max.clone()
+        comparator. The frames' binning folds into one accumulator; while
+        a profiler session records, its pairs and occupied tiles go to
+        ``tracing.frame_counts()``."""
+        with tracing.span("renderer.replay"):
+            K = stack.shape[0]
+            frames = torch.empty((K, self.height, self.width, 4),
+                                 dtype=torch.uint8, device=self.device)
+            if eager or self.device.type != "cuda" or not self.engine:
+                acc = torch.zeros((4,), dtype=torch.int64, device=self.device)
+                for i in range(K):
+                    frames[i] = self._frame(stack[i], L, acc)[0]
+            else:
+                graph = self._frame_graph(stack[0], L)
+                acc = graph.acc
+                acc.zero_()
+                for i in range(K):
+                    graph.packed.copy_(stack[i])
+                    graph.graph.replay()
+                    frames[i].copy_(graph.rgba)
+                tracing.tick("replays", K)
+            if self.engine and tracing.recording():
+                tracing.add_frames(acc[2:], K)
+            return frames, acc[:2].to(torch.int32)
 
     def render_batch_device(self, uniforms_seq, max_retries: int = 3,
                             check: bool = True, *, eager: bool = False):
@@ -563,9 +589,11 @@ class Renderer:
             return torch.empty((0, self.height, self.width, 4),
                                dtype=torch.uint8, device=self.device)
         self._maybe_tune_tile(uniforms_seq)
-        packs = [self.pack_uniforms(u) for u in uniforms_seq]
-        L = packs[0][1]
-        stack = self._to_device(np.stack([p for p, _ in packs]))
+        with tracing.span("renderer.pack"):
+            packs = [self.pack_uniforms(u) for u in uniforms_seq]
+            L = packs[0][1]
+            host = np.stack([p for p, _ in packs])
+        stack = self._to_device(host)
         for _ in range(max_retries):
             if check:
                 self._maybe_calibrate(uniforms_seq[0])
@@ -604,7 +632,8 @@ class Renderer:
     def flush_overflow(self) -> bool:
         """Fetch and clear the flags of unchecked batch renders. True means
         a frame dropped triangles and the run is invalid."""
-        return bool(self.take_overflow().cpu().numpy().any())
+        with tracing.span("renderer.flush"):
+            return bool(self.take_overflow().cpu().numpy().any())
 
     def render(self, uniforms: FrameUniforms) -> np.ndarray:
         """Render one frame to a host (H, W, 4) uint8 RGBA array."""

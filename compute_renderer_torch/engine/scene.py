@@ -14,6 +14,7 @@ from typing import Optional
 
 import numpy as np
 
+from compute_renderer_torch import tracing
 from compute_renderer_torch.core import maths
 from compute_renderer_torch.core.camera import Camera, CameraMode, CameraUniform
 from compute_renderer_torch.core.effects import (
@@ -192,35 +193,36 @@ class Scene:
     def update(self, dt: float) -> FrameUniforms:
         """Advance time/effect/light state and produce the frame uniforms
         (reference Scene::update_buffers semantics, scene.rs:132-188, minus
-        the direct buffer writes)."""
-        self.time += dt
-        if self.effect is not None:
-            self.effect.update(dt)
+        the direct buffer writes), in the span ``scene.update``."""
+        with tracing.span("scene.update"):
+            self.time += dt
+            if self.effect is not None:
+                self.effect.update(dt)
 
-        camera = self.get_active_camera()
-        if camera is not None:
-            cam_uniform = camera.uniform()
-            # Lights world -> view by the view matrix (scene.rs:149-154).
-            # (Dead in the reference's shading formula; kept for parity.)
-            view = camera.build_view_matrix()
-            for light in self.lights:
-                light.view_position = maths.transform_point3(
-                    view, light.world_position
-                )
-        else:
-            cam_uniform = CameraUniform.identity()
+            camera = self.get_active_camera()
+            if camera is not None:
+                cam_uniform = camera.uniform()
+                # Lights world -> view by the view matrix (scene.rs:149-154).
+                # (Dead in the reference's shading formula; kept for parity.)
+                view = camera.build_view_matrix()
+                for light in self.lights:
+                    light.view_position = maths.transform_point3(
+                        view, light.world_position
+                    )
+            else:
+                cam_uniform = CameraUniform.identity()
 
-        lwp, lc, li = pack_lights(self.lights)
-        eff = (
-            self.effect.uniform(self.time)
-            if self.effect is not None
-            else EffectUniform()
-        )
-        return FrameUniforms(
-            view_position=cam_uniform.view_position,
-            view_proj=cam_uniform.view_proj,
-            light_world_pos=lwp,
-            light_color=lc,
-            light_intensity=li,
-            effect=eff.as_array(),
-        )
+            lwp, lc, li = pack_lights(self.lights)
+            eff = (
+                self.effect.uniform(self.time)
+                if self.effect is not None
+                else EffectUniform()
+            )
+            return FrameUniforms(
+                view_position=cam_uniform.view_position,
+                view_proj=cam_uniform.view_proj,
+                light_world_pos=lwp,
+                light_color=lc,
+                light_intensity=li,
+                effect=eff.as_array(),
+            )

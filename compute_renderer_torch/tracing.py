@@ -1,0 +1,115 @@
+"""The port's own spans and counters, in one place.
+
+- ``span(name)``: a ``torch.profiler`` range while a profiler session is
+  recording (torch's own flag), else one shared null context: off a
+  session a span costs one flag check, allocates nothing and creates no
+  ``RecordFunction``. The ranges land in the same trace as the card's
+  kernels, copies and runtime calls, on its clock, so any
+  ``torch.profiler`` session (``bench/profiling.trace``, the benchmark's
+  traced window) shows them; there is no exporter here.
+- Host counters (``counters()``): ints, always on, ticked only at rare
+  events: graph ``captures``, ``graph_drops``, ``retries`` (a capacity
+  growth after an overflow), ``calibrations``, ``tunes``, ``replays``, and
+  the kernel wrappers' calls as ``launches.<wrapper>`` and
+  ``launches.<wrapper>.<mode>`` (a graph's capture and its eager warm-up
+  tick them, a replay does not).
+- Device frame counts (``frame_counts()``): the frames of the renderer's
+  batches rendered while a profiler session was recording, and the pairs
+  and occupied tiles their bin kernels counted on the card.
+
+Depends on nothing else of the package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# The host events of ``counters()``, present from the start.
+EVENTS = ("captures", "graph_drops", "retries", "calibrations", "tunes",
+          "replays")
+
+_NULL_SPAN = contextlib.nullcontext()
+_counters: dict = dict.fromkeys(EVENTS, 0)
+_frames = 0
+_sums: dict = {}  # device -> (2,) int64 tensor: pairs, occupied tiles
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session is recording."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A context manager: ``torch.profiler.record_function(name)`` while a
+    profiler session records, else the one shared null context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NULL_SPAN
+
+
+def tick(name: str, n: int = 1) -> None:
+    """Add ``n`` to the host counter ``name``."""
+    _counters[name] = _counters.get(name, 0) + n
+
+
+def launch(wrapper: str, mode: str | None = None) -> None:
+    """One call of a kernel wrapper (in ``mode``, for the kernels that
+    have modes)."""
+    tick("launches." + wrapper)
+    if mode is not None:
+        tick(f"launches.{wrapper}.{mode}")
+
+
+def count(name: str) -> int:
+    """The host counter ``name`` (0 if it never ticked)."""
+    return _counters.get(name, 0)
+
+
+def counters() -> dict:
+    """A copy of every host counter."""
+    return dict(_counters)
+
+
+def prepare(device) -> None:
+    """Make ``device``'s (an indexed device's) sums of ``frame_counts()``
+    and run their add once, if not yet done: the first launch of a kernel
+    loads it (12-15 ms on an H100, the device idle meanwhile), which a
+    profiler session's first batch would otherwise pay. The renderer calls
+    it when it captures a graph."""
+    if device not in _sums:
+        acc = torch.zeros((2,), dtype=torch.int64, device=device)
+        _sums[device] = acc.add_(acc)
+
+
+def add_frames(sums, frames: int) -> None:
+    """Add a batch's ``frames`` and its (2,) int64 device sums of pairs and
+    occupied tiles to ``frame_counts()``: one device add. The renderer
+    calls it only while ``recording()``."""
+    global _frames
+    prepare(sums.device)
+    _sums[sums.device].add_(sums)
+    _frames += frames
+
+
+def frame_counts() -> dict:
+    """{"frames", "pairs", "tiles"} summed over the frames added while a
+    profiler session recorded (reads the device sums: a synchronisation)."""
+    pairs = tiles = 0
+    for acc in _sums.values():
+        p, t = acc.tolist()
+        pairs += p
+        tiles += t
+    return {"frames": _frames, "pairs": pairs, "tiles": tiles}
+
+
+def reset() -> None:
+    """Zero every host counter and the frame counts."""
+    global _frames
+    _counters.clear()
+    _counters.update(dict.fromkeys(EVENTS, 0))
+    _frames = 0
+    for acc in _sums.values():
+        acc.zero_()

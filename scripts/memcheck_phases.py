@@ -111,13 +111,13 @@ def guarded_bin_sort(cs, device, keys, tris, total, num_bins, group, cap,
     win_start = g.new(num_tiles) if group == 16 else None
     worklist, scal = g.new(num_tiles), g.new(4)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    fn = _build.entry("sort", "bin_sort", pointers=15, ints=6)
+    fn = _build.entry("sort", "bin_sort", pointers=16, ints=6)
     _build.check(fn(
         keys.data_ptr(), tris.data_ptr(), total.data_ptr(),
         *(ptr(r) for r in rows), scratch.data_ptr(), pair_tri.data_ptr(),
         seg_start.data_ptr(), seg_count.data_ptr(), ptr(tile_count),
-        ptr(win_start), worklist.data_ptr(), scal.data_ptr(), T, pair_cap,
-        num_bins, group, cap, ntx,
+        ptr(win_start), worklist.data_ptr(), scal.data_ptr(), None, T,
+        pair_cap, num_bins, group, cap, ntx,
         torch.cuda.current_stream(device).cuda_stream), "bin_sort")
     out = {"pair_tri": pair_tri.clone(), "seg_start": seg_start.clone(),
            "seg_count": seg_count.clone(), "total_pairs": scal[2].clone(),

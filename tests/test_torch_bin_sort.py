@@ -236,9 +236,9 @@ def test_card_bin_sort_matches_twin(port, cuda_device, layout, name):
     keys, tris, total, num_bins, kw = _sort_inputs(port, layout, name,
                                                    cuda_device)
     b = port.binning
-    before = b.bin_sort.launches
+    before = port.tracing.count("launches.bin_sort")
     got = b.bin_sort(keys, tris, total, num_bins, **kw)
-    assert b.bin_sort.launches == before + 1
+    assert port.tracing.count("launches.bin_sort") == before + 1
     want = b.bin_sort_plain(keys, tris, total, num_bins,
                             group=kw.get("group", 1),
                             cap=kw.get("cap", b.CAP_NONE),
@@ -257,19 +257,19 @@ def test_card_bin_tiles_meta_flat_matches_twin(port, cuda_device, name):
     meta, ntx, nty, pair_cap, cap = sort_case("flat", name)
     b = port.binning
     m = port.torch.from_numpy(meta).to(cuda_device)
-    before = b.bin_sort.launches
+    before = port.tracing.count("launches.bin_sort")
     got = b._bin_tiles_flat_cuda(m, ntx, nty, pair_cap, cap)
     want = b._with_worklist(b.bin_triangles_sort(b.setup_from_meta(m), ntx,
                                                  nty, pair_cap, cap))
     assert got["layout"] == want["layout"] == "flat"
-    assert b.bin_sort.launches == before + 1
+    assert port.tracing.count("launches.bin_sort") == before + 1
     n = min(int(want["total_pairs"]), pair_cap)
     _assert_bins({k: v for k, v in want.items() if k != "layout"},
                  {k: v for k, v in got.items() if k != "layout"}, n, name)
     big = b.DENSE_BINNING_OP_LIMIT // (ntx * nty * meta.shape[1]) + 8
     public = b.bin_tiles_meta(m, ntx, nty, pair_cap, big)
     assert public["layout"] == "flat"
-    assert b.bin_sort.launches == before + 2
+    assert port.tracing.count("launches.bin_sort") == before + 2
 
 
 @pytest.mark.cuda
@@ -293,9 +293,9 @@ def test_card_vertex_stage_matches_twin(port, cuda_device, wave):
 
     t = port.torch
     args = [t.from_numpy(a).to(cuda_device) for a in _vertex_inputs(wave)]
-    before = texture.vertex_stage.launches
+    before = port.tracing.count("launches.vertex_stage")
     wk, sk = texture.vertex_stage(*args, 160, 120)
     wp, sp = port.common.vertex_stage(*args, 160, 120)
-    assert texture.vertex_stage.launches == before + 1
+    assert port.tracing.count("launches.vertex_stage") == before + 1
     assert t.equal(wk.view(t.int32), wp.view(t.int32))
     assert t.equal(sk.view(t.int32), sp.view(t.int32))

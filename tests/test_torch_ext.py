@@ -443,9 +443,9 @@ def test_front_modes_on_card(port, small, cuda_device, mode, tile):
     # The kernel against its twin on the same card tensors: meta and
     # coefficients bitwise (NaN positions equal).
     f = _frame(port, small["mesh"])
-    before = port.front.front_end.launches
+    before = port.tracing.count("launches.front_end")
     ck, mk = _port_front(port, f, mode, tile, cuda_device)
-    assert port.front.front_end.launches == before + 1
+    assert port.tracing.count("launches.front_end") == before + 1
     cp, mp = _port_front(port, f, mode, tile, cuda_device,
                          fn=port.front.front_end_plain)
     assert port.torch.equal(mk, mp)
@@ -492,10 +492,10 @@ def test_tile_raster_modes_on_card(port, small, cuda_device, mode, layout):
     shading = [dev(a) for a in (f["eff"], f["vpos"], *LIGHTS)]
     kw = dict(height_padded=nty * 16, width_padded=ntx * 256, tile_h=16,
               tile_w=256, layout=layout, mode=mode)
-    before = port.raster.raster_shade_tiles.launches
+    before = port.tracing.count("launches.raster_shade_tiles")
     out_k, key_k = port.raster.raster_shade_tiles(
         table, data, bins["seg_start"], bins["seg_count"], *shading, **kw)
-    assert port.raster.raster_shade_tiles.launches == before + 1
+    assert port.tracing.count("launches.raster_shade_tiles") == before + 1
     params, lights = port.raster.shading_inputs(*shading)
     out_p, key_p = port.raster.raster_shade_tiles_plain(
         table, data, bins["seg_start"], bins["seg_count"], params, lights,
@@ -517,10 +517,10 @@ def test_micro_modes_on_card(port, small, cuda_device, mode):
     shading = [dev(a) for a in (f["eff"], f["vpos"], *LIGHTS)]
     margs = (table, bins["pair_tri"], bins["seg_start"], bins["seg_count"])
     kw = dict(height_padded=nty * 8, width_padded=ntx * 128, mode=mode)
-    before = port.micro.raster_shade_micro.launches
+    before = port.tracing.count("launches.raster_shade_micro")
     out_k, key_k = port.micro.raster_shade_micro(
         *margs, bins["tile_count"], *shading, **kw)
-    assert port.micro.raster_shade_micro.launches == before + 1
+    assert port.tracing.count("launches.raster_shade_micro") == before + 1
     params, lights = port.raster.shading_inputs(*shading)
     out_p, key_p = port.micro.raster_shade_micro_plain(
         *margs, params, lights, **kw)
@@ -533,17 +533,15 @@ def test_structured_tex_golden_on_card(port, cuda_device):
     s = _structured_tex_scene(port)
     r = port.renderer.Renderer(s.mesh, 1024, 768, device=cuda_device,
                                **s.renderer_options())
-    fns = (port.front.front_end, port.raster.raster_shade_tiles)
-    for fn in fns:
-        fn.launches = 0
-        fn.mode_launches["texf"] = 0
+    names = ("launches.front_end", "launches.raster_shade_tiles")
+    port.tracing.reset()
     # Tunes the tile shape and settles the capacities: the graphs'
     # captures (an eager warm-up and the capture each) tick the counters.
     r.render(s.update(0.0))
-    captured = [fn.launches for fn in fns]
-    for fn, n in zip(fns, captured):
-        assert fn.mode_launches["texf"] == n >= 2
+    captured = [port.tracing.count(name) for name in names]
+    for name, n in zip(names, captured):
+        assert port.tracing.count(name + ".texf") == n >= 2
     for i in range(golden.shape[0]):
         assert_frames_match(golden[i], r.render(s.update(DT)))
     # The frames replay the captured texf graph: no wrapper runs again.
-    assert [fn.launches for fn in fns] == captured
+    assert [port.tracing.count(name) for name in names] == captured

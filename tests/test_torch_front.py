@@ -198,12 +198,12 @@ def test_twin_meta_feeds_setup_from_meta(port, tpu, tile):
 
 def test_cpu_tensors_take_the_twin(port, tpu):
     inputs = _inputs(tpu, "icosphere", "none")
-    before = port.front.front_end.launches
+    before = port.tracing.count("launches.front_end")
     a = _port_front(port, inputs)
     b = _port_front(port, inputs, fn=port.front.front_end_plain)
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
-    assert port.front.front_end.launches == before  # no kernel launched
+    assert port.tracing.count("launches.front_end") == before  # no kernel launched
 
 
 def test_other_devices_raise(port, tpu):
@@ -225,10 +225,10 @@ def test_kernel_vs_twin_on_card(port, cuda_device, name, effect):
     inputs = [t.from_numpy(a).to(cuda_device)
               for a in _inputs(port, name, effect)]
     kw = dict(width=W, height=H, tile_h=16, tile_w=256)
-    before = port.front.front_end.launches
+    before = port.tracing.count("launches.front_end")
     ck, mk = port.front.front_end(*inputs, **kw)
     cp, mp = port.front.front_end_plain(*inputs, **kw)
-    assert port.front.front_end.launches == before + 1
+    assert port.tracing.count("launches.front_end") == before + 1
     assert ck.shape == cp.shape and ck.stride() == cp.stride()
     assert t.equal(mk, mp)
     assert t.equal(t.isnan(ck), t.isnan(cp))

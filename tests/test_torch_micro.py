@@ -376,9 +376,9 @@ def test_kernels_vs_twins_on_card(port, cuda_device, name, effect):
     args = (port.cuda.corner_soa(pos, tri), port.cuda.corner_soa(nrm, tri),
             vp, eff)
     kw = dict(width=W, height=H, tile_h=8, tile_w=8)
-    before = (port.front.front_end.launches,
-              port.expand.expand_cells.launches,
-              port.micro.raster_shade_micro.launches)
+    before = (port.tracing.count("launches.front_end"),
+              port.tracing.count("launches.expand_cells"),
+              port.tracing.count("launches.raster_shade_micro"))
     ck, mk = port.front.front_end(*args, **kw)
     cp, mp = port.front.front_end_plain(*args, **kw)
     assert t.equal(mk, mp)
@@ -410,9 +410,9 @@ def test_kernels_vs_twins_on_card(port, cuda_device, name, effect):
     rp, kp = port.micro.raster_shade_micro_plain(*margs, params, lights,
                                                  **mkw)
     # The card's bin_cells_sort_meta launched the expansion a second time.
-    assert (port.front.front_end.launches,
-            port.expand.expand_cells.launches,
-            port.micro.raster_shade_micro.launches) == (
+    assert (port.tracing.count("launches.front_end"),
+            port.tracing.count("launches.expand_cells"),
+            port.tracing.count("launches.raster_shade_micro")) == (
                 before[0] + 1, before[1] + 2, before[2] + 1)
     assert t.equal(kk.view(t.int32), kp)
     gap = (port.raster.unpack_rgba(rk).int()
@@ -427,16 +427,13 @@ def test_san_miguel_on_card(port, cuda_device):
     s = _san_miguel(port)
     r = port.renderer.Renderer(s.mesh, 1024, 768, device=cuda_device,
                                **s.renderer_options())
-    port.front.front_end.launches = 0
-    port.expand.expand_cells.launches = 0
-    port.micro.raster_shade_micro.launches = 0
-    port.raster.raster_shade_tiles.launches = 0
+    port.tracing.reset()
     for i in range(3):
         assert_frames_match(golden[i], r.render(s.update(1.0 / 60.0)))
     # One calibration front launch, then one capture of the frame (an
     # eager warm-up and the capture tick the counters); the three frames
     # replay it.
-    assert port.front.front_end.launches == 3
-    assert port.expand.expand_cells.launches == 2
-    assert port.micro.raster_shade_micro.launches == 2
-    assert port.raster.raster_shade_tiles.launches == 0
+    assert port.tracing.count("launches.front_end") == 3
+    assert port.tracing.count("launches.expand_cells") == 2
+    assert port.tracing.count("launches.raster_shade_micro") == 2
+    assert port.tracing.count("launches.raster_shade_tiles") == 0

@@ -477,9 +477,9 @@ def test_front_texf_mip_on_card(port, port_frame, cuda_device, tex_filter,
     # The kernel against its twin on the same card tensors: meta and all
     # 46 coefficient rows bitwise (NaN positions equal).
     frame = port_frame
-    before = port.front.front_end.mode_launches["texf_mip"]
+    before = port.tracing.count("launches.front_end.texf_mip")
     ck, mk, _ = _port_mip_front(port, frame, tex_filter, tile, cuda_device)
-    assert port.front.front_end.mode_launches["texf_mip"] == before + 1
+    assert port.tracing.count("launches.front_end.texf_mip") == before + 1
     cp, mp, _ = _port_mip_front(port, frame, tex_filter, tile, cuda_device,
                                 fn=port.front.front_end_plain)
     assert port.torch.equal(mk, mp)
@@ -514,10 +514,10 @@ def test_tile_raster_texf_mip_on_card(port, port_frame, cuda_device,
     shading = _shading(lambda a: t.from_numpy(a).to(cuda_device), frame)
     kw = dict(height_padded=nty * 16, width_padded=ntx * 256, tile_h=16,
               tile_w=256, layout=layout, mode="texf_mip")
-    before = port.raster.raster_shade_tiles.mode_launches["texf_mip"]
+    before = port.tracing.count("launches.raster_shade_tiles.texf_mip")
     out_k, key_k = port.raster.raster_shade_tiles(
         table, data, bins["seg_start"], bins["seg_count"], *shading, **kw)
-    assert port.raster.raster_shade_tiles.mode_launches["texf_mip"] == \
+    assert port.tracing.count("launches.raster_shade_tiles.texf_mip") == \
         before + 1
     params, lights = port.raster.shading_inputs(*shading)
     out_p, key_p = port.raster.raster_shade_tiles_plain(
@@ -540,10 +540,10 @@ def test_micro_texf_mip_on_card(port, port_frame, cuda_device, tex_filter):
     shading = _shading(lambda a: t.from_numpy(a).to(cuda_device), frame)
     margs = (table, bins["pair_tri"], bins["seg_start"], bins["seg_count"])
     kw = dict(height_padded=nty * 8, width_padded=ntx * 128, mode="texf_mip")
-    before = port.micro.raster_shade_micro.mode_launches["texf_mip"]
+    before = port.tracing.count("launches.raster_shade_micro.texf_mip")
     out_k, key_k = port.micro.raster_shade_micro(
         *margs, bins["tile_count"], *shading, **kw)
-    assert port.micro.raster_shade_micro.mode_launches["texf_mip"] == \
+    assert port.tracing.count("launches.raster_shade_micro.texf_mip") == \
         before + 1
     params, lights = port.raster.shading_inputs(*shading)
     out_p, key_p = port.micro.raster_shade_micro_plain(*margs, params,

@@ -285,13 +285,12 @@ def test_bench_config_on_card(port, cuda_device):
         1024, 768)
     r = port.renderer.Renderer(ts.mesh, 1024, 768, device=cuda_device,
                                **ts.renderer_options())
-    port.front.front_end.launches = 0
-    port.raster.raster_shade_tiles.launches = 0
+    port.tracing.reset()
     for i in range(3):
         assert_frames_match(golden[i], r.render(ts.update(DT)))
     # The first frame tunes the tile shape: each candidate's graph is
     # captured once (an eager warm-up and the capture tick the counters);
     # every frame then replays the winner's graph, which ticks nothing.
     captures = 2 * len(port.cuda.TILE_CANDIDATES)
-    assert port.front.front_end.launches == captures
-    assert port.raster.raster_shade_tiles.launches == captures
+    assert port.tracing.count("launches.front_end") == captures
+    assert port.tracing.count("launches.raster_shade_tiles") == captures

@@ -83,13 +83,13 @@ def test_texture_tail_vs_jax(port, tpu, small, texture, tex_filter, pool):
             jnp.asarray(LIGHTS[1]), jnp.asarray(LIGHTS[2]),
             tex_filter=tex_filter,
             texels_packed=None if packed is None else jnp.asarray(packed))
-    before = texture.texture_tail.launches
+    before = port.tracing.count("launches.texture_tail")
     b = texture.texture_tail(
         t.from_numpy(g), t.from_numpy(key.view(np.int32)).view(t.uint32),
         t.from_numpy(mesh.texels), t.from_numpy(LIGHTS[1]),
         t.from_numpy(LIGHTS[2]), tex_filter=tex_filter,
         texels_packed=None if packed is None else t.from_numpy(packed))
-    assert texture.texture_tail.launches == before  # the CPU: no kernel
+    assert port.tracing.count("launches.texture_tail") == before  # the CPU: no kernel
     assert b.dtype == t.uint8 and b.shape == (48, 64, 4)
     np.testing.assert_array_equal(np.asarray(a), b.numpy())
     assert (b.numpy()[key == 0xFFFFFFFF] == [0, 0, 255, 255]).all()
@@ -352,7 +352,8 @@ def test_engine_calls_the_stages_and_xla_does_not(
         ran = {n for n in calls if calls[n] > before[n]}
         assert ran == (called if backend == "cuda" else set()), backend
     np.testing.assert_array_equal(frames["xla"], frames["cuda"])
-    assert all(fn.launches == 0 for fn in texture.WRAPPERS.values())
+    assert all(port.tracing.count("launches." + name) == 0
+               for name in texture.WRAPPERS)
 
 
 # --------------------------------------------------------------------------
@@ -392,10 +393,10 @@ def test_texture_tail_on_card(port, small, texture, cuda_device, tex_filter,
     kk = _window(port, key.view(np.int32)[None], cuda_device)[0]
     packed = dev(pack_pool_u8(mesh.texels)) if pool == "packed" else None
     args = (dev(mesh.texels), dev(LIGHTS[1]), dev(LIGHTS[2]))
-    before = texture.texture_tail.launches
+    before = port.tracing.count("launches.texture_tail")
     k = texture.texture_tail(gk, kk, *args, tex_filter=tex_filter,
                              texels_packed=packed)
-    assert texture.texture_tail.launches == before + 1
+    assert port.tracing.count("launches.texture_tail") == before + 1
     p = texture.texture_tail_plain(gk, kk, *args, tex_filter=tex_filter,
                                    texels_packed=packed)
     _assert_rgba_close(k, p, f"texture_tail {tex_filter} {pool}")
@@ -414,9 +415,9 @@ def test_texture_tail_mip_on_card(port, port_frame, texture, cuda_device,
     kk = _window(port, key.view(np.int32)[None], cuda_device)[0]
     args = (dev(port_frame["pool"]), dev(port_frame["mips"]),
             dev(LIGHTS[1]), dev(LIGHTS[2]))
-    before = texture.texture_tail_mip.launches
+    before = port.tracing.count("launches.texture_tail_mip")
     k = texture.texture_tail_mip(gk, kk, *args, tex_filter=tex_filter)
-    assert texture.texture_tail_mip.launches == before + 1
+    assert port.tracing.count("launches.texture_tail_mip") == before + 1
     p = texture.texture_tail_mip_plain(gk, kk, *args, tex_filter=tex_filter)
     _assert_rgba_close(k, p, f"texture_tail_mip {tex_filter}")
 
@@ -437,9 +438,9 @@ def test_mip_rows_on_card(port, port_frame, texture, cuda_device, tex_filter,
     args = (dev(f["mesh"].positions), dev(tri), dev(f["mesh"].uvs),
             dev(face_tex), dev(f["mips"]), dev(f["vp"]), dev(eff), W, H,
             tex_filter)
-    before = texture.mip_rows.launches
+    before = port.tracing.count("launches.mip_rows")
     k = texture.mip_rows(*args).cpu().numpy()
-    assert texture.mip_rows.launches == before + 1
+    assert port.tracing.count("launches.mip_rows") == before + 1
     p = texture.mip_rows_plain(*args).cpu().numpy()
     if effect == "none":
         assert_bitwise_nan(k, p)
@@ -479,9 +480,9 @@ def test_deferred_tail_on_card(port, port_vertex_frame, texture, cuda_device,
             run = lambda fn=None: _deferred_port(
                 port, texture, frame, ids, key, effect, tex_filter, win,
                 pair_tri=pair_tri, device=cuda_device, fn=fn)
-            before = texture.deferred_tail.launches
+            before = port.tracing.count("launches.deferred_tail")
             k = run()
-            assert texture.deferred_tail.launches == before + 1
+            assert port.tracing.count("launches.deferred_tail") == before + 1
             p = run(texture.deferred_tail_plain)
             _assert_rgba_close(k, p, f"deferred {tex_filter} {path} "
                                f"{effect} {name}")
@@ -496,13 +497,14 @@ def test_engine_launches_the_stages_on_card(port, small, texture,
     u = s.update(1.0 / 60.0)
     frames = {}
     for backend in ("xla", "cuda"):
-        before = {n: fn.launches for n, fn in texture.WRAPPERS.items()}
+        before = {n: port.tracing.count("launches." + n)
+                  for n in texture.WRAPPERS}
         r = port.renderer.Renderer(s.mesh, 128, 96, device=cuda_device,
                                    backend=backend, tex_mode=tex_mode,
                                    **_path(backend, path),
                                    **s.renderer_options())
         frames[backend] = r.render(u)
-        ran = {n for n, fn in texture.WRAPPERS.items()
-               if fn.launches > before[n]}
+        ran = {n for n in texture.WRAPPERS
+               if port.tracing.count("launches." + n) > before[n]}
         assert ran == (called if backend == "cuda" else set()), backend
     assert_frames_match(frames["xla"], frames["cuda"])

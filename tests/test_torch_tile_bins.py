@@ -246,10 +246,10 @@ def test_render_frame_tile_chunks_vs_jax(port, tpu, suzanne, tri_chunk):
 @pytest.mark.parametrize("case", META_CASES)
 def test_card_bin_tiles_dense_matches_twin(port, cuda_device, case):
     meta, ntx, nty, tile_cap, cut = meta_case(case)
-    before = port.binning.bin_tiles_meta.launches
+    before = port.tracing.count("launches.bin_tiles_meta")
     b = port.binning.bin_tiles_meta(_port_meta(port, meta, cut, cuda_device),
                                     ntx, nty, PAIR_CAP, tile_cap)
-    assert port.binning.bin_tiles_meta.launches == before + 1
+    assert port.tracing.count("launches.bin_tiles_meta") == before + 1
     ref = port.binning.bin_tiles_meta(_port_meta(port, meta, cut), ntx, nty,
                                       PAIR_CAP, tile_cap)
     port.torch.cuda.synchronize()
@@ -263,10 +263,10 @@ def test_card_bin_tiles_dense_matches_twin(port, cuda_device, case):
 def test_card_shading_params_matches_twin(port, cuda_device, effect,
                                           y_offset):
     args = [port.torch.from_numpy(a) for a in shading_case(port, effect)]
-    before = port.raster.shading_inputs.launches
+    before = port.tracing.count("launches.shading_inputs")
     pk, lk = port.raster.shading_inputs(
         *(a.to(cuda_device) for a in args), y_offset)
-    assert port.raster.shading_inputs.launches == before + 1
+    assert port.tracing.count("launches.shading_inputs") == before + 1
     pp, lp = port.raster.shading_inputs_plain(
         *(a.to(cuda_device) for a in args), y_offset)
     assert port.torch.equal(pk.view(port.torch.int32),

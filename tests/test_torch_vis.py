@@ -398,10 +398,10 @@ def test_tile_raster_vis_on_card(port, small, cuda_device, layout):
                for a in (f["eff"], f["vpos"], *LIGHTS)]
     kw = dict(height_padded=nty * 16, width_padded=ntx * 256, tile_h=16,
               tile_w=256, layout=layout, mode="vis")
-    before = port.raster.raster_shade_tiles.mode_launches["vis"]
+    before = port.tracing.count("launches.raster_shade_tiles.vis")
     out_k, key_k = port.raster.raster_shade_tiles(
         table, data, bins["seg_start"], bins["seg_count"], *shading, **kw)
-    assert port.raster.raster_shade_tiles.mode_launches["vis"] == before + 1
+    assert port.tracing.count("launches.raster_shade_tiles.vis") == before + 1
     params, lights = port.raster.shading_inputs(*shading)
     out_p, key_p = port.raster.raster_shade_tiles_plain(
         table, data, bins["seg_start"], bins["seg_count"], params, lights,
@@ -424,10 +424,10 @@ def test_micro_vis_on_card(port, small, cuda_device):
                for a in (f["eff"], f["vpos"], *LIGHTS)]
     margs = (table, bins["pair_tri"], bins["seg_start"], bins["seg_count"])
     kw = dict(height_padded=nty * 8, width_padded=ntx * 128, mode="vis")
-    before = port.micro.raster_shade_micro.mode_launches["vis"]
+    before = port.tracing.count("launches.raster_shade_micro.vis")
     out_k, key_k = port.micro.raster_shade_micro(
         *margs, bins["tile_count"], *shading, **kw)
-    assert port.micro.raster_shade_micro.mode_launches["vis"] == before + 1
+    assert port.tracing.count("launches.raster_shade_micro.vis") == before + 1
     params, lights = port.raster.shading_inputs(*shading)
     out_p, key_p = port.micro.raster_shade_micro_plain(*margs, params,
                                                        lights, **kw)

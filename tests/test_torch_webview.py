@@ -134,6 +134,13 @@ def test_stats_endpoint(app):
     stats = json.loads(body)
     assert stats["width"] == W and stats["height"] == H
     assert stats["frames"] >= 1 and "suzanne" in stats["scene"]
+    # The host counters beside fps: ints, the CPU replays no graph.
+    counters = ("captures", "graph_drops", "retries", "calibrations",
+                "tunes", "replays")
+    assert stats["fps"] >= 0.0
+    assert all(isinstance(stats[k], int) and stats[k] >= 0
+               for k in counters), stats
+    assert stats["captures"] == stats["replays"] == 0
 
 
 # -- the pipelined present -----------------------------------------------------
@@ -235,7 +242,12 @@ def test_frame_parity_with_jax_viewer(backend, monkeypatch):
             assert (jc.yaw, jc.pitch) == (pc.yaw, pc.pitch)
             js, ps = japp.stats(), papp.stats()
             assert js.pop("scene").replace("xla", backend) == ps.pop("scene")
+            # Beside the JAX viewer's figures the port reports its host
+            # counters (tracing.counters()).
+            counters = {k: ps.pop(k) for k in set(ps) - set(js)}
             assert js == ps
+            assert set(counters) == {"captures", "graph_drops", "retries",
+                                     "calibrations", "tunes", "replays"}
             assert_frames_match(shown[id(japp)][-1], shown[id(papp)][-1])
             png, _ = _get(papp, "/frame?since=0")
             np.testing.assert_array_equal(decode_png(png),

@@ -22,7 +22,7 @@ def port():
     import torch
 
     import compute_renderer_torch
-    from compute_renderer_torch import convert
+    from compute_renderer_torch import convert, tracing
     from compute_renderer_torch.backends import (
         binning, common, cuda, expand, front, micro, raster,
     )
@@ -35,7 +35,7 @@ def port():
         binning=binning, common=common, cuda=cuda, expand=expand,
         front=front, micro=micro, raster=raster, camera=camera,
         effects=effects, renderer=renderer, scene=scene,
-        procedural=procedural,
+        procedural=procedural, tracing=tracing,
     )
 
 
