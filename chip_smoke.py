@@ -734,10 +734,13 @@ def tile_walk(tag, table, data, bins, params, lights, rkw):
           f"{stats['samples_unculled']}")
 
 
-def micro_walk(tag, bins):
+def micro_walk(tag, table, bins, params, lights, mkw):
     """Prints what the micro raster walks on these bins: the densest cell,
-    the cells over SPAN pairs and their spans, the span warps launched and
-    the samples walked."""
+    the cells over SPAN pairs and their spans, the span warps launched,
+    the cull's kept (pair, quad) items, the pairs walked whole and the
+    samples tested, beside the 64 a pair of the walk without the cull (the
+    kernel's decomposition, micro.raster_shade_micro_culled_plain, run on
+    the card tensors)."""
     from compute_renderer_torch.backends import micro
 
     counts = bins["seg_count"].long()
@@ -745,12 +748,20 @@ def micro_walk(tag, bins):
     span = micro.SPAN
     long_cell = counts > span
     spans = ((starts + counts - 1) // span - starts // span + 1)[long_cell]
+    stats = {}
+    micro.raster_shade_micro_culled_plain(
+        table[:, :32], bins["pair_tri"], bins["seg_start"],
+        bins["seg_count"], params, lights, mode="vis", stats=stats, **mkw)
     print(f"[walk] {tag}: densest cell {int(counts.max())} pairs; "
           f"{int(long_cell.sum())} cells over {span} pairs hold "
           f"{int(counts[long_cell].sum())} of {int(counts.sum())} pairs in "
           f"{int(spans.sum())} spans; "
           f"{-(-bins['pair_tri'].shape[0] // span)} span warps launched; "
-          f"{int(counts.sum()) * 64} samples walked")
+          f"cull keeps {stats['items']} (pair, 2x2 quad) items "
+          f"({stats['items'] / max(stats['pairs'], 1):.3f} a pair), "
+          f"{stats['wide']} pairs walked whole (> {micro.WIDE} quads); "
+          f"samples tested {stats['samples']}, unculled "
+          f"{stats['pairs'] * 64}")
 
 
 # The binning kernel's bound: per triangle its 16 meta bytes, per tile its
@@ -1509,17 +1520,20 @@ def expand_stress_meta(T, ntx, nty, device):
 def check_micro(name, x, table, bins, ntx, nty, report, mode="base",
                 outputs=None):
     """Micro raster kernel vs twin in ``mode``: keys bitwise, RGBA within
-    1 LSB or the G-buffer bitwise; the kernel's (out, key) go in
+    1 LSB or the G-buffer bitwise, and the samples it counts tested equal
+    to the twin's count; the kernel's (out, key) go in
     ``outputs["micro"]``."""
     import torch
 
-    from compute_renderer_torch.backends import micro, raster
+    from compute_renderer_torch.backends import binning, micro, raster
 
     args = (table, bins["pair_tri"], bins["seg_start"], bins["seg_count"])
     kw = dict(height_padded=nty * 8, width_padded=ntx * 128)
+    acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                      device=table.device)
     rk, kk = micro.raster_shade_micro(*args, bins["tile_count"], x["eff"],
                                       x["vpos"], x["lwp"], x["lc"], x["li"],
-                                      mode=mode, **kw)
+                                      mode=mode, acc=acc, **kw)
     params, lights = raster.shading_inputs(x["eff"], x["vpos"], x["lwp"],
                                            x["lc"], x["li"])
     rp, kp = micro.raster_shade_micro_plain(*args, params, lights, mode=mode,
@@ -1527,9 +1541,16 @@ def check_micro(name, x, table, bins, ntx, nty, report, mode="base",
     torch.cuda.synchronize()
     diff, covered = compare_outputs(f"micro {name} {mode}", mode, rk, kk, rp,
                                     kp)
+    samples = int(micro.samples_tested_plain(
+        *args, params, width_padded=kw["width_padded"]))
+    require(int(acc[4]) == samples and not bool(acc[:4].any()),
+            f"micro {name} {mode}: the kernel counts {acc.tolist()}, the "
+            f"twin {samples} samples")
     what = mode_check_text(mode, diff)
     counts = bins["seg_count"]
-    print(f"[check] micro {name} {mode}: keys bitwise, {what}, "
+    pairs = max(int(counts.sum()), 1)
+    print(f"[check] micro {name} {mode}: keys bitwise, {what}, samples "
+          f"tested {samples} as the twin's ({samples / pairs:.2f} a pair), "
           f"covered {covered}, pairs "
           f"{int(bins['total_pairs'])}, occupied tiles "
           f"{int((bins['tile_count'] > 0).sum())} of "
@@ -1685,7 +1706,8 @@ def phase_micro_kernels(device, reports):
         "raster_shade_micro (san_miguel)", x, table, bins,
         micro_twin(bins, params, lights, mkw), (8, 8, ntx * 16),
         nty * 8 * ntx * 128)
-    micro_walk("raster_shade_micro (san_miguel)", bins)
+    micro_walk("raster_shade_micro (san_miguel)", table, bins, params,
+               lights, mkw)
     print_time("raster_shade_micro", rep, "san_miguel")
 
 
@@ -2604,7 +2626,9 @@ def phase_mode_kernels(device, reports, scenes, modes):
             (8, 8, ntx * 16), nty * 8 * ntx * 128, PIXEL_BYTES[mode],
             winner_rows=mode != "vis")
         print_time(record("raster_shade_micro", mode), rep, "structured")
-        micro_walk(f"{record('raster_shade_micro', mode)} (structured)", bins)
+        micro_walk(f"{record('raster_shade_micro', mode)} (structured)",
+                   table, bins, params, lights,
+                   dict(height_padded=nty * 8, width_padded=ntx * 128))
 
         # The tile raster at structured_scene_tex's shapes.
         x, (table, data, tbins, params, lights, rkw, layout) = \
@@ -3032,10 +3056,11 @@ def stress_inputs(kind, device, span):
 def phase_stress(device, reports):
     """Phase 13: every mode of both rasters against its twin on the stress
     cases, built directly on the card: keys, ids, pair indices and
-    G-buffers bitwise, RGBA within 1 LSB."""
+    G-buffers bitwise, RGBA within 1 LSB; the micro kernel's count of the
+    samples it tested equal to the twin's."""
     import torch
 
-    from compute_renderer_torch.backends import micro, raster
+    from compute_renderer_torch.backends import binning, micro, raster
 
     for kind in STRESS_CASES:
         x = stress_inputs(kind, device, micro.SPAN)
@@ -3059,15 +3084,23 @@ def phase_stress(device, reports):
                     max(reports[record("raster_shade_tiles", mode)].get(
                         "max_abs_err", 0.0), diff)
             pair_tri, starts, counts, tile_count = x["micro"]
+            acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                              device=device)
             rk, kk = micro.raster_shade_micro(
                 table, pair_tri, starts, counts, tile_count, x["effect"],
-                x["vpos"], *x["lights"], mode=mode, **kw)
+                x["vpos"], *x["lights"], mode=mode, acc=acc, **kw)
             rp, kp = micro.raster_shade_micro_plain(
                 table, pair_tri, starts, counts, x["params"],
                 x["light_rows"], mode=mode, **kw)
             torch.cuda.synchronize()
             diff, covered_m = compare_outputs(
                 f"stress {kind} micro {mode}", mode, rk, kk, rp, kp)
+            samples = int(micro.samples_tested_plain(
+                table, pair_tri, starts, counts, x["params"],
+                width_padded=STRESS_W))
+            require(int(acc[4]) == samples,
+                    f"stress {kind} micro {mode}: the kernel counts "
+                    f"{int(acc[4])} samples tested, the twin {samples}")
             rep = reports[record("raster_shade_micro", mode)]
             rep["max_abs_err"] = max(rep.get("max_abs_err", 0.0), diff)
         print(f"[stress] {kind}: T={x['tables']['base'].shape[0]}, every "
@@ -3075,7 +3108,8 @@ def phase_stress(device, reports):
               f"bitwise; RGBA within 1 LSB); longest tile list "
               f"{x['longest']}, densest cell {x['densest']} pairs (span "
               f"{micro.SPAN}), covered {covered} (tile) / {covered_m} "
-              f"(micro) px")
+              f"(micro) px; micro samples tested {samples} as the twin's "
+              f"of {int(counts.sum())} pairs")
     stress_texture(device, reports)
 
 

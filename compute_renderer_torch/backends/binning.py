@@ -32,13 +32,14 @@ work list and overflow report: the kernel ``csrc/sort.cu`` on a CUDA
 tensor, its twin ``bin_sort_plain`` (one stable ``torch.sort`` and
 searchsorted segments) on a CPU tensor.
 
-Each binning entry takes an optional ``acc``, a (4,) int64 tensor that
-a batch of frames shares: [pair need, tile need, pairs, occupied tiles].
-The step that ends the binning folds its frame (or triangle chunk) into
-it: the needs by max, the pairs (``total_pairs``) and the occupied tiles
-(``k``) by sum. On the card the kernel that writes the overflow report
-does it (64-bit atomics); the twins fold with torch ops
-(``fold_counts``).
+Each binning entry takes an optional ``acc``, a (5,) int64 tensor that
+a batch of frames shares: [pair need, tile need, pairs, occupied tiles,
+samples]. The step that ends the binning folds its frame (or triangle
+chunk) into the first four: the needs by max, the pairs
+(``total_pairs``) and the occupied tiles (``k``) by sum. On the card the
+kernel that writes the overflow report does it (64-bit atomics); the
+twins fold with torch ops (``fold_counts``). The fifth word is the micro
+raster's: the coverage samples it tested (``micro.raster_shade_micro``).
 
 Every integer output equals the JAX package's bit for bit. The TPU-only
 padding of the outputs (8-row blocks, 1024-element DMA windows) is not
@@ -267,27 +268,31 @@ def occupied_worklist(seg_count):
     return wl[:num_tiles], k
 
 
+ACC_WORDS = 5  # [pair need, tile need, pairs, occupied tiles, samples]
+
+
 def fold_counts(acc, bins):
     """Fold ``bins``' overflow report, ``total_pairs`` and ``k`` into
-    ``acc`` (see the module docstring) with torch ops: the twins' fold;
-    a None ``acc`` folds nothing."""
+    ``acc``'s first four words (see the module docstring) with torch ops:
+    the twins' fold; a None ``acc`` folds nothing."""
     if acc is None:
         return
     i64 = torch.int64
     needs = acc[:2]
     torch.maximum(needs, bins["overflow"].to(i64), out=needs)
-    acc[2:].add_(torch.stack([bins["total_pairs"], bins["k"]]).to(i64))
+    acc[2:4].add_(torch.stack([bins["total_pairs"], bins["k"]]).to(i64))
 
 
-def _acc_pointer(acc, device):
+def acc_pointer(acc, device):
     """``acc``'s device pointer for a kernel (None, a null pointer, when
     ``acc`` is None), its dtype, shape and device checked."""
     if acc is None:
         return None
-    if (acc.dtype != torch.int64 or tuple(acc.shape) != (4,)
+    if (acc.dtype != torch.int64 or tuple(acc.shape) != (ACC_WORDS,)
             or acc.device != device or not acc.is_contiguous()):
         raise ValueError(f"acc: {acc.dtype} {tuple(acc.shape)} on "
-                         f"{acc.device}; expected (4,) int64 on {device}")
+                         f"{acc.device}; expected ({ACC_WORDS},) int64 on "
+                         f"{device}")
     return acc.data_ptr()
 
 
@@ -518,7 +523,7 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
            *(ptr(r) for r in rows), scratch.data_ptr(), pair_tri.data_ptr(),
            seg[0].data_ptr(), seg[1].data_ptr(), ptr(tile_count),
            ptr(win_start), worklist.data_ptr(), scal.data_ptr(),
-           _acc_pointer(acc, device), T, pair_cap, num_bins, group, int(cap),
+           acc_pointer(acc, device), T, pair_cap, num_bins, group, int(cap),
            ntx,
            torch.cuda.current_stream(device).cuda_stream),
         "bin_sort",
@@ -601,7 +606,7 @@ def _bin_tiles_cuda(meta, ntx: int, nty: int, tile_cap: int, acc=None):
     _build.check(
         fn(meta.data_ptr(), counts.data_ptr(), bin_rows.data_ptr(),
            seg[0].data_ptr(), seg[1].data_ptr(), seg[2].data_ptr(),
-           scal.data_ptr(), _acc_pointer(acc, device), meta.stride(0), T,
+           scal.data_ptr(), acc_pointer(acc, device), meta.stride(0), T,
            ntx, num_tiles, C,
            torch.cuda.current_stream(device).cuda_stream),
         "bin_tiles_dense",

@@ -47,8 +47,9 @@ Micro path (``render_frame_micro``), for scenes above
 Nothing in a frame waits for the host: the overflow report stays a device
 tensor, and the occupied-tile count is read by the kernels themselves. So
 a frame can be captured into a CUDA graph, as the renderer does; ``acc``,
-a (4,) int64 device tensor, gathers a batch's needs, pairs and occupied
-tiles from the binning of each frame (``binning``'s module docstring).
+a (5,) int64 device tensor, gathers a batch's needs, pairs and occupied
+tiles from the binning of each frame (``binning``'s module docstring), and
+the coverage samples the micro raster tested.
 The texture work of a frame runs inside the spans named
 ``TEXTURE_RANGES`` (``tracing.span``), so that a profile of eager frames
 can split it out (a graph's replay records no ranges).
@@ -257,8 +258,9 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     (strict < keeps the lowest index on ties; a G-buffer merges
     channel-wise, vis ids are offset by the chunk first). ``pos_soa`` /
     ``nrm_soa`` are the (3, 3, T) corner-SoA geometry, built from ``tri``
-    when absent. ``acc`` (4,) int64, or None, takes the binning's fold of
-    every chunk: the needs by max, the pairs and occupied tiles by sum."""
+    when absent. ``acc`` (5,) int64, or None, takes the binning's fold of
+    every chunk: the needs by max, the pairs and occupied tiles by sum; on
+    the micro path the raster adds its samples."""
     device = positions.device
     T = int(tri.shape[0])
     if T == 0:
@@ -416,7 +418,7 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
         bins["seg_count"], bins["tile_count"], effect,
         view_position.to(F32), light_world_pos, light_color,
         light_intensity, height_padded=nty * 8, width_padded=ntx * 128,
-        mode=mode, worklist=(bins["worklist"], bins["k"]))
+        mode=mode, worklist=(bins["worklist"], bins["k"]), acc=acc)
     overflow = bins["overflow"]
     key = key_p[:height, :width]
     rgba = finish_frame(mode, out_p[..., :height, :width], key, tex, vertex,

@@ -26,7 +26,8 @@ three calls a frame (the uniforms into the input buffer, the replay, the
 frame into the output stack); the overflow maximum is taken inside the
 graph, as the scan's loop carry takes it: the binning's last kernel folds
 each frame's needs, pairs and occupied tiles into the graph's static
-accumulator (``cuda.render_frame``'s ``acc``). On the CPU frames run
+accumulator (``cuda.render_frame``'s ``acc``), and the micro raster the
+coverage samples it tested. On the CPU frames run
 eagerly through the kernels' twins, which fold alike. A capture that
 fails raises: there is no eager fall-back on the card (``eager=True``
 asks for the eager loop).
@@ -39,7 +40,8 @@ captures, graph drops, retries, calibrations, tunings and replays tick
 ``tracing.counters()``, and the kernels' launch counters there count the
 wrappers' calls (the eager warm-up and the capture of a graph tick them,
 its replays do not). While a profiler session records, each batch adds
-its frames, pairs and occupied tiles to ``tracing.frame_counts()``.
+its frames, pairs, occupied tiles and samples to
+``tracing.frame_counts()``.
 
 On the micro path the pair capacity settles to the first checked frame's
 measured need (``_maybe_calibrate``), and a tile path whose per-tile list
@@ -69,7 +71,7 @@ import torch
 
 from compute_renderer_torch import tracing
 from compute_renderer_torch.backends import (
-    cuda, front, get_backend, normalize_backend,
+    binning, cuda, front, get_backend, normalize_backend,
 )
 from compute_renderer_torch.core.effects import EFFECT_MIRAGE, EFFECT_VOXELIZE
 from compute_renderer_torch.engine.scene import FrameUniforms
@@ -112,8 +114,8 @@ class FrameGraph:
     """One captured frame: replaying ``graph`` renders the uniforms in
     ``packed`` into ``rgba`` (H, W, 4) u8, ``key`` (rh, rw) u32 and
     ``overflow`` (2,) i32, and its binning folds the frame into ``acc``
-    (4,) i64: the batch's running maximum of the needs, then its sums of
-    pairs and occupied tiles. All five tensors are static: the graph
+    (5,) i64: the batch's running maximum of the needs, then its sums of
+    pairs, occupied tiles and (the micro raster's) samples. All five tensors are static: the graph
     reads and writes them in place at every replay."""
 
     graph: torch.cuda.CUDAGraph
@@ -295,7 +297,7 @@ class Renderer:
         """One frame from a packed device buffer, eagerly: (rgba, key,
         overflow); a comparator's key is its depth buffer and its overflow
         report zero. The engine's binning folds the frame into ``acc``
-        ((4,) int64, or None)."""
+        ((5,) int64, or None)."""
         vpos, vp, eff, lwp, lc, li = unpack_uniforms(packed, L)
         if not self.engine:
             rgba, key = self.backend.render_frame(
@@ -343,7 +345,8 @@ class Renderer:
         with tracing.span("renderer.capture"):
             static_in = torch.empty_like(packed)
             static_in.copy_(packed)
-            acc = torch.zeros((4,), dtype=torch.int64, device=self.device)
+            acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                              device=self.device)
             tracing.prepare(acc.device)
             stream = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
@@ -547,15 +550,16 @@ class Renderer:
         """The frames of a packed (K, P) device stack and their overflow
         maximum: replays of one graph on the card (three host calls a
         frame), or ``_frame`` op by op on the CPU, with ``eager`` and for a
-        comparator. The frames' binning folds into one accumulator; while
-        a profiler session records, its pairs and occupied tiles go to
-        ``tracing.frame_counts()``."""
+        comparator. The frames' binning and micro raster fold into one
+        accumulator; while a profiler session records, its pairs, occupied
+        tiles and samples go to ``tracing.frame_counts()``."""
         with tracing.span("renderer.replay"):
             K = stack.shape[0]
             frames = torch.empty((K, self.height, self.width, 4),
                                  dtype=torch.uint8, device=self.device)
             if eager or self.device.type != "cuda" or not self.engine:
-                acc = torch.zeros((4,), dtype=torch.int64, device=self.device)
+                acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                                  device=self.device)
                 for i in range(K):
                     frames[i] = self._frame(stack[i], L, acc)[0]
             else:

@@ -14,8 +14,9 @@
   ``launches.<wrapper>.<mode>`` (a graph's capture and its eager warm-up
   tick them, a replay does not).
 - Device frame counts (``frame_counts()``): the frames of the renderer's
-  batches rendered while a profiler session was recording, and the pairs
-  and occupied tiles their bin kernels counted on the card.
+  batches rendered while a profiler session was recording, the pairs and
+  occupied tiles their bin kernels counted on the card, and the coverage
+  samples the micro raster tested.
 
 Depends on nothing else of the package.
 """
@@ -34,7 +35,8 @@ EVENTS = ("captures", "graph_drops", "retries", "calibrations", "tunes",
 _NULL_SPAN = contextlib.nullcontext()
 _counters: dict = dict.fromkeys(EVENTS, 0)
 _frames = 0
-_sums: dict = {}  # device -> (2,) int64 tensor: pairs, occupied tiles
+_sums: dict = {}  # device -> (3,) int64: pairs, occupied tiles, samples
+_sampled = False  # whether a batch added samples since the last reset
 
 
 def recording() -> bool:
@@ -80,36 +82,44 @@ def prepare(device) -> None:
     profiler session's first batch would otherwise pay. The renderer calls
     it when it captures a graph."""
     if device not in _sums:
-        acc = torch.zeros((2,), dtype=torch.int64, device=device)
+        acc = torch.zeros((3,), dtype=torch.int64, device=device)
         _sums[device] = acc.add_(acc)
 
 
 def add_frames(sums, frames: int) -> None:
-    """Add a batch's ``frames`` and its (2,) int64 device sums of pairs and
-    occupied tiles to ``frame_counts()``: one device add. The renderer
-    calls it only while ``recording()``."""
-    global _frames
+    """Add a batch's ``frames`` and its int64 device sums of pairs and
+    occupied tiles, (2,), or of pairs, occupied tiles and samples, (3,),
+    to ``frame_counts()``: one device add. The renderer calls it only
+    while ``recording()``, with its accumulator's last three words."""
+    global _frames, _sampled
     prepare(sums.device)
-    _sums[sums.device].add_(sums)
+    _sums[sums.device][:sums.shape[0]].add_(sums)
     _frames += frames
+    _sampled = _sampled or sums.shape[0] > 2
 
 
 def frame_counts() -> dict:
     """{"frames", "pairs", "tiles"} summed over the frames added while a
-    profiler session recorded (reads the device sums: a synchronisation)."""
-    pairs = tiles = 0
+    profiler session recorded, and "samples" once a batch added them
+    (reads the device sums: a synchronisation)."""
+    pairs = tiles = samples = 0
     for acc in _sums.values():
-        p, t = acc.tolist()
+        p, t, n = acc.tolist()
         pairs += p
         tiles += t
-    return {"frames": _frames, "pairs": pairs, "tiles": tiles}
+        samples += n
+    counts = {"frames": _frames, "pairs": pairs, "tiles": tiles}
+    if _sampled:
+        counts["samples"] = samples
+    return counts
 
 
 def reset() -> None:
     """Zero every host counter and the frame counts."""
-    global _frames
+    global _frames, _sampled
     _counters.clear()
     _counters.update(dict.fromkeys(EVENTS, 0))
     _frames = 0
+    _sampled = False
     for acc in _sums.values():
         acc.zero_()

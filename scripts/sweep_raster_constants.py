@@ -4,7 +4,7 @@
     python3 scripts/sweep_raster_constants.py [--probe]
 
 Builds copies of csrc/raster.cu (SUB_H x SUB_W blocks, WARPS, MIN_BLOCKS) and
-csrc/micro.cu (SPAN, MIN_BLOCKS) with their constants replaced, one nvcc
+csrc/micro.cu (SPAN, WARPS) with their constants replaced, one nvcc
 each and all at once, into build/sweep/, then for each variant: checks it
 against the twin (keys and outputs bitwise) and prints its device time
 (torch.profiler, every launch of a call) in two passes, the variants in
@@ -30,8 +30,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TILE_VARIANTS = [  # (SUB_H, SUB_W, WARPS, MIN_BLOCKS)
     (16, 32, 8, 4), (8, 16, 8, 4), (8, 32, 8, 4), (8, 8, 8, 4),
     (16, 16, 8, 4), (16, 32, 16, 2), (8, 16, 4, 8), (8, 8, 4, 8)]
-MICRO_VARIANTS = [  # (SPAN, MIN_BLOCKS)
-    (128, 2), (64, 2), (256, 2), (128, 1)]
+MICRO_VARIANTS = [  # (SPAN, WARPS)
+    (128, 4), (64, 4), (256, 4), (128, 8)]
 
 
 def variant_source(name, values):
@@ -40,7 +40,7 @@ def variant_source(name, values):
 
     text = (_build.CSRC / f"{name}.cu").read_text()
     for const, value in values.items():
-        text, n = re.subn(rf"constexpr int {const} = \d+;",
+        text, n = re.subn(rf"constexpr int {const} = [^;]+;",
                           f"constexpr int {const} = {value};", text)
         if n != 1:
             raise SystemExit(f"{name}.cu: no single {const} constant")
@@ -233,8 +233,8 @@ def main() -> int:
     jobs = [("raster", f"{h}x{w}_w{n}_b{b}",
              {"SUB_H": h, "SUB_W": w, "WARPS": n, "MIN_BLOCKS": b})
             for h, w, n, b in TILE_VARIANTS]
-    jobs += [("micro", f"span{s}_b{b}", {"SPAN": s, "MIN_BLOCKS": b})
-             for s, b in MICRO_VARIANTS]
+    jobs += [("micro", f"span{s}_w{w}", {"SPAN": s, "WARPS": w})
+             for s, w in MICRO_VARIANTS]
     if "--probe" in sys.argv:
         jobs = []
     t0 = time.perf_counter()
@@ -306,7 +306,7 @@ def main() -> int:
             symbol = ("raster_shade_tiles" if name == "raster"
                       else "raster_shade_micro")
             install(name, symbol, lib, *((10, 10) if name == "raster"
-                                         else (12, 7)))
+                                         else (14, 7)))
             for case, (kind, args, kw) in cases.items():
                 if kind != name:
                     continue

@@ -362,6 +362,68 @@ def test_unported_micro_modes_raise(port):
     assert (out == port.raster.PAIR_IDX_CLEAR).all()  # vis, nothing binned
 
 
+# The culled walk's cases: chip_smoke.py's stress inputs (samples exactly on
+# edges, -0.0 depth planes, NaN and infinite rows, duplicates whose equal
+# keys straddle spans, mirage) in every mode, and the port's own chain
+# under each effect, on a stripe's rows, in base and vis mode; cells split
+# at a span of 4.
+CULLED_MODES = ("base", "mat", "texf", "vis", "texf_mip")
+CULLED_CASES = [
+    ("stress", "edges"), ("stress", "nan_zero"), ("stress", "duplicates"),
+    ("stress", "edges+mirage"), ("chain", "none"), ("chain", "mirage"),
+    ("chain", "voxelize"), ("chain", "edge_melt"), ("chain", "stripe"),
+    ("chain", "vis"),
+]
+
+
+def _culled_inputs(port, source, kind):
+    """[(mode, args, kw)] of the micro twin for a case of CULLED_CASES."""
+    from tests import test_torch_walks as walks
+
+    if source == "stress":
+        smoke = walks._smoke()
+        x = smoke.stress_inputs(kind, "cpu", 4)
+        assert x["densest"] > 4  # cells split at a span of 4
+        kw = dict(height_padded=smoke.STRESS_H, width_padded=smoke.STRESS_W)
+        return [(mode, (x["tables"][mode], *x["micro"][:3], x["params"],
+                        x["light_rows"]), kw) for mode in CULLED_MODES]
+    effect = kind if kind in walks.EFFECTS else "none"
+    base, bins, params, lights, (hp, wp) = walks._port_chain(port, effect,
+                                                             (8, 8))
+    assert int(bins["seg_count"].max()) > 4
+    if kind == "stripe":  # a stripe's rows: sample y at global row + 8
+        params = params.clone()
+        params[7] = 8.0
+    mode = "vis" if kind == "vis" else "base"
+    return [(mode, (base, bins["pair_tri"], bins["seg_start"],
+                    bins["seg_count"], params, lights),
+             dict(height_padded=hp, width_padded=wp))]
+
+
+@pytest.mark.parametrize("source,kind", CULLED_CASES)
+def test_culled_walk_equals_micro_twin(port, source, kind):
+    # The kernel's walk, culled to 2x2 quads, equals the twin bitwise (keys,
+    # RGBA, G-buffers, vis pair ids), at the kernel's span and at a span of
+    # 4; the samples its walk tested are the twin's fold of them
+    # (samples_tested_plain), 4 a kept quad and 64 a pair walked whole.
+    from tests import test_torch_walks as walks
+
+    for mode, args, kw in _culled_inputs(port, source, kind):
+        plain = port.micro.raster_shade_micro_plain(*args, mode=mode, **kw)
+        assert int((plain[1] != -1).sum()) > 0
+        fold = port.micro.samples_tested_plain(
+            args[0], *args[1:5], width_padded=kw["width_padded"])
+        for span in (4, port.micro.SPAN):
+            stats = {}
+            culled = port.micro.raster_shade_micro_culled_plain(
+                *args, mode=mode, stats=stats, span=span, **kw)
+            assert walks._equal(port, culled, plain), (mode, span)
+            assert int(fold) == stats["samples"] > 0
+            assert (4 * stats["items"] <= stats["samples"]
+                    <= 4 * stats["items"] + 64 * stats["wide"])
+            assert stats["samples"] < 64 * stats["pairs"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,effect", CASES)
 def test_kernels_vs_twins_on_card(port, cuda_device, name, effect):

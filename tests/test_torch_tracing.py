@@ -138,13 +138,13 @@ def test_span_under_a_session_is_a_record_function(port):
 # The fold of each frame's binning into the batch's accumulator
 # --------------------------------------------------------------------------
 
-def _expected(reports):
+def _expected(reports, samples=0):
     """The fold of per-frame (or per-chunk) bin dicts: needs maxed, pairs
-    and occupied tiles summed."""
+    and occupied tiles summed; then the micro raster's ``samples``."""
     need = np.max([r["overflow"].numpy() for r in reports], axis=0)
     pairs = sum(int(r["total_pairs"]) for r in reports)
     tiles = sum(int(r["k"]) for r in reports)
-    return [int(need[0]), int(need[1]), pairs, tiles]
+    return [int(need[0]), int(need[1]), pairs, tiles, samples]
 
 
 def _metas(port, scene, n, tile, width=W, height=H):
@@ -166,7 +166,7 @@ def _metas(port, scene, n, tile, width=W, height=H):
 
 
 def _acc(port, device="cpu"):
-    return port.torch.zeros((4,), dtype=port.torch.int64, device=device)
+    return port.torch.zeros((5,), dtype=port.torch.int64, device=device)
 
 
 @pytest.mark.parametrize("layout", ["dense", "flat"])
@@ -204,11 +204,44 @@ def test_micro_fold_matches_the_frames(port):
     assert reports[0]["layout"] == "micro" and acc[2] > 0
 
 
+def _record_micro(port, monkeypatch):
+    """The argument lists of every ``micro.raster_shade_micro`` call from
+    now on."""
+    fn, calls = port.micro.raster_shade_micro, []
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(port.micro, "raster_shade_micro", recorded)
+    return calls
+
+
+def _culled_samples(port, calls):
+    """The samples the micro kernel's culled walk tests in these calls,
+    from the walk's own decomposition
+    (``micro.raster_shade_micro_culled_plain``)."""
+    total = 0
+    for args, kw in calls:
+        table, pair_tri, starts, counts, _, eff, vpos, lwp, lc, li = args
+        params, lights = port.raster.shading_inputs(
+            eff, vpos, lwp, lc, li, kw.get("y_offset", 0))
+        stats = {}
+        port.micro.raster_shade_micro_culled_plain(
+            table, pair_tri, starts, counts, params, lights,
+            height_padded=kw["height_padded"],
+            width_padded=kw["width_padded"], mode=kw["mode"], stats=stats)
+        total += stats["samples"]
+    return total
+
+
 @pytest.mark.parametrize("path,tri_chunk", [("tile", 300), ("micro", 0)])
 def test_frame_fold_matches_its_binning(port, monkeypatch, path, tri_chunk):
     # cuda.render_frame folds every chunk of a chunked tile frame (and the
     # micro frame's one binning): max of the needs, sum of the pairs and
-    # occupied tiles; its own overflow report is the needs' maximum.
+    # occupied tiles; its own overflow report is the needs' maximum. The
+    # micro raster adds the samples its culled walk tests; the tile
+    # raster adds none.
     b = port.binning
     name = "bin_tiles_meta" if path == "tile" else "bin_cells_sort_meta"
     fn, reports = getattr(b, name), []
@@ -218,6 +251,7 @@ def test_frame_fold_matches_its_binning(port, monkeypatch, path, tri_chunk):
         return reports[-1]
 
     monkeypatch.setattr(b, name, recorded)
+    calls = _record_micro(port, monkeypatch)
     s = _scene(port)
     r = port.renderer.Renderer(s.mesh, W, H, device="cpu", path=path,
                                **s.renderer_options())
@@ -232,7 +266,9 @@ def test_frame_fold_matches_its_binning(port, monkeypatch, path, tri_chunk):
         height=H, path=path, tri_chunk=tri_chunk, pair_cap=4096, acc=acc)
     assert len(reports) == (-(-r.num_triangles // tri_chunk)
                             if tri_chunk else 1)
-    assert acc.tolist() == _expected(reports)
+    assert len(calls) == (path == "micro")
+    assert acc.tolist() == _expected(reports, _culled_samples(port, calls))
+    assert (acc[4] > 0) == (path == "micro")
     assert overflow.tolist() == acc[:2].tolist()
 
 
@@ -258,11 +294,48 @@ def test_batch_frame_counts_while_recording(port, monkeypatch):
     with _profile():
         r.render_batch_device(batch, check=False)
         r.render_batch_device(batch[:1], check=False)
-    _, _, pairs, tiles = _expected(reports)
-    assert tr.frame_counts() == {"frames": 4, "pairs": pairs, "tiles": tiles}
+    _, _, pairs, tiles, _ = _expected(reports)
+    assert tr.frame_counts() == {"frames": 4, "pairs": pairs, "tiles": tiles,
+                                 "samples": 0}
     assert not r.flush_overflow()
     tr.reset()
     assert tr.frame_counts()["frames"] == 0
+    assert "samples" not in tr.frame_counts()
+
+
+def test_micro_batch_samples_engage_the_cull(port, monkeypatch):
+    # A traced micro batch of sub-pixel triangles (the 1,280-triangle
+    # stand-in at 64x48): frame_counts() gains the samples the culled walk
+    # tested, at most a quarter of the 64 a pair of the walk without it.
+    tr = port.tracing
+    s = _scene(port)
+    r = port.renderer.Renderer(s.mesh, W, H, device="cpu", path="micro",
+                               **s.renderer_options())
+    batch = _advance(s, 3)
+    r.render_batch_device(batch)  # the pair capacity settles
+    calls = _record_micro(port, monkeypatch)
+    tr.reset()
+    with _profile():
+        r.render_batch_device(batch, check=False)
+    counts = tr.frame_counts()
+    assert counts["frames"] == 3 and len(calls) == 3
+    assert counts["samples"] == _culled_samples(port, calls)
+    assert 0 < counts["samples"] <= 64 * counts["pairs"] // 4
+
+
+def test_add_frames_takes_counts_with_or_without_samples(port):
+    # The renderer adds (pairs, tiles, samples); a caller with pairs and
+    # tiles alone adds no samples, and frame_counts() then has none.
+    t = port.torch
+    tr = port.tracing
+    tr.reset()
+    tr.add_frames(t.tensor([600, 10], dtype=t.int64), 2)
+    assert tr.frame_counts() == {"frames": 2, "pairs": 600, "tiles": 10}
+    tr.add_frames(t.tensor([400, 20, 3000], dtype=t.int64), 2)
+    assert tr.frame_counts() == {"frames": 4, "pairs": 1000, "tiles": 30,
+                                 "samples": 3000}
+    tr.reset()
+    assert tr.frame_counts() == {"frames": 0, "pairs": 0, "tiles": 0}
 
 
 # --------------------------------------------------------------------------

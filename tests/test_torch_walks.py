@@ -221,6 +221,7 @@ def test_mirrors_use_the_kernels_constants(port):
         const("raster.cu", "SUB_H"), const("raster.cu", "SUB_W"),
         const("raster.cu", "PATCH"))
     assert port.micro.SPAN == const("micro.cu", "SPAN")
+    assert port.micro.WIDE == const("micro.cu", "WIDE")
 
 
 # --- the mirrors against the unchanged twins -----------------------------
