@@ -9,8 +9,10 @@ For each of ``--seeds`` seeds, one short run of the cell's timed path
 For each of ``--control-seeds`` seeds, the control gives its ``bad_px``
 (the upper reading): the reference computed in bfloat16, the precision
 below the configuration's float32, put in the program's place, against
-the float32 reference on poses the cell's path shows. Prints one JSON
-line a reading and a summary. The benchmark's own runs do not run this.
+the float32 reference on poses the cell's path shows, in the shading the
+configuration names (its Kd, its images sampled by its ``tex_filter``).
+Prints one JSON line a reading and a summary. The benchmark's own runs
+do not run this.
 """
 
 import argparse
@@ -43,12 +45,14 @@ def control_reading(config, traffic, seed, count, device):
     import torch
 
     from frame_bench.reference import camera as cam
-    from frame_bench.reference import geometry
+    from frame_bench.reference import objscene
     from frame_bench.reference import render as ref
     from frame_bench import harness
 
-    arrays = geometry.build(config["geometry"])
-    scene = ref.Scene(arrays[0], arrays[1], arrays[3], device)
+    arrays = harness.build_scene(config)
+    if isinstance(arrays, objscene.ObjScene):
+        arrays.remove_files()
+    scene = harness.reference_scene(config, arrays, device)
     if traffic["loop"] == "batch":
         path = cam.LookAround(traffic["camera"], config["camera"],
                               float(traffic["dt"]), seed)
@@ -60,8 +64,10 @@ def control_reading(config, traffic, seed, count, device):
     for pose in control_poses(path, seed, count):
         vpos, vp = pose.matrices(W / H)
         args = (scene, vpos, vp, config["lights"], W, H)
-        exact = ref.render(*args, cell=config["cell"])
-        low = ref.render(*args, cell=config["cell"], dtype=torch.bfloat16)
+        kwargs = {"cell": config["cell"],
+                  "tex_filter": config.get("tex_filter", "nearest")}
+        exact = ref.render(*args, **kwargs)
+        low = ref.render(*args, **kwargs, dtype=torch.bfloat16)
         worst = max(worst, harness.bad_pixels(low, exact))
     return worst
 

@@ -8,8 +8,11 @@ metric is a file found by its name (``configs/<name>.json``,
 
 - the program's side: the configuration's geometry (``reference/
   geometry.py``) handed to ``compute_renderer_torch``'s ``Scene`` and
-  ``Renderer``, the camera driven through the program's ``Camera`` with
-  the inputs of the mix's path (``reference/camera.py``);
+  ``Renderer``, or its OBJ part (``reference/objscene.py``) written to a
+  temporary directory and loaded through the program's ``Model.load``
+  with the materials or textures its ``shading`` names and its
+  ``tex_filter``; the camera driven through the program's ``Camera``
+  with the inputs of the mix's path (``reference/camera.py``);
 - two loops, chosen by the mix's ``"loop"``: ``batch`` (frames submitted
   ``batch`` at a time through ``render_batch_device(check=False)``, one
   ``fence_pending()`` a batch, frames left on the device) and ``tick``
@@ -31,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -42,6 +46,7 @@ import torch
 from frame_bench import trace as trace_mod
 from frame_bench.reference import camera as cam
 from frame_bench.reference import geometry
+from frame_bench.reference import objscene
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -51,6 +56,9 @@ BANNED = ("jax", "jaxlib", "flax", "compute_renderer_tpu")
 # The range that bounds the traced window; the loops' own ranges inside
 # it label the device's idle gaps.
 WINDOW_SPAN = "frame_bench.window"
+# A configuration's "shading": the program's loader flags for each.
+SHADINGS = {"base": {}, "materials": {"materials": True},
+            "textures": {"textures": True}}
 
 
 def load_json(kind, name):
@@ -66,6 +74,44 @@ def load_bench():
 def banned_modules():
     return sorted({m.split(".")[0] for m in sys.modules}
                   & set(BANNED))
+
+
+def build_scene(config):
+    """The configuration's geometry: the parts' arrays (positions,
+    normals, uvs, indices), or for an OBJ part its ``objscene.ObjScene``,
+    whose files lie in a new temporary directory until ``remove_files``."""
+    parts = config["geometry"]
+    shading = config.get("shading", "base")
+    if shading not in SHADINGS:
+        raise ValueError(f"shading {shading!r}: one of {list(SHADINGS)}")
+    if not objscene.is_obj(parts):
+        if shading != "base":
+            raise ValueError(f"shading {shading!r} needs an OBJ part")
+        return geometry.build(parts)
+    directory = tempfile.mkdtemp(prefix="frame_bench_")
+    try:
+        return objscene.ObjScene(directory, parts[0])
+    except BaseException:
+        shutil.rmtree(directory, ignore_errors=True)
+        raise
+
+
+def reference_scene(config, arrays, device):
+    """The reference's scene of ``build_scene``'s geometry, with the Kd
+    and images that the configuration's ``shading`` uses."""
+    from frame_bench.reference import render as ref
+
+    if not isinstance(arrays, objscene.ObjScene):
+        return ref.Scene(arrays[0], arrays[1], arrays[3], device=device)
+    shading = config.get("shading", "base")
+    extra = {}
+    if shading != "base":
+        extra["face_kd"] = arrays.face_kd
+    if shading == "textures":
+        extra.update(uvs=arrays.uvs, face_image=arrays.face_image,
+                     images=arrays.images)
+    return ref.Scene(arrays.positions, arrays.normals, arrays.tri,
+                     device=device, **extra)
 
 
 class Program:
@@ -84,8 +130,14 @@ class Program:
         self.aspect = self.width / self.height
         self.spawn = config["camera"]["spawn"]
         self.scene = Scene()
-        self.scene.add_model(Model(mesh=Mesh(*arrays),
-                                   source=f"frame_bench:{config['name']}"))
+        if isinstance(arrays, objscene.ObjScene):
+            # The user's path: native parse, MTL, image decode, atlas.
+            self.scene.add_model(Model.load(
+                str(arrays.path), **SHADINGS[config.get("shading", "base")]))
+            self.scene.texture_filter = config.get("tex_filter", "nearest")
+        else:
+            self.scene.add_model(Model(mesh=Mesh(*arrays),
+                                       source=f"frame_bench:{config['name']}"))
         for light in config["lights"]:
             self.scene.add_light(light["position"], light["color"],
                                  light["intensity"])
@@ -429,12 +481,13 @@ def compare(loop, record, arrays, expected, config, limits, device):
     samples = record["samples"]
     poses = loop.reference_poses([i for i, _ in samples])
     W, H = config["width"], config["height"]
-    scene = ref.Scene(arrays[0], arrays[1], arrays[3], device=device)
+    scene = reference_scene(config, arrays, device)
     worst = 0
     for pose_id, frame in samples:
         vpos, vp = poses[pose_id].matrices(W / H)
         expect = ref.render(scene, vpos, vp, config["lights"], W, H,
-                            cell=config["cell"])
+                            cell=config["cell"],
+                            tex_filter=config.get("tex_filter", "nearest"))
         got = torch.as_tensor(frame).to(expect.device)
         worst = max(worst, bad_pixels(got, expect))
     numbers = {"bad_px": (worst, limits["bad_px"]),
@@ -451,9 +504,11 @@ def bad_pixels(got, expect):
 
 
 def run(cell_name, seed, seconds, trace, *, bench=None, config=None,
-        traffic=None, limits=None, device="cuda", t_start=None):
+        traffic=None, limits=None, device="cuda", t_start=None, units=None):
     """One run of a cell. Returns (result dict, check numbers); the
-    configuration, mix and limits are read by name unless given."""
+    configuration, mix and limits are read by name unless given. With
+    ``units`` the timed window ends after that many frames or ticks in
+    place of ``seconds`` (the CPU tests, whose pace follows the load)."""
     t_start = time.perf_counter() if t_start is None else t_start
     bench = bench or load_bench()
     cell = next(c for c in bench["workloads"] if c["name"] == cell_name)
@@ -463,9 +518,13 @@ def run(cell_name, seed, seconds, trace, *, bench=None, config=None,
     dev = torch.device(device)
 
     marks = [("start", time.perf_counter())]
-    arrays = geometry.build(config["geometry"])
+    arrays = build_scene(config)
     marks.append(("geometry", time.perf_counter()))
-    program = Program(config, arrays, dev)
+    try:
+        program = Program(config, arrays, dev)
+    finally:
+        if isinstance(arrays, objscene.ObjScene):
+            arrays.remove_files()
     marks.append(("renderer", time.perf_counter()))
     loop = LOOPS[traffic["loop"]](program, traffic, config, seed)
     samples = int(traffic["samples"])
@@ -479,7 +538,8 @@ def run(cell_name, seed, seconds, trace, *, bench=None, config=None,
           file=sys.stderr)
 
     sampler = Sampler(seed, samples, int(traffic.get("batch", 1)))
-    record = loop.run(Stop(seconds=seconds), sampler)
+    record = loop.run(Stop(seconds=seconds) if units is None
+                      else Stop(units=units), sampler)
     traced = tr = None
     if trace:
         tr, traced = traced_window(loop, int(traffic["trace_units"]))

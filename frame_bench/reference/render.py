@@ -24,6 +24,16 @@ triangles and pixels instead of looping over triangles:
    renormalised), clamped, gamma 1/2.2, rounded half to even; the
    background blue (fragment.wgsl:50-93).
 
+A scene with a Kd a face (the material extension) scales the ambient and
+each Lambert term by the winner's Kd; one with images (the texture
+extension) first multiplies that Kd by the winner's image sampled at its
+interpolated uv, repeat-wrapped, by ``tex_filter``: ``nearest``,
+``bilinear``, or over the image's box-filtered mip chain ``trilinear``
+(the level from the triangle's constant screen-space uv gradient) or
+``anisotropic`` (4 such taps along the footprint's major axis), as the
+oracle's texture pass does. The mip chains are built here from the
+images (a frozen copy of the port's ``io/textures.build_mips``).
+
 The depth resolve is one ``scatter_reduce`` (amin) of (key << 24 |
 triangle) over the pixels, so a scene holds at most 2^24 triangles.
 Triangles go through in blocks of at most ``budget`` tested samples, so
@@ -45,11 +55,20 @@ TRI_MASK = (1 << TRI_BITS) - 1
 NO_HIT = (0xFFFFFFFF << TRI_BITS) | TRI_MASK
 
 
+FILTERS = ("nearest", "bilinear", "trilinear", "anisotropic")
+# Taps of the anisotropic filter (the port's core/maths.py MAX_ANISO).
+MAX_ANISO = 4
+
+
 class Scene:
     """The geometry on ``device``: positions and normals (N, 3) float32
-    and the triangles' vertex indices (T, 3) int64."""
+    and the triangles' vertex indices (T, 3) int64; for the material
+    extension ``face_kd`` (T, 3) float32, and for the texture extension
+    also ``uvs`` (N, 2) float32, ``face_image`` (T,) (-1: none) and
+    ``images``, a list of (h, w, 3) float32 in [0, 1], top row first."""
 
-    def __init__(self, positions, normals, indices, device):
+    def __init__(self, positions, normals, indices, device, *, uvs=None,
+                 face_kd=None, face_image=None, images=None):
         self.device = torch.device(device)
         self.positions = torch.as_tensor(np.asarray(positions, np.float32),
                                          device=self.device)
@@ -60,6 +79,61 @@ class Scene:
             raise ValueError(f"{tri.shape[0]} triangles: the depth resolve "
                              f"holds at most {TRI_MASK}")
         self.tri = torch.as_tensor(tri, device=self.device)
+        self.face_kd = self.face_image = None
+        if face_kd is not None:
+            self.face_kd = self._put(face_kd, np.float32)
+        if images:
+            self.uvs = self._put(uvs, np.float32)
+            self.face_image = self._put(face_image, np.int64)
+            pool, table = build_mips(images)
+            self.pool = self._put(pool, np.float32)
+            self.mips = self._put(table, np.int64)
+
+    def _put(self, array, dtype):
+        return torch.as_tensor(np.ascontiguousarray(array, dtype),
+                               device=self.device)
+
+
+def build_mips(images):
+    """The images' flat pool with each one's box-filtered mip chain
+    appended, and the (M, L, 3) table of each level's {offset, width,
+    height} (a short chain repeats its 1x1 tail): level l+1 halves each
+    side (floor, at least 1), each texel the mean, in float64 rounded to
+    float32, of a 2x2 block of level l (a side already at 1 repeats its
+    texel; an odd side's last row or column is dropped)."""
+    chains = []
+    for img in images:
+        img = np.asarray(img, np.float32)
+        levels = [img]
+        while img.shape[0] > 1 or img.shape[1] > 1:
+            h2 = max(img.shape[0] // 2, 1)
+            w2 = max(img.shape[1] // 2, 1)
+            ys = np.minimum(2 * np.arange(h2)[:, None] + np.arange(2),
+                            img.shape[0] - 1)
+            xs = np.minimum(2 * np.arange(w2)[:, None] + np.arange(2),
+                            img.shape[1] - 1)
+            block = img[ys[:, None, :, None], xs[None, :, None, :]]
+            img = block.mean(axis=(2, 3), dtype=np.float64).astype(np.float32)
+            levels.append(img)
+        chains.append(levels)
+    # Level 0 of every image first, back to back; then the other levels.
+    rows = [c[0].reshape(-1, 3) for c in chains]
+    offset = sum(r.shape[0] for r in rows)
+    L = max(len(c) for c in chains)
+    table = np.zeros((len(chains), L, 3), np.int64)
+    level0 = 0
+    for k, levels in enumerate(chains):
+        h, w = levels[0].shape[:2]
+        table[k, 0] = (level0, w, h)
+        level0 += h * w
+        for li, img in enumerate(levels[1:], start=1):
+            h, w = img.shape[:2]
+            table[k, li] = (offset, w, h)
+            rows.append(img.reshape(-1, 3))
+            offset += h * w
+        for li in range(len(levels), L):
+            table[k, li] = table[k, li - 1]
+    return np.concatenate(rows), table
 
 
 def _screen(scene, view_proj, width, height, dtype):
@@ -161,7 +235,7 @@ def _resolve(scene, v, x0, y0, cw, ch, width, height, dtype, budget):
     return zbuf
 
 
-def _shade(scene, v, t, px, py, vpos, lights, dtype):
+def _shade(scene, v, t, px, py, vpos, lights, dtype, tex_filter):
     """(n, 3) u8 colours of the winning samples (triangle ``t`` at pixel
     (``px``, ``py``))."""
     dev = scene.device
@@ -169,11 +243,11 @@ def _shade(scene, v, t, px, py, vpos, lights, dtype):
     b1, b2, b3 = _barycentric(vk, px.to(dtype), py.to(dtype))
     idx = scene.tri[t]
 
-    def interp(src):
+    def interp(src, channels=3):
         s = src.to(dtype)
         a, b, c = s[idx[:, 0]], s[idx[:, 1]], s[idx[:, 2]]
         return [b1 * a[:, ch] + b2 * b[:, ch] + b3 * c[:, ch]
-                for ch in range(3)]
+                for ch in range(channels)]
 
     nx, ny, nz = interp(scene.normals)
     wx, wy, wz = interp(scene.positions)
@@ -182,7 +256,16 @@ def _shade(scene, v, t, px, py, vpos, lights, dtype):
         return torch.tensor(float(np.float32(x)), dtype=dtype, device=dev)
 
     zero = torch.zeros((), dtype=dtype, device=dev)
-    final = [torch.full_like(nx, 0.1) for _ in range(3)]
+    kd = None
+    if scene.face_kd is not None:
+        kd = scene.face_kd[t].to(dtype)
+        if scene.face_image is not None:
+            kd = _textured(scene, vk, t, idx, interp(scene.uvs, 2), kd,
+                           dtype, tex_filter)
+    if kd is None:
+        final = [torch.full_like(nx, 0.1) for _ in range(3)]
+    else:
+        final = [0.1 * kd[:, ch] for ch in range(3)]
     ex, ey, ez = (scalar(c) for c in vpos[:3])
     for light in lights:
         lx, ly, lz = (scalar(c) for c in light["position"])
@@ -201,21 +284,136 @@ def _shade(scene, v, t, px, py, vpos, lights, dtype):
         s4 = s2 * s2
         s8 = s4 * s4
         s16 = s8 * s8
-        contrib = diff + (s16 * s16) * 0.5
         inten = scalar(light["intensity"])
-        for ch in range(3):
-            final[ch] = final[ch] + (contrib * scalar(light["color"][ch])) * inten
+        if kd is None:
+            contrib = diff + (s16 * s16) * 0.5
+            for ch in range(3):
+                final[ch] = (final[ch]
+                             + (contrib * scalar(light["color"][ch])) * inten)
+        else:
+            spec = (s16 * s16) * 0.5
+            for ch in range(3):
+                contrib = diff * kd[:, ch] + spec
+                final[ch] = (final[ch]
+                             + (contrib * scalar(light["color"][ch])) * inten)
     gamma = float(np.float32(1.0 / 2.2))
     rgb = [torch.round(torch.clamp(f, 0.0, 1.0) ** gamma * 255.0)
            for f in final]
     return torch.stack(rgb, dim=1).to(torch.uint8)
 
 
+def _textured(scene, vk, t, idx, uv, kd, dtype, tex_filter):
+    """The winners' Kd times their image's sample at ``uv`` (those with
+    an image): the oracle's texture pass, op for op."""
+    u, v = uv
+    img = scene.face_image[t]
+    has = img >= 0
+    mips = scene.mips[img.clamp(min=0)]  # (n, L, 3)
+    L = mips.shape[1]
+    pool = scene.pool.to(dtype)
+    one = torch.ones((), dtype=dtype, device=scene.device)
+
+    def frac(x):
+        return x - torch.floor(x)
+
+    def bilinear(row, fu, fv):
+        off, tw, th = row[:, 0], row[:, 1], row[:, 2]
+        pu = fu * tw.to(dtype) - 0.5
+        pv = fv * th.to(dtype) - 0.5
+        x0f = torch.floor(pu)
+        y0f = torch.floor(pv)
+        wx = (pu - x0f)[:, None]
+        wy = (pv - y0f)[:, None]
+        x0 = torch.remainder(x0f.long(), tw)
+        y0 = torch.remainder(y0f.long(), th)
+        x1 = torch.remainder(x0 + 1, tw)
+        y1 = torch.remainder(y0 + 1, th)
+
+        def fetch(i):
+            return pool[torch.where(has, i, 0)]
+
+        t00 = fetch(off + y0 * tw + x0)
+        t10 = fetch(off + y0 * tw + x1)
+        t01 = fetch(off + y1 * tw + x0)
+        t11 = fetch(off + y1 * tw + x1)
+        top = t00 * (one - wx) + t10 * wx
+        bot = t01 * (one - wx) + t11 * wx
+        return top * (one - wy) + bot * wy
+
+    level0 = mips[:, 0]
+    if tex_filter == "nearest":
+        off, tw, th = level0[:, 0], level0[:, 1], level0[:, 2]
+        tx = torch.minimum((frac(u) * tw.to(dtype)).long(), tw - 1)
+        ty = torch.minimum((frac(v) * th.to(dtype)).long(), th - 1)
+        texel = pool[torch.where(has, off + ty * tw + tx, 0)]
+    elif tex_filter == "bilinear":
+        texel = bilinear(level0, frac(u), frac(v))
+    else:
+        # The triangle's constant screen-space uv gradient
+        # (common.uv_gradients), the level of detail from its footprint.
+        (v1x, v1y, _), (v2x, v2y, _), (v3x, v3y, _) = vk
+        uz = (v3x - v1x) * (v2y - v1y) - (v2x - v1x) * (v3y - v1y)
+        inv = torch.where(uz.abs() > 1e-20, 1.0 / uz, torch.zeros_like(uz))
+        uvs = scene.uvs.to(dtype)
+        c1, c2, c3 = uvs[idx[:, 0]], uvs[idx[:, 1]], uvs[idx[:, 2]]
+        e2 = c2 - c1
+        e3 = c3 - c1
+        gx = (e2 * (-(v3y - v1y) * inv)[:, None]
+              + e3 * ((v2y - v1y) * inv)[:, None])
+        gy = (e2 * ((v3x - v1x) * inv)[:, None]
+              + e3 * (-(v2x - v1x) * inv)[:, None])
+        tw0 = level0[:, 1].to(dtype)
+        th0 = level0[:, 2].to(dtype)
+        ax, ay = gx[:, 0] * tw0, gx[:, 1] * th0
+        bx, by = gy[:, 0] * tw0, gy[:, 1] * th0
+        rx = torch.sqrt(ax * ax + ay * ay)
+        ry = torch.sqrt(bx * bx + by * by)
+        tiny = torch.full_like(rx, 1e-12)
+        top = float(L - 1)
+        if tex_filter == "anisotropic":
+            pmax = torch.maximum(torch.maximum(rx, ry), tiny)
+            pmin = torch.maximum(torch.minimum(rx, ry), tiny)
+            n_eff = torch.clamp(pmax / pmin, 1.0, float(MAX_ANISO))
+            lod = torch.clamp(torch.log2(pmax / n_eff), 0.0, top)
+        else:
+            rho = torch.maximum(torch.maximum(rx, ry), tiny)
+            lod = torch.clamp(torch.log2(rho), 0.0, top)
+        l0 = lod.long()
+        l1 = torch.clamp(l0 + 1, max=L - 1)
+        f = (lod - l0.to(dtype))[:, None]
+        rows = torch.arange(mips.shape[0], device=scene.device)
+        row0 = mips[rows, l0]
+        row1 = mips[rows, l1]
+
+        def trilinear(fu, fv):
+            return (bilinear(row0, fu, fv) * (one - f)
+                    + bilinear(row1, fu, fv) * f)
+
+        if tex_filter == "anisotropic":
+            x_major = rx >= ry
+            mu = torch.where(x_major, gx[:, 0], gy[:, 0])
+            mv = torch.where(x_major, gx[:, 1], gy[:, 1])
+            spread = one - one / n_eff
+            acc = None
+            for i in range(MAX_ANISO):
+                s_i = (float(np.float32((i + 0.5) / MAX_ANISO))
+                       - one * 0.5) * spread
+                tap = trilinear(frac(u + mu * s_i), frac(v + mv * s_i))
+                acc = tap if acc is None else acc + tap
+            texel = acc / float(MAX_ANISO)
+        else:
+            texel = trilinear(frac(u), frac(v))
+    return torch.where(has[:, None], kd * texel, kd)
+
+
 def render(scene, view_position, view_proj, lights, width, height, *,
-           cell=8, dtype=torch.float32, budget=1 << 23):
+           cell=8, dtype=torch.float32, budget=1 << 23, tex_filter="nearest"):
     """One (H, W, 4) u8 RGBA frame of ``scene`` from the pose's
     ``view_position`` (4,) and ``view_proj`` (4, 4), lit by ``lights``
-    ([{"position", "color", "intensity"}]), on the scene's device."""
+    ([{"position", "color", "intensity"}]), on the scene's device; a
+    scene with images samples them by ``tex_filter``."""
+    if tex_filter not in FILTERS:
+        raise ValueError(f"tex_filter {tex_filter!r}: one of {FILTERS}")
     screen = _screen(scene, view_proj, width, height, dtype)
     v, x0, y0, cw, ch = _setup(scene, screen, width, height, cell)
     zbuf = _resolve(scene, v, x0, y0, cw, ch, width, height, dtype, budget)
@@ -227,5 +425,5 @@ def render(scene, view_position, view_proj, lights, width, height, *,
     if pix.numel():
         t = zbuf[pix] & TRI_MASK
         frame[pix, :3] = _shade(scene, v, t, pix % width, pix // width,
-                                view_position, lights, dtype)
+                                view_position, lights, dtype, tex_filter)
     return frame.reshape(height, width, 4)

@@ -1,6 +1,8 @@
 """Small versions of the cells for the CPU tests: the configurations'
 geometry at a few hundred to a few thousand triangles, 96x72 frames, and
-the mixes with short periods, so that a whole run takes seconds."""
+the mixes with short periods, so that a whole run takes seconds; and a
+textured configuration, the structured scene's 36k build with its
+``map_Kd`` images, for the OBJ part, ``shading`` and ``tex_filter``."""
 
 import copy
 
@@ -22,6 +24,21 @@ def config(name, full_frame=False):
             part.update(nu=24, nv=12)
     cfg["triangles"] = None
     return cfg
+
+
+def textured(tex_filter="trilinear", shading="textures"):
+    """The structured scene's 36k build (objgen's ``ensure_textured_scene``
+    sizes and MTL) at 96x72 from the suite's spawn, textured."""
+    lights = harness.load_json("configs", "san_miguel")["lights"]
+    return {"name": "structured_tex", "width": WIDTH, "height": HEIGHT,
+            "lights": lights,
+            "camera": {"spawn": [13.566635, 4.0, 24.0],
+                       "interactive": "walk"},
+            "shading": shading, "tex_filter": tex_filter, "cell": 8,
+            "geometry": [{"kind": "structured_obj", "terrain_n": 120,
+                          "statue_nu": 80, "statue_nv": 44, "ruins": 40,
+                          "size": 60.0, "mtl": "structured_tex"}],
+            "triangles": 36322}
 
 
 def traffic(name):
@@ -57,11 +74,14 @@ def bench(cell_name):
 
 
 def run(cell_name, seed=2_400_000_017, seconds=0.5, trace=0, bad_px=0,
-        full_frame=False, traffic_changes=None):
+        full_frame=False, traffic_changes=None, cfg=None, units=None):
+    """A whole run of the cell's small version on the CPU (``cfg`` in
+    place of the configuration's, ``units`` frames or ticks in place of
+    ``seconds``)."""
     config_name, traffic_name = cell_name.split(".")
-    cfg = config(config_name, full_frame)
+    cfg = cfg or config(config_name, full_frame)
     mix = traffic(traffic_name)
     (traffic_changes or (lambda t: None))(mix)
     return harness.run(cell_name, seed, seconds, trace,
                        bench=bench(cell_name), config=cfg, traffic=mix,
-                       limits={"bad_px": bad_px}, device="cpu")
+                       limits={"bad_px": bad_px}, device="cpu", units=units)

@@ -93,13 +93,23 @@ def control_in_place(monkeypatch):
 
 
 def run_small(cell):
+    """A small run of the cell. The viewer's window is one loop of the
+    small walk, counted in ticks, with 12 samples: a window of seconds
+    holds 1-4 ticks on a loaded CPU, too few to show a stale present
+    whose frame lags the pose by one tick of a straight walk, and a
+    loop's turns show it whatever the load."""
     config_name, traffic_name = cell.split(".")
     traffic = fb_small.traffic(traffic_name)
     limits = harness.load_json("limits", cell)
+    units = None
+    if traffic["loop"] == "tick":
+        traffic["samples"] = 12
+        units = sum(seg["ticks"]
+                    for seg in traffic["camera"]["walk"]["segments"])
     return harness.run(cell, 2_500_000_003, 0.5, 0,
                        bench=fb_small.bench(cell),
                        config=fb_small.config(config_name), traffic=traffic,
-                       limits=limits, device="cpu")
+                       limits=limits, device="cpu", units=units)
 
 
 @pytest.mark.parametrize("cell,fault", [

@@ -23,13 +23,19 @@ def loaded_after(code):
 
 def test_reference_loads_nothing_of_the_program_or_jax():
     top = loaded_after(
-        "from frame_bench.reference import camera, geometry, render\n"
+        "from frame_bench.reference import camera, geometry, objscene, render\n"
         "from frame_bench import trace\n"
-        "import torch\n"
+        "import tempfile, torch\n"
         "s = render.Scene(*[a for i, a in enumerate(geometry.build("
         "[{'kind': 'icosphere', 'subdivisions': 1}])) if i != 2], 'cpu')\n"
         "vpos, vp = camera.Pose.first_person([0, 0, 3]).matrices(4 / 3)\n"
-        "render.render(s, vpos, vp, [], 32, 24)")
+        "render.render(s, vpos, vp, [], 32, 24)\n"
+        "o = objscene.ObjScene(tempfile.mkdtemp(), {'kind': 'structured_obj', "
+        "'terrain_n': 4, 'statue_nu': 6, 'statue_nv': 4, 'ruins': 2})\n"
+        "t = render.Scene(o.positions, o.normals, o.tri, 'cpu', uvs=o.uvs, "
+        "face_kd=o.face_kd, face_image=o.face_image, images=o.images)\n"
+        "o.remove_files()\n"
+        "render.render(t, vpos, vp, [], 32, 24, tex_filter='anisotropic')")
     assert not top & {"compute_renderer_torch", *harness.BANNED}
 
 
