@@ -32,14 +32,16 @@ work list and overflow report: the kernel ``csrc/sort.cu`` on a CUDA
 tensor, its twin ``bin_sort_plain`` (one stable ``torch.sort`` and
 searchsorted segments) on a CPU tensor.
 
-Each binning entry takes an optional ``acc``, a (5,) int64 tensor that
+Each binning entry takes an optional ``acc``, a (6,) int64 tensor that
 a batch of frames shares: [pair need, tile need, pairs, occupied tiles,
-samples]. The step that ends the binning folds its frame (or triangle
-chunk) into the first four: the needs by max, the pairs
-(``total_pairs``) and the occupied tiles (``k``) by sum. On the card the
-kernel that writes the overflow report does it (64-bit atomics); the
-twins fold with torch ops (``fold_counts``). The fifth word is the micro
-raster's: the coverage samples it tested (``micro.raster_shade_micro``).
+samples, textured pixels]. The step that ends the binning folds its
+frame (or triangle chunk) into the first four: the needs by max, the
+pairs (``total_pairs``) and the occupied tiles (``k``) by sum. On the
+card the kernel that writes the overflow report does it (64-bit
+atomics); the twins fold with torch ops (``fold_counts``). The fifth
+word is the micro raster's: the coverage samples it tested
+(``micro.raster_shade_micro``); the sixth the mip texture tail's: the
+pixels it shaded from an image (``texture.texture_tail_mip``).
 
 Every integer output equals the JAX package's bit for bit. The TPU-only
 padding of the outputs (8-row blocks, 1024-element DMA windows) is not
@@ -268,7 +270,8 @@ def occupied_worklist(seg_count):
     return wl[:num_tiles], k
 
 
-ACC_WORDS = 5  # [pair need, tile need, pairs, occupied tiles, samples]
+# [pair need, tile need, pairs, occupied tiles, samples, textured pixels]
+ACC_WORDS = 6
 
 
 def fold_counts(acc, bins):

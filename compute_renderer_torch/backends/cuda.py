@@ -47,9 +47,10 @@ Micro path (``render_frame_micro``), for scenes above
 Nothing in a frame waits for the host: the overflow report stays a device
 tensor, and the occupied-tile count is read by the kernels themselves. So
 a frame can be captured into a CUDA graph, as the renderer does; ``acc``,
-a (5,) int64 device tensor, gathers a batch's needs, pairs and occupied
-tiles from the binning of each frame (``binning``'s module docstring), and
-the coverage samples the micro raster tested.
+a (6,) int64 device tensor, gathers a batch's needs, pairs and occupied
+tiles from the binning of each frame (``binning``'s module docstring), the
+coverage samples the micro raster tested and the pixels the mip texture
+tail shaded from an image.
 The texture work of a frame runs inside the spans named
 ``TEXTURE_RANGES`` (``tracing.span``), so that a profile of eager frames
 can split it out (a graph's replay records no ranges).
@@ -258,9 +259,10 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     (strict < keeps the lowest index on ties; a G-buffer merges
     channel-wise, vis ids are offset by the chunk first). ``pos_soa`` /
     ``nrm_soa`` are the (3, 3, T) corner-SoA geometry, built from ``tri``
-    when absent. ``acc`` (5,) int64, or None, takes the binning's fold of
+    when absent. ``acc`` (6,) int64, or None, takes the binning's fold of
     every chunk: the needs by max, the pairs and occupied tiles by sum; on
-    the micro path the raster adds its samples."""
+    the micro path the raster adds its samples, and in the texf_mip mode
+    the tail its textured pixels."""
     device = positions.device
     T = int(tri.shape[0])
     if T == 0:
@@ -338,14 +340,14 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     key = key_p[:height, :width]
     rgba = finish_frame(mode, out_p[..., :height, :width], key, tex, vertex,
                         tri, normals, effect, view_position, light_world_pos,
-                        light_color, light_intensity)
+                        light_color, light_intensity, acc=acc)
     return rgba, key, overflow
 
 
 def finish_frame(mode, out, key, tex, vertex, tri, normals, effect,
                  view_position, light_world_pos, light_color,
                  light_intensity, pair_tri=None, x_offset: int = 0,
-                 y_offset: int = 0):
+                 y_offset: int = 0, acc=None):
     """Resolve the raster output: unpack RGBA, shade a G-buffer through
     its fused tail (with ``tex["texels_packed"]``, the u8-packed pool,
     when given), or run the deferred tail on the winners. On the micro
@@ -353,7 +355,8 @@ def finish_frame(mode, out, key, tex, vertex, tri, normals, effect,
     list, a stripe's own on a sharded render) maps them to global
     triangle ids — the JAX package's ``tpu.micro_vis_tail``. The offsets
     place ``out``'s first pixel at its global coordinates (a stripe of a
-    sharded render), for the deferred tail's sample positions."""
+    sharded render), for the deferred tail's sample positions. The mip
+    tail adds the pixels it shaded from an image to ``acc`` (or None)."""
     if mode in ("base", "mat"):
         return raster.unpack_rgba(out)
     with tracing.span(TEXTURE_RANGES[1]):
@@ -366,7 +369,7 @@ def finish_frame(mode, out, key, tex, vertex, tri, normals, effect,
         if mode == "texf_mip":
             return texture.texture_tail_mip(
                 out, key, tex["texels"], tex["tex_mips"], lc, li,
-                tex_filter=tex["tex_filter"])
+                tex_filter=tex["tex_filter"], acc=acc)
         # The deferred tail (tpu.py:801-817; the micro path's is
         # tpu.micro_vis_tail, whose 3T virtual corner vertices hold the
         # floats the per-vertex arrays give through ``tri``).
@@ -424,7 +427,7 @@ def render_frame_micro(positions, normals, tri, view_proj, view_position,
     rgba = finish_frame(mode, out_p[..., :height, :width], key, tex, vertex,
                         tri, normals, effect, view_position.to(F32),
                         light_world_pos, light_color, light_intensity,
-                        pair_tri=bins["pair_tri"])
+                        pair_tri=bins["pair_tri"], acc=acc)
     return rgba, key, overflow
 
 

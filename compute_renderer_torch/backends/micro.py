@@ -322,7 +322,7 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
     occupied-tile work list:
     ``worklist`` = (ids, k) as ``binning.bin_cells_sort_meta`` gives them
     (``occupied_worklist`` of ``tile_count``), built here when None. The
-    twin walks the occupied tiles itself. ``acc`` ((5,) int64, or None:
+    twin walks the occupied tiles itself. ``acc`` ((6,) int64, or None:
     ``binning``'s accumulator) gains the coverage samples the kernel
     tested in ``acc[4]``; the twin adds ``samples_tested_plain``."""
     raster.check_mode(tri_table, mode)
@@ -336,7 +336,7 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
         out, key = raster_shade_micro_plain(
             tri_table, pair_tri, seg_start, seg_count, params, lights, **kw)
         if acc is not None:
-            acc[4:].add_(samples_tested_plain(
+            acc[4:5].add_(samples_tested_plain(
                 tri_table, pair_tri, seg_start, seg_count, params,
                 width_padded=width_padded))
     elif device.type == "cuda":

@@ -13,7 +13,9 @@ not).
   (``common.fused_texture_tail``), over the (P, 3) f32 pool or the
   u8-packed one;
 - ``texture_tail_mip``: a texf_mip G-buffer -> RGBA, trilinear or
-  anisotropic (``common.fused_texture_tail_mip``);
+  anisotropic (``common.fused_texture_tail_mip``), adding the pixels it
+  shaded from an image to a batch's accumulator
+  (``textured_pixels_plain``);
 - ``deferred_tail``: the rasters' vis ids -> RGBA, in every filter
   (``common.resolve_attributes`` then ``common.textured_shade``; under a
   mip filter the winner's row of ``mip_rows`` feeds the fused tails'
@@ -36,7 +38,7 @@ import torch
 
 from compute_renderer_torch import tracing
 
-from compute_renderer_torch.backends import common
+from compute_renderer_torch.backends import binning, common
 
 F32 = torch.float32
 I32 = torch.int32
@@ -178,16 +180,31 @@ def texture_tail_mip_plain(gbuf, key, texels, mip_table, light_color,
                                          tex_filter=tex_filter)
 
 
+def textured_pixels_plain(gbuf, key):
+    """The pixels of a texf_mip G-buffer that the tail shades from an
+    image, as an int64 scalar tensor: covered (``key`` set) and the
+    winner's triangle textured (its carried tid, plane 5, at least 0), the
+    ``has`` of ``common._sample_mip_px``."""
+    flag = key.view(I32) != -1
+    return (flag & (gbuf[5].to(I32) >= 0)).sum()
+
+
 def texture_tail_mip(gbuf, key, texels, mip_table, light_color,
-                     light_intensity, tex_filter: str = "trilinear"):
+                     light_intensity, tex_filter: str = "trilinear",
+                     acc=None):
     """Shade a texf_mip G-buffer (C = 10 + 2 lights): the mip sampler on
     the carried tid / lod / mu / mv / spread over the mip pool ``texels``
     (P, 3) and its level table ``mip_table`` (M, L, 3) i32, kd modulated,
-    the material epilogue. Returns (H, W, 4) u8 RGBA.
-    ``launches.texture_tail_mip`` counts the kernel's launches."""
+    the material epilogue. Returns (H, W, 4) u8 RGBA. ``acc`` ((6,) int64,
+    or None: ``binning``'s accumulator) gains the pixels shaded from an
+    image in ``acc[5]``: the kernel counts them, the plain version adds
+    ``textured_pixels_plain``. ``launches.texture_tail_mip`` counts the
+    kernel's launches."""
     _check_filter(tex_filter, common.MIP_FILTERS, "texture_tail_mip")
     device = _device_of(gbuf, "texture_tail_mip")
     if device.type == "cpu":
+        if acc is not None:
+            acc[5:6].add_(textured_pixels_plain(gbuf, key))
         return texture_tail_mip_plain(gbuf, key, texels, mip_table,
                                       light_color, light_intensity,
                                       tex_filter)
@@ -198,12 +215,13 @@ def texture_tail_mip(gbuf, key, texels, mip_table, light_color,
     mips = _on(mip_table, device, I32, "mip_table")
     if mips.dim() != 3 or mips.shape[2] != 3 or mips.shape[1] < 1:
         raise ValueError(f"mip_table {tuple(mips.shape)}: (M, L, 3)")
+    binning.acc_pointer(acc, device)  # its dtype, shape and device
     H, W = key.shape
     out = _rgba(H, W, device)
     tracing.launch("texture_tail_mip")
     _launch("texture_tail_mip",
             (gbuf, key, _on(texels, device, F32, "texels"), mips, lc, li,
-             out),
+             out, acc),
             (H, W, gbuf.stride(0), gbuf.stride(1), key.stride(0), L,
              mips.shape[1], FILTERS[tex_filter]), device)
     return out

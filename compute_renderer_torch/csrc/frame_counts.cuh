@@ -1,12 +1,14 @@
 // The fold of one frame's binning (or one triangle chunk's) into the
 // caller's accumulator, by the kernel that writes the frame's overflow
 // report (bins.cu's bin_scan_kernel, sort.cu's bin_sort_scan_kernel).
-// acc is 5 64-bit words that a batch of frames shares: [pair need, tile
-// need, pairs, occupied tiles, samples]. The needs fold by max, the pairs
-// and the occupied tiles by sum (binning.fold_counts is the twins' fold).
-// The fifth word is the micro raster's (micro.cu): the coverage samples it
-// tested, one atomicAdd a block. One thread calls it; a null acc folds
-// nothing.
+// acc is 6 64-bit words that a batch of frames shares: [pair need, tile
+// need, pairs, occupied tiles, samples, textured pixels]. The needs fold
+// by max, the pairs and the occupied tiles by sum (binning.fold_counts is
+// the twins' fold). The fifth word is the micro raster's (micro.cu): the
+// coverage samples it tested, one atomicAdd a block. The sixth is the mip
+// texture tail's (texture.cu's texture_tail_mip_kernel): the pixels it
+// shaded from an image, one atomicAdd a block. One thread calls it; a null
+// acc folds nothing.
 #pragma once
 
 __device__ __forceinline__ void fold_counts(long long* acc, int pair_needed,

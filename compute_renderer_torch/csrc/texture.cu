@@ -8,7 +8,9 @@
 // (and its _texf_shade_epilogue), nearest or bilinear, over the (P, 3) f32
 // pool or the u8-packed (P,) i32 pool (_pool_fetcher).
 // texture_tail_mip_kernel<FILTER> replaces common.py fused_texture_tail_mip
-// (_sample_mip_px), trilinear or anisotropic (MAX_ANISO = 4 taps).
+// (_sample_mip_px), trilinear or anisotropic (MAX_ANISO = 4 taps), and
+// adds the pixels it shaded from an image to the batch's accumulator
+// (texture.textured_pixels_plain is the twins' count).
 // deferred_tail_kernel<FILTER> replaces common.py resolve_attributes
 // followed by textured_shade (sample_atlas or sample_atlas_mip, then
 // shade), and tpu.py micro_vis_tail's pair -> triangle map; under a mip
@@ -280,35 +282,48 @@ __global__ void __launch_bounds__(THREADS) texture_tail_kernel(
   });
 }
 
+// A non-null acc (frame_counts.cuh) gains the pixels shaded from an image
+// (covered, and the winner's triangle has a texture): a block's count by
+// __syncthreads_count, one 64-bit atomicAdd into acc[5] a block with any.
 template <int FILTER>
 __global__ void __launch_bounds__(THREADS) texture_tail_mip_kernel(
     const float* __restrict__ gbuf,  // (10 + 2L) planes
     const uint32_t* __restrict__ key, const float* __restrict__ texels,
     const int* __restrict__ mips,    // (M, levels, 3)
     const float* __restrict__ lc, const float* __restrict__ li,
-    uint32_t* __restrict__ out, int H, int W, size_t plane, int grow,
-    int krow, int L, int levels) {
+    uint32_t* __restrict__ out, long long* __restrict__ acc, int H, int W,
+    size_t plane, int grow, int krow, int L, int levels) {
   int p, x, y;
-  if (!pixel(H, W, p, x, y)) return;
-  if (key[(size_t)y * krow + x] == shade::KEY_CLEAR) {
-    out[p] = BACKGROUND;
-    return;
-  }
-  const float* g = gbuf + (size_t)y * grow + x;
-  float texel[3];
-  const bool has = sample_mip<FILTER>(
-      texels, mips, levels, (int)g[5 * plane], g[6 * plane], g[7 * plane],
-      g[8 * plane], g[9 * plane], g[0], g[plane], true, texel);
-  float kdt[3];
+  bool has = false;
+  if (pixel(H, W, p, x, y)) {
+    if (key[(size_t)y * krow + x] == shade::KEY_CLEAR) {
+      out[p] = BACKGROUND;
+    } else {
+      const float* g = gbuf + (size_t)y * grow + x;
+      float texel[3];
+      has = sample_mip<FILTER>(
+          texels, mips, levels, (int)g[5 * plane], g[6 * plane],
+          g[7 * plane], g[8 * plane], g[9 * plane], g[0], g[plane], true,
+          texel);
+      float kdt[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float kd = g[(2 + c) * plane];
-    kdt[c] = has ? kd * texel[c] : kd;
+      for (int c = 0; c < 3; ++c) {
+        const float kd = g[(2 + c) * plane];
+        kdt[c] = has ? kd * texel[c] : kd;
+      }
+      out[p] = shade_pixel(kdt, L, lc, li, [&](int l, float& d, float& s) {
+        d = g[(shade::TEXF_MIP_BASE_CHANNELS + 2 * l) * plane];
+        s = g[(shade::TEXF_MIP_BASE_CHANNELS + 2 * l + 1) * plane];
+      });
+    }
   }
-  out[p] = shade_pixel(kdt, L, lc, li, [&](int l, float& d, float& s) {
-    d = g[(shade::TEXF_MIP_BASE_CHANNELS + 2 * l) * plane];
-    s = g[(shade::TEXF_MIP_BASE_CHANNELS + 2 * l + 1) * plane];
-  });
+  // acc is the same for every thread of the block, so all reach the
+  // barrier or none does.
+  if (acc != nullptr) {
+    const int n = __syncthreads_count(has);
+    if (threadIdx.x == 0 && n > 0)
+      atomicAdd((unsigned long long*)&acc[5], (unsigned long long)n);
+  }
 }
 
 struct DeferredArgs {
@@ -593,12 +608,14 @@ extern "C" int texture_tail(const void* gbuf, const void* key,
   return (int)cudaGetLastError();
 }
 
-// Fused trilinear / anisotropic tail over the mip pool and its level table.
+// Fused trilinear / anisotropic tail over the mip pool and its level table;
+// acc: 6 long longs (frame_counts.cuh) or null.
 extern "C" int texture_tail_mip(const void* gbuf, const void* key,
                                 const void* texels, const void* mips,
                                 const void* lc, const void* li, void* out,
-                                int H, int W, int plane, int grow, int krow,
-                                int L, int levels, int filter, void* stream) {
+                                void* acc, int H, int W, int plane, int grow,
+                                int krow, int L, int levels, int filter,
+                                void* stream) {
   if (H < 0 || W < 0 || L < 0 || levels < 1 ||
       (filter != TRILINEAR && filter != ANISOTROPIC))
     return (int)cudaErrorInvalidValue;
@@ -607,7 +624,7 @@ extern "C" int texture_tail_mip(const void* gbuf, const void* key,
 #define MIP_ARGS                                                           \
   (const float*)gbuf, (const uint32_t*)key, (const float*)texels,          \
       (const int*)mips, (const float*)lc, (const float*)li, (uint32_t*)out, \
-      H, W, (size_t)plane, grow, krow, L, levels
+      (long long*)acc, H, W, (size_t)plane, grow, krow, L, levels
   const unsigned grid = blocks(H * W);
   if (filter == TRILINEAR)
     texture_tail_mip_kernel<TRILINEAR><<<grid, THREADS, 0, s>>>(MIP_ARGS);

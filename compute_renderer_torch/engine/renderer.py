@@ -26,8 +26,9 @@ three calls a frame (the uniforms into the input buffer, the replay, the
 frame into the output stack); the overflow maximum is taken inside the
 graph, as the scan's loop carry takes it: the binning's last kernel folds
 each frame's needs, pairs and occupied tiles into the graph's static
-accumulator (``cuda.render_frame``'s ``acc``), and the micro raster the
-coverage samples it tested. On the CPU frames run
+accumulator (``cuda.render_frame``'s ``acc``), the micro raster the
+coverage samples it tested, and the mip texture tail the pixels it shaded
+from an image. On the CPU frames run
 eagerly through the kernels' twins, which fold alike. A capture that
 fails raises: there is no eager fall-back on the card (``eager=True``
 asks for the eager loop).
@@ -41,7 +42,7 @@ captures, graph drops, retries, calibrations, tunings and replays tick
 wrappers' calls (the eager warm-up and the capture of a graph tick them,
 its replays do not). While a profiler session records, each batch adds
 its frames, pairs, occupied tiles and samples to
-``tracing.frame_counts()``.
+``tracing.frame_counts()``, and in the texf_mip mode its textured pixels.
 
 On the micro path the pair capacity settles to the first checked frame's
 measured need (``_maybe_calibrate``), and a tile path whose per-tile list
@@ -114,9 +115,10 @@ class FrameGraph:
     """One captured frame: replaying ``graph`` renders the uniforms in
     ``packed`` into ``rgba`` (H, W, 4) u8, ``key`` (rh, rw) u32 and
     ``overflow`` (2,) i32, and its binning folds the frame into ``acc``
-    (5,) i64: the batch's running maximum of the needs, then its sums of
-    pairs, occupied tiles and (the micro raster's) samples. All five tensors are static: the graph
-    reads and writes them in place at every replay."""
+    (6,) i64: the batch's running maximum of the needs, then its sums of
+    pairs, occupied tiles, (the micro raster's) samples and (the mip
+    texture tail's) textured pixels. All five tensors are static: the
+    graph reads and writes them in place at every replay."""
 
     graph: torch.cuda.CUDAGraph
     packed: torch.Tensor
@@ -297,7 +299,7 @@ class Renderer:
         """One frame from a packed device buffer, eagerly: (rgba, key,
         overflow); a comparator's key is its depth buffer and its overflow
         report zero. The engine's binning folds the frame into ``acc``
-        ((5,) int64, or None)."""
+        ((6,) int64, or None)."""
         vpos, vp, eff, lwp, lc, li = unpack_uniforms(packed, L)
         if not self.engine:
             rgba, key = self.backend.render_frame(
@@ -550,9 +552,10 @@ class Renderer:
         """The frames of a packed (K, P) device stack and their overflow
         maximum: replays of one graph on the card (three host calls a
         frame), or ``_frame`` op by op on the CPU, with ``eager`` and for a
-        comparator. The frames' binning and micro raster fold into one
-        accumulator; while a profiler session records, its pairs, occupied
-        tiles and samples go to ``tracing.frame_counts()``."""
+        comparator. The frames' binning, micro raster and mip texture tail
+        fold into one accumulator; while a profiler session records, its
+        pairs, occupied tiles and samples go to ``tracing.frame_counts()``,
+        and its textured pixels where the mode runs the mip tail."""
         with tracing.span("renderer.replay"):
             K = stack.shape[0]
             frames = torch.empty((K, self.height, self.width, 4),
@@ -572,7 +575,8 @@ class Renderer:
                     frames[i].copy_(graph.rgba)
                 tracing.tick("replays", K)
             if self.engine and tracing.recording():
-                tracing.add_frames(acc[2:], K)
+                words = 4 if self.mode == "texf_mip" else 3
+                tracing.add_frames(acc[2:2 + words], K)
             return frames, acc[:2].to(torch.int32)
 
     def render_batch_device(self, uniforms_seq, max_retries: int = 3,

@@ -15,8 +15,9 @@
   tick them, a replay does not).
 - Device frame counts (``frame_counts()``): the frames of the renderer's
   batches rendered while a profiler session was recording, the pairs and
-  occupied tiles their bin kernels counted on the card, and the coverage
-  samples the micro raster tested.
+  occupied tiles their bin kernels counted on the card, the coverage
+  samples the micro raster tested, and the pixels the mip texture tail
+  shaded from an image.
 
 Depends on nothing else of the package.
 """
@@ -35,8 +36,9 @@ EVENTS = ("captures", "graph_drops", "retries", "calibrations", "tunes",
 _NULL_SPAN = contextlib.nullcontext()
 _counters: dict = dict.fromkeys(EVENTS, 0)
 _frames = 0
-_sums: dict = {}  # device -> (3,) int64: pairs, occupied tiles, samples
-_sampled = False  # whether a batch added samples since the last reset
+# device -> (4,) int64: pairs, occupied tiles, samples, textured pixels
+_sums: dict = {}
+_added = 0  # the most words a batch added since the last reset
 
 
 def recording() -> bool:
@@ -82,44 +84,49 @@ def prepare(device) -> None:
     profiler session's first batch would otherwise pay. The renderer calls
     it when it captures a graph."""
     if device not in _sums:
-        acc = torch.zeros((3,), dtype=torch.int64, device=device)
+        acc = torch.zeros((4,), dtype=torch.int64, device=device)
         _sums[device] = acc.add_(acc)
 
 
 def add_frames(sums, frames: int) -> None:
-    """Add a batch's ``frames`` and its int64 device sums of pairs and
-    occupied tiles, (2,), or of pairs, occupied tiles and samples, (3,),
-    to ``frame_counts()``: one device add. The renderer calls it only
-    while ``recording()``, with its accumulator's last three words."""
-    global _frames, _sampled
+    """Add a batch's ``frames`` and its int64 device sums to
+    ``frame_counts()``: one device add. The sums are the words of
+    ``COUNTS`` in order, the first two to all four: pairs and occupied
+    tiles, (2,); then samples, (3,); then textured pixels, (4,). The
+    renderer calls it only while ``recording()``, with its accumulator's
+    words from the third on: four where the frame runs the mip texture
+    tail, else three."""
+    global _frames, _added
     prepare(sums.device)
     _sums[sums.device][:sums.shape[0]].add_(sums)
     _frames += frames
-    _sampled = _sampled or sums.shape[0] > 2
+    _added = max(_added, sums.shape[0])
+
+
+# The device sums' names; a key past the first two appears in
+# ``frame_counts()`` only once a batch has added its word.
+COUNTS = ("pairs", "tiles", "samples", "textured")
 
 
 def frame_counts() -> dict:
     """{"frames", "pairs", "tiles"} summed over the frames added while a
-    profiler session recorded, and "samples" once a batch added them
-    (reads the device sums: a synchronisation)."""
-    pairs = tiles = samples = 0
+    profiler session recorded, "samples" once a batch added them and
+    "textured" once a batch added those (reads the device sums: a
+    synchronisation)."""
+    sums = [0] * len(COUNTS)
     for acc in _sums.values():
-        p, t, n = acc.tolist()
-        pairs += p
-        tiles += t
-        samples += n
-    counts = {"frames": _frames, "pairs": pairs, "tiles": tiles}
-    if _sampled:
-        counts["samples"] = samples
+        sums = [a + b for a, b in zip(sums, acc.tolist())]
+    counts = {"frames": _frames}
+    counts.update(zip(COUNTS[:max(_added, 2)], sums))
     return counts
 
 
 def reset() -> None:
     """Zero every host counter and the frame counts."""
-    global _frames, _sampled
+    global _frames, _added
     _counters.clear()
     _counters.update(dict.fromkeys(EVENTS, 0))
     _frames = 0
-    _sampled = False
+    _added = 0
     for acc in _sums.values():
         acc.zero_()

@@ -23,6 +23,16 @@ Parts, each named on the command line (both when none is):
   distinct-bin lists of ``chip_smoke.extreme_sort_lists``, San Miguel's
   stand-in's
   cells and tiles, and Suzanne's vertices, plain and under the wave;
+  then the kernels of the benchmark's structured_trilinear cell on its
+  first frame (the 1,023,442-triangle scene with its 4096-texel ground,
+  written and loaded through ``frame_bench``'s harness):
+  ``mip_rows_kernel<2>``, ``front_kernel<4>``, ``micro_kernel`` with
+  ``micro_kernel_shade<4>`` and ``texture_tail_mip_kernel<2>``, each
+  called twice with different canary words around every buffer it
+  reads or writes: the canaries must be untouched, the two calls'
+  outputs bitwise equal (a read out of bounds would differ) and equal to
+  the wrappers' unguarded launch, and the tail's textured-pixel count
+  equal to ``texture.textured_pixels_plain``'s;
 - ``anisotropic``: ``chip_smoke.py`` phase 12's +anisotropic row
   (structured_scene.obj through ``Renderer`` on the micro path): one
   checked frame (the eager warm-up and the CUDA graph's capture), then
@@ -45,21 +55,25 @@ PARTS = ("guard", "anisotropic")
 # need.
 GUARD = 4096
 CANARY = -0x21524111  # 0xDEADBEEF
+# The texture path's two canaries: 0xDEADBEEF, and a quiet NaN, which a
+# float read out of bounds would carry into its output.
+CANARIES = (CANARY, 0x7FC00001)
 
 
 class Guarded:
     """Buffers cut from canary-filled allocations: ``new(n)`` gives an
     int32 view of n words (``like(t)`` a copy of t) between two bands of
-    GUARD canaries; ``check(tag)`` fails if any band changed."""
+    GUARD ``canary`` words; ``check(tag)`` fails if any band changed."""
 
-    def __init__(self, device):
+    def __init__(self, device, canary=CANARY):
         self.device = device
+        self.canary = canary
         self.bufs = []
 
     def new(self, n, dtype=None):
         import torch
 
-        buf = torch.full((n + 2 * GUARD,), CANARY, dtype=torch.int32,
+        buf = torch.full((n + 2 * GUARD,), self.canary, dtype=torch.int32,
                          device=self.device)
         self.bufs.append((buf, n))
         view = buf[GUARD:GUARD + n]
@@ -78,7 +92,7 @@ class Guarded:
         torch.cuda.synchronize()
         for i, (buf, n) in enumerate(self.bufs):
             bands = torch.cat([buf[:GUARD], buf[GUARD + n:]])
-            cs.require(bool((bands == CANARY).all()),
+            cs.require(bool((bands == self.canary).all()),
                        f"guard {tag}: buffer {i} ({n} words) was written "
                        f"out of bounds")
         self.bufs.clear()
@@ -246,6 +260,229 @@ def part_guard(cs, device):
         print(f"[memcheck] guard vertex_stage "
               f"{'wave' if effect else 'plain'}: N={N}, canaries intact, "
               "bitwise")
+
+    guard_texture_path(cs, device)
+
+
+def texture_path_frame(device):
+    """The structured_trilinear cell's first frame on the card: its
+    program (``frame_bench.harness.Program``: the scene written, loaded
+    with its images, the mip pool uploaded) and the frame's tensors."""
+    import torch
+
+    from compute_renderer_torch.engine.renderer import unpack_uniforms
+    from frame_bench import harness
+
+    config = harness.load_json("configs", "structured_trilinear")
+    arrays = harness.build_scene(config)
+    try:
+        program = harness.Program(config, arrays, device)
+    finally:
+        arrays.remove_files()
+    r = program.renderer
+    packed, L = r.pack_uniforms(program.look(0.0, 0.0, 1.0 / 60.0))
+    vpos, vp, eff, lwp, lc, li = unpack_uniforms(
+        torch.from_numpy(packed).to(device), L)
+    return program, {"vpos": vpos, "vp": vp, "eff": eff, "lwp": lwp,
+                     "lc": lc, "li": li, "W": config["width"],
+                     "H": config["height"]}
+
+
+def guarded_twice(cs, device, tag, call):
+    """``call(g)`` (buffers from the Guarded ``g``; returns its outputs as
+    clones) under each of ``CANARIES``: every band intact, and the outputs
+    of the two calls bitwise equal. Returns the first call's outputs."""
+    import torch
+
+    outs = []
+    for canary in CANARIES:
+        g = Guarded(device, canary)
+        outs.append(call(g))
+        g.check(cs, f"{tag} canary {canary & 0xFFFFFFFF:#010x}")
+    for i, (a, b) in enumerate(zip(*outs)):
+        cs.require(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+                   f"guard {tag}: output {i} differs between the canaries")
+    return outs[0]
+
+
+def require_bitwise(cs, tag, got, want):
+    import torch
+
+    cs.require(got.shape == want.shape and torch.equal(
+        got.contiguous().view(torch.uint8),
+        want.contiguous().view(torch.uint8)),
+        f"guard {tag}: differs from the unguarded launch")
+
+
+def guard_texture_path(cs, device):
+    """The texture path of the structured_trilinear cell, each kernel's C
+    entry guarded twice (``guarded_twice``) at the cell's shapes."""
+    import torch
+
+    from compute_renderer_torch import _build
+    from compute_renderer_torch.backends import (
+        binning, front, micro, raster, texture,
+    )
+
+    program, f = texture_path_frame(device)
+    r = program.renderer
+    ext, W, H = r.ext, f["W"], f["H"]
+    T = r.num_triangles
+    levels = ext["tex_mips"].shape[1]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    print(f"[memcheck] guard texture path: T={T}, pool "
+          f"{ext['texels'].shape[0]} texels, {levels} levels, {W}x{H}")
+
+    # mip_rows_kernel<2>: the frame's (T, 5) rows.
+    def mip_rows(g):
+        rows = g.new(5 * T, torch.float32)
+        fn = _build.entry("texture", "mip_rows", pointers=8, ints=5)
+        _build.check(fn(
+            g.like(r.positions).data_ptr(), g.like(r.tri).data_ptr(),
+            g.like(ext["uvs"]).data_ptr(), g.like(ext["face_tex"]).data_ptr(),
+            g.like(ext["tex_mips"]).data_ptr(), g.like(f["vp"]).data_ptr(),
+            g.like(f["eff"]).data_ptr(), rows.data_ptr(), T, levels, W, H,
+            texture.FILTERS["trilinear"], stream), "mip_rows")
+        return [rows.clone().view(T, 5)]
+
+    (rows,) = guarded_twice(cs, device, "mip_rows", mip_rows)
+    require_bitwise(cs, "mip_rows", rows, texture.mip_rows(
+        r.positions, r.tri, ext["uvs"], ext["face_tex"], ext["tex_mips"],
+        f["vp"], f["eff"], W, H, "trilinear"))
+    textured = ext["face_tex"] >= 0
+    lod = rows[:, 1][textured]
+    print(f"[memcheck] guard mip_rows: canaries intact, bitwise; lod of the "
+          f"{int(textured.sum())} textured triangles: "
+          + ", ".join(f"[{a}, {a + 1}) {int(((lod >= a) & (lod < a + 1)).sum())}"
+                      for a in range(levels)))
+
+    # front_kernel<4>: the (T, R) table and the meta, 8x8 cells.
+    mode = "texf_mip"
+    width = raster.MODE_WIDTHS[mode]
+    stride = raster.table_stride(width)
+    scal = torch.cat([f["vp"].reshape(16), f["eff"].reshape(-1)[:6]])
+
+    def front_end(g):
+        table, meta = g.new(T * stride, torch.float32), g.new(4 * T)
+        fn = _build.entry("front", "front_end", pointers=8, ints=6)
+        _build.check(fn(
+            g.like(r.pos_soa).data_ptr(), g.like(r.nrm_soa).data_ptr(),
+            g.like(scal).data_ptr(), g.like(ext["face_kd"]).data_ptr(),
+            g.like(ext["uv_soa"]).data_ptr(), g.like(rows).data_ptr(),
+            table.data_ptr(), meta.data_ptr(), raster.MODES[mode], T, W, H,
+            8, 8, stream), "front_end")
+        return [table.clone().view(T, stride)[:, :width].contiguous(),
+                meta.clone().view(4, T)]
+
+    table, meta = guarded_twice(cs, device, "front_end texf_mip", front_end)
+    want_table, want_meta = front._front_end_cuda(
+        r.pos_soa, r.nrm_soa, f["vp"], f["eff"], width=W, height=H,
+        tile_h=8, tile_w=8, kd_rows=ext["face_kd"], uv_soa=ext["uv_soa"],
+        mip_rows=rows)
+    require_bitwise(cs, "front_end texf_mip", table, want_table)
+    require_bitwise(cs, "front_end texf_mip meta", meta, want_meta)
+    print("[memcheck] guard front_end texf_mip: canaries intact, bitwise")
+
+    # micro_kernel + micro_kernel_shade<4>: the G-buffer and the keys, on
+    # the frame's own cell binning.
+    ntx, nty = (W + 127) // 128, (H + 7) // 8
+    Hp, Wp = nty * 8, ntx * 128
+    pair_cap = int(want_meta[3].sum()) + 1024
+    bins = binning.bin_cells_sort_meta(want_meta[3], want_meta[2],
+                                       want_meta[0], want_meta[1], ntx, nty,
+                                       pair_cap)
+    cs.require(not bool(bins["overflow"].any()), "guard micro: overflow")
+    params, lights = raster.shading_inputs(f["eff"], f["vpos"], f["lwp"],
+                                           f["lc"], f["li"])
+    L = lights.shape[0]
+    ktable, row_stride = raster.kernel_table(want_table)
+    # The rows as the kernel reads them: their pad column included.
+    ktable = ktable.as_strided((T, row_stride), (row_stride, 1))
+    out0, key0 = raster.cleared_outputs(mode, L, Hp, Wp, device,
+                                        no_id=raster.PAIR_IDX_CLEAR)
+    words0, arrivals0 = micro.merge_scratch(device, Hp, Wp)
+    n_pairs = bins["pair_tri"].shape[0]
+
+    def micro_raster(g):
+        out, key = g.like(out0), g.like(key0)
+        acc = g.like(torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                                 device=device))
+        fn = _build.entry("micro", "raster_shade_micro", pointers=14,
+                          ints=7)
+        _build.check(fn(
+            g.like(ktable).data_ptr(), g.like(bins["pair_tri"]).data_ptr(),
+            g.like(bins["seg_start"]).data_ptr(),
+            g.like(bins["seg_count"]).data_ptr(),
+            g.like(bins["worklist"]).data_ptr(),
+            g.like(bins["k"].reshape(1)).data_ptr(), g.like(params).data_ptr(),
+            g.like(lights).data_ptr(), out.data_ptr(), key.data_ptr(),
+            g.like(words0).data_ptr(), g.like(arrivals0).data_ptr(),
+            g.new(Hp * Wp).data_ptr(), acc.data_ptr(), raster.MODES[mode],
+            row_stride, ntx * nty, L, ntx, Wp, n_pairs, stream),
+            "raster_shade_micro")
+        return [out.clone(), key.clone(), acc.clone()]
+
+    gbuf, key, acc = guarded_twice(cs, device, "raster_shade_micro texf_mip",
+                                   micro_raster)
+    want_acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                           device=device)
+    want_gbuf, want_key = micro.raster_shade_micro(
+        want_table, bins["pair_tri"], bins["seg_start"], bins["seg_count"],
+        bins["tile_count"], f["eff"], f["vpos"], f["lwp"], f["lc"], f["li"],
+        height_padded=Hp, width_padded=Wp, mode=mode,
+        worklist=(bins["worklist"], bins["k"]), acc=want_acc)
+    require_bitwise(cs, "raster_shade_micro texf_mip", gbuf, want_gbuf)
+    require_bitwise(cs, "raster_shade_micro texf_mip key", key,
+                    want_key.view(torch.int32))
+    require_bitwise(cs, "raster_shade_micro texf_mip samples", acc,
+                    want_acc)
+    print(f"[memcheck] guard raster_shade_micro texf_mip: {n_pairs} pairs, "
+          f"{int(acc[4])} samples, canaries intact, bitwise")
+
+    # texture_tail_mip_kernel<2>: RGBA and the textured count, the
+    # G-buffer and the key read in place through their row strides.
+    g_win, k_win = want_gbuf[..., :H, :W], want_key[:H, :W]
+    texels, mips = ext["texels"], ext["tex_mips"]
+    lc, li = f["lc"].float(), f["li"].float()
+
+    def tail(g):
+        gb = g.like(want_gbuf)
+        kb = g.like(want_key.view(torch.int32))
+        out = g.new(H * W)
+        acc = g.like(torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                                 device=device))
+        fn = _build.entry("texture", "texture_tail_mip", pointers=8, ints=8)
+        _build.check(fn(
+            gb.data_ptr(), kb.data_ptr(), g.like(texels).data_ptr(),
+            g.like(mips).data_ptr(), g.like(lc).data_ptr(),
+            g.like(li).data_ptr(), out.data_ptr(), acc.data_ptr(), H, W,
+            Hp * Wp, Wp, Wp, L, levels, texture.FILTERS["trilinear"],
+            stream), "texture_tail_mip")
+        return [out.clone().view(H, W), acc.clone()]
+
+    rgba, acc = guarded_twice(cs, device, "texture_tail_mip", tail)
+    want_acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                           device=device)
+    want_rgba = texture.texture_tail_mip(g_win, k_win, texels, mips, lc, li,
+                                         tex_filter="trilinear",
+                                         acc=want_acc)
+    require_bitwise(cs, "texture_tail_mip", rgba,
+                    want_rgba.view(torch.int32).view(H, W))
+    plain = int(texture.textured_pixels_plain(g_win, k_win))
+    cs.require(int(acc[5]) == int(want_acc[5]) == plain
+               and not bool(acc[:5].any()),
+               f"guard texture_tail_mip: counted {acc.tolist()}, the "
+               f"wrapper {want_acc.tolist()}, the plain count {plain}")
+    print(f"[memcheck] guard texture_tail_mip trilinear: {plain} textured "
+          f"pixels of {int((k_win.view(torch.int32) != -1).sum())} covered, "
+          "the kernel's count equal to the plain count, canaries intact, "
+          "bitwise")
+    has = (k_win.view(torch.int32) != -1) & (g_win[5] >= 0)
+    lod = g_win[6][has]
+    print("[memcheck] lod of the textured pixels: "
+          + ", ".join(f"[{a}, {a + 1}) {int(((lod >= a) & (lod < a + 1)).sum())}"
+                      for a in range(levels)))
+    program.close()
 
 
 def part_anisotropic(cs, device):

@@ -140,11 +140,12 @@ def test_span_under_a_session_is_a_record_function(port):
 
 def _expected(reports, samples=0):
     """The fold of per-frame (or per-chunk) bin dicts: needs maxed, pairs
-    and occupied tiles summed; then the micro raster's ``samples``."""
+    and occupied tiles summed; then the micro raster's ``samples``, and
+    no textured pixels (no frame here runs the mip texture tail)."""
     need = np.max([r["overflow"].numpy() for r in reports], axis=0)
     pairs = sum(int(r["total_pairs"]) for r in reports)
     tiles = sum(int(r["k"]) for r in reports)
-    return [int(need[0]), int(need[1]), pairs, tiles, samples]
+    return [int(need[0]), int(need[1]), pairs, tiles, samples, 0]
 
 
 def _metas(port, scene, n, tile, width=W, height=H):
@@ -166,7 +167,8 @@ def _metas(port, scene, n, tile, width=W, height=H):
 
 
 def _acc(port, device="cpu"):
-    return port.torch.zeros((5,), dtype=port.torch.int64, device=device)
+    return port.torch.zeros((port.binning.ACC_WORDS,),
+                            dtype=port.torch.int64, device=device)
 
 
 @pytest.mark.parametrize("layout", ["dense", "flat"])
@@ -294,7 +296,7 @@ def test_batch_frame_counts_while_recording(port, monkeypatch):
     with _profile():
         r.render_batch_device(batch, check=False)
         r.render_batch_device(batch[:1], check=False)
-    _, _, pairs, tiles, _ = _expected(reports)
+    _, _, pairs, tiles, _, _ = _expected(reports)
     assert tr.frame_counts() == {"frames": 4, "pairs": pairs, "tiles": tiles,
                                  "samples": 0}
     assert not r.flush_overflow()
