@@ -591,9 +591,9 @@ def gbuffer_mode(mode):
 def compare_outputs(tag, mode, out_k, key_k, out_p, key_p):
     """A raster kernel's outputs against its twin's: keys bitwise; RGBA
     within 1 LSB, vis ids (triangle or pair) bitwise, or in the texf modes
-    the G-buffer bitwise (covered pixels and the cleared zeros of the
-    rest; the max ULP per channel is printed if not). Returns (max abs
-    error, covered pixels)."""
+    the G-buffer's planes bitwise where the key is set (undefined
+    elsewhere, ``raster.defined_planes``; the max ULP per channel is
+    printed if not). Returns (max abs error, covered pixels)."""
     import torch
 
     from compute_renderer_torch.backends import raster
@@ -612,6 +612,8 @@ def compare_outputs(tag, mode, out_k, key_k, out_p, key_p):
         diff = int((bk - bp).abs().max())
         require(diff <= 1, f"{tag}: RGBA differs by {diff}")
         return float(diff), int(covered.sum())
+    out_k = raster.defined_planes(out_k, key_k)
+    out_p = raster.defined_planes(out_p, key_p)
     if not torch.equal(out_k.view(torch.int32), out_p.view(torch.int32)):
         per_channel = [int(ulps(a, b).max()) for a, b in zip(out_k, out_p)]
         raise SmokeFailure(f"{tag}: G-buffer differs from the twin: max ULP "

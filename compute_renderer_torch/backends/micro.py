@@ -313,7 +313,8 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
     row ``y_offset`` (a stripe of a sharded render). Returns (out, best_key
     (Hp, Wp) u32) with ``out`` as the tile raster's, except that vis
     writes the winner's index in ``pair_tri`` (``raster.PAIR_IDX_CLEAR``
-    where none covers).
+    where none covers). A G-buffer's planes are defined where the key is
+    set and undefined elsewhere (the twin holds zeros there).
 
     CPU tensors take the twin, CUDA tensors the kernel
     (``launches.raster_shade_micro`` of ``tracing.counters()`` counts its

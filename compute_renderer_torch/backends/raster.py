@@ -472,8 +472,8 @@ def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
     packed RGBA (base, mat); the winner's triangle id or ``common.NO_TRI``
     (vis; with ``pair_ids`` its index in the flat ``pair_data`` or
     ``PAIR_IDX_CLEAR``, the micro raster's output); or the (C, Hp, Wp) f32
-    G-buffer (texf, texf_mip; zeros where no triangle covers, as in the
-    kernel)."""
+    G-buffer (texf, texf_mip; zeros where no triangle covers, one of the
+    values the kernel's undefined planes may hold)."""
     if pair_ids and layout != "flat":
         raise ValueError("pair_ids index the flat pair list")
     tiles, pair_tile, pair_tri, pair_pos = _tile_pairs(
@@ -640,11 +640,13 @@ def raster_shade_subtiles_plain(tri_table, pair_data, seg_start, seg_count,
 def cleared_outputs(mode, num_lights, height_padded, width_padded, device,
                     no_id=common.NO_TRI):
     """The kernels' pre-cleared (out, key): what an empty tile keeps — the
-    background RGBA, the vis ``no_id`` or a zero G-buffer, and the cleared
-    key (-1 as int32)."""
+    background RGBA or the vis ``no_id``, and the cleared key (-1 as
+    int32). A G-buffer's planes are left unwritten: they are defined where
+    the key is set and undefined elsewhere, and every reader masks by the
+    key (``defined_planes``)."""
     channels = output_channels(mode, num_lights)
     if channels:
-        out = torch.zeros((channels, height_padded, width_padded), dtype=F32,
+        out = torch.empty((channels, height_padded, width_padded), dtype=F32,
                           device=device)
     else:
         fill = (no_id if mode == "vis"
@@ -654,6 +656,16 @@ def cleared_outputs(mode, num_lights, height_padded, width_padded, device,
     key = torch.full((height_padded, width_padded), -1, dtype=I32,
                      device=device)
     return out, key
+
+
+def defined_planes(out, key):
+    """``out`` as the G-buffer contract defines it: a (C, H, W) G-buffer's
+    planes with every pixel whose ``key`` (H, W; u32 or int32) is clear
+    set to 0, the plain twins' value there; any other output as it is.
+    For comparing two G-buffers bit for bit."""
+    if out.dim() != 3:
+        return out
+    return torch.where(key.view(I32) != -1, out, 0.0)
 
 
 def public_outputs(mode, out, key):
@@ -713,7 +725,9 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
     (out, best_key (Hp, Wp) u32), ``out`` by mode:
     the packed RGBA (Hp, Wp) u32 (base, mat), the winner's table row
     (Hp, Wp) int32, -1 where none covers (vis), or the (C, Hp, Wp) f32
-    G-buffer (texf, texf_mip).
+    G-buffer (texf, texf_mip), whose planes are defined where the key is
+    set and undefined elsewhere (the kernel leaves them unwritten; the
+    twin holds zeros there).
 
     CPU tensors take the twin, CUDA tensors the kernel
     (``launches.raster_shade_tiles`` of ``tracing.counters()`` counts its

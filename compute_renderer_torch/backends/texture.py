@@ -141,9 +141,10 @@ def texture_tail(gbuf, key, texels, light_color, light_intensity,
                  tex_filter: str = "nearest", texels_packed=None):
     """Shade a texf G-buffer ``gbuf`` (C, H, W) f32 (``common``'s layout,
     C = 8 + 2 lights) with its depth key ``key`` (H, W) (DEPTH_CLEAR =
-    background): nearest or bilinear repeat-wrap samples of ``texels``
-    (P, 3) f32, or of ``texels_packed`` (P,) i32 when given, kd
-    modulated, the material epilogue. Returns (H, W, 4) u8 RGBA.
+    background; the planes are read only where the key is set, and may
+    hold anything elsewhere): nearest or bilinear repeat-wrap samples of
+    ``texels`` (P, 3) f32, or of ``texels_packed`` (P,) i32 when given,
+    kd modulated, the material epilogue. Returns (H, W, 4) u8 RGBA.
     ``launches.texture_tail`` counts the kernel's launches."""
     _check_filter(tex_filter, FLAT_FILTERS, "texture_tail")
     device = _device_of(gbuf, "texture_tail")
@@ -192,14 +193,15 @@ def textured_pixels_plain(gbuf, key):
 def texture_tail_mip(gbuf, key, texels, mip_table, light_color,
                      light_intensity, tex_filter: str = "trilinear",
                      acc=None):
-    """Shade a texf_mip G-buffer (C = 10 + 2 lights): the mip sampler on
-    the carried tid / lod / mu / mv / spread over the mip pool ``texels``
-    (P, 3) and its level table ``mip_table`` (M, L, 3) i32, kd modulated,
-    the material epilogue. Returns (H, W, 4) u8 RGBA. ``acc`` ((6,) int64,
-    or None: ``binning``'s accumulator) gains the pixels shaded from an
-    image in ``acc[5]``: the kernel counts them, the plain version adds
-    ``textured_pixels_plain``. ``launches.texture_tail_mip`` counts the
-    kernel's launches."""
+    """Shade a texf_mip G-buffer (C = 10 + 2 lights; its planes are read
+    only where ``key`` is set, and may hold anything elsewhere): the mip
+    sampler on the carried tid / lod / mu / mv / spread over the mip pool
+    ``texels`` (P, 3) and its level table ``mip_table`` (M, L, 3) i32, kd
+    modulated, the material epilogue. Returns (H, W, 4) u8 RGBA. ``acc``
+    ((6,) int64, or None: ``binning``'s accumulator) gains the pixels
+    shaded from an image in ``acc[5]``: the kernel counts them, the plain
+    version adds ``textured_pixels_plain``. ``launches.texture_tail_mip``
+    counts the kernel's launches."""
     _check_filter(tex_filter, common.MIP_FILTERS, "texture_tail_mip")
     device = _device_of(gbuf, "texture_tail_mip")
     if device.type == "cpu":

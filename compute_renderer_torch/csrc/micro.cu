@@ -611,7 +611,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) micro_kernel(
 // table[pair_tri[pair]] at the pixel's sample, placed as cell_samples
 // places it, and shaded (base, material: kd at columns 32:35) or written
 // to the G-buffer (texf, texf_mip) by shade.cuh's emit_pixel, the tile
-// raster's. Pixels no pair covers keep the wrapper's cleared outputs.
+// raster's. Pixels no pair covers keep the wrapper's cleared key and
+// outputs: the background RGBA, or G-buffer planes left unwritten, which
+// are undefined where the key is clear and which every reader masks.
 template <int MODE>
 __global__ void __launch_bounds__(SHADE_THREADS) micro_kernel_shade(
     Frame f,

@@ -38,8 +38,9 @@
 // (shade.cuh emit_pixel) evaluates its attributes and shades (base,
 // material) or writes the G-buffer (texf, texf_mip); in vis mode it writes
 // the table row itself (-1 where no triangle covers). Empty tiles never
-// launch work: the wrapper pre-clears the outputs (background, -1 ids or
-// zero G-buffer, cleared key), the JAX package's aliased-clear semantics.
+// launch work: the wrapper pre-clears the outputs (background, -1 ids,
+// cleared key), the JAX package's aliased-clear semantics; a G-buffer's
+// planes are left unwritten there, undefined where the key is clear.
 //
 // What bounds it on an H100: by the roofline, bytes (the walked columns of
 // each binned triangle, the winners' rows and the outputs;

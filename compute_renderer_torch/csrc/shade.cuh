@@ -160,8 +160,9 @@ __device__ __forceinline__ float affine(const float* row, int c, float dx,
 // or the G-buffer planes into out (float, plane stride `plane`). The
 // attributes are evaluated at the sample (px, py) the walk used. An
 // uncovered pixel keeps the wrapper's pre-cleared output: the background,
-// or G-buffer zeros (the fused tail masks by the key); in vis mode the
-// caller passes the cleared id itself.
+// or G-buffer planes left unwritten (undefined where the key is clear; the
+// fused tails mask by the key); in vis mode the caller passes the cleared
+// id itself.
 template <int MODE>
 __device__ __forceinline__ void emit_pixel(const float* row, int id,
                                            float px, float py, uint32_t best,

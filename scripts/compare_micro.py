@@ -12,7 +12,8 @@ build/compare_micro/. The
 inputs are chip_smoke.py's at 1024x768 on the micro path: San Miguel
 (base), the structured scene in the five modes, san_miguel_small under
 voxelize and Suzanne under mirage. For each case every build's key and
-output bits must equal this tree's kernel's, this tree's kernel must
+output bits must equal this tree's kernel's (a G-buffer's planes where
+the key is set: they are undefined elsewhere), this tree's kernel must
 equal the twin (keys bitwise) and count the twin's samples; then each
 build's device time of every kernel named micro_kernel* a call launches
 (torch.profiler, 20 calls) in N rounds (default 2) of the builds in
@@ -209,8 +210,10 @@ def main() -> int:
         if int(acc[4]) != samples:
             raise SystemExit(f"{case}: the kernel counts {int(acc[4])} "
                              f"samples, the twin {samples}")
+        ref_out = raster.defined_planes(ref_out, ref_key)
         for tag in fns:
             out, key = run(tag, case)
+            out = raster.defined_planes(out, key)
             if not (torch.equal(bits(key), bits(ref_key))
                     and torch.equal(bits(out), bits(ref_out))):
                 raise SystemExit(f"{case}: {tag}'s outputs differ from the "

@@ -32,7 +32,12 @@ Parts, each named on the command line (both when none is):
   reads or writes: the canaries must be untouched, the two calls'
   outputs bitwise equal (a read out of bounds would differ) and equal to
   the wrappers' unguarded launch, and the tail's textured-pixel count
-  equal to ``texture.textured_pixels_plain``'s;
+  equal to ``texture.textured_pixels_plain``'s. The micro raster's
+  G-buffer is compared where its key is set (its planes are undefined
+  elsewhere) and its key everywhere; its key-clear pixels keep the
+  canary, so the tail reads a G-buffer poisoned there with 0xDEADBEEF,
+  then with a quiet NaN, and must give the image and count of the same
+  G-buffer zeroed there;
 - ``anisotropic``: ``chip_smoke.py`` phase 12's +anisotropic row
   (structured_scene.obj through ``Renderer`` on the micro path): one
   checked frame (the eager warm-up and the CUDA graph's capture), then
@@ -403,8 +408,11 @@ def guard_texture_path(cs, device):
     words0, arrivals0 = micro.merge_scratch(device, Hp, Wp)
     n_pairs = bins["pair_tri"].shape[0]
 
+    poisoned = {}  # canary -> the G-buffer, its key-clear pixels unwritten
+
     def micro_raster(g):
-        out, key = g.like(out0), g.like(key0)
+        out = g.new(out0.numel(), torch.float32).view(out0.shape)
+        key = g.like(key0)
         acc = g.like(torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
                                  device=device))
         fn = _build.entry("micro", "raster_shade_micro", pointers=14,
@@ -420,7 +428,12 @@ def guard_texture_path(cs, device):
             g.new(Hp * Wp).data_ptr(), acc.data_ptr(), raster.MODES[mode],
             row_stride, ntx * nty, L, ntx, Wp, n_pairs, stream),
             "raster_shade_micro")
-        return [out.clone(), key.clone(), acc.clone()]
+        clear = out.view(torch.int32)[:, key == -1]
+        cs.require(clear.numel() > 0 and bool((clear == g.canary).all()),
+                   "guard micro: the key-clear pixels do not all hold the "
+                   "canary, so the tail would not read a poisoned G-buffer")
+        poisoned[g.canary] = out.clone()
+        return [raster.defined_planes(out, key), key.clone(), acc.clone()]
 
     gbuf, key, acc = guarded_twice(cs, device, "raster_shade_micro texf_mip",
                                    micro_raster)
@@ -431,7 +444,8 @@ def guard_texture_path(cs, device):
         bins["tile_count"], f["eff"], f["vpos"], f["lwp"], f["lc"], f["li"],
         height_padded=Hp, width_padded=Wp, mode=mode,
         worklist=(bins["worklist"], bins["k"]), acc=want_acc)
-    require_bitwise(cs, "raster_shade_micro texf_mip", gbuf, want_gbuf)
+    require_bitwise(cs, "raster_shade_micro texf_mip", gbuf,
+                    raster.defined_planes(want_gbuf, want_key))
     require_bitwise(cs, "raster_shade_micro texf_mip key", key,
                     want_key.view(torch.int32))
     require_bitwise(cs, "raster_shade_micro texf_mip samples", acc,
@@ -440,13 +454,16 @@ def guard_texture_path(cs, device):
           f"{int(acc[4])} samples, canaries intact, bitwise")
 
     # texture_tail_mip_kernel<2>: RGBA and the textured count, the
-    # G-buffer and the key read in place through their row strides.
-    g_win, k_win = want_gbuf[..., :H, :W], want_key[:H, :W]
+    # G-buffer and the key read in place through their row strides; each
+    # call's G-buffer holds its own canary where the key is clear, and the
+    # wrapper's reference reads the G-buffer zeroed there.
+    g_win = raster.defined_planes(want_gbuf, want_key)[..., :H, :W]
+    k_win = want_key[:H, :W]
     texels, mips = ext["texels"], ext["tex_mips"]
     lc, li = f["lc"].float(), f["li"].float()
 
     def tail(g):
-        gb = g.like(want_gbuf)
+        gb = g.like(poisoned[g.canary])
         kb = g.like(want_key.view(torch.int32))
         out = g.new(H * W)
         acc = g.like(torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
@@ -476,7 +493,7 @@ def guard_texture_path(cs, device):
     print(f"[memcheck] guard texture_tail_mip trilinear: {plain} textured "
           f"pixels of {int((k_win.view(torch.int32) != -1).sum())} covered, "
           "the kernel's count equal to the plain count, canaries intact, "
-          "bitwise")
+          "bitwise, the G-buffer poisoned where the key is clear")
     has = (k_win.view(torch.int32) != -1) & (g_win[5] >= 0)
     lod = g_win[6][has]
     print("[memcheck] lod of the textured pixels: "

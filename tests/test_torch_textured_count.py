@@ -285,3 +285,107 @@ def test_card_graph_batch_counts_textured(port, structured, cuda_device):
         r.close()
     assert counts["cpu"] == counts[str(cuda_device)]
     assert counts["cpu"]["textured"] > 0
+
+
+# --------------------------------------------------------------------------
+# The G-buffer's contract: planes defined where the key is set
+# --------------------------------------------------------------------------
+
+# Words written over a G-buffer's key-clear pixels: a quiet NaN and
+# 0xDEADBEEF.
+POISONS = {"nan": 0x7FC00001, "deadbeef": -0x21524111}
+# (mode, tex_filter, pool) of each fused tail the engine's frames reach.
+TAIL_CASES = [("texf", "nearest", "f32"), ("texf", "bilinear", "f32"),
+              ("texf", "nearest", "packed"), ("texf", "bilinear", "packed"),
+              ("texf_mip", "trilinear", "f32"),
+              ("texf_mip", "anisotropic", "f32")]
+
+
+@pytest.fixture(scope="module")
+def engine_gbuffers():
+    """The G-buffers ``_engine_gbuffer`` recorded, by device, path and
+    filter."""
+    return {}
+
+
+def _engine_gbuffer(port, texture, structured, cache, device, path,
+                    tex_filter):
+    """(gbuf, key, args) that the engine's raster hands its fused tail on
+    ``device`` in one eager frame of the structured scene on ``path``:
+    the kernels' G-buffer on the card, the twins' on the CPU. ``args``
+    are the tail's after the key (texels, [mip table,] light colours and
+    intensities)."""
+    k = (str(device), path, tex_filter)
+    if k not in cache:
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            for name in ("texture_tail", "texture_tail_mip"):
+                def recorded(gbuf, key, *args, _fn=getattr(texture, name),
+                             **kwargs):
+                    calls.append((gbuf.clone(), key.clone(), args))
+                    return _fn(gbuf, key, *args, **kwargs)
+                mp.setattr(texture, name, recorded)
+            s = _scene(port, structured, tex_filter)
+            # Small tiles: the distant terrain crowds the tile lists.
+            r = port.renderer.Renderer(s.mesh, W, H, device=device,
+                                       path=path, tile_h=8, tile_w=16,
+                                       **s.renderer_options())
+            r.render_batch_device([s.update(DT)], eager=True)
+            r.close()
+        cache[k] = calls[-1]  # a retried frame's last
+    return cache[k]
+
+
+@pytest.mark.parametrize("poison", list(POISONS))
+@pytest.mark.parametrize("mode,tex_filter,pool", TAIL_CASES)
+@pytest.mark.parametrize("path", ["tile", "micro"])
+@pytest.mark.parametrize("device",
+                         ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_poisoned_gbuffer_renders_the_same_image(
+        port, texture, structured, engine_gbuffers, request, device, path,
+        mode, tex_filter, pool, poison):
+    # The engine's own G-buffer with its key-clear pixels poisoned: the
+    # tail (the kernel on the card) gives the RGBA and, under texf_mip,
+    # the textured count of the same G-buffer zeroed there, bit for bit,
+    # and so does the tail's plain version.
+    from compute_renderer_torch.io.textures import pack_pool_u8
+
+    t = port.torch
+    if device == "cuda":
+        device = request.getfixturevalue("cuda_device")
+    gbuf, key, args = _engine_gbuffer(
+        port, texture, structured, engine_gbuffers, device, path,
+        "nearest" if mode == "texf" else tex_filter)
+    assert gbuf.shape[0] == (14 if mode == "texf_mip" else 12)
+    clear = key.view(t.int32) == -1
+    assert 1000 < int((~clear).sum()) < clear.numel()  # sky above
+    zeroed = port.raster.defined_planes(gbuf, key)
+    poisoned = zeroed.clone()
+    poisoned.view(t.int32)[:, clear] = POISONS[poison]
+    assert int((poisoned.view(t.int32) != zeroed.view(t.int32)).sum()) == \
+        gbuf.shape[0] * int(clear.sum())
+
+    if mode == "texf":
+        packed = None
+        if pool == "packed":
+            packed = pack_pool_u8(args[0].cpu().numpy())
+            assert packed is not None
+            packed = t.from_numpy(packed).to(device)
+        kw = dict(tex_filter=tex_filter, texels_packed=packed)
+        tails = (texture.texture_tail, texture.texture_tail_plain)
+    else:
+        kw = dict(tex_filter=tex_filter)
+        tails = (texture.texture_tail_mip, texture.texture_tail_mip_plain)
+    background = t.tensor([0, 0, 255, 255], dtype=t.uint8, device=device)
+    for tail in tails:
+        counted = tail is texture.texture_tail_mip
+        accs = [_acc(port, device) for _ in range(2)]
+        images = [tail(g, key, *args, **kw, **({"acc": a} if counted else {}))
+                  for g, a in zip((zeroed, poisoned), accs)]
+        assert t.equal(images[0], images[1]), tail.__name__
+        assert bool((images[1][clear] == background).all())
+        assert t.equal(accs[0], accs[1])
+        if counted:
+            plain = [int(texture.textured_pixels_plain(g, key))
+                     for g in (zeroed, poisoned)]
+            assert int(accs[0][5]) == plain[0] == plain[1] > 0
