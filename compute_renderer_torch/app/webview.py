@@ -304,7 +304,8 @@ class WebViewerApp:
     def stats(self) -> dict:
         """The page's figures, and beside fps the process's host counters
         of ``tracing.counters()``: captures, graph drops, retries,
-        calibrations, tunings and replays."""
+        calibrations, tunings, replays and the staging buffers' growths
+        and waits."""
         counts = tracing.counters()
         return {
             "fps": round(self._fps, 1),

@@ -21,26 +21,31 @@ options: tile shape and capacities) and replayed for every frame after:
 one graph launch in place of the frame's 65-780 eager launches. The
 graph reads the uniforms from a static input buffer and leaves the frame
 in static outputs, which the renderer copies out, so no returned frame
-aliases them. A batch uploads its uniform stack once and costs the host
-three calls a frame (the uniforms into the input buffer, the replay, the
-frame into the output stack); the overflow maximum is taken inside the
-graph, as the scan's loop carry takes it: the binning's last kernel folds
-each frame's needs, pairs and occupied tiles into the graph's static
-accumulator (``cuda.render_frame``'s ``acc``), the micro raster the
-coverage samples it tested, and the mip texture tail the pixels it shaded
-from an image. On the CPU frames run
-eagerly through the kernels' twins, which fold alike. A capture that
-fails raises: there is no eager fall-back on the card (``eager=True``
-asks for the eager loop).
+aliases them. A batch costs the host three calls a frame (the frame's
+uniforms copied up into the input buffer, the replay, the frame into the
+output stack), and packs each frame's uniforms into a row of a pinned
+staging buffer (``Staging``) just before its copy, so the card starts on
+the first frame while the host packs the rest. The overflow maximum is
+taken inside the graph, as the scan's loop carry takes it: the binning's
+last kernel folds each frame's needs, pairs and occupied tiles into the
+graph's static accumulator (``cuda.render_frame``'s ``acc``), the micro
+raster the coverage samples it tested, and the mip texture tail the
+pixels it shaded from an image. On the CPU frames run eagerly through the
+kernels' twins, which fold alike. A capture that fails raises: there is
+no eager fall-back on the card (``eager=True`` asks for the eager loop).
 
 Tracing (``tracing``): the host stages run in spans (``renderer.pack``,
 ``renderer.upload``, ``renderer.replay``, ``renderer.capture``,
 ``renderer.calibrate``, ``renderer.tune``, ``renderer.retry``,
 ``renderer.flush``), which cost one flag check off a profiler session;
-captures, graph drops, retries, calibrations, tunings and replays tick
-``tracing.counters()``, and the kernels' launch counters there count the
-wrappers' calls (the eager warm-up and the capture of a graph tick them,
-its replays do not). While a profiler session records, each batch adds
+captures, graph drops, retries, calibrations, tunings, replays and the
+staging buffer's growths and waits tick ``tracing.counters()``, and the
+kernels' launch counters there count the wrappers' calls (the eager
+warm-up and the capture of a graph tick them, its replays do not). On
+the card a batch packs and uploads in one ``renderer.pack`` and one
+``renderer.upload`` span a frame, inside its ``renderer.replay``; on the
+CPU, eagerly and for a comparator, the batch's stack is packed and
+uploaded before it. While a profiler session records, each batch adds
 its frames, pairs, occupied tiles and samples to
 ``tracing.frame_counts()``, and in the texf_mip mode its textured pixels.
 
@@ -85,10 +90,30 @@ _BACKEND_OPTIONS = {"cuda": _TILE_OPTIONS,
                     "wgpu-faithful": ("chunk", "depth_format")}
 
 
+def packed_size(L: int) -> int:
+    """The floats of one frame's packed uniforms at ``L`` lights."""
+    return 26 + 7 * L
+
+
+def pack_into(row, uniforms: FrameUniforms) -> None:
+    """Write ``uniforms`` into ``row``, a float32 array of
+    ``packed_size(L)`` floats (a row of the caller's buffer), field by
+    field: float64 fields round to float32 as ``astype`` rounds them.
+    ``unpack_uniforms`` is its inverse."""
+    L = uniforms.light_world_pos.shape[0]
+    o = 26
+    row[0:4] = np.ravel(uniforms.view_position)
+    row[4:20] = np.ravel(uniforms.view_proj)
+    row[20:26] = np.ravel(uniforms.effect)
+    row[o:o + 3 * L] = np.ravel(uniforms.light_world_pos)
+    row[o + 3 * L:o + 6 * L] = np.ravel(uniforms.light_color)
+    row[o + 6 * L:o + 7 * L] = np.ravel(uniforms.light_intensity)
+
+
 def unpack_uniforms(packed, L: int):
-    """Inverse of ``Renderer.pack_uniforms``: split the per-frame f32
-    buffer into (view_position, view_proj, effect, light_pos, light_color,
-    light_intensity). The one definition of the packed layout."""
+    """Inverse of ``pack_into``: split the per-frame f32 buffer into
+    (view_position, view_proj, effect, light_pos, light_color,
+    light_intensity)."""
     vpos = packed[0:4]
     vp = packed[4:20].reshape(4, 4)
     eff = packed[20:26]
@@ -126,6 +151,45 @@ class FrameGraph:
     key: torch.Tensor
     overflow: torch.Tensor
     acc: torch.Tensor
+
+
+class Staging:
+    """The card's batches' uniform rows: two float32 (cap, P) host
+    buffers, pinned where ``pin``, used in turn. ``take`` hands out the
+    next buffer's first K rows of P floats, once the event its last batch
+    left with ``staged`` has fired (a refill that has to wait ticks
+    ``stage.waits``); a buffer grows, to the next power of two rows at or
+    above K (``stage.grows``), only where K or P outgrows it."""
+
+    def __init__(self, pin: bool):
+        self._pin = pin
+        self._bufs = [None, None]
+        self._events = [None, None]
+        self._turn = 0
+
+    def take(self, K: int, P: int) -> torch.Tensor:
+        """The next buffer's (K, P) rows, free to be written."""
+        i = self._turn
+        self._turn ^= 1
+        event = self._events[i]
+        if event is not None and not event.query():
+            tracing.tick("stage.waits")
+            event.synchronize()
+        buf = self._bufs[i]
+        if buf is None or K > buf.shape[0] or P > buf.shape[1]:
+            cap, width = 1 << (K - 1).bit_length(), P
+            if buf is not None:
+                cap, width = max(cap, buf.shape[0]), max(P, buf.shape[1])
+            buf = self._bufs[i] = torch.empty((cap, width),
+                                              dtype=torch.float32,
+                                              pin_memory=self._pin)
+            tracing.tick("stage.grows")
+        return buf[:K, :P]
+
+    def staged(self, event) -> None:
+        """Keep the rows last taken until ``event``, recorded behind
+        their last copy, has fired."""
+        self._events[self._turn ^ 1] = event
 
 
 class Renderer:
@@ -188,6 +252,7 @@ class Renderer:
         # The tuner's best seconds per candidate shape, once it has run.
         self.tile_timings: dict = {}
         self._pending_overflow = None
+        self._stage = Staging(pin=self.device.type == "cuda")
         self._upload(mesh)
 
     def _upload(self, mesh) -> None:
@@ -268,19 +333,13 @@ class Renderer:
 
     @staticmethod
     def pack_uniforms(uniforms: FrameUniforms) -> tuple[np.ndarray, int]:
-        """Flatten the per-frame uniforms into ONE f32 buffer, so a frame
-        costs a single host->device transfer."""
+        """Flatten the per-frame uniforms into ONE f32 buffer
+        (``pack_into``), so a frame costs a single host->device
+        transfer."""
         L = uniforms.light_world_pos.shape[0]
-        return np.concatenate(
-            [
-                np.asarray(uniforms.view_position, np.float32).ravel(),
-                np.asarray(uniforms.view_proj, np.float32).ravel(),
-                np.asarray(uniforms.effect, np.float32).ravel(),
-                np.asarray(uniforms.light_world_pos, np.float32).ravel(),
-                np.asarray(uniforms.light_color, np.float32).ravel(),
-                np.asarray(uniforms.light_intensity, np.float32).ravel(),
-            ]
-        ).astype(np.float32), L
+        packed = np.empty(packed_size(L), np.float32)
+        pack_into(packed, uniforms)
+        return packed, L
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         """A host array (the packed uniforms) on the device. On the card
@@ -329,7 +388,7 @@ class Renderer:
 
     def _frame_graph(self, packed, L: int) -> FrameGraph:
         """The cached graph of this key, captured from ``packed`` (a (P,)
-        device buffer) if there is none."""
+        buffer, on the device or a staged host row) if there is none."""
         key = self.graph_key(L)
         graph = self._graphs.get(key)
         if graph is None:
@@ -345,7 +404,8 @@ class Renderer:
         otherwise hold it and fill it only at replay."""
         tracing.tick("captures")
         with tracing.span("renderer.capture"):
-            static_in = torch.empty_like(packed)
+            static_in = torch.empty(packed.shape, dtype=packed.dtype,
+                                    device=self.device)
             static_in.copy_(packed)
             acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
                               device=self.device)
@@ -369,9 +429,10 @@ class Renderer:
             tracing.tick("graph_drops")
 
     def close(self) -> None:
-        """Drop the cached graphs and free their memory pools (a later
-        frame captures anew)."""
+        """Drop the cached graphs and free their memory pools, and the
+        staging buffers (a later frame captures and stages anew)."""
         self._drop_graphs()
+        self._stage = Staging(pin=self.device.type == "cuda")
 
     def frame_graph(self, uniforms: FrameUniforms) -> FrameGraph:
         """The graph of ``uniforms``' key, captured now if there is none,
@@ -548,31 +609,43 @@ class Renderer:
             self._calibrate_pair_cap = True
         self._drop_graphs()
 
-    def _frames(self, stack, L: int, eager: bool):
-        """The frames of a packed (K, P) device stack and their overflow
-        maximum: replays of one graph on the card (three host calls a
-        frame), or ``_frame`` op by op on the CPU, with ``eager`` and for a
-        comparator. The frames' binning, micro raster and mip texture tail
-        fold into one accumulator; while a profiler session records, its
-        pairs, occupied tiles and samples go to ``tracing.frame_counts()``,
-        and its textured pixels where the mode runs the mip tail."""
+    def _frames(self, rows, L: int, staged: bool, pack=None):
+        """The frames of K packed rows and their overflow maximum: where
+        ``staged`` (the engine's graphs on the card), replays of one graph
+        (three host calls a frame) from ``rows``, a (K, P) view of the
+        staging buffer, each row first packed from ``pack``'s uniforms
+        where given (a retry replays the rows as staged); else ``_frame``
+        op by op from ``rows``, a (K, P) device stack. The
+        frames' binning, micro raster and mip texture tail fold into one
+        accumulator; while a profiler session records, its pairs, occupied
+        tiles and samples go to ``tracing.frame_counts()``, and its
+        textured pixels where the mode runs the mip tail."""
         with tracing.span("renderer.replay"):
-            K = stack.shape[0]
+            K = rows.shape[0]
             frames = torch.empty((K, self.height, self.width, 4),
                                  dtype=torch.uint8, device=self.device)
-            if eager or self.device.type != "cuda" or not self.engine:
+            if not staged:
                 acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
                                   device=self.device)
                 for i in range(K):
-                    frames[i] = self._frame(stack[i], L, acc)[0]
+                    frames[i] = self._frame(rows[i], L, acc)[0]
             else:
-                graph = self._frame_graph(stack[0], L)
-                acc = graph.acc
-                acc.zero_()
+                host = rows.numpy()
                 for i in range(K):
-                    graph.packed.copy_(stack[i])
+                    if pack is not None:
+                        with tracing.span("renderer.pack"):
+                            pack_into(host[i], pack[i])
+                    if i == 0:  # a capture takes row 0 as its input
+                        graph = self._frame_graph(rows[0], L)
+                        acc = graph.acc
+                        acc.zero_()
+                    with tracing.span("renderer.upload"):
+                        graph.packed.copy_(rows[i], non_blocking=True)
                     graph.graph.replay()
                     frames[i].copy_(graph.rgba)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+                self._stage.staged(event)
                 tracing.tick("replays", K)
             if self.engine and tracing.recording():
                 words = 4 if self.mode == "texf_mip" else 3
@@ -584,28 +657,38 @@ class Renderer:
         """Render a sequence of frames; returns the device-resident
         (K, H, W, 4) u8 stack.
 
-        The uniforms cross to the device in one transfer, and the frames'
-        overflow maximum stays on the device. ``check=True`` reads it
-        once (one device->host copy) and retries the batch at the reported
-        capacities; ``check=False`` leaves it on the device for
-        ``flush_overflow()`` — the steady-state benchmark loop. On the
-        card every frame replays the key's graph; ``eager=True`` runs the
-        frames op by op instead, as the CPU does (the comparison that
-        ``chip_smoke.py`` times)."""
+        On the card every frame replays the key's graph, its uniforms
+        packed into a row of a pinned staging buffer and copied up just
+        before its replay, so the card starts after one frame's pack;
+        ``eager=True`` runs the frames op by op instead, as the CPU does,
+        from a (K, P) stack packed and uploaded first (the comparison that
+        ``chip_smoke.py`` times). The frames' overflow maximum stays on
+        the device. ``check=True`` reads it once (one device->host copy)
+        and retries the batch at the reported capacities, from the rows
+        as staged; ``check=False`` leaves it on the device for
+        ``flush_overflow()`` — the steady-state benchmark loop."""
         uniforms_seq = list(uniforms_seq)
         if not uniforms_seq:
             return torch.empty((0, self.height, self.width, 4),
                                dtype=torch.uint8, device=self.device)
         self._maybe_tune_tile(uniforms_seq)
-        with tracing.span("renderer.pack"):
-            packs = [self.pack_uniforms(u) for u in uniforms_seq]
-            L = packs[0][1]
-            host = np.stack([p for p, _ in packs])
-        stack = self._to_device(host)
+        K = len(uniforms_seq)
+        L = uniforms_seq[0].light_world_pos.shape[0]
+        P = packed_size(L)
+        staged = not eager and self.device.type == "cuda" and self.engine
+        if staged:
+            rows, pack = self._stage.take(K, P), uniforms_seq
+        else:
+            with tracing.span("renderer.pack"):
+                host = np.empty((K, P), np.float32)
+                for row, u in zip(host, uniforms_seq):
+                    pack_into(row, u)
+            rows, pack = self._to_device(host), None
         for _ in range(max_retries):
             if check:
                 self._maybe_calibrate(uniforms_seq[0])
-            frames, overflow = self._frames(stack, L, eager)
+            frames, overflow = self._frames(rows, L, staged, pack)
+            pack = None
             if not check:
                 self._pending_overflow = (
                     overflow if self._pending_overflow is None

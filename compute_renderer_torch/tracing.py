@@ -9,7 +9,9 @@
   traced window) shows them; there is no exporter here.
 - Host counters (``counters()``): ints, always on, ticked only at rare
   events: graph ``captures``, ``graph_drops``, ``retries`` (a capacity
-  growth after an overflow), ``calibrations``, ``tunes``, ``replays``, and
+  growth after an overflow), ``calibrations``, ``tunes``, ``replays``,
+  ``stage.grows`` (a batch's staging buffer allocated or grown) and
+  ``stage.waits`` (a refill of one that had to wait for the card), and
   the kernel wrappers' calls as ``launches.<wrapper>`` and
   ``launches.<wrapper>.<mode>`` (a graph's capture and its eager warm-up
   tick them, a replay does not).
@@ -31,7 +33,7 @@ import torch.autograd.profiler as _autograd_profiler
 
 # The host events of ``counters()``, present from the start.
 EVENTS = ("captures", "graph_drops", "retries", "calibrations", "tunes",
-          "replays")
+          "replays", "stage.grows", "stage.waits")
 
 _NULL_SPAN = contextlib.nullcontext()
 _counters: dict = dict.fromkeys(EVENTS, 0)

@@ -472,3 +472,62 @@ def test_batch_costs_three_host_calls_a_frame_on_card(port, cuda_device):
     r = port.renderer.Renderer(ts.mesh, W, H, device=cuda_device)
     calls = profiling.host_calls_per_frame(r, lambda n: _advance(ts, n))
     assert calls is not None and calls <= 3
+
+
+@pytest.mark.cuda
+def test_staged_batches_equal_eager_on_card(port, cuda_device):
+    # Batches staged row by row in the pinned buffers, submitted back to
+    # back without a fence, then a fenced loop, a checked batch that
+    # retries and the viewers' one-frame push: every frame bitwise the
+    # eager frame of its uniforms.
+    from compute_renderer_torch.app.window import FramePipe
+
+    torch = port.torch
+    tr = port.tracing
+    (ts,) = _scenes((port,))
+    r = port.renderer.Renderer(ts.mesh, W, H, device=cuda_device)
+    r.render(ts.update(DT))  # capacities settle, off the staging buffers
+    tr.reset()
+    batches = [_advance(ts, k) for k in (64, 3, 1, 64)]
+    staged = [r.render_batch_device(us, check=False) for us in batches]
+    assert not r.flush_overflow()
+    # Buffer one: 64 rows; buffer two: 4, then 64 at the fourth batch.
+    assert tr.count("stage.grows") == 3
+    assert tr.count("stage.waits") <= 2  # on batches still on the card
+    for us, frames in zip(batches, staged):
+        assert torch.equal(frames, r.render_batch_device(us, eager=True))
+    # A fenced loop finds its buffers read: no grow, no wait.
+    counts = tr.counters()
+    for _ in range(4):
+        us = _advance(ts, 64)
+        frames = r.render_batch_device(us, check=False)
+        r.fence_pending()
+        assert torch.equal(frames, r.render_batch_device(us, eager=True))
+    assert not r.flush_overflow()
+    assert tr.count("stage.grows") == counts["stage.grows"]
+    assert tr.count("stage.waits") == counts["stage.waits"]
+    # A checked batch at a pinned pair capacity it outgrows: the retry
+    # replays the rows as staged, at the grown capacity.
+    small = port.renderer.Renderer(ts.mesh, W, H, device=cuda_device,
+                                   path="micro", pair_cap=16)
+    us = _advance(ts, 5)
+    retries = tr.count("retries")
+    frames = small.render_batch_device(us)
+    assert tr.count("retries") == retries + 1
+    assert torch.equal(frames, small.render_batch_device(us, eager=True))
+    # The viewers' tick: one frame a batch through FramePipe, which shows
+    # frame k-1 at tick k (tick 0: its own); no refill waits.
+    pipe = FramePipe(cuda_device)
+    waits = tr.count("stage.waits")
+    ticks = _advance(ts, 6)
+    shown = []
+    for u in ticks:
+        pipe.push(r.render_batch_device([u], check=False))
+        shown.append(pipe.fetch().copy())
+    assert not r.flush_overflow()
+    assert tr.count("stage.waits") == waits
+    eager = r.render_batch_device(ticks, eager=True).cpu().numpy()
+    for k, frame in enumerate(shown):
+        np.testing.assert_array_equal(frame, eager[max(k - 1, 0)])
+    r.close()
+    small.close()

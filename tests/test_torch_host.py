@@ -86,6 +86,36 @@ def test_pack_uniforms_bitwise(port, tpu):
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("lights", [1, 2, 4])
+def test_pack_into_writes_its_row_alone(port, tpu, lights, dtype):
+    # pack_into into one row of a larger buffer (as the card's staging
+    # buffer is written): the row holds exactly pack_uniforms' bytes, which
+    # are the JAX package's, float64 fields rounded alike, and nothing
+    # outside the row changes.
+    rng = np.random.default_rng(lights)
+    u = port.scene.FrameUniforms(
+        view_position=rng.standard_normal(4).astype(dtype),
+        view_proj=rng.standard_normal((4, 4)).astype(dtype),
+        light_world_pos=rng.standard_normal((lights, 3)).astype(dtype),
+        light_color=rng.uniform(0, 1, (lights, 3)).astype(dtype),
+        light_intensity=rng.uniform(0, 4, lights).astype(dtype),
+        effect=rng.standard_normal(6).astype(dtype))
+    P = port.renderer.packed_size(lights)
+    fill = np.float32(-7.5)
+    buf = np.full((3, P + 5), fill, np.float32)
+    port.renderer.pack_into(buf[1, 2:2 + P], u)
+    want, L = port.renderer.Renderer.pack_uniforms(u)
+    ref, _ = tpu.renderer.Renderer.pack_uniforms(u)
+    assert L == lights and want.dtype == np.float32 and want.shape == (P,)
+    np.testing.assert_array_equal(want.view(np.uint32), ref.view(np.uint32))
+    np.testing.assert_array_equal(buf[1, 2:2 + P].view(np.uint32),
+                                  want.view(np.uint32))
+    outside = np.ones(buf.shape, bool)
+    outside[1, 2:2 + P] = False
+    assert (buf[outside] == fill).all()
+
+
 def test_convert_carries_jax_state(port, tpu):
     mesh = tpu.procedural.make_model("suzanne.obj")
     m = port.convert.mesh_from_arrays(mesh.positions, mesh.normals,

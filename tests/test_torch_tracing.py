@@ -344,6 +344,66 @@ def test_add_frames_takes_counts_with_or_without_samples(port):
 # Host counters
 # --------------------------------------------------------------------------
 
+class _Event:
+    """A stand-in for a CUDA event: pending until waited on."""
+
+    def __init__(self, done):
+        self.done = done
+        self.waited = 0
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.waited += 1
+        self.done = True
+
+
+def test_stage_counters_tick_on_growth_and_wait(port):
+    # The staging buffers: two, used in turn; stage.grows ticks where a
+    # buffer is made or outgrown (to the next power of two rows),
+    # stage.waits where a refill finds its last batch's event pending.
+    tr = port.tracing
+    tr.reset()
+    assert tr.count("stage.grows") == tr.count("stage.waits") == 0
+    stage = port.renderer.Staging(pin=False)
+    grows = []
+    rows = []
+    for K, P in ((64, 40), (3, 40), (1, 40), (64, 40), (2, 47), (64, 33)):
+        rows.append(stage.take(K, P))
+        assert rows[-1].shape == (K, P)
+        grows.append(tr.count("stage.grows"))
+    assert grows == [1, 2, 2, 3, 4, 4]
+    # Unchanged buffers hand out their own rows again.
+    assert rows[2].data_ptr() == rows[0].data_ptr()
+    assert rows[5].data_ptr() == rows[3].data_ptr()
+    # A refill waits only on a pending event of its own buffer.
+    pending, done = _Event(False), _Event(True)
+    stage.take(4, 40)
+    stage.staged(pending)
+    stage.take(4, 40)
+    stage.staged(done)
+    assert tr.count("stage.waits") == 0
+    stage.take(4, 40)
+    assert pending.waited == 1 and tr.count("stage.waits") == 1
+    stage.take(4, 40)
+    assert done.waited == 0 and tr.count("stage.waits") == 1
+    assert tr.count("stage.grows") == 4
+
+
+def test_cpu_batches_stage_nothing(port):
+    # The CPU (and eager) batches pack a whole stack: no staging buffer.
+    tr = port.tracing
+    s = _scene(port)
+    r = port.renderer.Renderer(s.mesh, W, H, device="cpu",
+                               **s.renderer_options())
+    tr.reset()
+    r.render_batch_device(_advance(s, 2), check=False)
+    r.render_batch_device(_advance(s, 1))
+    assert tr.count("stage.grows") == tr.count("stage.waits") == 0
+    assert not r.flush_overflow()
+
+
 def test_counters_tick_on_calibrate_retry_and_tune(port):
     tr = port.tracing
     s = _scene(port)
@@ -456,3 +516,23 @@ def test_card_capture_and_drop_counters(port, cuda_device):
     assert tr.count("captures") == 1 and tr.count("replays") == 1
     r.close()
     assert tr.count("graph_drops") == 1
+
+
+@pytest.mark.cuda
+def test_card_staged_batch_spans(port, cuda_device, tmp_path):
+    # On the card a batch packs and uploads each frame inside its one
+    # replay span; the spans keep the names the benchmark reads.
+    s = _scene(port, width=256, height=192)
+    r = port.renderer.Renderer(s.mesh, 256, 192, device=cuda_device,
+                               tile_autotune=False, **s.renderer_options())
+    batch = _advance(s, 4)
+    r.render_batch_device(batch)  # capacities settle; the capture
+    with _profile() as prof:
+        r.render_batch_device(batch, check=False)
+        r.fence_pending()
+    names = _user_spans(prof, tmp_path)
+    assert names.count("renderer.replay") == 1
+    assert names.count("renderer.pack") == 4
+    assert names.count("renderer.upload") == 4
+    assert not r.flush_overflow()
+    r.close()

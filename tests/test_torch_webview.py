@@ -136,7 +136,7 @@ def test_stats_endpoint(app):
     assert stats["frames"] >= 1 and "suzanne" in stats["scene"]
     # The host counters beside fps: ints, the CPU replays no graph.
     counters = ("captures", "graph_drops", "retries", "calibrations",
-                "tunes", "replays")
+                "tunes", "replays", "stage.grows", "stage.waits")
     assert stats["fps"] >= 0.0
     assert all(isinstance(stats[k], int) and stats[k] >= 0
                for k in counters), stats
@@ -247,7 +247,8 @@ def test_frame_parity_with_jax_viewer(backend, monkeypatch):
             counters = {k: ps.pop(k) for k in set(ps) - set(js)}
             assert js == ps
             assert set(counters) == {"captures", "graph_drops", "retries",
-                                     "calibrations", "tunes", "replays"}
+                                     "calibrations", "tunes", "replays",
+                                     "stage.grows", "stage.waits"}
             assert_frames_match(shown[id(japp)][-1], shown[id(papp)][-1])
             png, _ = _get(papp, "/frame?since=0")
             np.testing.assert_array_equal(decode_png(png),
