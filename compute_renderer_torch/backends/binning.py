@@ -32,16 +32,19 @@ work list and overflow report: the kernel ``csrc/sort.cu`` on a CUDA
 tensor, its twin ``bin_sort_plain`` (one stable ``torch.sort`` and
 searchsorted segments) on a CPU tensor.
 
-Each binning entry takes an optional ``acc``, a (6,) int64 tensor that
-a batch of frames shares: [pair need, tile need, pairs, occupied tiles,
-samples, textured pixels]. The step that ends the binning folds its
-frame (or triangle chunk) into the first four: the needs by max, the
-pairs (``total_pairs``) and the occupied tiles (``k``) by sum. On the
-card the kernel that writes the overflow report does it (64-bit
-atomics); the twins fold with torch ops (``fold_counts``). The fifth
-word is the micro raster's: the coverage samples it tested
-(``micro.raster_shade_micro``); the sixth the mip texture tail's: the
-pixels it shaded from an image (``texture.texture_tail_mip``).
+Each binning entry takes an optional ``acc``, a (7,) int64 tensor that a
+batch of frames shares: [pair need, tile need, pairs, occupied tiles,
+samples, textured pixels, longest list]. The step that ends the binning
+folds its frame (or triangle chunk) into the first four and the last: the
+needs by max, the pairs (``total_pairs``) and the occupied tiles (``k``)
+by sum, and the longest list (``most``, the largest bin count before any
+cap: the triangles of the tile the tile raster's last block walks, or a
+micro cell's pairs) by max. On the card the kernel that writes the
+overflow report does it (64-bit atomics); the twins fold with torch ops
+(``fold_counts``). The fifth word is the micro raster's: the coverage
+samples it tested (``micro.raster_shade_micro``); the sixth the mip
+texture tail's: the pixels it shaded from an image
+(``texture.texture_tail_mip``).
 
 Every integer output equals the JAX package's bit for bit. The TPU-only
 padding of the outputs (8-row blocks, 1024-element DMA windows) is not
@@ -163,6 +166,7 @@ def bin_triangles_dense(setup, ntx: int, nty: int, pair_cap: int,
         "total_pairs": counts.sum(dtype=I32),
         "pair_needed": torch.zeros((), dtype=I32, device=device),
         "tile_needed": torch.where(tile_overflow, max_count, 0).to(I32),
+        "most": max_count.to(I32),
         "layout": "dense",
     }
 
@@ -216,9 +220,9 @@ def bin_triangles_sort(setup, ntx: int, nty: int, pair_cap: int,
 
     Returns a dict: ``pair_tri`` (pair_cap,) triangle ids sorted by tile,
     ``seg_start`` / ``seg_count`` (num_tiles,) (count clamped to
-    tile_cap), ``total_pairs``, and the needed capacities ``pair_needed``
-    / ``tile_needed`` (0 = within capacity), exact even when the pair list
-    overflows."""
+    tile_cap), ``total_pairs``, the needed capacities ``pair_needed``
+    / ``tile_needed`` (0 = within capacity) and ``most``, the largest
+    tile count, unclamped, exact even when the pair list overflows."""
     num_tiles = ntx * nty
     device = setup["alive"].device
     rx, _, c = cover_counts(setup)
@@ -249,7 +253,8 @@ def bin_triangles_sort(setup, ntx: int, nty: int, pair_cap: int,
     bins = bin_sort_plain(tile_of_pair, tri_of_pair, total, num_tiles,
                           cap=tile_cap, exact=exact)
     out = {k: bins[k] for k in ("pair_tri", "seg_start", "seg_count",
-                                "total_pairs", "pair_needed", "tile_needed")}
+                                "total_pairs", "pair_needed", "tile_needed",
+                                "most")}
     out["layout"] = "flat"
     return out
 
@@ -270,20 +275,24 @@ def occupied_worklist(seg_count):
     return wl[:num_tiles], k
 
 
-# [pair need, tile need, pairs, occupied tiles, samples, textured pixels]
-ACC_WORDS = 6
+# [pair need, tile need, pairs, occupied tiles, samples, textured pixels,
+#  longest list]
+ACC_WORDS = 7
 
 
 def fold_counts(acc, bins):
     """Fold ``bins``' overflow report, ``total_pairs`` and ``k`` into
-    ``acc``'s first four words (see the module docstring) with torch ops:
-    the twins' fold; a None ``acc`` folds nothing."""
+    ``acc``'s first four words and its ``most`` into the seventh (see the
+    module docstring) with torch ops: the twins' fold; a None ``acc``
+    folds nothing."""
     if acc is None:
         return
     i64 = torch.int64
     needs = acc[:2]
     torch.maximum(needs, bins["overflow"].to(i64), out=needs)
     acc[2:4].add_(torch.stack([bins["total_pairs"], bins["k"]]).to(i64))
+    longest = acc[6:]
+    torch.maximum(longest, bins["most"].to(i64).reshape(1), out=longest)
 
 
 def acc_pointer(acc, device):
@@ -329,7 +338,8 @@ def _bin_extras(counts, seg_start, total, pair_cap: int, group: int,
     out = {"seg_start": seg_start, "seg_count": torch.clamp(counts, max=cap),
            "total_pairs": total,
            "pair_needed": torch.where(over, total, 0).to(I32),
-           "tile_needed": torch.where(most > cap, most, 0).to(I32)}
+           "tile_needed": torch.where(most > cap, most, 0).to(I32),
+           "most": most.to(I32)}
     occupied = out["seg_count"]
     if group == 16:
         out["tile_count"], out["win_start"] = _cell_tiles(
@@ -517,7 +527,7 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
     if group == 16:
         tile_count, win_start = torch.empty((2, num_tiles), dtype=I32,
                                             device=device)
-    scal = torch.empty((4,), dtype=I32, device=device)
+    scal = torch.empty((5,), dtype=I32, device=device)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
     fn = _build.entry("sort", "bin_sort", pointers=16, ints=6)
     tracing.launch("bin_sort")
@@ -533,8 +543,8 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
     )
     out = {"pair_tri": pair_tri, "seg_start": seg[0], "seg_count": seg[1],
            "total_pairs": scal[2], "pair_needed": scal[0],
-           "tile_needed": scal[1], "worklist": worklist, "k": scal[3],
-           "overflow": scal[0:2]}
+           "tile_needed": scal[1], "most": scal[4], "worklist": worklist,
+           "k": scal[3], "overflow": scal[0:2]}
     if group == 16:
         out["tile_count"], out["win_start"] = tile_count, win_start
     return out
@@ -556,9 +566,10 @@ def bin_sort(keys, tris, total, num_bins: int, *, group: int = 1,
     Returns a dict: ``pair_tri`` (pair_cap,) (in (bin, triangle) order on
     [0, n); the rest unspecified), ``seg_start`` / ``seg_count``
     (num_bins,), ``total_pairs``, ``pair_needed``, ``tile_needed``,
-    ``worklist`` (num_bins / group,) and ``k``, ``overflow`` (2,), and at
-    group 16 ``tile_count`` and ``win_start``. Folds into ``acc`` (the
-    module docstring), None for none.
+    ``most`` (the largest bin count before ``cap``, the rects' exact one
+    under pair overflow), ``worklist`` (num_bins / group,) and ``k``,
+    ``overflow`` (2,), and at group 16 ``tile_count`` and ``win_start``.
+    Folds into ``acc`` (the module docstring), None for none.
 
     CPU tensors take the twin, ``bin_sort_plain``; CUDA tensors the kernel
     ``csrc/sort.cu`` (``launches.bin_sort`` of ``tracing.counters()``
@@ -603,7 +614,7 @@ def _bin_tiles_cuda(meta, ntx: int, nty: int, tile_cap: int, acc=None):
     counts = torch.empty((num_tiles,), dtype=I32, device=device)
     bin_rows = torch.empty((num_tiles, C), dtype=I32, device=device)
     seg = torch.empty((3, num_tiles), dtype=I32, device=device)
-    scal = torch.empty((4,), dtype=I32, device=device)
+    scal = torch.empty((5,), dtype=I32, device=device)
     fn = _build.entry("bins", "bin_tiles_dense", pointers=8, ints=5)
     tracing.launch("bin_tiles_meta")
     _build.check(
@@ -621,6 +632,7 @@ def _bin_tiles_cuda(meta, ntx: int, nty: int, tile_cap: int, acc=None):
         "total_pairs": scal[2],
         "pair_needed": scal[0],
         "tile_needed": scal[1],
+        "most": scal[4],
         "layout": "dense",
         "worklist": seg[2],
         "k": scal[3],
@@ -743,11 +755,12 @@ def bin_cells_sort_meta(c, rx, x0, y0, ntx_t: int, nty_t: int,
     (defined on [0, min(total, pair_cap))), ``seg_start`` / ``seg_count``
     (num_cells,), ``win_start`` / ``tile_count`` (num_tiles,),
     ``total_pairs``, ``pair_needed`` and ``tile_needed`` (always 0: no
-    per-tile cap), and the occupied-tile ``worklist`` (num_tiles,) with
-    ``k`` and the (2,) ``overflow`` report, folded into ``acc`` (the
-    module docstring). CPU tensors take the twins
-    (``expand.expand_cells_plain``, ``bin_sort_plain``), CUDA tensors the
-    kernels (``csrc/expand.cu``, ``csrc/sort.cu``)."""
+    per-tile cap), ``most`` (the largest cell count), and the
+    occupied-tile ``worklist`` (num_tiles,) with ``k`` and the (2,)
+    ``overflow`` report, folded into ``acc`` (the module docstring). CPU
+    tensors take the twins (``expand.expand_cells_plain``,
+    ``bin_sort_plain``), CUDA tensors the kernels (``csrc/expand.cu``,
+    ``csrc/sort.cu``)."""
     num_tiles = ntx_t * nty_t
     num_cells = num_tiles * 16
     cell_of_pair, tri_of_pair, total = expand_cells_meta(

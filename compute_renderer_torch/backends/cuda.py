@@ -47,10 +47,10 @@ Micro path (``render_frame_micro``), for scenes above
 Nothing in a frame waits for the host: the overflow report stays a device
 tensor, and the occupied-tile count is read by the kernels themselves. So
 a frame can be captured into a CUDA graph, as the renderer does; ``acc``,
-a (6,) int64 device tensor, gathers a batch's needs, pairs and occupied
-tiles from the binning of each frame (``binning``'s module docstring), the
-coverage samples the micro raster tested and the pixels the mip texture
-tail shaded from an image.
+a (7,) int64 device tensor, gathers a batch's needs, pairs, occupied tiles
+and longest bin list from the binning of each frame (``binning``'s module
+docstring), the coverage samples the micro raster tested and the pixels
+the mip texture tail shaded from an image.
 The texture work of a frame runs inside the spans named
 ``TEXTURE_RANGES`` (``tracing.span``), so that a profile of eager frames
 can split it out (a graph's replay records no ranges).
@@ -259,10 +259,10 @@ def render_frame(positions, normals, tri, view_proj, view_position,
     (strict < keeps the lowest index on ties; a G-buffer merges
     channel-wise, vis ids are offset by the chunk first). ``pos_soa`` /
     ``nrm_soa`` are the (3, 3, T) corner-SoA geometry, built from ``tri``
-    when absent. ``acc`` (6,) int64, or None, takes the binning's fold of
-    every chunk: the needs by max, the pairs and occupied tiles by sum; on
-    the micro path the raster adds its samples, and in the texf_mip mode
-    the tail its textured pixels."""
+    when absent. ``acc`` (7,) int64, or None, takes the binning's fold of
+    every chunk: the needs and the longest list by max, the pairs and
+    occupied tiles by sum; on the micro path the raster adds its samples,
+    and in the texf_mip mode the tail its textured pixels."""
     device = positions.device
     T = int(tri.shape[0])
     if T == 0:

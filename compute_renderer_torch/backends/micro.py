@@ -323,7 +323,7 @@ def raster_shade_micro(tri_table, pair_tri, seg_start, seg_count, tile_count,
     occupied-tile work list:
     ``worklist`` = (ids, k) as ``binning.bin_cells_sort_meta`` gives them
     (``occupied_worklist`` of ``tile_count``), built here when None. The
-    twin walks the occupied tiles itself. ``acc`` ((6,) int64, or None:
+    twin walks the occupied tiles itself. ``acc`` ((7,) int64, or None:
     ``binning``'s accumulator) gains the coverage samples the kernel
     tested in ``acc[4]``; the twin adds ``samples_tested_plain``."""
     raster.check_mode(tri_table, mode)

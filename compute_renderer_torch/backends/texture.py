@@ -198,7 +198,7 @@ def texture_tail_mip(gbuf, key, texels, mip_table, light_color,
     sampler on the carried tid / lod / mu / mv / spread over the mip pool
     ``texels`` (P, 3) and its level table ``mip_table`` (M, L, 3) i32, kd
     modulated, the material epilogue. Returns (H, W, 4) u8 RGBA. ``acc``
-    ((6,) int64, or None: ``binning``'s accumulator) gains the pixels
+    ((7,) int64, or None: ``binning``'s accumulator) gains the pixels
     shaded from an image in ``acc[5]``: the kernel counts them, the plain
     version adds ``textured_pixels_plain``. ``launches.texture_tail_mip``
     counts the kernel's launches."""

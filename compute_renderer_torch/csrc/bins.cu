@@ -13,10 +13,11 @@
 //   count holds max(T - 1, 0), as the rank search's clamp gives;
 // - seg_start (exclusive prefix sum of the counts), seg_count = min(count,
 //   C), the occupied-tile work list (ascending ids, padded with 0);
-// - scal = [pair_needed (0), tile_needed, total_pairs, k]: tile_needed is
-//   the largest count where it exceeds C, else 0; (scal[0], scal[1]) is
-//   the frame's overflow report. With an accumulator given, the thread
-//   that writes scal folds it in (frame_counts.cuh).
+// - scal = [pair_needed (0), tile_needed, total_pairs, k, most]: most is
+//   the largest count, tile_needed most where it exceeds C, else 0;
+//   (scal[0], scal[1]) is the frame's overflow report. With an
+//   accumulator given, the thread that writes scal folds it in
+//   (frame_counts.cuh).
 //
 // shading_params replaces the (11,) params and (L, 8) light rows that
 // pallas_raster.py raster_shade_tiles and pallas_micro.py
@@ -175,7 +176,8 @@ __global__ void __launch_bounds__(SCAN_THREADS) bin_scan_kernel(
     scal[1] = m > C ? m : 0;
     scal[2] = carry;
     scal[3] = carry_occ;
-    fold_counts(acc, 0, scal[1], carry, carry_occ);
+    scal[4] = m;
+    fold_counts(acc, 0, scal[1], carry, carry_occ, m);
   }
 }
 
@@ -216,7 +218,7 @@ __global__ void __launch_bounds__(PARAM_THREADS) shading_params_kernel(
 }  // namespace
 
 // counts: scratch of num_tiles ints; seg_start, seg_count and worklist
-// (num_tiles,), bin_rows (num_tiles, C), scal (4,), acc (4,) long longs
+// (num_tiles,), bin_rows (num_tiles, C), scal (5,), acc (7,) long longs
 // (frame_counts.cuh) or null. Two launches.
 extern "C" int bin_tiles_dense(const void* meta, void* counts,
                                void* bin_rows, void* seg_start,

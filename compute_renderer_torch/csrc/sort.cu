@@ -26,13 +26,13 @@
 //   first segment;
 // - worklist (num_bins / group,): the ascending ids of the tiles whose
 //   (clamped) count is above 0, padded with 0;
-// - scal = [pair_needed, tile_needed, total, k]: pair_needed is total
-//   where it exceeds pair_cap, tile_needed the largest count where it
-//   exceeds cap (exact under pair overflow: with the flat layout's rects
-//   given, counted over every rect rather than the capped list), k the
-//   work list's length. (scal[0], scal[1]) is the frame's overflow report;
-//   with an accumulator given, the same thread folds scal into it
-//   (frame_counts.cuh).
+// - scal = [pair_needed, tile_needed, total, k, most]: pair_needed is
+//   total where it exceeds pair_cap, most the largest count (exact under
+//   pair overflow: with the flat layout's rects given, counted over every
+//   rect rather than the capped list), tile_needed most where it exceeds
+//   cap, k the work list's length. (scal[0], scal[1]) is the frame's
+//   overflow report; with an accumulator given, the same thread folds
+//   scal into it (frame_counts.cuh).
 //
 // What bounds it on an H100: memory, and at a frame's few hundred
 // thousand pairs the latency of its steps. The function must read each
@@ -274,7 +274,8 @@ __device__ void write_totals(const int* total, int pair_cap, int cap,
     scal[1] = most > cap ? most : 0;
     scal[2] = all_pairs;
     scal[3] = k;
-    fold_counts(acc, scal[0], scal[1], all_pairs, k);
+    scal[4] = most;
+    fold_counts(acc, scal[0], scal[1], all_pairs, k, most);
   }
 }
 
@@ -725,7 +726,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) bin_sort_scan_kernel(
     int* __restrict__ seg_start, int* __restrict__ seg_count,
     int* __restrict__ tile_count, int* __restrict__ win_start,
     int* __restrict__ worklist, int* __restrict__ scal,
-    long long* acc,                   // (4,) or null: frame_counts.cuh
+    long long* acc,                   // (7,) or null: frame_counts.cuh
     int T, int pair_cap, int num_bins, int group, int cap, int ntx,
     int ntiles, int tchunk) {
   __shared__ int s_part[SCAN_GROUPS][SCAN_TILE];
@@ -818,7 +819,7 @@ cudaError_t allow_smem(K kernel, int bytes) {
 // tile of SCAN_TILE bins) and the exact counts (num_bins ints, only with
 // the rects) — cleared by the first launch — then each table chunk's
 // [lo, hi] and the (table chunk, bin) table. tile_count and win_start
-// (num_bins / 16,) only with group 16, else null; scal: 4 ints; acc: 4
+// (num_bins / 16,) only with group 16, else null; scal: 5 ints; acc: 7
 // long longs (frame_counts.cuh) or null.
 extern "C" int bin_sort(const void* keys, const void* tris,
                         const void* total, const void* c, const void* rx,

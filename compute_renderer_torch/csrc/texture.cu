@@ -609,7 +609,7 @@ extern "C" int texture_tail(const void* gbuf, const void* key,
 }
 
 // Fused trilinear / anisotropic tail over the mip pool and its level table;
-// acc: 6 long longs (frame_counts.cuh) or null.
+// acc: 7 long longs (frame_counts.cuh) or null.
 extern "C" int texture_tail_mip(const void* gbuf, const void* key,
                                 const void* texels, const void* mips,
                                 const void* lc, const void* li, void* out,

@@ -28,11 +28,12 @@ staging buffer (``Staging``) just before its copy, so the card starts on
 the first frame while the host packs the rest. The overflow maximum is
 taken inside the graph, as the scan's loop carry takes it: the binning's
 last kernel folds each frame's needs, pairs and occupied tiles into the
-graph's static accumulator (``cuda.render_frame``'s ``acc``), the micro
-raster the coverage samples it tested, and the mip texture tail the
-pixels it shaded from an image. On the CPU frames run eagerly through the
-kernels' twins, which fold alike. A capture that fails raises: there is
-no eager fall-back on the card (``eager=True`` asks for the eager loop).
+graph's static accumulator (``cuda.render_frame``'s ``acc``) with the
+frame's longest bin list, the micro raster the coverage samples it tested,
+and the mip texture tail the pixels it shaded from an image. On the CPU
+frames run eagerly through the kernels' twins, which fold alike. A capture
+that fails raises: there is no eager fall-back on the card (``eager=True``
+asks for the eager loop).
 
 Tracing (``tracing``): the host stages run in spans (``renderer.pack``,
 ``renderer.upload``, ``renderer.replay``, ``renderer.capture``,
@@ -47,7 +48,8 @@ the card a batch packs and uploads in one ``renderer.pack`` and one
 CPU, eagerly and for a comparator, the batch's stack is packed and
 uploaded before it. While a profiler session records, each batch adds
 its frames, pairs, occupied tiles and samples to
-``tracing.frame_counts()``, and in the texf_mip mode its textured pixels.
+``tracing.frame_counts()``, and in the texf_mip mode its textured pixels,
+and folds its longest bin list into ``tracing.frame_peaks()``.
 
 On the micro path the pair capacity settles to the first checked frame's
 measured need (``_maybe_calibrate``), and a tile path whose per-tile list
@@ -140,10 +142,11 @@ class FrameGraph:
     """One captured frame: replaying ``graph`` renders the uniforms in
     ``packed`` into ``rgba`` (H, W, 4) u8, ``key`` (rh, rw) u32 and
     ``overflow`` (2,) i32, and its binning folds the frame into ``acc``
-    (6,) i64: the batch's running maximum of the needs, then its sums of
+    (7,) i64: the batch's running maximum of the needs, then its sums of
     pairs, occupied tiles, (the micro raster's) samples and (the mip
-    texture tail's) textured pixels. All five tensors are static: the
-    graph reads and writes them in place at every replay."""
+    texture tail's) textured pixels, then its longest bin list. All five
+    tensors are static: the graph reads and writes them in place at every
+    replay."""
 
     graph: torch.cuda.CUDAGraph
     packed: torch.Tensor
@@ -358,7 +361,7 @@ class Renderer:
         """One frame from a packed device buffer, eagerly: (rgba, key,
         overflow); a comparator's key is its depth buffer and its overflow
         report zero. The engine's binning folds the frame into ``acc``
-        ((6,) int64, or None)."""
+        ((7,) int64, or None)."""
         vpos, vp, eff, lwp, lc, li = unpack_uniforms(packed, L)
         if not self.engine:
             rgba, key = self.backend.render_frame(
@@ -619,7 +622,8 @@ class Renderer:
         frames' binning, micro raster and mip texture tail fold into one
         accumulator; while a profiler session records, its pairs, occupied
         tiles and samples go to ``tracing.frame_counts()``, and its
-        textured pixels where the mode runs the mip tail."""
+        textured pixels where the mode runs the mip tail, and its longest
+        bin list to ``tracing.frame_peaks()``."""
         with tracing.span("renderer.replay"):
             K = rows.shape[0]
             frames = torch.empty((K, self.height, self.width, 4),
@@ -649,7 +653,7 @@ class Renderer:
                 tracing.tick("replays", K)
             if self.engine and tracing.recording():
                 words = 4 if self.mode == "texf_mip" else 3
-                tracing.add_frames(acc[2:2 + words], K)
+                tracing.add_frames(acc[2:2 + words], K, peaks=acc[6:])
             return frames, acc[:2].to(torch.int32)
 
     def render_batch_device(self, uniforms_seq, max_retries: int = 3,

@@ -20,6 +20,10 @@
   occupied tiles their bin kernels counted on the card, the coverage
   samples the micro raster tested, and the pixels the mip texture tail
   shaded from an image.
+- Device frame peaks (``frame_peaks()``): over the same frames, the
+  longest bin list the binning's scan kernels found: the triangles of
+  the tile whose list the tile raster's last block walks, or on the
+  micro path an 8x8 cell's pairs.
 
 Depends on nothing else of the package.
 """
@@ -41,6 +45,9 @@ _frames = 0
 # device -> (4,) int64: pairs, occupied tiles, samples, textured pixels
 _sums: dict = {}
 _added = 0  # the most words a batch added since the last reset
+# device -> (1,) int64: the longest bin list, folded by max
+_peaks: dict = {}
+_peaked = False  # whether a batch added its peaks since the last reset
 
 
 def recording() -> bool:
@@ -81,28 +88,36 @@ def counters() -> dict:
 
 def prepare(device) -> None:
     """Make ``device``'s (an indexed device's) sums of ``frame_counts()``
-    and run their add once, if not yet done: the first launch of a kernel
+    and its peaks of ``frame_peaks()``, and run their add and their max
+    once, if not yet done: the first launch of a kernel
     loads it (12-15 ms on an H100, the device idle meanwhile), which a
     profiler session's first batch would otherwise pay. The renderer calls
     it when it captures a graph."""
     if device not in _sums:
         acc = torch.zeros((4,), dtype=torch.int64, device=device)
         _sums[device] = acc.add_(acc)
+        peak = torch.zeros((1,), dtype=torch.int64, device=device)
+        _peaks[device] = torch.maximum(peak, peak, out=peak)
 
 
-def add_frames(sums, frames: int) -> None:
+def add_frames(sums, frames: int, peaks=None) -> None:
     """Add a batch's ``frames`` and its int64 device sums to
     ``frame_counts()``: one device add. The sums are the words of
     ``COUNTS`` in order, the first two to all four: pairs and occupied
     tiles, (2,); then samples, (3,); then textured pixels, (4,). The
     renderer calls it only while ``recording()``, with its accumulator's
     words from the third on: four where the frame runs the mip texture
-    tail, else three."""
-    global _frames, _added
+    tail, else three; and with ``peaks``, its (1,) int64 longest-list
+    word, which one device max folds into ``frame_peaks()``."""
+    global _frames, _added, _peaked
     prepare(sums.device)
     _sums[sums.device][:sums.shape[0]].add_(sums)
     _frames += frames
     _added = max(_added, sums.shape[0])
+    if peaks is not None:
+        peak = _peaks[sums.device]
+        torch.maximum(peak, peaks, out=peak)
+        _peaked = True
 
 
 # The device sums' names; a key past the first two appears in
@@ -123,12 +138,24 @@ def frame_counts() -> dict:
     return counts
 
 
+def frame_peaks() -> dict:
+    """{"list": the longest bin list} over the frames added with their
+    peaks while a profiler session recorded, or {} where none was (reads
+    the device words: a synchronisation)."""
+    if not _peaked:
+        return {}
+    return {"list": max(int(p.item()) for p in _peaks.values())}
+
+
 def reset() -> None:
-    """Zero every host counter and the frame counts."""
-    global _frames, _added
+    """Zero every host counter, the frame counts and the frame peaks."""
+    global _frames, _added, _peaked
     _counters.clear()
     _counters.update(dict.fromkeys(EVENTS, 0))
     _frames = 0
     _added = 0
+    _peaked = False
     for acc in _sums.values():
         acc.zero_()
+    for peak in _peaks.values():
+        peak.zero_()

@@ -37,7 +37,16 @@ Parts, each named on the command line (both when none is):
   elsewhere) and its key everywhere; its key-clear pixels keep the
   canary, so the tail reads a G-buffer poisoned there with 0xDEADBEEF,
   then with a quiet NaN, and must give the image and count of the same
-  G-buffer zeroed there;
+  G-buffer zeroed there; then the dense layout's scan
+  (``bin_scan_kernel``, both launches of ``bin_tiles_dense``) with the
+  accumulator at Suzanne's frame, and the structured_tex_aniso cell's
+  tile path on its first frame (the 36,322-triangle scene with its
+  4096-texel ground): ``mip_rows_kernel<3>``, and at each of the
+  tuner's tile shapes the flat layout's bin sort with the accumulator
+  and ``raster_kernel<4>`` on its pair list, then
+  ``texture_tail_mip_kernel<3>`` on the poisoned G-buffer, each twice
+  between canaries as above; both scans' folds (the longest-list word
+  included) equal to the twins' ``binning.fold_counts``;
 - ``anisotropic``: ``chip_smoke.py`` phase 12's +anisotropic row
   (structured_scene.obj through ``Renderer`` on the micro path): one
   checked frame (the eager warm-up and the CUDA graph's capture), then
@@ -107,12 +116,24 @@ def guarded_bin_sort(cs, device, keys, tris, total, num_bins, group, cap,
                      meta, ntx, tag):
     """``binning._bin_sort_cuda``'s call with every buffer guarded (its
     scratch included); returns the outputs as ``bin_sort`` gives them."""
+    g = Guarded(device)
+    out, _ = bin_sort_call(g, device, keys, tris, total, num_bins, group,
+                           cap, meta, ntx)
+    g.check(cs, f"bin_sort {tag}")
+    return out
+
+
+def bin_sort_call(g, device, keys, tris, total, num_bins, group, cap, meta,
+                  ntx, acc=None):
+    """``binning._bin_sort_cuda``'s call with every buffer (its scratch
+    included, and a copy of the accumulator ``acc`` where given) cut from
+    the Guarded ``g``; returns the outputs as ``bin_sort`` gives them,
+    cloned, and the accumulator's copy after the call (or None)."""
     import torch
 
     from compute_renderer_torch import _build
     from compute_renderer_torch.backends import binning
 
-    g = Guarded(device)
     pair_cap = keys.shape[0]
     keys, tris = g.like(keys), g.like(tris)
     total = g.like(total.reshape(1))
@@ -128,26 +149,26 @@ def guarded_bin_sort(cs, device, keys, tris, total, num_bins, group, cap,
     seg_start, seg_count = g.new(num_bins), g.new(num_bins)
     tile_count = g.new(num_tiles) if group == 16 else None
     win_start = g.new(num_tiles) if group == 16 else None
-    worklist, scal = g.new(num_tiles), g.new(4)
+    worklist, scal = g.new(num_tiles), g.new(5)
+    acc = None if acc is None else g.like(acc)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
     fn = _build.entry("sort", "bin_sort", pointers=16, ints=6)
     _build.check(fn(
         keys.data_ptr(), tris.data_ptr(), total.data_ptr(),
         *(ptr(r) for r in rows), scratch.data_ptr(), pair_tri.data_ptr(),
         seg_start.data_ptr(), seg_count.data_ptr(), ptr(tile_count),
-        ptr(win_start), worklist.data_ptr(), scal.data_ptr(), None, T,
+        ptr(win_start), worklist.data_ptr(), scal.data_ptr(), ptr(acc), T,
         pair_cap, num_bins, group, cap, ntx,
         torch.cuda.current_stream(device).cuda_stream), "bin_sort")
     out = {"pair_tri": pair_tri.clone(), "seg_start": seg_start.clone(),
            "seg_count": seg_count.clone(), "total_pairs": scal[2].clone(),
            "pair_needed": scal[0].clone(), "tile_needed": scal[1].clone(),
-           "worklist": worklist.clone(), "k": scal[3].clone(),
-           "overflow": scal[0:2].clone()}
+           "most": scal[4].clone(), "worklist": worklist.clone(),
+           "k": scal[3].clone(), "overflow": scal[0:2].clone()}
     if group == 16:
         out["tile_count"], out["win_start"] = (tile_count.clone(),
                                                win_start.clone())
-    g.check(cs, f"bin_sort {tag}")
-    return out
+    return out, None if acc is None else acc.clone()
 
 
 def part_guard(cs, device):
@@ -267,18 +288,21 @@ def part_guard(cs, device):
               "bitwise")
 
     guard_texture_path(cs, device)
+    guard_dense_scan(cs, device)
+    guard_tile_texture_path(cs, device)
 
 
-def texture_path_frame(device):
-    """The structured_trilinear cell's first frame on the card: its
-    program (``frame_bench.harness.Program``: the scene written, loaded
-    with its images, the mip pool uploaded) and the frame's tensors."""
+def texture_path_frame(device, name="structured_trilinear"):
+    """The first frame on the card of the benchmark's configuration
+    ``name``: its program (``frame_bench.harness.Program``: the scene
+    written, loaded with its images, the mip pool uploaded) and the
+    frame's tensors."""
     import torch
 
     from compute_renderer_torch.engine.renderer import unpack_uniforms
     from frame_bench import harness
 
-    config = harness.load_json("configs", "structured_trilinear")
+    config = harness.load_json("configs", name)
     arrays = harness.build_scene(config)
     try:
         program = harness.Program(config, arrays, device)
@@ -499,6 +523,268 @@ def guard_texture_path(cs, device):
     print("[memcheck] lod of the textured pixels: "
           + ", ".join(f"[{a}, {a + 1}) {int(((lod >= a) & (lod < a + 1)).sum())}"
                       for a in range(levels)))
+    program.close()
+
+
+def longest_acc(device):
+    """An accumulator holding a longest list from an earlier frame, 1, so
+    that the fold's max is seen to keep the larger word."""
+    import torch
+
+    from compute_renderer_torch.backends import binning
+
+    acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                      device=device)
+    acc[6] = 1
+    return acc
+
+
+def require_fold(cs, tag, acc, start, bins):
+    """``acc`` is ``start`` with ``bins``' frame folded in by the twins'
+    fold (``binning.fold_counts``): the needs, pairs, occupied tiles and
+    the longest list."""
+    from compute_renderer_torch.backends import binning
+
+    want = start.clone()
+    binning.fold_counts(want, bins)
+    cs.require(acc.tolist() == want.tolist(),
+               f"guard {tag}: the kernel folds {acc.tolist()}, the twin "
+               f"{want.tolist()}")
+
+
+def guard_dense_scan(cs, device):
+    """``bin_scan_kernel`` (csrc/bins.cu, the dense layout of
+    suzanne.batch) with its accumulator: both launches of
+    ``bin_tiles_dense`` guarded twice at Suzanne's frame, at each of the
+    tuner's tile shapes; the outputs, scal and the fold (the longest-list
+    word included) equal to the twin's."""
+    import torch
+
+    from compute_renderer_torch import _build
+    from compute_renderer_torch.backends import binning, cuda, front
+
+    x = cs.frame_inputs(cs.bench_scene(), device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for th, tw in cuda.TILE_CANDIDATES:
+        _, meta = front._front_end_cuda(x["pos_soa"], x["nrm_soa"], x["vp"],
+                                        x["eff"], width=cs.W, height=cs.H,
+                                        tile_h=th, tile_w=tw)
+        meta = meta.contiguous()
+        ntx, nty = -(-cs.W // tw), -(-cs.H // th)
+        num_tiles, T = ntx * nty, meta.shape[1]
+        tile_cap = binning.default_tile_cap(T, cs.W, cs.H, th, tw)
+        cs.require(binning.dense_layout(ntx, nty, tile_cap, T),
+                   f"guard dense scan {th}x{tw}: not the dense layout")
+        C = (tile_cap + 127) // 128 * 128
+        start = longest_acc(device)
+
+        def dense(g):
+            counts, rows = g.new(num_tiles), g.new(num_tiles * C)
+            seg = [g.new(num_tiles) for _ in range(3)]
+            scal, acc = g.new(5), g.like(start)
+            fn = _build.entry("bins", "bin_tiles_dense", pointers=8, ints=5)
+            _build.check(fn(
+                g.like(meta).data_ptr(), counts.data_ptr(), rows.data_ptr(),
+                *(s.data_ptr() for s in seg), scal.data_ptr(),
+                acc.data_ptr(), T, T, ntx, num_tiles, C, stream),
+                "bin_tiles_dense")
+            return [rows.clone().view(num_tiles, C),
+                    torch.stack(seg), scal.clone(), acc.clone()]
+
+        tag = f"bin_tiles_dense suzanne {th}x{tw}"
+        rows, seg, scal, acc = guarded_twice(cs, device, tag, dense)
+        want = binning.bin_tiles_meta_plain(meta, ntx, nty, 2 * T + 1024,
+                                            tile_cap)
+        require_bitwise(cs, tag, rows, want["bin_rows"])
+        require_bitwise(cs, f"{tag} segments", seg, torch.stack(
+            [want["seg_start"], want["seg_count"], want["worklist"]]))
+        require_bitwise(cs, f"{tag} scal", scal, torch.stack(
+            [want[k] for k in ("pair_needed", "tile_needed", "total_pairs",
+                               "k", "most")]))
+        require_fold(cs, tag, acc, start, want)
+        print(f"[memcheck] guard {tag}: {int(want['total_pairs'])} pairs, "
+              f"longest list {int(want['most'])}, the fold equal to the "
+              "twin's, canaries intact, bitwise")
+
+
+def guard_tile_texture_path(cs, device):
+    """The tile path of the structured_tex_aniso cell on its first frame,
+    each kernel's C entry guarded twice (``guarded_twice``):
+    ``mip_rows_kernel<3>``; at each of the tuner's tile shapes the flat
+    layout's bin sort with the accumulator (``bin_sort_scan_kernel``'s
+    fold, the longest-list word included) and ``raster_kernel<4>`` on
+    the flat pair list; then ``texture_tail_mip_kernel<3>`` on the
+    G-buffer, poisoned where the key is clear."""
+    import torch
+
+    from compute_renderer_torch import _build
+    from compute_renderer_torch.backends import (
+        binning, cuda, expand, front, raster, texture,
+    )
+
+    program, f = texture_path_frame(device, "structured_tex_aniso")
+    r = program.renderer
+    ext, W, H = r.ext, f["W"], f["H"]
+    T = r.num_triangles
+    levels = ext["tex_mips"].shape[1]
+    L = f["lc"].shape[0]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    aniso = texture.FILTERS["anisotropic"]
+    print(f"[memcheck] guard tile texture path: T={T}, pool "
+          f"{ext['texels'].shape[0]} texels, {levels} levels, {W}x{H}")
+
+    def mip_rows(g):
+        rows = g.new(5 * T, torch.float32)
+        fn = _build.entry("texture", "mip_rows", pointers=8, ints=5)
+        _build.check(fn(
+            g.like(r.positions).data_ptr(), g.like(r.tri).data_ptr(),
+            g.like(ext["uvs"]).data_ptr(), g.like(ext["face_tex"]).data_ptr(),
+            g.like(ext["tex_mips"]).data_ptr(), g.like(f["vp"]).data_ptr(),
+            g.like(f["eff"]).data_ptr(), rows.data_ptr(), T, levels, W, H,
+            aniso, stream), "mip_rows")
+        return [rows.clone().view(T, 5)]
+
+    (rows,) = guarded_twice(cs, device, "mip_rows anisotropic", mip_rows)
+    require_bitwise(cs, "mip_rows anisotropic", rows, texture.mip_rows(
+        r.positions, r.tri, ext["uvs"], ext["face_tex"], ext["tex_mips"],
+        f["vp"], f["eff"], W, H, "anisotropic"))
+    print("[memcheck] guard mip_rows anisotropic: canaries intact, bitwise")
+
+    mode = "texf_mip"
+    params, lights = raster.shading_inputs(f["eff"], f["vpos"], f["lwp"],
+                                           f["lc"], f["li"])
+    poisoned = {}  # canary -> the 16x256 G-buffer, key-clear unwritten
+    for th, tw in cuda.TILE_CANDIDATES:
+        shape = f"{th}x{tw}"
+        table, meta = front._front_end_cuda(
+            r.pos_soa, r.nrm_soa, f["vp"], f["eff"], width=W, height=H,
+            tile_h=th, tile_w=tw, kd_rows=ext["face_kd"],
+            uv_soa=ext["uv_soa"], mip_rows=rows)
+        ntx, nty = -(-W // tw), -(-H // th)
+        num_tiles = ntx * nty
+        Hp, Wp = nty * th, ntx * tw
+        exact = binning.exact_tile_counts(binning.setup_from_meta(meta), ntx,
+                                          nty)
+        cap = int(exact.max())
+        cs.require(not binning.dense_layout(ntx, nty, cap, T),
+                   f"guard tile texture path {shape}: not the flat layout")
+        pair_cap = int(meta[3].sum()) + 1024
+        keys, tris, total = expand._expand_cuda(
+            meta[3], meta[2], meta[0], meta[1], pair_cap=pair_cap, ntx_t=0,
+            num_cells=num_tiles, row_width=ntx)
+        start = longest_acc(device)
+        n = int(total)
+        arrays = ("seg_start", "seg_count", "worklist")
+        scalars = ("pair_needed", "tile_needed", "total_pairs", "k", "most")
+
+        def flat_sort(g):
+            out, acc = bin_sort_call(g, device, keys, tris, total, num_tiles,
+                                     1, cap, meta, ntx, acc=start)
+            return ([out["pair_tri"][:n]] + [out[k] for k in arrays]
+                    + [torch.stack([out[k] for k in scalars]), acc])
+
+        tag = f"bin_sort flat structured_tex_aniso {shape}"
+        got = guarded_twice(cs, device, tag, flat_sort)
+        want = binning.bin_sort_plain(keys, tris, total, num_tiles, cap=cap,
+                                      exact=exact)
+        require_bitwise(cs, f"{tag} pair_tri", got[0], want["pair_tri"][:n])
+        for k, a in zip(arrays, got[1:4]):
+            require_bitwise(cs, f"{tag} {k}", a, want[k])
+        require_bitwise(cs, f"{tag} scal", got[4],
+                        torch.stack([want[k] for k in scalars]))
+        require_fold(cs, tag, got[5], start, want)
+        cs.require(int(want["most"]) == cap,
+                   f"guard {tag}: longest list {int(want['most'])}, the "
+                   f"rects' count {cap}")
+        print(f"[memcheck] guard {tag}: {n} pairs, longest list {cap}, the "
+              "fold equal to the twin's, canaries intact, bitwise")
+
+        bins = binning.bin_sort(keys, tris, total, num_tiles, cap=cap,
+                                meta=meta, ntx=ntx)
+        ktable, row_stride = raster.kernel_table(table)
+        ktable = ktable.as_strided((T, row_stride), (row_stride, 1))
+        out0, key0 = raster.cleared_outputs(mode, L, Hp, Wp, device)
+
+        def tile_raster(g):
+            out = g.new(out0.numel(), torch.float32).view(out0.shape)
+            key = g.like(key0)
+            fn = _build.entry("raster", "raster_shade_tiles", pointers=10,
+                              ints=10)
+            _build.check(fn(
+                g.like(ktable).data_ptr(), g.like(bins["pair_tri"]).data_ptr(),
+                g.like(bins["seg_start"]).data_ptr(),
+                g.like(bins["seg_count"]).data_ptr(),
+                g.like(bins["worklist"]).data_ptr(),
+                g.like(bins["k"].reshape(1)).data_ptr(),
+                g.like(params).data_ptr(), g.like(lights).data_ptr(),
+                out.data_ptr(), key.data_ptr(), raster.MODES[mode],
+                row_stride, num_tiles, L, ntx, th, tw, Wp, 0, 0, stream),
+                "raster_shade_tiles")
+            clear = out.view(torch.int32)[:, key == -1]
+            cs.require(clear.numel() > 0 and bool((clear == g.canary).all()),
+                       f"guard raster {shape}: the key-clear pixels do not "
+                       "all hold the canary")
+            if (th, tw) == cuda.TILE_CANDIDATES[0]:
+                poisoned[g.canary] = out.clone()
+            return [raster.defined_planes(out, key), key.clone()]
+
+        tag = f"raster_shade_tiles texf_mip flat {shape}"
+        gbuf, key = guarded_twice(cs, device, tag, tile_raster)
+        want_gbuf, want_key = raster.raster_shade_tiles(
+            table, bins["pair_tri"], bins["seg_start"], bins["seg_count"],
+            f["eff"], f["vpos"], f["lwp"], f["lc"], f["li"],
+            height_padded=Hp, width_padded=Wp, tile_h=th, tile_w=tw,
+            layout="flat", mode=mode, worklist=(bins["worklist"], bins["k"]))
+        require_bitwise(cs, tag, gbuf,
+                        raster.defined_planes(want_gbuf, want_key))
+        require_bitwise(cs, f"{tag} key", key, want_key.view(torch.int32))
+        print(f"[memcheck] guard {tag}: {int(bins['k'])} occupied tiles, "
+              "canaries intact, bitwise")
+        if (th, tw) == cuda.TILE_CANDIDATES[0]:
+            # The tail's input: this shape's G-buffer and key (both tile
+            # shapes pad 1024x768 alike).
+            tail_key, tail_hw = want_key, (Hp, Wp)
+            g_win = raster.defined_planes(want_gbuf, want_key)[..., :H, :W]
+            k_win = want_key[:H, :W]
+
+    # texture_tail_mip_kernel<3>: RGBA and the textured count; each call's
+    # G-buffer holds its own canary where the key is clear, and the
+    # wrapper's reference reads the G-buffer zeroed there.
+    texels, mips = ext["texels"], ext["tex_mips"]
+    lc, li = f["lc"].float(), f["li"].float()
+    Hp, Wp = tail_hw
+
+    def tail(g):
+        gb = g.like(poisoned[g.canary])
+        kb = g.like(tail_key.view(torch.int32))
+        out = g.new(H * W)
+        acc = g.like(torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                                 device=device))
+        fn = _build.entry("texture", "texture_tail_mip", pointers=8, ints=8)
+        _build.check(fn(
+            gb.data_ptr(), kb.data_ptr(), g.like(texels).data_ptr(),
+            g.like(mips).data_ptr(), g.like(lc).data_ptr(),
+            g.like(li).data_ptr(), out.data_ptr(), acc.data_ptr(), H, W,
+            Hp * Wp, Wp, Wp, L, levels, aniso, stream), "texture_tail_mip")
+        return [out.clone().view(H, W), acc.clone()]
+
+    tag = "texture_tail_mip anisotropic"
+    rgba, acc = guarded_twice(cs, device, tag, tail)
+    want_acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
+                           device=device)
+    want_rgba = texture.texture_tail_mip(g_win, k_win, texels, mips, lc, li,
+                                         tex_filter="anisotropic",
+                                         acc=want_acc)
+    require_bitwise(cs, tag, rgba, want_rgba.view(torch.int32).view(H, W))
+    plain = int(texture.textured_pixels_plain(g_win, k_win))
+    cs.require(int(acc[5]) == int(want_acc[5]) == plain
+               and acc.tolist() == want_acc.tolist(),
+               f"guard {tag}: counted {acc.tolist()}, the wrapper "
+               f"{want_acc.tolist()}, the plain count {plain}")
+    print(f"[memcheck] guard {tag}: {plain} textured pixels of "
+          f"{int((k_win.view(torch.int32) != -1).sum())} covered, the "
+          "kernel's count equal to the plain count, canaries intact, "
+          "bitwise, the G-buffer poisoned where the key is clear")
     program.close()
 
 

@@ -62,7 +62,7 @@ def build(variants):
             print(f"[sweep] {v}: build failed\n{log[-2000:]}")
             continue
         lib = ctypes.CDLL(stem + ".so")
-        lib.bin_sort.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+        lib.bin_sort.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
                                  + [ctypes.c_void_p])
         libs[v] = lib
     return libs
@@ -136,7 +136,7 @@ def run(lib, v, case, device):
     seg = torch.empty((2, nb), dtype=torch.int32, device=device)
     wl = torch.empty((nt,), dtype=torch.int32, device=device)
     extra = torch.empty((2, nt), dtype=torch.int32, device=device)
-    scal = torch.empty((4,), dtype=torch.int32, device=device)
+    scal = torch.empty((5,), dtype=torch.int32, device=device)
     rows = ([None] * 4 if meta is None
             else [meta[i].contiguous() for i in (3, 2, 0, 1)])
     T = 0 if meta is None else meta.shape[1]
@@ -149,7 +149,7 @@ def run(lib, v, case, device):
             seg[0].data_ptr(), seg[1].data_ptr(),
             extra[0].data_ptr() if group == 16 else None,
             extra[1].data_ptr() if group == 16 else None, wl.data_ptr(),
-            scal.data_ptr(), T, pair_cap, nb, group, cap, ntx,
+            scal.data_ptr(), None, T, pair_cap, nb, group, cap, ntx,
             torch.cuda.current_stream(device).cuda_stream)
         cs.require(rc == 0, f"{v} {tag}: CUDA error {rc} at launch")
 
@@ -164,7 +164,7 @@ def run(lib, v, case, device):
     got = {"pair_tri": out, "seg_start": seg[0], "seg_count": seg[1],
            "worklist": wl, "k": scal[3], "total_pairs": scal[2],
            "pair_needed": scal[0], "tile_needed": scal[1],
-           "overflow": scal[0:2]}
+           "most": scal[4], "overflow": scal[0:2]}
     if group == 16:
         got["tile_count"], got["win_start"] = extra[0], extra[1]
     cs.compare_bins(f"{v} {tag}", got, want, min(int(total), pair_cap))

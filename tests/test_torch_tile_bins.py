@@ -19,14 +19,21 @@ package, and ``cuda.render_frame``'s tile path through them.
   and every frame is held to the JAX package's tile path within the pixel
   contract of tests/torch_parity.py (XLA:CPU contracts mul+add).
 
-The CUDA kernels (``csrc/bins.cu``) are held to the twins on the same
-cases only where a card exists."""
+The longest bin list (``most``, folded by max into the accumulator's
+seventh word) equals a direct count of the bins: each tile's alive
+rects, on the dense and the flat layout (the flat one under pair
+overflow too), and each micro cell's pairs.
+
+The CUDA kernels (``csrc/bins.cu``, and ``csrc/sort.cu`` for the longest
+list) are held to the twins on the same cases only where a card
+exists."""
 
 import numpy as np
 import pytest
 
 from tests.torch_bin_cases import (
-    BIN_KEYS, META_CASES, NTX, NTY, _random_meta, meta_case, shading_case,
+    BIN_KEYS, META_CASES, MICRO_SORT_CASES, NTX, NTX_T, NTY, NTY_T,
+    _random_meta, meta_case, shading_case, sort_case, sort_pairs,
 )
 from tests.torch_parity import (  # noqa: F401 (fixtures)
     W, H, assert_frames_match, cuda_device, pixel_budget, port, tpu,
@@ -239,6 +246,91 @@ def test_render_frame_tile_chunks_vs_jax(port, tpu, suzanne, tri_chunk):
 
 
 # ---------------------------------------------------------------------------
+# The longest bin list: the seventh word of the accumulator
+# ---------------------------------------------------------------------------
+
+LONGEST_LAYOUTS = ["dense", "flat", "flat_pair_overflow"]
+# A longest list already in the word, from an earlier frame of the batch.
+EARLIER = 9
+
+
+def _direct_longest(meta, ntx, nty):
+    """The most alive triangles whose tile rect holds one tile, counted
+    tile by tile in numpy from the meta rows [x0, y0, rx, c]."""
+    x0, y0, rx, c = (meta[i].astype(np.int64) for i in range(4))
+    alive = c > 0
+    x1 = x0 + np.where(alive, rx, 0)
+    y1 = y0 + np.where(alive, c // np.maximum(rx, 1), 0)
+    most = 0
+    for jy in range(nty):
+        for jx in range(ntx):
+            hold = alive & (x0 <= jx) & (jx < x1) & (y0 <= jy) & (jy < y1)
+            most = max(most, int(hold.sum()))
+    return most
+
+
+def _longest_acc(port, device="cpu"):
+    acc = port.torch.zeros((port.binning.ACC_WORDS,),
+                           dtype=port.torch.int64, device=device)
+    acc[6] = EARLIER
+    return acc
+
+
+def _tile_layout(port, monkeypatch, layout):
+    """The pair capacity of ``layout``, the flat ones forced by the dense
+    rule's limit."""
+    if layout != "dense":
+        monkeypatch.setattr(port.binning, "DENSE_BINNING_OP_LIMIT", 0)
+    return 16 if layout == "flat_pair_overflow" else PAIR_CAP
+
+
+@pytest.mark.parametrize("layout", LONGEST_LAYOUTS)
+@pytest.mark.parametrize("case", META_CASES)
+def test_longest_list_is_the_largest_tile_count(port, monkeypatch, layout,
+                                                case):
+    # Tolerance: none; integers. The count is the unclamped one: over the
+    # tile cap (tile_over_cap) and over the pair capacity alike.
+    pair_cap = _tile_layout(port, monkeypatch, layout)
+    meta, ntx, nty, tile_cap, cut = meta_case(case)
+    m = _port_meta(port, meta, cut)
+    if cut is not None:
+        meta = meta[:, cut[0]:cut[1]]
+    acc = _longest_acc(port)
+    bins = port.binning.bin_tiles_meta(m, ntx, nty, pair_cap, tile_cap, acc)
+    assert bins["layout"] == layout.split("_")[0]
+    want = _direct_longest(meta, ntx, nty)
+    assert int(bins["most"]) == want
+    assert int(acc[6]) == max(EARLIER, want)
+    if case == "tile_over_cap":
+        assert want == int(bins["tile_needed"]) > tile_cap
+    assert (int(bins["pair_needed"]) > 0) == (int(meta[3].sum()) > pair_cap)
+
+
+def _micro_rows(port, name, device="cpu"):
+    """A micro case's cover rows (c, rx, x0, y0), its pair capacity, and
+    the largest count of its cells in the pair list the expansion
+    writes (the first pair_cap pairs in triangle order)."""
+    meta, ntx, nty, pair_cap, _ = sort_case("micro", name)
+    keys, _, total = sort_pairs(meta, ntx, ntx * nty, pair_cap)
+    n = min(total, pair_cap)
+    most = int(np.bincount(keys[:n], minlength=1).max())
+    rows = [port.torch.from_numpy(meta[i]).to(device) for i in (3, 2, 0, 1)]
+    return rows, pair_cap, most
+
+
+@pytest.mark.parametrize("name", MICRO_SORT_CASES)
+def test_longest_list_is_the_largest_cell_count(port, name):
+    rows, pair_cap, want = _micro_rows(port, name)
+    acc = _longest_acc(port)
+    bins = port.binning.bin_cells_sort_meta(*rows, NTX_T, NTY_T, pair_cap,
+                                            acc)
+    assert int(bins["most"]) == want
+    assert int(acc[6]) == max(EARLIER, want)
+    if name == "long":
+        assert want > EARLIER
+
+
+# ---------------------------------------------------------------------------
 # The kernels against the twins, on the card
 # ---------------------------------------------------------------------------
 
@@ -290,3 +382,35 @@ def test_card_render_frame_tile_matches_cpu(port, cuda_device, suzanne,
     assert port.torch.equal(ra, rb)
     assert port.torch.equal(ka.view(i32), kb.view(i32))
     assert_frames_match(r1.numpy(), ra.cpu().numpy(), lsb=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LONGEST_LAYOUTS)
+@pytest.mark.parametrize("case", META_CASES)
+def test_card_longest_list_matches_twin(port, cuda_device, monkeypatch,
+                                        layout, case):
+    # bin_scan_kernel (dense) and bin_sort_scan_kernel (flat) fold the
+    # largest count into the word, and write it to scal[4], as the twins.
+    pair_cap = _tile_layout(port, monkeypatch, layout)
+    meta, ntx, nty, tile_cap, cut = meta_case(case)
+    got, want = _longest_acc(port, cuda_device), _longest_acc(port)
+    bk = port.binning.bin_tiles_meta(_port_meta(port, meta, cut, cuda_device),
+                                     ntx, nty, pair_cap, tile_cap, got)
+    bp = port.binning.bin_tiles_meta(_port_meta(port, meta, cut), ntx, nty,
+                                     pair_cap, tile_cap, want)
+    assert bk["layout"] == bp["layout"] == layout.split("_")[0]
+    assert int(bk["most"]) == int(bp["most"])
+    assert got.cpu().tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MICRO_SORT_CASES)
+def test_card_longest_cell_list_matches_twin(port, cuda_device, name):
+    rows, pair_cap, most = _micro_rows(port, name)
+    got, want = _longest_acc(port, cuda_device), _longest_acc(port)
+    bk = port.binning.bin_cells_sort_meta(
+        *(r.to(cuda_device) for r in rows), NTX_T, NTY_T, pair_cap, got)
+    bp = port.binning.bin_cells_sort_meta(*rows, NTX_T, NTY_T, pair_cap,
+                                          want)
+    assert int(bk["most"]) == int(bp["most"]) == most
+    assert got.cpu().tolist() == want.tolist()

@@ -140,12 +140,14 @@ def test_span_under_a_session_is_a_record_function(port):
 
 def _expected(reports, samples=0):
     """The fold of per-frame (or per-chunk) bin dicts: needs maxed, pairs
-    and occupied tiles summed; then the micro raster's ``samples``, and
-    no textured pixels (no frame here runs the mip texture tail)."""
+    and occupied tiles summed; then the micro raster's ``samples``, no
+    textured pixels (no frame here runs the mip texture tail), and the
+    longest bin list maxed."""
     need = np.max([r["overflow"].numpy() for r in reports], axis=0)
     pairs = sum(int(r["total_pairs"]) for r in reports)
     tiles = sum(int(r["k"]) for r in reports)
-    return [int(need[0]), int(need[1]), pairs, tiles, samples, 0]
+    most = max(int(r["most"]) for r in reports)
+    return [int(need[0]), int(need[1]), pairs, tiles, samples, 0, most]
 
 
 def _metas(port, scene, n, tile, width=W, height=H):
@@ -296,7 +298,7 @@ def test_batch_frame_counts_while_recording(port, monkeypatch):
     with _profile():
         r.render_batch_device(batch, check=False)
         r.render_batch_device(batch[:1], check=False)
-    _, _, pairs, tiles, _, _ = _expected(reports)
+    _, _, pairs, tiles, _, _, _ = _expected(reports)
     assert tr.frame_counts() == {"frames": 4, "pairs": pairs, "tiles": tiles,
                                  "samples": 0}
     assert not r.flush_overflow()
@@ -338,6 +340,66 @@ def test_add_frames_takes_counts_with_or_without_samples(port):
                                  "samples": 3000}
     tr.reset()
     assert tr.frame_counts() == {"frames": 0, "pairs": 0, "tiles": 0}
+
+
+def test_add_frames_folds_peaks_by_max(port):
+    # The longest list folds by max across batches; counts and keys of
+    # frame_counts() are as without it; reset() clears it.
+    t = port.torch
+    tr = port.tracing
+    tr.reset()
+    tr.add_frames(t.tensor([600, 10], dtype=t.int64), 2)
+    assert tr.frame_peaks() == {}
+    tr.add_frames(t.tensor([400, 20, 3000], dtype=t.int64), 2,
+                  peaks=t.tensor([41], dtype=t.int64))
+    tr.add_frames(t.tensor([100, 5, 7], dtype=t.int64), 1,
+                  peaks=t.tensor([17], dtype=t.int64))
+    assert tr.frame_peaks() == {"list": 41}
+    assert tr.frame_counts() == {"frames": 5, "pairs": 1100, "tiles": 35,
+                                 "samples": 3007}
+    tr.reset()
+    assert tr.frame_peaks() == {}
+    tr.add_frames(t.tensor([1, 1], dtype=t.int64), 1,
+                  peaks=t.tensor([3], dtype=t.int64))
+    assert tr.frame_peaks() == {"list": 3}
+    tr.reset()
+
+
+@pytest.mark.parametrize("layout", ["dense", "flat"])
+def test_batch_frame_peaks_while_recording(port, monkeypatch, layout):
+    # A traced tile batch folds the longest tile list of its frames into
+    # frame_peaks(): the largest count of any frame's bins, before the
+    # tile cap; an untraced batch folds nothing.
+    tr = port.tracing
+    b = port.binning
+    if layout == "flat":
+        monkeypatch.setattr(b, "DENSE_BINNING_OP_LIMIT", 0)
+    s = _scene(port)
+    r = port.renderer.Renderer(s.mesh, W, H, device="cpu", path="tile",
+                               **s.renderer_options())
+    batch = _advance(s, 3)
+    tr.reset()
+    r.render_batch_device(batch, check=False)
+    assert tr.frame_peaks() == {}
+    fn, reports, grids = b.bin_tiles_meta, [], []
+
+    def recorded(meta, ntx, nty, *args, **kwargs):
+        grids.append((meta.clone(), ntx, nty))
+        reports.append(fn(meta, ntx, nty, *args, **kwargs))
+        return reports[-1]
+
+    monkeypatch.setattr(b, "bin_tiles_meta", recorded)
+    with _profile():
+        r.render_batch_device(batch, check=False)
+    assert {rep["layout"] for rep in reports} == {layout}
+    # Each frame's tiles counted from its rects (the corner scatter).
+    longest = max(int(b.exact_tile_counts(b.setup_from_meta(m), ntx,
+                                          nty).max())
+                  for m, ntx, nty in grids)
+    assert tr.frame_peaks() == {"list": longest} and longest > 0
+    assert longest == _expected(reports)[6]
+    assert not r.flush_overflow()
+    tr.reset()
 
 
 # --------------------------------------------------------------------------
