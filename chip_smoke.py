@@ -669,50 +669,69 @@ def check_front(name, x, wave, report, tile=(16, 256), mode="base"):
 
 def check_raster(name, x, table, meta, caps, report, mode="base",
                  outputs=None):
-    """Raster kernel vs twin on one frame, both layouts, in ``mode``, on
-    the front's table; returns each layout's inputs for the timing
-    runs, and puts each layout's kernel outputs (out, key) in
-    ``outputs``."""
+    """Raster kernel vs twin on one frame, both layouts, in ``mode``, at
+    each tile shape of ``cuda.TILE_CANDIDATES`` (the front's table and
+    ``meta`` are the 16x256 ones; the other shapes run the front again),
+    the flat layout over its bin sort's span list; returns each (tile,
+    layout)'s inputs for the timing runs, and puts each layout's kernel
+    outputs (out, key) at 16x256 in ``outputs``."""
     import torch
 
-    from compute_renderer_torch.backends import binning, raster
+    from compute_renderer_torch.backends import binning, cuda, front, raster
 
-    ntx = (W + 255) // 256
-    nty = (H + 15) // 16
-    setup = binning.setup_from_meta(meta)
     params, lights = raster.shading_inputs(x["eff"], x["vpos"], x["lwp"],
                                            x["lc"], x["li"])
-    kw = dict(height_padded=nty * 16, width_padded=ntx * 256, tile_h=16,
-              tile_w=256)
+    fmode = "base" if mode == "vis" else mode
     inputs = {}
-    for layout, binner in (("dense", binning.bin_triangles_dense),
-                           ("flat", binning.bin_triangles_sort)):
-        bins = binner(setup, ntx, nty, caps["pair_cap"], caps["tile_cap"])
-        flags = torch.stack([bins["pair_needed"], bins["tile_needed"]])
-        require(not bool(flags.any()), f"raster {name} {layout}: overflow "
-                f"{flags.tolist()} at caps {caps}")
-        data = bins["bin_rows"] if layout == "dense" else bins["pair_tri"]
-        # The public wrapper's card route (on-device shading inputs, u32
-        # outputs) against the twin on the same inputs.
-        rk, kk = raster.raster_shade_tiles(
-            table, data, bins["seg_start"], bins["seg_count"], x["eff"],
-            x["vpos"], x["lwp"], x["lc"], x["li"], layout=layout, mode=mode,
-            **kw)
-        rp, kp = raster.raster_shade_tiles_plain(
-            table, data, bins["seg_start"], bins["seg_count"], params,
-            lights, layout=layout, mode=mode, **kw)
-        torch.cuda.synchronize()
-        diff, covered = compare_outputs(f"raster {name} {mode} {layout}",
-                                        mode, rk, kk, rp, kp)
-        what = mode_check_text(mode, diff)
-        print(f"[check] raster {name} {mode} {layout}: keys bitwise, {what}, "
-              f"covered {covered}, pairs "
-              f"{int(bins['total_pairs'])}, occupied tiles "
-              f"{int((bins['seg_count'] > 0).sum())}")
-        report["max_abs_err"] = max(report.get("max_abs_err", 0.0), diff)
-        inputs[layout] = (table, data, bins, params, lights, kw, layout)
-        if outputs is not None:
-            outputs[layout] = (rk, kk)
+    for tile in cuda.TILE_CANDIDATES:
+        th, tw = tile
+        if tile != (16, 256):
+            table, meta = front.front_end(
+                x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"], width=W,
+                height=H, tile_h=th, tile_w=tw, **front_modes(x, fmode))
+        ntx, nty = (W + tw - 1) // tw, (H + th - 1) // th
+        setup = binning.setup_from_meta(meta)
+        # Caps grown to this tile shape's exact need, so both layouts fit.
+        need = binning.exact_tile_counts(setup, ntx, nty)
+        tcaps = dict(caps, tile_cap=max(caps["tile_cap"], int(need.max())),
+                     pair_cap=max(caps["pair_cap"], int(need.sum())))
+        kw = dict(height_padded=nty * th, width_padded=ntx * tw, tile_h=th,
+                  tile_w=tw)
+        for layout, binner in (("dense", binning.bin_triangles_dense),
+                               ("flat", binning.bin_triangles_sort)):
+            bins = binner(setup, ntx, nty, tcaps["pair_cap"],
+                          tcaps["tile_cap"])
+            flags = torch.stack([bins["pair_needed"], bins["tile_needed"]])
+            require(not bool(flags.any()), f"raster {name} {th}x{tw} "
+                    f"{layout}: overflow {flags.tolist()} at caps {tcaps}")
+            data = bins["bin_rows"] if layout == "dense" else bins["pair_tri"]
+            # The public wrapper's card route (on-device shading inputs,
+            # u32 outputs, the bin sort's span list) against the twin on
+            # the same inputs.
+            rk, kk = raster.raster_shade_tiles(
+                table, data, bins["seg_start"], bins["seg_count"], x["eff"],
+                x["vpos"], x["lwp"], x["lc"], x["li"], layout=layout,
+                mode=mode, spans=bins.get("spans"), **kw)
+            rp, kp = raster.raster_shade_tiles_plain(
+                table, data, bins["seg_start"], bins["seg_count"], params,
+                lights, layout=layout, mode=mode, **kw)
+            torch.cuda.synchronize()
+            diff, covered = compare_outputs(
+                f"raster {name} {mode} {th}x{tw} {layout}", mode, rk, kk, rp,
+                kp)
+            what = mode_check_text(mode, diff)
+            spans = (f", spans past the first {int(bins['spans'][0])}"
+                     if layout == "flat" else "")
+            print(f"[check] raster {name} {mode} {th}x{tw} {layout}: keys "
+                  f"bitwise, {what}, covered {covered}, pairs "
+                  f"{int(bins['total_pairs'])}, occupied tiles "
+                  f"{int((bins['seg_count'] > 0).sum())}, longest list "
+                  f"{int(bins['seg_count'].max())}{spans}")
+            report["max_abs_err"] = max(report.get("max_abs_err", 0.0), diff)
+            inputs[tile, layout] = (table, data, bins, params, lights, kw,
+                                    layout)
+            if outputs is not None and tile == (16, 256):
+                outputs[layout] = (rk, kk)
     return inputs
 
 
@@ -728,10 +747,12 @@ def tile_walk(tag, table, data, bins, params, lights, rkw):
         table[:, :raster.TRI_TABLE_WIDTH], data, bins["seg_start"],
         bins["seg_count"], params, lights, layout=bins["layout"],
         mode="vis", stats=stats, **rkw)
+    sub_h, sub_w = raster.sub_shape(rkw["tile_h"])
     print(f"[walk] {tag}: longest list {int(bins['seg_count'].max())} of "
           f"{stats['pairs']} pairs; survivors {stats['sub_survivors']} "
-          f"(pair, {raster.SUB_H}x{raster.SUB_W} block), "
-          f"{stats['patch_survivors']} (pair, 8x8 warp patch); samples "
+          f"(pair, {sub_h}x{sub_w} block), "
+          f"{stats['patch_survivors']} (pair, 8x8 warp patch); "
+          f"{stats['spans']} spans past the tiles' first; samples "
           f"walked {stats['samples_walked']}, unculled "
           f"{stats['samples_unculled']}")
 
@@ -1285,18 +1306,14 @@ def phase_kernels(device, reports):
         x = frame_inputs(scene, device)
         table, meta = check_front(name, x, effect is not None,
                                   reports["front_end"])
+        # check_raster sizes the caps to each tile shape's exact need, as
+        # the engine's retry would, so that both layouts fit.
         caps = cuda.default_caps("tile", x["T"], W, H)
-        # Size the caps to this frame's exact need, as the engine's retry
-        # would, so that both layouts fit.
-        setup = binning.setup_from_meta(meta)
-        need = binning.exact_tile_counts(setup, (W + 255) // 256,
-                                         (H + 15) // 16)
-        caps["tile_cap"] = max(caps["tile_cap"], int(need.max()))
-        caps["pair_cap"] = max(caps["pair_cap"], int(need.sum()))
-        for layout, args in check_raster(
+        for (tile, layout), args in check_raster(
                 name, x, table, meta, caps,
                 reports["raster_shade_tiles"]).items():
-            timing[f"{name}/{layout}"] = (x, args)
+            if tile == (16, 256):
+                timing[f"{name}/{layout}"] = (x, args)
 
     # Times at the main path's shapes: Suzanne 1024x768, dense layout.
     scene = bench_scene()
@@ -1320,7 +1337,8 @@ def phase_kernels(device, reports):
                   lights)
         wl = binning.occupied_worklist(bins["seg_count"])
         return (lambda: raster._raster_cuda(*common, layout=layout,
-                                            mode="base", worklist=wl, **rkw),
+                                            mode="base", worklist=wl,
+                                            spans=bins.get("spans"), **rkw),
                 lambda: raster.raster_shade_tiles_plain(*common,
                                                         layout=layout, **rkw))
 
@@ -1994,7 +2012,8 @@ def phase_micro_main_path(device, card, reports):
     import numpy as np
 
     from compute_renderer_torch import Renderer
-    from compute_renderer_torch.backends import cuda, micro, raster, texture
+    from compute_renderer_torch.backends import (
+        common, cuda, micro, raster, texture)
 
     scene = bench_scene(SAN_MIGUEL, eye=SAN_MIGUEL_EYE)
     require(scene.total_tris == 998_784, f"San Miguel has {scene.total_tris}"
@@ -2032,7 +2051,7 @@ def phase_micro_main_path(device, card, reports):
           f"(heuristic {caps['pair_cap']})")
     check_golden("main-micro", frames, golden)
     check_graph_equals_eager("main-micro", renderer, batch, frames)
-    words, arrivals = micro.merge_scratch(device, 768, 1024)
+    words, arrivals = common.merge_scratch(device, 768, 1024)
     require(bool((words == -1).all()) and not bool(arrivals.any()),
             "the micro raster's merge scratch is not clear after the "
             "graph's replays")
@@ -2570,21 +2589,15 @@ def phase_mode_kernels(device, reports, scenes, modes):
         table, meta = check_front(name, x, False,
                                   reports[front_record(mode)], mode=fmode)
         caps = cuda.default_caps("tile", x["T"], W, H)
-        setup = binning.setup_from_meta(meta)
-        ntx, nty = (W + 255) // 256, (H + 15) // 16
-        need = binning.exact_tile_counts(setup, ntx, nty)
-        caps["tile_cap"] = max(caps["tile_cap"], int(need.max()))
-        caps["pair_cap"] = max(caps["pair_cap"], int(need.sum()))
         inputs = check_raster(name, x, table, meta, caps,
                               reports[record("raster_shade_tiles", mode)],
                               mode=mode, outputs=outputs)
         if mode in TEXTURE_STAGES:
             check_texture_stage(f"tile {name}", x, scene, mode,
                                 *outputs["dense"], None, reports, device)
-        # The layout the main path's binning picks for this scene.
-        layout = binning.bin_triangles(setup, ntx, nty, caps["pair_cap"],
-                                       caps["tile_cap"])["layout"]
-        timing.setdefault(("tile", mode), (x, inputs[layout]))
+        # The main path's tile shape and layout on the 36k textured scene:
+        # the tuner picks 8x128 there, binned flat.
+        timing.setdefault(("tile", mode), (x, inputs[(8, 128), "flat"]))
 
     for mode in modes:
         # Front and micro raster at the micro rows' shapes (structured
@@ -2640,22 +2653,26 @@ def phase_mode_kernels(device, reports, scenes, modes):
         rep = reports[record("raster_shade_tiles", mode)]
         wl = binning.occupied_worklist(tbins["seg_count"])
         run = lambda: raster._raster_cuda(*common_args, layout=layout,
-                                          mode=mode, worklist=wl, **rkw)
+                                          mode=mode, worklist=wl,
+                                          spans=tbins.get("spans"), **rkw)
         rep["ms"] = kernel_device_ms(run, 50,
                                      KERNELS["raster_shade_tiles"]["symbol"])
         rep["ms_events"] = event_ms(run, 100)
         rep["plain_ms"] = event_ms(
             lambda: raster.raster_shade_tiles_plain(
                 *common_args, layout=layout, mode=mode, **rkw), 5)
+        shape = f"{rkw['tile_h']}x{rkw['tile_w']}"
         rep["bound_ms"], rep["bound_by"] = raster_bound(
-            f"{record('raster_shade_tiles', mode)} (structured_tex)", x,
-            table, tbins, tile_twin(data, tbins, params, lights, rkw),
-            (16, 256, W // 256), W * H, PIXEL_BYTES[mode],
+            f"{record('raster_shade_tiles', mode)} (structured_tex {shape})",
+            x, table, tbins, tile_twin(data, tbins, params, lights, rkw),
+            (rkw["tile_h"], rkw["tile_w"],
+             rkw["width_padded"] // rkw["tile_w"]), W * H, PIXEL_BYTES[mode],
             winner_rows=mode != "vis")
         print_time(record("raster_shade_tiles", mode), rep,
-                   f"structured_tex {layout}")
+                   f"structured_tex {shape} {layout}")
         tile_walk(f"{record('raster_shade_tiles', mode)} (structured_tex "
-                  f"{layout})", table, data, tbins, params, lights, rkw)
+                  f"{shape} {layout})", table, data, tbins, params, lights,
+                  rkw)
         if mode != "vis":
             fkw = dict(width=W, height=H, tile_h=16, tile_w=256,
                        **front_modes(x, mode))
@@ -2995,12 +3012,12 @@ def stress_lists(verts, tile_h, tile_w, width, height):
     return np.array([p[1] for p in pairs], np.int32), starts, counts
 
 
-def stress_inputs(kind, device, span):
+def stress_inputs(kind, device, span, tile=(16, 256)):
     """Card (or CPU) tensors of a phase-13 case, built directly (no front
     end), at STRESS_W x STRESS_H: "tables" {mode: (T, R) f32} (the base
     columns from the screen corners, patched with NaN / inf coefficients
     and -0.0 depth planes, then random mode columns), "tile" {layout:
-    (pair data, seg_start, seg_count)} at 16x256, "micro" (pair_tri padded
+    (pair data, seg_start, seg_count)} at ``tile``, "micro" (pair_tri padded
     past the end, seg_start, seg_count, tile_count), "params", "lights"."""
     import numpy as np
     import torch
@@ -3030,7 +3047,7 @@ def stress_inputs(kind, device, span):
         tables[mode] = torch.cat([table, extra], 1).to(device)
 
     i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
-    flat, starts, counts = stress_lists(verts, 16, 256, STRESS_W, STRESS_H)
+    flat, starts, counts = stress_lists(verts, *tile, STRESS_W, STRESS_H)
     dense = np.zeros((counts.size, max(int(counts.max()), 1)), np.int32)
     for tile, (s, n) in enumerate(zip(starts, counts)):
         dense[tile, :n] = flat[s:s + n]
@@ -3057,34 +3074,38 @@ def stress_inputs(kind, device, span):
 
 def phase_stress(device, reports):
     """Phase 13: every mode of both rasters against its twin on the stress
-    cases, built directly on the card: keys, ids, pair indices and
-    G-buffers bitwise, RGBA within 1 LSB; the micro kernel's count of the
-    samples it tested equal to the twin's."""
+    cases, built directly on the card, the tile raster at each tile shape
+    of ``cuda.TILE_CANDIDATES`` (the flat layout over its span list):
+    keys, ids, pair indices and G-buffers bitwise, RGBA within 1 LSB; the
+    micro kernel's count of the samples it tested equal to the twin's."""
     import torch
 
-    from compute_renderer_torch.backends import binning, micro, raster
+    from compute_renderer_torch.backends import binning, cuda, micro, raster
 
     for kind in STRESS_CASES:
-        x = stress_inputs(kind, device, micro.SPAN)
+        tiled = {tile: stress_inputs(kind, device, micro.SPAN, tile=tile)
+                 for tile in cuda.TILE_CANDIDATES}
+        x = tiled[16, 256]
         kw = dict(height_padded=STRESS_H, width_padded=STRESS_W)
         for mode in ("base",) + MODES + NEW_MODES:
             table = x["tables"][mode]
-            for layout, (data, starts, counts) in x["tile"].items():
-                rk, kk = raster.raster_shade_tiles(
-                    table, data, starts, counts, x["effect"], x["vpos"],
-                    *x["lights"], tile_h=16, tile_w=256, layout=layout,
-                    mode=mode, **kw)
-                rp, kp = raster.raster_shade_tiles_plain(
-                    table, data, starts, counts, x["params"],
-                    x["light_rows"], tile_h=16, tile_w=256, layout=layout,
-                    mode=mode, **kw)
-                torch.cuda.synchronize()
-                diff, covered = compare_outputs(
-                    f"stress {kind} raster {mode} {layout}", mode, rk, kk,
-                    rp, kp)
-                reports[record("raster_shade_tiles", mode)]["max_abs_err"] = \
-                    max(reports[record("raster_shade_tiles", mode)].get(
-                        "max_abs_err", 0.0), diff)
+            for (th, tw), xt in tiled.items():
+                for layout, (data, starts, counts) in xt["tile"].items():
+                    rk, kk = raster.raster_shade_tiles(
+                        xt["tables"][mode], data, starts, counts,
+                        xt["effect"], xt["vpos"], *xt["lights"], tile_h=th,
+                        tile_w=tw, layout=layout, mode=mode, **kw)
+                    rp, kp = raster.raster_shade_tiles_plain(
+                        xt["tables"][mode], data, starts, counts,
+                        xt["params"], xt["light_rows"], tile_h=th,
+                        tile_w=tw, layout=layout, mode=mode, **kw)
+                    torch.cuda.synchronize()
+                    diff, covered = compare_outputs(
+                        f"stress {kind} raster {mode} {th}x{tw} {layout}",
+                        mode, rk, kk, rp, kp)
+                    rep = reports[record("raster_shade_tiles", mode)]
+                    rep["max_abs_err"] = max(rep.get("max_abs_err", 0.0),
+                                             diff)
             pair_tri, starts, counts, tile_count = x["micro"]
             acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
                               device=device)
@@ -3105,10 +3126,18 @@ def phase_stress(device, reports):
                     f"{int(acc[4])} samples tested, the twin {samples}")
             rep = reports[record("raster_shade_micro", mode)]
             rep["max_abs_err"] = max(rep.get("max_abs_err", 0.0), diff)
+        lists = []
+        for (th, tw), xt in tiled.items():
+            flat, _, flat_counts = xt["tile"]["flat"]
+            extra = int(binning.span_list_plain(flat_counts,
+                                                flat.shape[0])[0])
+            lists.append(f"{th}x{tw} {xt['longest']} ({extra} spans past "
+                         f"the first)")
+        lists = ", ".join(lists)
         print(f"[stress] {kind}: T={x['tables']['base'].shape[0]}, every "
               f"mode of both rasters equals its twin (keys, ids, G-buffers "
               f"bitwise; RGBA within 1 LSB); longest tile list "
-              f"{x['longest']}, densest cell {x['densest']} pairs (span "
+              f"{lists}, densest cell {x['densest']} pairs (span "
               f"{micro.SPAN}), covered {covered} (tile) / {covered_m} "
               f"(micro) px; micro samples tested {samples} as the twin's "
               f"of {int(counts.sum())} pairs")

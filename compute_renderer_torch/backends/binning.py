@@ -32,19 +32,31 @@ work list and overflow report: the kernel ``csrc/sort.cu`` on a CUDA
 tensor, its twin ``bin_sort_plain`` (one stable ``torch.sort`` and
 searchsorted segments) on a CPU tensor.
 
-Each binning entry takes an optional ``acc``, a (7,) int64 tensor that a
+Each binning entry takes an optional ``acc``, a (8,) int64 tensor that a
 batch of frames shares: [pair need, tile need, pairs, occupied tiles,
-samples, textured pixels, longest list]. The step that ends the binning
-folds its frame (or triangle chunk) into the first four and the last: the
-needs by max, the pairs (``total_pairs``) and the occupied tiles (``k``)
-by sum, and the longest list (``most``, the largest bin count before any
-cap: the triangles of the tile the tile raster's last block walks, or a
-micro cell's pairs) by max. On the card the kernel that writes the
-overflow report does it (64-bit atomics); the twins fold with torch ops
-(``fold_counts``). The fifth word is the micro raster's: the coverage
-samples it tested (``micro.raster_shade_micro``); the sixth the mip
-texture tail's: the pixels it shaded from an image
+samples, textured pixels, spans, longest list] — the needs, the words
+summed over the frames, then the one folded by max. The step that ends
+the binning folds its frame (or triangle chunk) into the first four, the
+seventh and the last: the needs by max, the pairs (``total_pairs``), the
+occupied tiles (``k``) and, in the flat tile layout, the tile raster's
+span blocks beyond each tile's first (the entries of ``spans``; 0 in the
+dense and micro layouts) by sum, and the longest list (``most``, the
+largest bin count before any cap: the triangles of the tile the tile
+raster's last block walks, or a micro cell's pairs) by max. On the card
+the kernel that writes the overflow report does it (64-bit atomics); the
+twins fold with torch ops (``fold_counts``). The fifth word is the micro
+raster's: the coverage samples it tested (``micro.raster_shade_micro``);
+the sixth the mip texture tail's: the pixels it shaded from an image
 (``texture.texture_tail_mip``).
+
+The flat tile layout also writes ``spans``, the tile raster's span list:
+a tile whose (clamped) list holds more than ``TILE_SPAN`` triangles is
+walked in spans of ``TILE_SPAN`` list positions, a block each, merged
+exactly (``csrc/raster.cu``). The (1 + 2 ``span_slots``,) int32 list is
+[count, then count (tile, k) pairs by tile and k], one for each span k >=
+1 of such a tile, zeros past them (``span_list_plain``); at most
+``span_slots`` fit, since they sum to at most the listed pairs over
+``TILE_SPAN``. The bin sort's scan scans them as it scans the pairs.
 
 Every integer output equals the JAX package's bit for bit. The TPU-only
 padding of the outputs (8-row blocks, 1024-element DMA windows) is not
@@ -78,6 +90,10 @@ SORT_WARPS = 8
 SORT_SCAN_TILE = 128
 # No per-bin cap (the micro layout's ``cap``).
 CAP_NONE = 2**31 - 1
+# The list positions a tile raster block walks where a tile's list is cut
+# into spans (csrc/tile_span.cuh's TILE_SPAN; one round of the raster's
+# CHUNK). The kernels are built with it; the twins read it when called.
+TILE_SPAN = 256
 
 
 def cover_counts(setup):
@@ -221,8 +237,9 @@ def bin_triangles_sort(setup, ntx: int, nty: int, pair_cap: int,
     Returns a dict: ``pair_tri`` (pair_cap,) triangle ids sorted by tile,
     ``seg_start`` / ``seg_count`` (num_tiles,) (count clamped to
     tile_cap), ``total_pairs``, the needed capacities ``pair_needed``
-    / ``tile_needed`` (0 = within capacity) and ``most``, the largest
-    tile count, unclamped, exact even when the pair list overflows."""
+    / ``tile_needed`` (0 = within capacity), ``most``, the largest
+    tile count, unclamped, exact even when the pair list overflows, and
+    ``spans``, the tile raster's span list (the module docstring)."""
     num_tiles = ntx * nty
     device = setup["alive"].device
     rx, _, c = cover_counts(setup)
@@ -251,10 +268,10 @@ def bin_triangles_sort(setup, ntx: int, nty: int, pair_cap: int,
     # decide the tile need.
     exact = exact_tile_counts(setup, ntx, nty) if num_tiles > 0 else None
     bins = bin_sort_plain(tile_of_pair, tri_of_pair, total, num_tiles,
-                          cap=tile_cap, exact=exact)
+                          cap=tile_cap, exact=exact, spans=True)
     out = {k: bins[k] for k in ("pair_tri", "seg_start", "seg_count",
                                 "total_pairs", "pair_needed", "tile_needed",
-                                "most")}
+                                "most", "spans")}
     out["layout"] = "flat"
     return out
 
@@ -276,23 +293,53 @@ def occupied_worklist(seg_count):
 
 
 # [pair need, tile need, pairs, occupied tiles, samples, textured pixels,
-#  longest list]
-ACC_WORDS = 7
+#  spans, longest list]
+ACC_WORDS = 8
 
 
 def fold_counts(acc, bins):
     """Fold ``bins``' overflow report, ``total_pairs`` and ``k`` into
-    ``acc``'s first four words and its ``most`` into the seventh (see the
-    module docstring) with torch ops: the twins' fold; a None ``acc``
-    folds nothing."""
+    ``acc``'s first four words, its span list's entries (where it has one)
+    into the seventh and its ``most`` into the last (see the module
+    docstring) with torch ops: the twins' fold; a None ``acc`` folds
+    nothing."""
     if acc is None:
         return
     i64 = torch.int64
     needs = acc[:2]
     torch.maximum(needs, bins["overflow"].to(i64), out=needs)
     acc[2:4].add_(torch.stack([bins["total_pairs"], bins["k"]]).to(i64))
-    longest = acc[6:]
+    if "spans" in bins:
+        acc[6:7].add_(bins["spans"][:1].to(i64))
+    longest = acc[7:]
     torch.maximum(longest, bins["most"].to(i64).reshape(1), out=longest)
+
+
+def span_slots(pair_cap: int) -> int:
+    """Entries the flat layout's span list holds: ceil(pair_cap /
+    ``TILE_SPAN``), at least 1."""
+    return max(-(-pair_cap // TILE_SPAN), 1)
+
+
+def span_list_plain(seg_count, pair_cap: int):
+    """The flat layout's span list in torch (the module docstring): for
+    each tile whose ``seg_count`` (clamped) exceeds ``TILE_SPAN``, (tile,
+    k) for k = 1 .. (count - 1) // ``TILE_SPAN``, by tile and k, after
+    their count; zeros past them. (1 + 2 ``span_slots``,) int32."""
+    device = seg_count.device
+    span = TILE_SPAN
+    counts = seg_count.long()
+    extra = torch.where(counts > span, torch.div(counts - 1, span,
+                                                 rounding_mode="floor"), 0)
+    tiles = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=device), extra)
+    first = torch.cumsum(extra, 0) - extra
+    k = torch.arange(tiles.shape[0], device=device) - first[tiles] + 1
+    out = torch.zeros((1 + 2 * span_slots(pair_cap),), dtype=I32,
+                      device=device)
+    out[0] = tiles.shape[0]
+    out[1:1 + 2 * tiles.shape[0]] = torch.stack([tiles, k], 1).reshape(-1)
+    return out
 
 
 def acc_pointer(acc, device):
@@ -321,10 +368,11 @@ def _with_worklist(bins):
 # ---------------------------------------------------------------------------
 
 def _bin_extras(counts, seg_start, total, pair_cap: int, group: int,
-                cap: int, exact):
+                cap: int, exact, spans: bool = False):
     """What the bin sort adds to the segments: the clamped counts, the
     group's tile counts and window bases (group 16), the occupied-tile
-    work list, the total, the needed capacities and the overflow report."""
+    work list, the total, the needed capacities, the overflow report and,
+    with ``spans``, the span list (``span_list_plain``)."""
     device = counts.device
     num_bins = counts.shape[0]
     total = total.to(I32)
@@ -347,17 +395,20 @@ def _bin_extras(counts, seg_start, total, pair_cap: int, group: int,
         occupied = torch.clamp(out["tile_count"], max=cap)
     out["worklist"], out["k"] = occupied_worklist(occupied)
     out["overflow"] = torch.stack([out["pair_needed"], out["tile_needed"]])
+    if spans:
+        out["spans"] = span_list_plain(out["seg_count"], pair_cap)
     return out
 
 
 def bin_sort_plain(keys, tris, total, num_bins: int, *, group: int = 1,
-                   cap: int = CAP_NONE, exact=None, acc=None):
+                   cap: int = CAP_NONE, exact=None, acc=None,
+                   spans: bool = False):
     """The twin of ``bin_sort``: one stable ``torch.sort`` of the keys
     carrying the triangles, then searchsorted segments
     (``segments_from_sorted_cells`` at 16 cells a tile) and
     ``_bin_extras``; ``exact`` is the (num_bins,) exact counts the tile
-    need takes under pair overflow (the flat layout's), or None. Folds
-    into ``acc`` (``fold_counts``)."""
+    need takes under pair overflow (the flat layout's), or None; with
+    ``spans`` the span list too. Folds into ``acc`` (``fold_counts``)."""
     sorted_bin, order = torch.sort(keys, stable=True)
     if group == 16:
         seg_start, counts, _, _ = segments_from_sorted_cells(
@@ -369,7 +420,7 @@ def bin_sort_plain(keys, tris, total, num_bins: int, *, group: int = 1,
         counts = torch.searchsorted(sorted_bin, ids, side="right",
                                     out_int32=True) - seg_start
     out = _bin_extras(counts, seg_start, total, keys.shape[0], group, cap,
-                      exact)
+                      exact, spans)
     out["pair_tri"] = tris[order]
     fold_counts(acc, out)
     return out
@@ -420,7 +471,8 @@ def run_ranks_plain(sorted_keys):
 
 def bin_sort_steps_plain(keys, tris, total, num_bins: int, *,
                          group: int = 1, cap: int = CAP_NONE, exact=None,
-                         chunk: int = SORT_CHUNK, wide: int = 0):
+                         chunk: int = SORT_CHUNK, wide: int = 0,
+                         spans: bool = False):
     """The kernel's decomposition of ``bin_sort_plain`` in torch (tests
     only, CPU): the valid slots cut into table chunks of ``wide`` slots, a
     multiple of ``chunk`` (0: ``sort_table_chunk``'s); each table chunk's count
@@ -469,7 +521,7 @@ def bin_sort_steps_plain(keys, tris, total, num_bins: int, *,
         pair_tri[pos] = sv[at].to(I32)
     seg_start = (torch.cumsum(counts, 0) - counts).to(I32)
     out = _bin_extras(counts.to(I32), seg_start, total, pair_cap, group,
-                      cap, exact)
+                      cap, exact, spans)
     out["pair_tri"] = pair_tri
     return out
 
@@ -485,19 +537,28 @@ def sort_table_chunk(pair_cap: int, num_bins: int) -> int:
     return wide
 
 
-def sort_scratch_ints(pair_cap: int, num_bins: int, rects: bool) -> int:
+def sort_scratch_ints(pair_cap: int, num_bins: int, rects: bool,
+                      spans: bool = False) -> int:
     """The bin sort kernel's scratch, in int32 words (csrc/sort.cu's
     ``bin_sort``): four a scan tile of ``SORT_SCAN_TILE`` bins (its
-    look-back words), the exact counts with the rects, then each table
-    chunk's range of bins and the (table chunk, bin) table."""
-    tiles = max(-(-num_bins // SORT_SCAN_TILE), 1)
+    look-back words; six with ``spans``), the exact counts with the
+    rects, the span list with ``spans`` (``span_offset``), then each
+    table chunk's range of bins and the (table chunk, bin) table."""
     chunks = max(-(-pair_cap // sort_table_chunk(pair_cap, num_bins)), 1)
-    return (4 * tiles + (num_bins if rects else 0) + 2 * chunks
-            + chunks * num_bins)
+    return (span_offset(num_bins, rects, spans)
+            + (1 + 2 * span_slots(pair_cap) if spans else 0)
+            + 2 * chunks + chunks * num_bins)
+
+
+def span_offset(num_bins: int, rects: bool, spans: bool) -> int:
+    """Where the bin sort's scratch holds the span list, in int32 words:
+    past the look-back words and the exact counts."""
+    tiles = max(-(-num_bins // SORT_SCAN_TILE), 1)
+    return (6 if spans else 4) * tiles + (num_bins if rects else 0)
 
 
 def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
-                   acc=None):
+                   acc=None, spans=False):
     from compute_renderer_torch import _build
 
     device = keys.device
@@ -518,7 +579,7 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
         rows = [meta[3], meta[2], meta[0], meta[1]]  # c, rx, x0, y0
     num_tiles = num_bins // group
     scratch = torch.empty(
-        (sort_scratch_ints(pair_cap, num_bins, meta is not None),),
+        (sort_scratch_ints(pair_cap, num_bins, meta is not None, spans),),
         dtype=I32, device=device)
     seg = torch.empty((2, num_bins), dtype=I32, device=device)
     pair_tri = torch.empty((pair_cap,), dtype=I32, device=device)
@@ -529,7 +590,7 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
                                             device=device)
     scal = torch.empty((5,), dtype=I32, device=device)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    fn = _build.entry("sort", "bin_sort", pointers=16, ints=6)
+    fn = _build.entry("sort", "bin_sort", pointers=16, ints=7)
     tracing.launch("bin_sort")
     _build.check(
         fn(keys.data_ptr(), tris.data_ptr(), total.data_ptr(),
@@ -537,8 +598,7 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
            seg[0].data_ptr(), seg[1].data_ptr(), ptr(tile_count),
            ptr(win_start), worklist.data_ptr(), scal.data_ptr(),
            acc_pointer(acc, device), T, pair_cap, num_bins, group, int(cap),
-           ntx,
-           torch.cuda.current_stream(device).cuda_stream),
+           ntx, int(spans), torch.cuda.current_stream(device).cuda_stream),
         "bin_sort",
     )
     out = {"pair_tri": pair_tri, "seg_start": seg[0], "seg_count": seg[1],
@@ -547,11 +607,15 @@ def _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
            "k": scal[3], "overflow": scal[0:2]}
     if group == 16:
         out["tile_count"], out["win_start"] = tile_count, win_start
+    if spans:  # the scan writes it in the cleared part of the scratch
+        base = span_offset(num_bins, meta is not None, spans)
+        out["spans"] = scratch[base:base + 1 + 2 * span_slots(pair_cap)]
     return out
 
 
 def bin_sort(keys, tris, total, num_bins: int, *, group: int = 1,
-             cap: int = CAP_NONE, meta=None, ntx: int = 0, acc=None):
+             cap: int = CAP_NONE, meta=None, ntx: int = 0, acc=None,
+             spans: bool = False):
     """Stable sort of a pair list by bin, with its segments and work list.
 
     ``keys`` / ``tris`` (pair_cap,) i32: each pair slot's bin and
@@ -568,26 +632,29 @@ def bin_sort(keys, tris, total, num_bins: int, *, group: int = 1,
     (num_bins,), ``total_pairs``, ``pair_needed``, ``tile_needed``,
     ``most`` (the largest bin count before ``cap``, the rects' exact one
     under pair overflow), ``worklist`` (num_bins / group,) and ``k``,
-    ``overflow`` (2,), and at group 16 ``tile_count`` and ``win_start``.
-    Folds into ``acc`` (the module docstring), None for none.
+    ``overflow`` (2,), at group 16 ``tile_count`` and ``win_start``, and
+    with ``spans`` (group 1: the flat tile layout) ``spans``, the tile
+    raster's span list (the module docstring). Folds into ``acc``
+    (the module docstring), None for none.
 
     CPU tensors take the twin, ``bin_sort_plain``; CUDA tensors the kernel
     ``csrc/sort.cu`` (``launches.bin_sort`` of ``tracing.counters()``
     counts its calls, three launches each; a CUDA graph's capture ticks
     it, its replays do not)."""
-    if group not in (1, 16) or num_bins % group:
-        raise ValueError(f"bin_sort: {num_bins} bins in groups of {group}")
+    if group not in (1, 16) or num_bins % group or (spans and group != 1):
+        raise ValueError(f"bin_sort: {num_bins} bins in groups of {group}"
+                         f", spans {spans}")
     if keys.device.type == "cpu":
         exact = None
         if meta is not None and num_bins > 0:
             exact = exact_tile_counts(setup_from_meta(meta), ntx,
                                       num_bins // ntx)
         return bin_sort_plain(keys, tris, total, num_bins, group=group,
-                              cap=cap, exact=exact, acc=acc)
+                              cap=cap, exact=exact, acc=acc, spans=spans)
     if keys.device.type != "cuda":
         raise ValueError(f"bin_sort: no kernel for device {keys.device}")
     return _bin_sort_cuda(keys, tris, total, num_bins, group, cap, meta, ntx,
-                          acc)
+                          acc, spans)
 
 
 
@@ -652,7 +719,7 @@ def _bin_tiles_flat_cuda(meta, ntx: int, nty: int, pair_cap: int,
         meta[3], meta[2], meta[0], meta[1], pair_cap=pair_cap, ntx_t=0,
         num_cells=num_tiles, row_width=ntx)
     bins = bin_sort(keys, tris, total, num_tiles, cap=tile_cap, meta=meta,
-                    ntx=ntx, acc=acc)
+                    ntx=ntx, acc=acc, spans=True)
     bins["layout"] = "flat"
     return bins
 
@@ -665,7 +732,7 @@ def bin_tiles_meta(meta, ntx: int, nty: int, pair_cap: int, tile_cap: int,
     ``bin_triangles``'s dict plus ``worklist`` (num_tiles,) and ``k`` ()
     (``occupied_worklist`` of ``seg_count``) and ``overflow`` (2,)
     = [pair_needed, tile_needed], folded into ``acc`` (the module
-    docstring).
+    docstring); the flat layout's also holds ``spans``.
 
     CPU tensors take the twin. CUDA tensors take the kernel
     ``csrc/bins.cu`` when ``dense_layout`` picks the dense layout

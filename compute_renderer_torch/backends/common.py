@@ -16,7 +16,9 @@ WGSL device stages):
 - the fused texture tails (``fused_texture_tail``,
   ``fused_texture_tail_mip``) and the deferred one (``resolve_attributes``,
   ``textured_shade``), with one mip sampler ``_sample_mip_px`` shared by
-  the fused and the deferred tail.
+  the fused and the deferred tail;
+- ``merge_scratch``: the exact span merge's state, which both rasters
+  (``csrc/micro.cu``, ``csrc/raster.cu``) share.
 
 Every expression keeps the JAX package's operation order and association.
 Eager torch runs one op per kernel, so nothing is contracted into an FMA
@@ -50,6 +52,35 @@ F32 = torch.float32
 DEPTH_CLEAR = 0xFFFFFFFF  # cleared depth key (u32 bit pattern)
 BACKGROUND_RGBA = 0xFFFF0000  # blue, alpha 1 (fragment.wgsl:58-62)
 NO_TRI = -1  # winner id of a pixel no triangle covers (the tile raster's vis)
+# The span merge's words and counters, per (device, Hp, Wp): each launch
+# leaves them clear for the next.
+_MERGE_SCRATCH: dict = {}
+
+
+def merge_scratch(device, height_padded, width_padded):
+    """The span-merge state of a padded frame size on a device: one int64
+    word a pixel, all ones, and one int32 counter a pixel, zero — made
+    once and left clear by every launch. A raster that cuts a list into
+    spans folds each span's (key, position) words into the words by 64-bit
+    atomicMin and counts the spans that arrived: the micro raster
+    (``micro.raster_shade_micro``) a word a pixel in 8x8 cells and a
+    counter a cell, the tile raster (``raster.raster_shade_tiles``, flat
+    layout) a word a pixel tile by tile and a counter a (tile,
+    sub-rectangle). Both use the same buffers, so at most one frame of a
+    (device, Hp, Wp) may be in flight at once: the renderer runs its
+    frames on one stream, one after another. Made eagerly: the renderer
+    runs an eager frame before it captures one in a CUDA graph, so that a
+    graph reads these buffers and never makes them (a buffer made inside
+    a capture would come from the graph's pool, filled only at replay)."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    k = (index, height_padded, width_padded)
+    if k not in _MERGE_SCRATCH:
+        pixels = height_padded * width_padded
+        _MERGE_SCRATCH[k] = (
+            torch.full((pixels,), -1, dtype=torch.int64, device=device),
+            torch.zeros((pixels,), dtype=torch.int32, device=device))
+    return _MERGE_SCRATCH[k]
 
 
 def empty_frame(width: int, height: int, device):

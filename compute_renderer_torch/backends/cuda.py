@@ -29,9 +29,11 @@ Tile path, per frame:
 2. ``binning.bin_tiles_meta`` on the front's meta: the bins, the
    occupied-tile work list and the overflow report (dense at Suzanne
    scale, one kernel; above ``DENSE_BINNING_OP_LIMIT`` the flat layout:
-   the pair expansion and the bin sort, ``csrc/sort.cu``);
-3. ``raster.raster_shade_tiles`` over the occupied tiles, its shading
-   parameters built by one kernel (``raster.shading_inputs``);
+   the pair expansion and the bin sort, ``csrc/sort.cu``, whose scan
+   also writes the span list of the tiles whose lists are long);
+3. ``raster.raster_shade_tiles`` over the occupied tiles and the span
+   list, its shading parameters built by one kernel
+   (``raster.shading_inputs``);
 4. ``raster.unpack_rgba``, or the mode's texture tail.
 
 Micro path (``render_frame_micro``), for scenes above
@@ -317,7 +319,7 @@ def render_frame(positions, normals, tri, view_proj, view_position,
             light_intensity, height_padded=nty * tile_h,
             width_padded=ntx * tile_w, tile_h=tile_h, tile_w=tile_w,
             layout=bins["layout"], mode=mode,
-            worklist=(bins["worklist"], bins["k"]),
+            worklist=(bins["worklist"], bins["k"]), spans=bins.get("spans"),
         )
         if out_c.dtype == torch.uint32:  # packed RGBA merges as int32
             out_c = out_c.view(torch.int32)

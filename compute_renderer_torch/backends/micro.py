@@ -47,9 +47,6 @@ I32 = torch.int32
 # (csrc/micro.cu).
 SPAN = 128
 WIDE = 4
-# The span merge's words and counters, per (device, Hp, Wp): each launch
-# leaves them clear for the next.
-_MERGE_SCRATCH: dict = {}
 # The walk's winners for the shading epilogue, per (device, Hp, Wp).
 _IDS_SCRATCH: dict = {}
 
@@ -228,29 +225,11 @@ def raster_shade_micro_culled_plain(tri_table, pair_tri, seg_start,
         no_id=raster.PAIR_IDX_CLEAR)
 
 
-def merge_scratch(device, height_padded, width_padded):
-    """The kernel's span-merge state for a frame size on a device: one
-    int64 word a pixel, all ones, and one int32 counter a cell, zero —
-    made once and left clear by every launch. Made eagerly: the renderer
-    runs an eager frame before it captures one in a CUDA graph, so that a
-    graph reads these buffers and never makes them (a buffer made inside
-    a capture would come from the graph's pool, filled only at replay)."""
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    k = (index, height_padded, width_padded)
-    if k not in _MERGE_SCRATCH:
-        cells = height_padded * width_padded // 64
-        _MERGE_SCRATCH[k] = (
-            torch.full((cells * 64,), -1, dtype=torch.int64, device=device),
-            torch.zeros((cells,), dtype=I32, device=device))
-    return _MERGE_SCRATCH[k]
-
-
 def ids_scratch(device, height_padded, width_padded):
     """The kernel's plane of each pixel's winning pair, which its walk
     writes and its shading epilogue reads (int32, (Hp, Wp)), per (device,
-    Hp, Wp): made once, eagerly, as ``merge_scratch``; the walk writes every
-    pixel the epilogue reads, so it is never cleared."""
+    Hp, Wp): made once, eagerly, as ``common.merge_scratch``; the walk
+    writes every pixel the epilogue reads, so it is never cleared."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     k = (index, height_padded, width_padded)
@@ -284,7 +263,8 @@ def _micro_cuda(tri_table, pair_tri, seg_start, seg_count, tile_count,
     out, key = raster.cleared_outputs(mode, lights.shape[0], height_padded,
                                       width_padded, device,
                                       no_id=raster.PAIR_IDX_CLEAR)
-    words, arrivals = merge_scratch(device, height_padded, width_padded)
+    words, arrivals = common.merge_scratch(device, height_padded,
+                                           width_padded)
     ids = ids_scratch(device, height_padded, width_padded)
     fn = _build.entry("micro", "raster_shade_micro", pointers=14, ints=7)
     tracing.launch("raster_shade_micro", mode)

@@ -41,7 +41,7 @@ import torch
 
 from compute_renderer_torch import tracing
 
-from compute_renderer_torch.backends import common
+from compute_renderer_torch.backends import binning, common
 from compute_renderer_torch.backends.binning import occupied_worklist
 from compute_renderer_torch.core.effects import EFFECT_MIRAGE
 
@@ -492,9 +492,22 @@ def raster_shade_tiles_plain(tri_table, pair_data, seg_start, seg_count,
         no_id=PAIR_IDX_CLEAR if pair_ids else common.NO_TRI)
 
 
-# The kernel's decomposition of a tile (csrc/raster.cu): SUB_H x SUB_W
-# sub-rectangles, one block each, and PATCH x PATCH patches, one warp each.
-SUB_H, SUB_W, PATCH = 16, 16, 8
+# The kernel's decomposition of a tile (csrc/raster.cu): sub-rectangles of
+# four PATCH x PATCH patches, one block each (16x16 in a tile of a multiple
+# of 16 rows, else 8x32), a warp a patch; in the flat layout a list of more
+# than binning.TILE_SPAN entries cut into spans of that many list
+# positions, a block each.
+SUB_TALL = (16, 16)
+SUB_SHORT = (8, 32)
+PATCH = 8
+
+
+def sub_shape(tile_h: int) -> tuple:
+    """The kernel's (SUB_H, SUB_W) sub-rectangle for tiles of ``tile_h``
+    rows."""
+    return SUB_TALL if tile_h % SUB_TALL[0] == 0 else SUB_SHORT
+
+
 def cull_rect_plain(rows, x0, x1, y0, y1, cov_min):
     """The kernel's cull (csrc/walk.cuh ``may_cover``) in float32 torch,
     op for op: for (N, R) table rows and sample rectangles [x0, x1] x
@@ -544,18 +557,29 @@ def raster_shade_subtiles_plain(tri_table, pair_data, seg_start, seg_count,
                                 layout: str, mode: str = "base",
                                 stats: dict | None = None):
     """The kernel's decomposition of ``raster_shade_tiles_plain``, in
-    torch (tests only): each occupied tile is cut into SUB_H x SUB_W
+    torch (tests only): each occupied tile is cut into ``sub_shape(tile_h)``
     sub-rectangles and these into PATCH x PATCH patches (pixels past the
-    tile left out); a tile's list entry reaches a patch only if
-    ``cull_rect_plain`` keeps it against the sub-rectangle's sample
-    rectangle and then against the patch's; each patch reduces what
-    reaches it to the (key, list position) minimum of its pixels (the
-    kernel's warps share a round's entries and merge them so). Equal to
-    ``raster_shade_tiles_plain`` bitwise: a culled entry covers no sample
-    of its block. With ``stats`` (a dict),
+    tile left out); in the flat layout a tile's list of more than
+    ``binning.TILE_SPAN`` entries is cut into spans of that many list
+    positions (read when called). A list entry
+    reaches a patch only if ``cull_rect_plain`` keeps it against the
+    sub-rectangle's sample rectangle and then against the patch's; each
+    (span, patch) reduces what reaches it to the (key, list position)
+    minimum of its pixels (the kernel's warps share a round's entries and
+    merge them so), and the spans of a tile merge per pixel by an "amin"
+    of the int64 words ((key - 2^31) << 32) + position, the key's top bit
+    flipped so that signed order is its unsigned order (the kernel's
+    64-bit atomicMin). Equal to ``raster_shade_tiles_plain`` bitwise: a
+    culled entry covers no sample of its block. With ``stats`` (a dict),
     the counts of pairs, of (pair, sub-rectangle) and (pair, patch)
-    survivors, and the samples walked, are written into it."""
+    survivors and of span blocks beyond each tile's first, the most
+    survivors a block and a patch walk, and the samples walked, are
+    written into it."""
     device = tri_table.device
+    i64 = torch.int64
+    none = torch.iinfo(i64).max
+    span = binning.TILE_SPAN
+    sub_h, sub_w = sub_shape(tile_h)
     tiles, pair_tile, pair_tri, _ = _tile_pairs(pair_data, seg_start,
                                                 seg_count, layout)
     px, py = _tile_samples(params, tiles, width_padded // tile_w, tile_h,
@@ -563,16 +587,17 @@ def raster_shade_subtiles_plain(tri_table, pair_data, seg_start, seg_count,
     cov_min = torch.maximum(params[0], params[1])
     # Patch k of a tile: its 64 pixels' tile pixel index, -1 past the tile,
     # and its sub-rectangle.
-    nsy, nsx = -(-tile_h // SUB_H), -(-tile_w // SUB_W)
-    per_sub = (SUB_H // PATCH) * (SUB_W // PATCH)
-    k = torch.arange(nsy * nsx * per_sub, device=device)
+    nsy, nsx = -(-tile_h // sub_h), -(-tile_w // sub_w)
+    nsub = nsy * nsx
+    per_sub = (sub_h // PATCH) * (sub_w // PATCH)
+    k = torch.arange(nsub * per_sub, device=device)
     sub = torch.div(k, per_sub, rounding_mode="floor")
     w = k - sub * per_sub
     q = torch.arange(PATCH * PATCH, device=device)
-    r = (torch.div(sub, nsx, rounding_mode="floor")[:, None] * SUB_H
-         + torch.div(w, SUB_W // PATCH, rounding_mode="floor")[:, None]
+    r = (torch.div(sub, nsx, rounding_mode="floor")[:, None] * sub_h
+         + torch.div(w, sub_w // PATCH, rounding_mode="floor")[:, None]
          * PATCH + torch.div(q, PATCH, rounding_mode="floor")[None, :])
-    c = ((sub % nsx)[:, None] * SUB_W + (w % (SUB_W // PATCH))[:, None]
+    c = ((sub % nsx)[:, None] * sub_w + (w % (sub_w // PATCH))[:, None]
          * PATCH + (q % PATCH)[None, :])
     valid = (r < tile_h) & (c < tile_w)
     pix = torch.where(valid, r * tile_w + c, 0)  # (K, 64)
@@ -585,47 +610,70 @@ def raster_shade_subtiles_plain(tri_table, pair_data, seg_start, seg_count,
     prect = [v.reshape(G, K) for v in _nan_rect(
         gx.reshape(G * K, -1), gy.reshape(G * K, -1),
         patch_valid.reshape(G * K, -1))]
-    srect = [v.reshape(G, nsy * nsx) for v in _nan_rect(
-        gx.reshape(G * nsy * nsx, -1), gy.reshape(G * nsy * nsx, -1),
-        patch_valid.reshape(G * nsy * nsx, -1))]
+    srect = [v.reshape(G, nsub) for v in _nan_rect(
+        gx.reshape(G * nsub, -1), gy.reshape(G * nsub, -1),
+        patch_valid.reshape(G * nsub, -1))]
 
-    # Entries (pair, patch) that pass both culls, in (tile, patch, list)
-    # order; a patch with no valid pixel walks nothing.
+    # Each entry's span: its list position // span in a flat list longer
+    # than span, else 0 (the whole list).
     n = pair_tri.shape[0]
+    counts = seg_count[tiles].long()
+    slot = (torch.arange(n, device=device)
+            - (torch.cumsum(counts, 0) - counts)[pair_tile])
+    cut = counts > span if layout == "flat" else torch.zeros_like(
+        counts, dtype=torch.bool)
+    piece = torch.where(cut[pair_tile],
+                        torch.div(slot, span, rounding_mode="floor"), 0)
+    pieces = int(piece.max()) + 1 if n else 1
+
+    # Entries (pair, patch) that pass both culls, in (tile, span, patch,
+    # list) order; a patch with no valid pixel walks nothing.
     rows = tri_table[pair_tri]
     keep_sub = torch.stack([cull_rect_plain(
         rows, *(v[pair_tile, s] for v in srect), cov_min)
-        for s in range(nsy * nsx)], 1)  # (n, nsub)
+        for s in range(nsub)], 1)  # (n, nsub)
     keep = torch.stack([cull_rect_plain(
         rows, *(v[pair_tile, kk] for v in prect), cov_min)
         for kk in range(K)], 1) & keep_sub[:, sub] & valid.any(1)[None]
-    pair, patch = torch.nonzero(keep.T, as_tuple=True)[::-1]  # patch-major
-    unit_key = pair_tile[pair] * K + patch
+    pair, patch = torch.nonzero(keep, as_tuple=True)
+    unit_key = (pair_tile[pair] * pieces + piece[pair]) * K + patch
     order = torch.sort(unit_key * max(n, 1) + pair).indices
-    pair, patch = pair[order], patch[order]
-    unit = pair_tile[pair] * K + patch
+    pair, unit_key = pair[order], unit_key[order]
+    units, unit = torch.unique(unit_key, return_inverse=True)
+    home = (torch.div(units, pieces * K, rounding_mode="floor") * K
+            + units % K)  # each unit's (tile, patch)
     best_u, first = _walk_plain(
-        tri_table, unit, pair_tri[pair], pair, gx.reshape(G * K, -1),
-        gy.reshape(G * K, -1), cov_min)
+        tri_table, unit, pair_tri[pair], pair, gx.reshape(G * K, -1)[home],
+        gy.reshape(G * K, -1)[home], cov_min)
+    word = torch.where(best_u != common.DEPTH_CLEAR,
+                       ((best_u - 2**31) << 32) + first, none)
+    merged = torch.full((G * K, PATCH * PATCH), none, dtype=i64,
+                        device=device).scatter_reduce(
+        0, home[:, None].expand_as(word), word, "amin")
+    hit = merged != none
+    best_p = torch.where(hit, (merged >> 32) + 2**31, common.DEPTH_CLEAR)
+    first_p = torch.where(hit, merged & 0xFFFFFFFF, 0)
 
     # Back to the tiles' pixel order, then the tile twin's epilogue.
     best = torch.full((G, tile_h * tile_w), common.DEPTH_CLEAR,
-                      dtype=torch.int64, device=device)
+                      dtype=i64, device=device)
     winner = torch.zeros_like(best)
     dest = (torch.arange(G, device=device)[:, None, None] * (tile_h * tile_w)
             + pix[None]).reshape(-1)
     sel = patch_valid.reshape(-1)
-    best.view(-1)[dest[sel]] = best_u.reshape(-1)[sel]
-    winner.view(-1)[dest[sel]] = first.reshape(-1)[sel]
+    best.view(-1)[dest[sel]] = best_p.reshape(-1)[sel]
+    winner.view(-1)[dest[sel]] = first_p.reshape(-1)[sel]
     if stats is not None:
-        per_block = torch.zeros(G * nsy * nsx, dtype=torch.int64,
+        blocks = ((pair_tile * pieces + piece)[:, None] * nsub
+                  + torch.arange(nsub, device=device))
+        per_block = torch.zeros(max(G * pieces * nsub, 1), dtype=i64,
                                 device=device).index_add_(
-            0, (pair_tile[:, None] * (nsy * nsx) + torch.arange(
-                nsy * nsx, device=device)).reshape(-1),
-            keep_sub.reshape(-1).long())
-        per_patch = torch.bincount(unit, minlength=max(G * K, 1))
+            0, blocks.reshape(-1), keep_sub.reshape(-1).long())
+        per_patch = torch.bincount(unit, minlength=1)
         stats.update(pairs=n, sub_survivors=int(keep_sub.sum()),
                      patch_survivors=int(keep.sum()),
+                     spans=int(torch.where(cut, torch.div(
+                         counts - 1, span, rounding_mode="floor"), 0).sum()),
                      block_max=int(per_block.max()) if n else 0,
                      patch_max=int(per_patch.max()) if n else 0,
                      samples_unculled=n * tile_h * tile_w,
@@ -678,7 +726,7 @@ def public_outputs(mode, out, key):
 
 def _raster_cuda(tri_table, pair_data, seg_start, seg_count, params, lights,
                  *, height_padded, width_padded, tile_h, tile_w, layout,
-                 mode, worklist):
+                 mode, worklist, spans=None):
     from compute_renderer_torch import _build
 
     device = tri_table.device
@@ -696,15 +744,33 @@ def _raster_cuda(tri_table, pair_data, seg_start, seg_count, params, lights,
     k = k.reshape(1).contiguous()
     out, key = cleared_outputs(mode, lights.shape[0], height_padded,
                                width_padded, device)
-    fn = _build.entry("raster", "raster_shade_tiles", pointers=10, ints=10)
+    # The flat layout's span list and the span merge's words and counters
+    # (the padded frame's, made eagerly, left clear by every launch); the
+    # dense layout walks every list whole and takes none.
+    merge = arrivals = None
+    if (layout == "flat") != (spans is not None):
+        raise ValueError(f"raster_shade_tiles: the {layout} layout with"
+                         f"{'' if spans is not None else 'out'} a span list")
+    if spans is not None:
+        if (spans.dtype != I32 or spans.dim() != 1 or spans.shape[0] < 3
+                or spans.shape[0] % 2 == 0):
+            raise ValueError(f"spans {spans.dtype} {tuple(spans.shape)}: "
+                             "expected int32 [count, (tile, k) ...]")
+        spans = spans.contiguous()
+        merge, arrivals = common.merge_scratch(device, height_padded,
+                                               width_padded)
+    ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+    fn = _build.entry("raster", "raster_shade_tiles", pointers=13, ints=11)
     tracing.launch("raster_shade_tiles", mode)
     _build.check(
         fn(table.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
            counts.data_ptr(), wl.data_ptr(), k.data_ptr(), params.data_ptr(),
-           lights.data_ptr(), out.data_ptr(), key.data_ptr(), MODES[mode],
-           row_stride, num_tiles, lights.shape[0], ntx, tile_h, tile_w,
-           width_padded, int(layout == "dense"),
+           lights.data_ptr(), out.data_ptr(), key.data_ptr(), ptr(spans),
+           ptr(merge), ptr(arrivals), MODES[mode], row_stride, num_tiles,
+           lights.shape[0], ntx, tile_h, tile_w, width_padded,
+           int(layout == "dense"),
            pairs.shape[-1] if layout == "dense" else 0,
+           0 if spans is None else spans.shape[0] // 2,
            torch.cuda.current_stream(device).cuda_stream),
         "raster_shade_tiles",
     )
@@ -716,7 +782,7 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
                        light_intensity, *, height_padded: int,
                        width_padded: int, tile_h: int, tile_w: int,
                        layout: str = "flat", mode: str = "base",
-                       y_offset: int = 0, worklist=None):
+                       y_offset: int = 0, worklist=None, spans=None):
     """Raster + shade the padded framebuffer in ``mode`` (``MODES``; the
     table must have the mode's width, ``check_mode``). ``pair_data`` is
     the dense (num_tiles, C) ``bin_rows`` or the flat tile-sorted
@@ -735,8 +801,11 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
     graph's capture ticks them, its replays do not), launched over the
     occupied-tile work list:
     ``worklist`` = (ids, k) as ``occupied_worklist`` gives them for
-    ``seg_count``. The main path passes the one ``binning.bin_tiles_meta``
-    returns; a caller that bins by hand may pass None, and it is built
+    ``seg_count``, and in the flat layout over ``spans``, the span
+    list (``binning.span_list_plain``): a tile whose list is longer than
+    ``binning.TILE_SPAN`` is walked a span a block and merged exactly.
+    The main path passes the ones ``binning.bin_tiles_meta`` returns; a
+    caller that bins by hand may pass None for either, and it is built
     here. The twin walks the occupied tiles itself."""
     check_mode(tri_table, mode)
     if layout not in ("dense", "flat"):
@@ -752,8 +821,11 @@ def raster_shade_tiles(tri_table, pair_data, seg_start, seg_count, effect,
     elif device.type == "cuda":
         if worklist is None:
             worklist = occupied_worklist(seg_count)
+        if layout == "flat" and spans is None:
+            spans = binning.span_list_plain(seg_count, pair_data.shape[0])
         out, key = _raster_cuda(tri_table, pair_data, seg_start, seg_count,
-                                params, lights, worklist=worklist, **kw)
+                                params, lights, worklist=worklist,
+                                spans=spans, **kw)
     else:
         raise ValueError(f"raster_shade_tiles: no kernel for device {device}")
     return public_outputs(mode, out, key)

@@ -192,7 +192,8 @@ def stage_timings(mesh, uniforms, width: int, height: int,
             table, data, bins["seg_start"], bins["seg_count"], eff, vpos,
             lwp, lc, li, height_padded=nty * tile_h,
             width_padded=ntx * tile_w, tile_h=tile_h, tile_w=tile_w,
-            layout=bins["layout"], worklist=(bins["worklist"], bins["k"]))
+            layout=bins["layout"], worklist=(bins["worklist"], bins["k"]),
+            spans=bins.get("spans"))
 
     return {
         "front_ms": graph_ms(run_front, iters),

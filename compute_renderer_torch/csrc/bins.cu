@@ -218,7 +218,7 @@ __global__ void __launch_bounds__(PARAM_THREADS) shading_params_kernel(
 }  // namespace
 
 // counts: scratch of num_tiles ints; seg_start, seg_count and worklist
-// (num_tiles,), bin_rows (num_tiles, C), scal (5,), acc (7,) long longs
+// (num_tiles,), bin_rows (num_tiles, C), scal (5,), acc (8,) long longs
 // (frame_counts.cuh) or null. Two launches.
 extern "C" int bin_tiles_dense(const void* meta, void* counts,
                                void* bin_rows, void* seg_start,

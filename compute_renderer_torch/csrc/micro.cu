@@ -568,7 +568,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) micro_kernel(
     const int* __restrict__ num_work,   // () occupied count
     unsigned long long* __restrict__ words,  // (num_cells, 64) all ones
     int* __restrict__ arrivals,              // (num_cells,) zeros
-    long long* __restrict__ acc,             // (7,) or null
+    long long* __restrict__ acc,             // (8,) or null
     int num_cells, int span_blocks) {
   extern __shared__ float4 smem[];
   __shared__ int block_tested[WARPS];

@@ -6,16 +6,24 @@
 // (_raster_kernel_wl with _raster_tile, launched by raster_shade_tiles;
 // the full-grid _raster_kernel is this kernel fed an all-tiles list).
 //
-// Each occupied tile of the work list is split into SUB_H x SUB_W
-// sub-rectangles, one block each (a 16x256 tile is sixteen); the
-// blocks own disjoint pixels. Warp w < 4 of a block's eight owns an 8x8
-// patch of its sub-rectangle, two pixels a lane in one column, for the
-// culls and the epilogue; all eight walk. The block walks the tile's whole triangle list — row `tile` of
-// the dense bin_rows, or pair_tri[seg_start : seg_start + seg_count] of
-// the flat list — CHUNK triangles a round, double-buffered: while round k
-// is walked, round k+1's rows are in flight (cp.async of the four quads
-// the walk reads, walk.cuh) and round k+2's ids are in registers. Each
-// round:
+// A block's unit of work is one (tile, span, sub-rectangle). A tile is cut
+// into sub-rectangles of four 8x8 patches (16x16 in a tile of a multiple
+// of 16 rows, 8x32 in an 8-row tile, so that every patch lies in the
+// tile), one block each; the blocks own disjoint pixels. Warp w < 4 of a
+// block's eight owns patch w, two pixels a lane in one column, for the
+// culls; all eight walk and emit. A tile's list — row `tile` of the dense
+// bin_rows, or pair_tri[seg_start : seg_start + seg_count] of the flat
+// list — of at most TILE_SPAN triangles (tile_span.cuh) is walked whole
+// by its blocks. In the flat layout, whose span list the bin sort writes
+// (sort.cu), a longer list is cut into spans of TILE_SPAN list positions,
+// one block a (span, sub-rectangle): span 0 is the work-list block's, and
+// span k >= 1 that of its entry in the span list (whose blocks come first
+// in the grid); the dense layout's lists are short by its own rule and
+// are always walked whole. A block
+// walks its positions CHUNK triangles a round, double-buffered: while
+// round k is walked, round k+1's rows are in flight (cp.async of the four
+// quads the walk reads, walk.cuh) and round k+2's ids are in registers.
+// Each round:
 //   1. one thread per staged triangle tests it against the block's sample
 //      rectangle (walk::may_cover: a barycentric plane below cov_min at
 //      the rectangle's highest corner, evaluated with the walk's own float
@@ -32,31 +40,51 @@
 //      atomicMin((key << 32) | position) — the (key, position)-
 //      lexicographic minimum is the sequential walk's winner (the lowest
 //      list position wins ties).
-// A culled triangle covers no sample of the block or patch, so it could
-// never have won: the output is the unculled walk's, bitwise. The epilogue
-// reads each pixel's word, takes the winner's table row from the list, and
-// (shade.cuh emit_pixel) evaluates its attributes and shades (base,
-// material) or writes the G-buffer (texf, texf_mip); in vis mode it writes
-// the table row itself (-1 where no triangle covers). Empty tiles never
-// launch work: the wrapper pre-clears the outputs (background, -1 ids,
-// cleared key), the JAX package's aliased-clear semantics; a G-buffer's
-// planes are left unwritten there, undefined where the key is clear.
+// A span's positions are the tile list's own, so a span block folds its
+// words into the pixels' global words (common.merge_scratch, a word a
+// pixel of the tile, tile by tile) by the same 64-bit atomicMin, fences,
+// and ticks the (tile, sub-rectangle)'s
+// counter; the last of the tile's spans to arrive takes the merged words
+// back with atomicExch (restoring them and the counter to clear for the
+// next launch) and emits: the minimum over the spans is the minimum over
+// the list, the sequential walk's winner, so the output is bitwise the
+// whole walk's. A culled triangle covers no sample of the block or patch,
+// so it could never have won: the output is the unculled walk's, bitwise.
+// The epilogue reads each pixel's word, takes the winner's table row from
+// the list, and (shade.cuh emit_pixel) evaluates its attributes and
+// shades (base, material) or writes the G-buffer (texf, texf_mip); in vis
+// mode it writes the table row itself (-1 where no triangle covers).
+// Empty tiles never launch work: the wrapper pre-clears the outputs
+// (background, -1 ids, cleared key), the JAX package's aliased-clear
+// semantics; a G-buffer's planes are left unwritten there, undefined
+// where the key is clear.
 //
 // What bounds it on an H100: by the roofline, bytes (the walked columns of
 // each binned triangle, the winners' rows and the outputs;
 // chip_smoke.py raster_bound: 0.0022-0.0148 ms on structured_scene_tex by
-// mode). In practice the heaviest tile: each of its blocks stages and
-// culls its 3,140-triangle list in 13 rounds of about 1.5 us, and the
-// densest walk thousands of (triangle, patch) items in the first rounds;
-// alone, that tile takes 0.088 of the kernel's 0.094 ms at 16x32 blocks
-// (scripts/sweep_raster_constants.py --probe). 16x16 blocks of eight warps
-// measured best of eight shapes: 0.0695 ms on structured_scene_tex (mat),
-// 0.011 ms on Suzanne, against 1.67 and 0.032 ms for one block per tile
-// without the cull, which tested 95.7M samples there for the 6.3M that
-// the cull leaves (NVIDIA H100 80GB HBM3, 700 W; PERF.md). The grid has no
-// host-side size: it is num_tiles x sub-rectangles blocks, and each block
-// exits when its tile index is past the occupied count, which stays on
-// the device (no host synchronisation per frame).
+// mode). In practice, chains of dependent loads and barriers: a block
+// stages, culls and walks its rounds one after another. With each list
+// walked whole by 16x16 blocks, the heaviest tile's chain set the time (at
+// 16x256 on structured_scene_tex that tile alone took 0.088 of the
+// kernel's 0.094 ms), and at 8x128 half of every block lay outside its
+// tile. On the structured_tex_aniso cell's frame (texf_mip, 8x128,
+// longest list 1,163) that kernel took 0.0455 ms; lists cut to 256 alone
+// gave 0.0410 and 8x32 blocks alone 0.0492 (the heavy chain twice as long
+// a block). Spans with 8x32 blocks take 0.034-0.037, and cutting the lists
+// to 256 or leaving out the four heaviest tiles no longer changes that
+// (0.0320-0.0334): the blocks' own chains over about three waves of
+// resident blocks set the time (one triangle a tile: 0.0137; no tile:
+// 0.0041). Of the 8-row blocks 8x32 measured best (8x16 0.0462, 8x64
+// 0.0444, 4 warps 0.0504-0.0522), and spans of 256 beat 512 (0.0462)
+// (scripts/sweep_raster_constants.py --probe and --short; NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md). 16x16 blocks of eight warps measured best
+// of eight shapes on 16-row tiles: 0.0476 ms on structured_scene_tex
+// (mat), 0.0695 with each list walked whole. The grid has no host-side
+// size: it is (ceil(pair_cap / TILE_SPAN) + num_tiles) x
+// sub-rectangles blocks, the most spans and tiles there can be, and a
+// block exits when its unit is past the span list's count and the
+// occupied count, both on the device (no host synchronisation per
+// frame); those blocks are the grid's last.
 //
 // Exactness: built with -fmad=false and without fast math, so each
 // (A + B*dx) + C*dy is two roundings as in the eager torch twin. Coverage
@@ -70,20 +98,24 @@
 #include <stdint.h>
 
 #include "shade.cuh"
+#include "tile_span.cuh"
 #include "walk.cuh"
 
 namespace {
 
-constexpr int SUB_H = 16;  // a block's sub-rectangle of its tile
-constexpr int SUB_W = 16;
+// A block's sub-rectangle of its tile: four 8x8 patches, 16x16 in a tile of
+// a multiple of 16 rows, else 8x32 (an 8-row tile), so that every patch
+// warp owns pixels. Two instantiations; the launcher picks by tile_h.
+constexpr int SUB_H_TALL = 16;
+constexpr int SUB_W_TALL = 16;
+constexpr int SUB_H_SHORT = 8;
+constexpr int SUB_W_SHORT = 32;
 constexpr int PATCH = 8;  // a warp's patch: 8x8 pixels, two a lane
-constexpr int PATCHES_X = SUB_W / PATCH;
-constexpr int PATCHES = (SUB_H / PATCH) * PATCHES_X;
 constexpr int WARPS = 8;  // warp w < PATCHES owns patch w; all walk
 constexpr int THREADS = 32 * WARPS;
 // Triangles staged a round, at most one a thread.
 constexpr int CHUNK = THREADS < 256 ? THREADS : 256;
-static_assert(PATCHES <= WARPS, "a patch a warp at most");
+static_assert(TILE_SPAN % CHUNK == 0, "a span is whole rounds");
 constexpr int MIN_BLOCKS = 4;  // resident blocks an SM: caps the registers
 constexpr int MAX_TILE_PIXELS = 4096;
 constexpr uint32_t KEY_CLEAR = shade::KEY_CLEAR;
@@ -91,7 +123,7 @@ constexpr unsigned long long WORD_CLEAR = ~0ull;
 using walk::FULL;
 using walk::QUADS;
 
-template <int MODE>
+template <int MODE, int SUB_H, int SUB_W>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
     const float* __restrict__ table,    // (T, row_stride) f32 rows
     const int* __restrict__ pair_data,  // dense (num_tiles, list_stride) | flat
@@ -103,9 +135,15 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
     const float* __restrict__ lights,   // (L, 8)
     void* __restrict__ out,             // (Hp, Wp) u32 | i32 | (C, Hp, Wp) f32
     uint32_t* __restrict__ key,         // (Hp, Wp)
+    const int* __restrict__ spans,      // flat: [count, (tile, k) ...]
+    unsigned long long* merge,          // flat: (Hp Wp,) all ones
+    int* arrivals,                      // flat: (>= num_tiles nsub,) zeros
     int row_stride, int num_lights, int ntx, int tile_h, int tile_w,
     int width_padded, size_t plane, int dense, int list_stride, int nsx,
     int nsub) {
+  constexpr int PATCHES_X = SUB_W / PATCH;
+  constexpr int PATCHES = (SUB_H / PATCH) * PATCHES_X;
+  static_assert(PATCHES <= WARPS, "a patch a warp at most");
   __shared__ float4 rows[2][CHUNK * QUADS];  // 32 KB
   // Per pixel of the block, patch-major: (key << 32) | list position.
   __shared__ unsigned long long words[PATCHES * 64];
@@ -116,12 +154,28 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
   __shared__ walk::Rect warp_rects[PATCHES];
   __shared__ float sample_x[PATCHES][PATCH];  // per patch: px of a column,
   __shared__ float sample_y[PATCHES][PATCH];  // py of a row
+  __shared__ int last_span;
 
-  const int w = blockIdx.x / nsub;
-  if (w >= *num_work) return;
-  const int sub = blockIdx.x - w * nsub;
-  const int tile = worklist[w];
+  // The block's unit of work: (tile, span, sub-rectangle). Unit u =
+  // blockIdx.x / nsub: the span list's entries first (span k >= 1 of a
+  // long list), then the work list's tiles (the whole list, or span 0 of
+  // a long one); the blocks past both exit, at the end of the grid.
+  const int u = blockIdx.x / nsub;
+  const int sub = blockIdx.x - u * nsub;
+  const int span_units = spans != nullptr ? spans[0] : 0;
+  int tile, lo = 0;
+  bool split;
+  if (u < span_units) {
+    tile = spans[1 + 2 * u];
+    lo = spans[2 + 2 * u] * TILE_SPAN;
+    split = true;
+  } else {
+    if (u - span_units >= *num_work) return;
+    tile = worklist[u - span_units];
+    split = !dense && seg_count[tile] > TILE_SPAN;  // span 0
+  }
   const int count = seg_count[tile];
+  const int n = split ? min(TILE_SPAN, count - lo) : count;  // walked
   const int* list = dense ? pair_data + (size_t)tile * list_stride
                           : pair_data + seg_start[tile];
   const int ti = tile / ntx;
@@ -190,7 +244,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
   const float4* table4 = reinterpret_cast<const float4*>(table);
   const int row_quads = row_stride / 4;
   auto stage = [&](int c, int id) {
-    if ((int)threadIdx.x < CHUNK && c * CHUNK + (int)threadIdx.x < count) {
+    if ((int)threadIdx.x < CHUNK && c * CHUNK + (int)threadIdx.x < n) {
 #pragma unroll
       for (int q = 0; q < QUADS; ++q)
         walk::cp_async16(&rows[c & 1][threadIdx.x * QUADS + q],
@@ -200,14 +254,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
   };
   auto list_id = [&](int c) {
     const int i = c * CHUNK + threadIdx.x;
-    return (int)threadIdx.x < CHUNK && i < count ? list[i] : 0;
+    return (int)threadIdx.x < CHUNK && i < n ? list[lo + i] : 0;
   };
 
-  const int rounds = (count + CHUNK - 1) / CHUNK;
+  const int rounds = (n + CHUNK - 1) / CHUNK;
   stage(0, list_id(0));
   int next_id = list_id(1);
   for (int c = 0; c < rounds; ++c) {
-    const int n = min(CHUNK, count - c * CHUNK);
+    const int m = min(CHUNK, n - c * CHUNK);
     stage(c + 1, next_id);  // an empty group past the last round
     next_id = list_id(c + 2);
     walk::cp_async_wait<1>();  // this thread's copies of round c landed
@@ -215,7 +269,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
 
     // 1. The block's cull, compacted in list order.
     const float4* staged = rows[c & 1];
-    const bool keep = (int)threadIdx.x < n &&
+    const bool keep = (int)threadIdx.x < m &&
                       walk::may_cover(staged + threadIdx.x * QUADS, block,
                                       cov_min);
     const unsigned ballot = __ballot_sync(FULL, keep);
@@ -238,11 +292,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
         const bool mine =
             i < total &&
             walk::may_cover(staged + survivors[i] * QUADS, patch, cov_min);
-        const unsigned m = __ballot_sync(FULL, mine);
+        const unsigned mask = __ballot_sync(FULL, mine);
         if (mine)
-          items[warp][listed + __popc(m & ((1u << lane) - 1u))] =
+          items[warp][listed + __popc(mask & ((1u << lane) - 1u))] =
               (unsigned short)survivors[i];
-        listed += __popc(m);
+        listed += __popc(mask);
       }
     }
     if (lane == 0 && warp < PATCHES) item_counts[warp] = listed;
@@ -254,11 +308,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
     // range moves to the next patch and at its end.
     int n_items = 0;
     for (int k = 0; k < PATCHES; ++k) n_items += item_counts[k];
-    const int lo = warp * n_items / WARPS;
-    const int hi = (warp + 1) * n_items / WARPS;
-    if (lo < hi) {
+    const int ilo = warp * n_items / WARPS;
+    const int ihi = (warp + 1) * n_items / WARPS;
+    if (ilo < ihi) {
       int p = 0, first = 0;  // the patch of item i, and its first item
-      while (first + item_counts[p] <= lo) first += item_counts[p++];
+      while (first + item_counts[p] <= ilo) first += item_counts[p++];
       float qx = sample_x[p][lane & 7];
       float qy[2] = {sample_y[p][lane >> 3], sample_y[p][(lane >> 3) + 4]};
       uint32_t best[2] = {KEY_CLEAR, KEY_CLEAR};
@@ -273,7 +327,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
           at[j] = -1;
         }
       };
-      for (int i = lo; i < hi; ++i) {
+      for (int i = ilo; i < ihi; ++i) {
         if (i == first + item_counts[p]) {
           fold();
           do first += item_counts[p++]; while (i >= first + item_counts[p]);
@@ -283,7 +337,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
         }
         const int slot = items[p][i - first];
         walk::walk_row(staged + slot * QUADS, qx, qy, cov_min,
-                       c * CHUNK + slot, best, at);
+                       lo + c * CHUNK + slot, best, at);
       }
       fold();
     }
@@ -291,65 +345,156 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) raster_kernel(
   }
 
   // --- epilogue (shade.cuh): resolve the winner's row, shade or emit ------
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (!valid[j]) continue;
-    const unsigned long long v = words[warp * 64 + lane + 32 * j];
+  // Every warp emits: e = warp, warp + WARPS, ... below 2 PATCHES is the
+  // half j = e / PATCHES (pixels lane + 32 j) of patch p = e % PATCHES,
+  // at its samples as staged in shared memory. Pixels past the tile are
+  // not emitted.
+  const int sub_r0 = sy * SUB_H;
+  const int sub_c0 = (sub - sy * nsx) * SUB_W;
+  auto locate = [&](int e, int& p, int& j, int& r, int& cl) {
+    p = e % PATCHES;
+    j = e / PATCHES;
+    r = sub_r0 + (p / PATCHES_X) * PATCH + (lane >> 3) + 4 * j;
+    cl = sub_c0 + (p % PATCHES_X) * PATCH + (lane & 7);
+    return r < tile_h && cl < tile_w;
+  };
+  auto emit = [&](int p, int j, int r, int cl, unsigned long long v) {
     const uint32_t best = v == WORD_CLEAR ? KEY_CLEAR : (uint32_t)(v >> 32);
     const int winner = v == WORD_CLEAR ? -1 : list[(uint32_t)v];
-    const size_t o = (size_t)(ti * tile_h + r0 + 4 * j) * width_padded +
-                     (size_t)(tj * tile_w + col);
+    const size_t o = (size_t)(ti * tile_h + r) * width_padded +
+                     (size_t)(tj * tile_w + cl);
     const float* row =
         winner < 0 ? nullptr : table + (size_t)winner * row_stride;
-    shade::emit_pixel<MODE>(row, winner, px, py[j], best, params, lights,
-                            num_lights, out, key, o, plane);
+    shade::emit_pixel<MODE>(row, winner, sample_x[p][lane & 7],
+                            sample_y[p][(lane >> 3) + 4 * j], best, params,
+                            lights, num_lights, out, key, o, plane);
+  };
+  if (!split) {
+    for (int e = warp; e < 2 * PATCHES; e += WARPS) {
+      int p, j, r, cl;
+      if (locate(e, p, j, r, cl))
+        emit(p, j, r, cl, words[p * 64 + lane + 32 * j]);
+    }
+    return;
   }
+  // A span: its words fold into the pixels' global words (a word a pixel
+  // of the tile, the tiles one after another: any tile shape fits the
+  // padded frame's words) by the same 64-bit minimum; the last of the
+  // tile's spans to arrive at the sub-rectangle's counter takes the words
+  // back, restores them and the counter to clear, and emits.
+  auto global_word = [&](int r, int cl) {
+    return merge + (size_t)tile * tile_h * tile_w + r * tile_w + cl;
+  };
+  for (int e = warp; e < 2 * PATCHES; e += WARPS) {
+    int p, j, r, cl;
+    if (!locate(e, p, j, r, cl)) continue;
+    const unsigned long long v = words[p * 64 + lane + 32 * j];
+    if (v != WORD_CLEAR) atomicMin(global_word(r, cl), v);
+  }
+  __threadfence();
+  __syncthreads();
+  int* counter = arrivals + (size_t)tile * nsub + sub;
+  if (threadIdx.x == 0)
+    last_span = atomicAdd(counter, 1) == (count - 1) / TILE_SPAN;
+  __syncthreads();
+  if (!last_span) return;
+  __threadfence();  // the other spans' words are complete
+  for (int e = warp; e < 2 * PATCHES; e += WARPS) {
+    int p, j, r, cl;
+    if (locate(e, p, j, r, cl))
+      emit(p, j, r, cl, atomicExch(global_word(r, cl), WORD_CLEAR));
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+struct Args {
+  const float* table;
+  const int *pair_data, *seg_start, *seg_count, *worklist, *num_work;
+  const float *params, *lights;
+  void* out;
+  uint32_t* key;
+  const int* spans;
+  unsigned long long* merge;
+  int* arrivals;
+  int row_stride, num_lights, ntx, tile_h, tile_w, width_padded;
+  size_t plane;
+  int dense, list_stride, num_tiles, span_slots;
+};
+
+// One launch of the (SUB_H, SUB_W) instantiation in `mode`: a block per
+// (unit, sub-rectangle), span_slots + num_tiles units at most.
+template <int SUB_H, int SUB_W>
+int launch(int mode, const Args& a, cudaStream_t s) {
+  const int nsx = (a.tile_w + SUB_W - 1) / SUB_W;
+  const int nsub = nsx * ((a.tile_h + SUB_H - 1) / SUB_H);
+  const unsigned grid = (unsigned)(a.span_slots + a.num_tiles) * nsub;
+#define RASTER_ARGS                                                          \
+  a.table, a.pair_data, a.seg_start, a.seg_count, a.worklist, a.num_work,   \
+      a.params, a.lights, a.out, a.key, a.spans, a.merge, a.arrivals,       \
+      a.row_stride, a.num_lights, a.ntx, a.tile_h, a.tile_w,                \
+      a.width_padded, a.plane, a.dense, a.list_stride, nsx, nsub
+  switch (mode) {
+    case shade::MODE_BASE:
+      raster_kernel<shade::MODE_BASE, SUB_H, SUB_W><<<grid, THREADS, 0, s>>>(
+          RASTER_ARGS);
+      break;
+    case shade::MODE_MAT:
+      raster_kernel<shade::MODE_MAT, SUB_H, SUB_W><<<grid, THREADS, 0, s>>>(
+          RASTER_ARGS);
+      break;
+    case shade::MODE_TEXF:
+      raster_kernel<shade::MODE_TEXF, SUB_H, SUB_W><<<grid, THREADS, 0, s>>>(
+          RASTER_ARGS);
+      break;
+    case shade::MODE_VIS:
+      raster_kernel<shade::MODE_VIS, SUB_H, SUB_W><<<grid, THREADS, 0, s>>>(
+          RASTER_ARGS);
+      break;
+    case shade::MODE_TEXF_MIP:
+      raster_kernel<shade::MODE_TEXF_MIP, SUB_H, SUB_W>
+          <<<grid, THREADS, 0, s>>>(RASTER_ARGS);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RASTER_ARGS
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// spans: the flat layout's span list (1 + 2 span_slots ints: the count,
+// then (tile, k) for each span k >= 1 of a list longer than TILE_SPAN;
+// sort.cu, binning.span_list_plain), null with the dense layout; merge
+// and arrivals (common.merge_scratch of the padded frame) likewise, and
+// left clear.
 extern "C" int raster_shade_tiles(
     const void* table, const void* pair_data, const void* seg_start,
     const void* seg_count, const void* worklist, const void* num_work,
-    const void* params, const void* lights, void* out, void* key, int mode,
-    int row_stride, int num_tiles, int num_lights, int ntx, int tile_h,
-    int tile_w, int width_padded, int dense, int list_stride, void* stream) {
+    const void* params, const void* lights, void* out, void* key,
+    const void* spans, void* merge, void* arrivals, int mode, int row_stride,
+    int num_tiles, int num_lights, int ntx, int tile_h, int tile_w,
+    int width_padded, int dense, int list_stride, int span_slots,
+    void* stream) {
   if (tile_h * tile_w > MAX_TILE_PIXELS) return (int)cudaErrorInvalidValue;
   if (row_stride % 4 != 0 || ((uintptr_t)table & 15) != 0)
     return (int)cudaErrorMisalignedAddress;  // rows stage as float4
-  if (num_tiles > 0) {
-    const size_t plane = (size_t)num_tiles * tile_h * tile_w;
-    const int nsx = (tile_w + SUB_W - 1) / SUB_W;
-    const int nsub = nsx * ((tile_h + SUB_H - 1) / SUB_H);
-#define RASTER_ARGS                                                          \
-  (const float*)table, (const int*)pair_data, (const int*)seg_start,        \
-      (const int*)seg_count, (const int*)worklist, (const int*)num_work,    \
-      (const float*)params, (const float*)lights, out, (uint32_t*)key,      \
-      row_stride, num_lights, ntx, tile_h, tile_w, width_padded, plane,     \
-      dense, list_stride, nsx, nsub
-    const unsigned grid = (unsigned)num_tiles * nsub;
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (mode) {
-      case shade::MODE_BASE:
-        raster_kernel<shade::MODE_BASE><<<grid, THREADS, 0, s>>>(RASTER_ARGS);
-        break;
-      case shade::MODE_MAT:
-        raster_kernel<shade::MODE_MAT><<<grid, THREADS, 0, s>>>(RASTER_ARGS);
-        break;
-      case shade::MODE_TEXF:
-        raster_kernel<shade::MODE_TEXF><<<grid, THREADS, 0, s>>>(RASTER_ARGS);
-        break;
-      case shade::MODE_VIS:
-        raster_kernel<shade::MODE_VIS><<<grid, THREADS, 0, s>>>(RASTER_ARGS);
-        break;
-      case shade::MODE_TEXF_MIP:
-        raster_kernel<shade::MODE_TEXF_MIP><<<grid, THREADS, 0, s>>>(
-            RASTER_ARGS);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-#undef RASTER_ARGS
-  }
-  return (int)cudaGetLastError();
+  const bool flat = !dense;
+  if ((spans != nullptr) != flat || (merge != nullptr) != flat ||
+      (arrivals != nullptr) != flat || (flat && span_slots <= 0))
+    return (int)cudaErrorInvalidValue;  // the flat layout's spans alone
+  if (num_tiles <= 0) return (int)cudaGetLastError();
+  const Args a = {(const float*)table, (const int*)pair_data,
+                  (const int*)seg_start, (const int*)seg_count,
+                  (const int*)worklist, (const int*)num_work,
+                  (const float*)params, (const float*)lights, out,
+                  (uint32_t*)key, (const int*)spans,
+                  (unsigned long long*)merge, (int*)arrivals, row_stride,
+                  num_lights, ntx, tile_h, tile_w, width_padded,
+                  (size_t)num_tiles * tile_h * tile_w, dense, list_stride,
+                  num_tiles, flat ? span_slots : 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tile_h % SUB_H_TALL == 0)
+    return launch<SUB_H_TALL, SUB_W_TALL>(mode, a, s);
+  return launch<SUB_H_SHORT, SUB_W_SHORT>(mode, a, s);
 }

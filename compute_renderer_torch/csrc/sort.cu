@@ -26,6 +26,11 @@
 //   first segment;
 // - worklist (num_bins / group,): the ascending ids of the tiles whose
 //   (clamped) count is above 0, padded with 0;
+// - spans (group 1, when asked for: the flat tile layout's, which the
+//   tile raster reads): [count, then count (bin, k) pairs], one for each
+//   span k >= 1 of a bin whose clamped count is above TILE_SPAN
+//   (tile_span.cuh), in bin order, zeros past them (write_bin: the spans
+//   are scanned as the pairs are, over a third look-back word a tile);
 // - scal = [pair_needed, tile_needed, total, k, most]: pair_needed is
 //   total where it exceeds pair_cap, most the largest count (exact under
 //   pair overflow: with the flat layout's rects given, counted over every
@@ -53,19 +58,20 @@
 //    the table chunk's bins and its count of each bin of the range
 //    (shared-memory atomics), written to its row of the table — only the
 //    range, which triangle order keeps narrow; it also clears the scan's
-//    look-back words (and the flat layout's exact counts), so that no
-//    memset is needed.
+//    look-back words (and the flat layout's exact counts and span list),
+//    so that no memset is needed.
 // 2. bin_sort_scan_kernel (a block a tile of SCAN_TILE bins, SCAN_GROUPS
 //    threads a bin, each over a range of the table chunks): the bins'
 //    counts (a row outside its range reads as 0), each bin's column
 //    rewritten in place within the rows' ranges as its pairs in the table
 //    chunks before; the pairs and occupied tiles before the tile by a
 //    decoupled look-back over the tiles (single-pass scan; persistent
-//    blocks, at most one an SM, take the tiles in order); then seg_start,
-//    seg_count, the group extras and the work list; the last tile writes
-//    scal and the work list's padding. Under pair overflow of the flat
-//    layout every block first walks its share of the alive rects into
-//    the exact counts.
+//    blocks, at most one an SM, take the tiles in order; the span list's
+//    entries by a second one, in an instantiation of its own); then
+//    seg_start, seg_count, the group extras, the work list and the span
+//    entries; the last tile writes scal, the work list's padding and the
+//    span count. Under pair overflow of the flat layout every block first
+//    walks its share of the alive rects into the exact counts.
 // 3. bin_sort_place_kernel (a block a chunk): the chunk sorted stably by
 //    bin in shared memory — a least-significant-digit radix sort over the
 //    bits of its hi - lo + 1, one or two passes of up to 8 bits, each
@@ -92,6 +98,7 @@
 #include <cuda_runtime.h>
 
 #include "frame_counts.cuh"
+#include "tile_span.cuh"
 
 namespace {
 
@@ -244,13 +251,24 @@ __device__ BinScan scan_bins(int cnt, int group, int cap, int* s_red) {
 }
 
 // Bin b's outputs, its segment starting at start and its work-list entry
-// (if any) at occ_at.
+// (if any) at occ_at. With a span list (the flat tile layout), a bin whose
+// clamped count c is above TILE_SPAN writes (b, k) for its spans k = 1 ..
+// (c - 1) / TILE_SPAN at entries span_at, span_at + 1, ... of the list: the
+// spans of the bins before it (scanned as the pairs are), so the entries
+// lie in bin order.
 __device__ __forceinline__ void write_bin(
     int b, int cnt, int start, int occ_at, const BinScan& r, int group,
     int cap, int* seg_start, int* seg_count, int* tile_count,
-    int* win_start, int* worklist) {
+    int* win_start, int* worklist, int* spans, int span_at) {
   seg_start[b] = start;
   seg_count[b] = min(cnt, cap);
+  if (spans != nullptr) {
+    int* at = spans + 1 + 2 * span_at;
+    for (int k = 1; k * TILE_SPAN < min(cnt, cap); ++k) {
+      at[2 * k - 2] = b;
+      at[2 * k - 1] = k;
+    }
+  }
   if (group == 16) {
     if ((b & 15) == 0) {
       tile_count[b >> 4] = r.sum16;
@@ -260,11 +278,23 @@ __device__ __forceinline__ void write_bin(
   if (r.occ) worklist[occ_at] = group == 16 ? b >> 4 : b;
 }
 
-// scal and the work list's padding, once the totals are known, and scal
-// folded into acc; every thread of the block calls it.
+// The look-back word of a tile: a flag (1: the tile's own sums, 2: the
+// sums of every tile up to it) over 31 bits of occupied tiles and 31 bits
+// of pairs (each below 2^31: pairs <= pair_cap, tiles <= num_bins). A
+// tile's largest count goes in a second word, flag 1; with a span list, its
+// spans in a third (look_back).
+__device__ __forceinline__ unsigned long long pack(unsigned long long flag,
+                                                   int occ, int pairs) {
+  return flag << 62 | (unsigned long long)occ << 31 | (unsigned)pairs;
+}
+
+// scal, the work list's padding and the span list's count, once the
+// totals are known, and scal and the spans folded into acc; every thread
+// of the block calls it.
 __device__ void write_totals(const int* total, int pair_cap, int cap,
                              int most, int k, int num_tiles, int* worklist,
-                             int* scal, long long* acc) {
+                             int* scal, int* spans, int span_count,
+                             long long* acc) {
   for (int i = k + threadIdx.x; i < num_tiles; i += blockDim.x)
     worklist[i] = 0;
   if (threadIdx.x == 0) {
@@ -275,8 +305,62 @@ __device__ void write_totals(const int* total, int pair_cap, int cap,
     scal[2] = all_pairs;
     scal[3] = k;
     scal[4] = most;
-    fold_counts(acc, scal[0], scal[1], all_pairs, k, most);
+    if (spans != nullptr) spans[0] = span_count;
+    fold_counts(acc, scal[0], scal[1], all_pairs, k, most, span_count);
   }
+}
+
+// Exclusive scan of v over the block's threads (a thread a bin, in
+// order), and the block's total; s: SCAN_WARPS + 1 ints. Every thread of
+// the block calls it.
+__device__ int block_scan(int v, int* s, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int incl = warp_scan(v, lane);
+  if (lane == 31) s[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < SCAN_WARPS ? s[lane] : 0;
+    const int iw = warp_scan(w, lane);
+    __syncwarp();
+    if (lane < SCAN_WARPS) s[lane] = iw - w;
+    if (lane == 31) s[SCAN_WARPS] = iw;
+  }
+  __syncthreads();
+  const int out = s[warp] + incl - v;
+  total = s[SCAN_WARPS];
+  __syncthreads();  // s is rewritten by the next call
+  return out;
+}
+
+// Decoupled look-back over one 31-bit sum a tile (a flag over the value,
+// pack): warp `lane`s publish the tile's own sum, wait for and add the own
+// sums of the tiles before it back to the nearest whose inclusive sum is
+// out, and publish the inclusive sum. Returns the sum before the tile.
+__device__ int look_back(unsigned long long* words, int tile, int own,
+                         int lane) {
+  if (lane == 0)
+    *(volatile unsigned long long*)&words[tile] =
+        pack(tile == 0 ? 2 : 1, 0, own);
+  int before = 0;
+  for (int j = tile - 1; j >= 0; j -= 32) {
+    const int at = j - lane;
+    unsigned long long w = pack(2, 0, 0);  // before tile 0: nothing
+    if (at >= 0) {
+      do {
+        w = *(volatile unsigned long long*)&words[at];
+      } while ((w >> 62) == 0);
+    }
+    const unsigned done = __ballot_sync(FULL, (w >> 62) == 2);
+    const int stop = done ? __ffs(done) - 1 : 31;
+    int v = lane <= stop ? (int)(w & 0x7fffffffu) : 0;
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1) v += __shfl_xor_sync(FULL, v, sh);
+    before += v;
+    if (done) break;
+  }
+  if (lane == 0 && tile > 0)
+    *(volatile unsigned long long*)&words[tile] = pack(2, 0, before + own);
+  return before;
 }
 
 // ---------------------------------------------------------------------------
@@ -541,30 +625,25 @@ __global__ void __launch_bounds__(HIST_THREADS) bin_sort_hist_kernel(
   }
 }
 
-// The look-back word of a tile: a flag (1: the tile's own sums, 2: the
-// sums of every tile up to it) over 31 bits of occupied tiles and 31 bits
-// of pairs (each below 2^31: pairs <= pair_cap, tiles <= num_bins). A
-// tile's largest count goes in a second word, flag 1.
-__device__ __forceinline__ unsigned long long pack(unsigned long long flag,
-                                                   int occ, int pairs) {
-  return flag << 62 | (unsigned long long)occ << 31 | (unsigned)pairs;
-}
-
 // Whether bin b lies in table chunk c's range.
 __device__ __forceinline__ bool in_range(const int* ranges, int c, int b) {
   return b >= ranges[2 * c] && b <= ranges[2 * c + 1];
 }
 
 // One tile of the scan: thread (g, i) is bin i of the tile over the g-th
-// range of the valid table chunks. Called by every thread of the block.
+// range of the valid table chunks; SPANS: with the span list (the flat
+// tile layout), compiled out of the other layouts. Called by every thread
+// of the block.
+template <bool SPANS>
 __device__ void scan_tile(
     int tile, int ntiles, int* table, const int* ranges, const int* total,
     const int* c, const int* rx, const int* x0, const int* y0, int* exact,
     unsigned long long* status, int* seg_start, int* seg_count,
-    int* tile_count, int* win_start, int* worklist, int* scal,
+    int* tile_count, int* win_start, int* worklist, int* spans, int* scal,
     long long* acc, int T, int pair_cap, int num_bins, int group, int cap,
     int ntx, int tchunk,
-    int (*s_part)[SCAN_TILE], int* s_red, int* s_before, int* s_ranges) {
+    int (*s_part)[SCAN_TILE], int* s_red, int* s_before, int* s_ranges,
+    int* s_spans) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n = valid_slots(total, pair_cap);
   const int nc = (n + tchunk - 1) / tchunk;
@@ -634,11 +713,19 @@ __device__ void scan_tile(
   }
   const BinScan r =
       scan_bins<SCAN_THREADS>(in ? cnt : 0, group, cap, s_red);
+  // The bin's spans past its first (the span list's entries), scanned.
+  int span_total = 0;
+  const int span_start =
+      SPANS ? block_scan(in && min(cnt, cap) > TILE_SPAN
+                             ? (min(cnt, cap) - 1) / TILE_SPAN : 0,
+                         s_spans, span_total)
+            : 0;
   const bool last = tile == ntiles - 1;
   // Warp 0 publishes the tile's sums, then looks back over the tiles
   // before it, a warp of them at a time, to the nearest whose inclusive
   // sums are out, adding the own sums of those on the way. In the last
-  // tile warp 1 meanwhile takes the largest count over the tiles' words.
+  // tile warp 1 meanwhile takes the largest count over the tiles' words,
+  // and with a span list warp 2 looks back over the tiles' spans.
   if (warp == 0) {
     if (lane == 0) {
       *(volatile unsigned long long*)&status[ntiles + tile] =
@@ -686,12 +773,15 @@ __device__ void scan_tile(
     }
     most = warp_max(most);
     if (lane == 0) s_before[2] = most;
+  } else if (SPANS && warp == 2) {
+    const int before = look_back(status + 2 * ntiles, tile, span_total, lane);
+    if (lane == 0) s_before[3] = before;
   }
   __syncthreads();
   if (in)
     write_bin(b, cnt, s_before[0] + r.start, s_before[1] + r.occ_at, r,
               group, cap, seg_start, seg_count, tile_count, win_start,
-              worklist);
+              worklist, SPANS ? spans : nullptr, s_before[3] + span_start);
   if (last) {
     int most = s_before[2];
     if (rects) {
@@ -708,7 +798,8 @@ __device__ void scan_tile(
       for (int w = 0; w < SCAN_WARPS; ++w) most = max(most, s_red[w]);
     }
     write_totals(total, pair_cap, cap, most, s_before[1] + r.occupied,
-                 num_bins / group, worklist, scal, acc);
+                 num_bins / group, worklist, scal, SPANS ? spans : nullptr,
+                 SPANS ? s_before[3] + span_total : 0, acc);
   }
   __syncthreads();  // the shared arrays are rewritten next tile
 }
@@ -716,6 +807,7 @@ __device__ void scan_tile(
 // Persistent blocks, no more than the card holds at once, each taking
 // the tiles blockIdx.x, blockIdx.x + gridDim.x, ... in order: a tile's
 // look-back then waits only on tiles whose blocks are running.
+template <bool SPANS>
 __global__ void __launch_bounds__(SCAN_THREADS) bin_sort_scan_kernel(
     int* __restrict__ table, const int* ranges,
     const int* __restrict__ total, const int* __restrict__ c,
@@ -725,19 +817,23 @@ __global__ void __launch_bounds__(SCAN_THREADS) bin_sort_scan_kernel(
     unsigned long long* status,       // (2 ntiles,), cleared
     int* __restrict__ seg_start, int* __restrict__ seg_count,
     int* __restrict__ tile_count, int* __restrict__ win_start,
-    int* __restrict__ worklist, int* __restrict__ scal,
-    long long* acc,                   // (7,) or null: frame_counts.cuh
+    int* __restrict__ worklist,
+    int* spans,                       // SPANS: the span list, count 0
+    int* __restrict__ scal,
+    long long* acc,                   // (8,) or null: frame_counts.cuh
     int T, int pair_cap, int num_bins, int group, int cap, int ntx,
     int ntiles, int tchunk) {
   __shared__ int s_part[SCAN_GROUPS][SCAN_TILE];
   __shared__ int s_red[3 * SCAN_WARPS];
-  __shared__ int s_before[3];
+  __shared__ int s_before[4];
+  __shared__ int s_spans[SPANS ? SCAN_WARPS + 1 : 1];
   __shared__ int s_ranges[2 * RANGE_STAGE];
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
-    scan_tile(tile, ntiles, table, ranges, total, c, rx, x0, y0, exact,
-              status, seg_start, seg_count, tile_count, win_start, worklist,
-              scal, acc, T, pair_cap, num_bins, group, cap, ntx, tchunk,
-              s_part, s_red, s_before, s_ranges);
+    scan_tile<SPANS>(tile, ntiles, table, ranges, total, c, rx, x0, y0,
+                     exact, status, seg_start, seg_count, tile_count,
+                     win_start, worklist, spans, scal, acc, T, pair_cap,
+                     num_bins, group, cap, ntx, tchunk, s_part, s_red,
+                     s_before, s_ranges, s_spans);
 }
 
 // The chunk's range of bins [lo, hi] (hi < lo: none), every thread.
@@ -816,23 +912,26 @@ cudaError_t allow_smem(K kernel, int bytes) {
 // keys, tris: (pair_cap,) pairs; total: () pairs in all; c, rx, x0, y0:
 // the flat layout's rect rows (T,) each, or null (the micro layout);
 // scratch (binning.sort_scratch_ints): the look-back words (four ints a
-// tile of SCAN_TILE bins) and the exact counts (num_bins ints, only with
-// the rects) — cleared by the first launch — then each table chunk's
-// [lo, hi] and the (table chunk, bin) table. tile_count and win_start
-// (num_bins / 16,) only with group 16, else null; scal: 5 ints; acc: 7
-// long longs (frame_counts.cuh) or null.
+// tile of SCAN_TILE bins, six with spans), the exact counts (num_bins
+// ints, only with the rects) and with spans (group 1 only) the span list,
+// its count and 2 ceil(pair_cap / TILE_SPAN) entries — cleared by the
+// first launch — then each table chunk's [lo, hi] and the (table chunk,
+// bin) table. tile_count and
+// win_start (num_bins / 16,) only with group 16, else null; scal: 5 ints;
+// acc: 8 long longs (frame_counts.cuh) or null.
 extern "C" int bin_sort(const void* keys, const void* tris,
                         const void* total, const void* c, const void* rx,
                         const void* x0, const void* y0, void* scratch,
                         void* pair_tri, void* seg_start, void* seg_count,
                         void* tile_count, void* win_start, void* worklist,
                         void* scal, void* acc, int T, int pair_cap,
-                        int num_bins, int group, int cap, int ntx,
+                        int num_bins, int group, int cap, int ntx, int spans,
                         void* stream) {
   const bool rects = c != nullptr;
   if (pair_cap < 0 || num_bins < 0 || T < 0 || cap < 0 ||
       (group != 1 && group != 16) || num_bins % group != 0 ||
       (group == 16) != (tile_count != nullptr) ||
+      (spans && group != 1) ||
       (rects && (ntx <= 0 || num_bins % ntx != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -855,7 +954,11 @@ extern "C" int bin_sort(const void* keys, const void* tris,
   const unsigned chunks = chunks_of(pair_cap, CHUNK);
   const int tiles = num_bins > 0 ? (num_bins + SCAN_TILE - 1) / SCAN_TILE
                                  : 1;
-  const int clear_len = 4 * tiles + (rects ? num_bins : 0);
+  // The look-back words: two a tile, three with a span list.
+  const int words = (spans ? 6 : 4) * tiles;
+  const int span_ints =
+      spans ? 1 + 2 * (int)chunks_of(pair_cap, TILE_SPAN) : 0;
+  const int clear_len = words + (rects ? num_bins : 0) + span_ints;
   int tchunk = CHUNK;
   while (tchunk < CHUNK * MAX_FACTOR &&
          (long long)chunks_of(pair_cap, tchunk) * num_bins > TABLE_CELLS)
@@ -863,18 +966,21 @@ extern "C" int bin_sort(const void* keys, const void* tris,
   const unsigned tchunks = chunks_of(pair_cap, tchunk);
   int* base = (int*)scratch;
   unsigned long long* status = (unsigned long long*)base;
-  int* exact = rects ? base + 4 * tiles : nullptr;
+  int* exact = rects ? base + words : nullptr;
+  int* span_list = spans ? base + words + (rects ? num_bins : 0) : nullptr;
   int* ranges = base + clear_len;
   int* table = ranges + 2 * tchunks;
   bin_sort_hist_kernel<<<tchunks, HIST_THREADS, hist_bytes, s>>>(
       (const int*)keys, (const int*)total, ranges, table, base, clear_len,
       pair_cap, num_bins, tchunk);
-  bin_sort_scan_kernel<<<tiles < sms ? tiles : sms, SCAN_THREADS, 0, s>>>(
+  auto scan = spans ? bin_sort_scan_kernel<true>
+                    : bin_sort_scan_kernel<false>;
+  scan<<<tiles < sms ? tiles : sms, SCAN_THREADS, 0, s>>>(
       table, ranges, (const int*)total, (const int*)c, (const int*)rx,
       (const int*)x0, (const int*)y0, exact, status, (int*)seg_start,
       (int*)seg_count, (int*)tile_count, (int*)win_start, (int*)worklist,
-      (int*)scal, (long long*)acc, T, pair_cap, num_bins, group, cap, ntx,
-      tiles, tchunk);
+      span_list, (int*)scal, (long long*)acc, T, pair_cap, num_bins, group,
+      cap, ntx, tiles, tchunk);
   bin_sort_place_kernel<<<chunks, THREADS, SORT_SMEM, s>>>(
       (const int*)keys, (const int*)tris, (const int*)total, table,
       (const int*)seg_start, (int*)pair_tri, pair_cap, num_bins, tchunk);

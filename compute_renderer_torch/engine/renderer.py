@@ -621,9 +621,10 @@ class Renderer:
         op by op from ``rows``, a (K, P) device stack. The
         frames' binning, micro raster and mip texture tail fold into one
         accumulator; while a profiler session records, its pairs, occupied
-        tiles and samples go to ``tracing.frame_counts()``, and its
-        textured pixels where the mode runs the mip tail, and its longest
-        bin list to ``tracing.frame_peaks()``."""
+        tiles and samples go to ``tracing.frame_counts()``, with its
+        textured pixels and span blocks on the tile path and its textured
+        pixels on the micro path where the mode runs the mip tail; its
+        longest bin list goes to ``tracing.frame_peaks()``."""
         with tracing.span("renderer.replay"):
             K = rows.shape[0]
             frames = torch.empty((K, self.height, self.width, 4),
@@ -652,8 +653,9 @@ class Renderer:
                 self._stage.staged(event)
                 tracing.tick("replays", K)
             if self.engine and tracing.recording():
-                words = 4 if self.mode == "texf_mip" else 3
-                tracing.add_frames(acc[2:2 + words], K, peaks=acc[6:])
+                words = (5 if self._path() == "tile"
+                         else 4 if self.mode == "texf_mip" else 3)
+                tracing.add_frames(acc[2:2 + words], K, peaks=acc[7:])
             return frames, acc[:2].to(torch.int32)
 
     def render_batch_device(self, uniforms_seq, max_retries: int = 3,

@@ -37,7 +37,7 @@ frame's rows. Three decompositions (``path``):
 A rank's overflow report is all-reduced with MAX, so every rank grows
 its capacities alike in ``render_sharded`` (the retrying host entry) and
 the next collective never waits for a rank that diverged. Each rank has
-its own ``micro.merge_scratch``: ranks are processes, and one process
+its own ``common.merge_scratch``: ranks are processes, and one process
 renders one stripe at a time.
 """
 
@@ -130,7 +130,7 @@ def _stripe_tile(g, rank, n, *, rw, rh, tile_h, tile_w, pair_cap, tile_cap,
         g["view_position"], *g["lights"], height_padded=rows * tile_h,
         width_padded=ntx * tile_w, tile_h=tile_h, tile_w=tile_w,
         layout=bins["layout"], mode=mode, y_offset=y_offset,
-        worklist=(bins["worklist"], bins["k"]))
+        worklist=(bins["worklist"], bins["k"]), spans=bins.get("spans"))
     return out, key, bins["overflow"], y_offset, None
 
 

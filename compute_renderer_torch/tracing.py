@@ -18,8 +18,9 @@
 - Device frame counts (``frame_counts()``): the frames of the renderer's
   batches rendered while a profiler session was recording, the pairs and
   occupied tiles their bin kernels counted on the card, the coverage
-  samples the micro raster tested, and the pixels the mip texture tail
-  shaded from an image.
+  samples the micro raster tested, the pixels the mip texture tail
+  shaded from an image, and on the tile path the tile raster's span
+  blocks beyond each tile's first.
 - Device frame peaks (``frame_peaks()``): over the same frames, the
   longest bin list the binning's scan kernels found: the triangles of
   the tile whose list the tile raster's last block walks, or on the
@@ -42,7 +43,8 @@ EVENTS = ("captures", "graph_drops", "retries", "calibrations", "tunes",
 _NULL_SPAN = contextlib.nullcontext()
 _counters: dict = dict.fromkeys(EVENTS, 0)
 _frames = 0
-# device -> (4,) int64: pairs, occupied tiles, samples, textured pixels
+# device -> (5,) int64: pairs, occupied tiles, samples, textured pixels,
+# span blocks
 _sums: dict = {}
 _added = 0  # the most words a batch added since the last reset
 # device -> (1,) int64: the longest bin list, folded by max
@@ -94,7 +96,7 @@ def prepare(device) -> None:
     profiler session's first batch would otherwise pay. The renderer calls
     it when it captures a graph."""
     if device not in _sums:
-        acc = torch.zeros((4,), dtype=torch.int64, device=device)
+        acc = torch.zeros((len(COUNTS),), dtype=torch.int64, device=device)
         _sums[device] = acc.add_(acc)
         peak = torch.zeros((1,), dtype=torch.int64, device=device)
         _peaks[device] = torch.maximum(peak, peak, out=peak)
@@ -103,12 +105,13 @@ def prepare(device) -> None:
 def add_frames(sums, frames: int, peaks=None) -> None:
     """Add a batch's ``frames`` and its int64 device sums to
     ``frame_counts()``: one device add. The sums are the words of
-    ``COUNTS`` in order, the first two to all four: pairs and occupied
-    tiles, (2,); then samples, (3,); then textured pixels, (4,). The
-    renderer calls it only while ``recording()``, with its accumulator's
-    words from the third on: four where the frame runs the mip texture
-    tail, else three; and with ``peaks``, its (1,) int64 longest-list
-    word, which one device max folds into ``frame_peaks()``."""
+    ``COUNTS`` in order, the first two to all five: pairs and occupied
+    tiles, (2,); then samples, (3,); then textured pixels, (4,); then span
+    blocks, (5,). The renderer calls it only while ``recording()``, with
+    its accumulator's words from the third on: all five on the tile path,
+    else four where the frame runs the mip texture tail and three where it
+    does not; and with ``peaks``, its (1,) int64 longest-list word, which
+    one device max folds into ``frame_peaks()``."""
     global _frames, _added, _peaked
     prepare(sums.device)
     _sums[sums.device][:sums.shape[0]].add_(sums)
@@ -122,14 +125,14 @@ def add_frames(sums, frames: int, peaks=None) -> None:
 
 # The device sums' names; a key past the first two appears in
 # ``frame_counts()`` only once a batch has added its word.
-COUNTS = ("pairs", "tiles", "samples", "textured")
+COUNTS = ("pairs", "tiles", "samples", "textured", "spans")
 
 
 def frame_counts() -> dict:
     """{"frames", "pairs", "tiles"} summed over the frames added while a
-    profiler session recorded, "samples" once a batch added them and
-    "textured" once a batch added those (reads the device sums: a
-    synchronisation)."""
+    profiler session recorded, "samples" once a batch added them,
+    "textured" once a batch added those and "spans" once a batch added
+    its span blocks (reads the device sums: a synchronisation)."""
     sums = [0] * len(COUNTS)
     for acc in _sums.values():
         sums = [a + b for a, b in zip(sums, acc.tolist())]

@@ -129,7 +129,7 @@ def main() -> int:
         return 3
     import chip_smoke as cs
     from compute_renderer_torch import _build
-    from compute_renderer_torch.backends import binning, micro, raster
+    from compute_renderer_torch.backends import binning, common, micro, raster
     from compute_renderer_torch.bench.profiling import card_line
 
     args = sys.argv[1:]
@@ -178,7 +178,7 @@ def main() -> int:
         out, key = raster.cleared_outputs(mode, lights.shape[0], hp, wp,
                                           device,
                                           no_id=raster.PAIR_IDX_CLEAR)
-        words, arrivals = micro.merge_scratch(device, hp, wp)
+        words, arrivals = common.merge_scratch(device, hp, wp)
         ptrs = [table.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
                 counts.data_ptr(), wl.data_ptr(), k.data_ptr(),
                 params.data_ptr(), lights.data_ptr(), out.data_ptr(),

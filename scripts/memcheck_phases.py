@@ -43,10 +43,12 @@ Parts, each named on the command line (both when none is):
   tile path on its first frame (the 36,322-triangle scene with its
   4096-texel ground): ``mip_rows_kernel<3>``, and at each of the
   tuner's tile shapes the flat layout's bin sort with the accumulator
-  and ``raster_kernel<4>`` on its pair list, then
+  and its span list, and ``raster_kernel<4>`` and ``raster_kernel<0>``
+  on its pair list with that span list (the span merge's words and
+  counters guarded too, and left clear by every launch), then
   ``texture_tail_mip_kernel<3>`` on the poisoned G-buffer, each twice
-  between canaries as above; both scans' folds (the longest-list word
-  included) equal to the twins' ``binning.fold_counts``;
+  between canaries as above; both scans' folds (the longest-list and
+  span words included) and the span list equal to the twins';
 - ``anisotropic``: ``chip_smoke.py`` phase 12's +anisotropic row
   (structured_scene.obj through ``Renderer`` on the micro path): one
   checked frame (the eager warm-up and the CUDA graph's capture), then
@@ -124,11 +126,12 @@ def guarded_bin_sort(cs, device, keys, tris, total, num_bins, group, cap,
 
 
 def bin_sort_call(g, device, keys, tris, total, num_bins, group, cap, meta,
-                  ntx, acc=None):
+                  ntx, acc=None, spans=False):
     """``binning._bin_sort_cuda``'s call with every buffer (its scratch
     included, and a copy of the accumulator ``acc`` where given) cut from
     the Guarded ``g``; returns the outputs as ``bin_sort`` gives them,
-    cloned, and the accumulator's copy after the call (or None)."""
+    cloned (with ``spans``, the span list too), and the
+    accumulator's copy after the call (or None)."""
     import torch
 
     from compute_renderer_torch import _build
@@ -144,7 +147,7 @@ def bin_sort_call(g, device, keys, tris, total, num_bins, group, cap, meta,
         rows = [g.like(meta[i].contiguous()) for i in (3, 2, 0, 1)]
     num_tiles = num_bins // group
     scratch = g.new(binning.sort_scratch_ints(pair_cap, num_bins,
-                                              meta is not None))
+                                              meta is not None, spans))
     pair_tri = g.new(pair_cap)
     seg_start, seg_count = g.new(num_bins), g.new(num_bins)
     tile_count = g.new(num_tiles) if group == 16 else None
@@ -152,13 +155,13 @@ def bin_sort_call(g, device, keys, tris, total, num_bins, group, cap, meta,
     worklist, scal = g.new(num_tiles), g.new(5)
     acc = None if acc is None else g.like(acc)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    fn = _build.entry("sort", "bin_sort", pointers=16, ints=6)
+    fn = _build.entry("sort", "bin_sort", pointers=16, ints=7)
     _build.check(fn(
         keys.data_ptr(), tris.data_ptr(), total.data_ptr(),
         *(ptr(r) for r in rows), scratch.data_ptr(), pair_tri.data_ptr(),
         seg_start.data_ptr(), seg_count.data_ptr(), ptr(tile_count),
         ptr(win_start), worklist.data_ptr(), scal.data_ptr(), ptr(acc), T,
-        pair_cap, num_bins, group, cap, ntx,
+        pair_cap, num_bins, group, cap, ntx, int(spans),
         torch.cuda.current_stream(device).cuda_stream), "bin_sort")
     out = {"pair_tri": pair_tri.clone(), "seg_start": seg_start.clone(),
            "seg_count": seg_count.clone(), "total_pairs": scal[2].clone(),
@@ -168,6 +171,10 @@ def bin_sort_call(g, device, keys, tris, total, num_bins, group, cap, meta,
     if group == 16:
         out["tile_count"], out["win_start"] = (tile_count.clone(),
                                                win_start.clone())
+    if spans:
+        base = binning.span_offset(num_bins, meta is not None, spans)
+        count = 1 + 2 * binning.span_slots(pair_cap)
+        out["spans"] = scratch[base:base + count].clone()
     return out, None if acc is None else acc.clone()
 
 
@@ -350,7 +357,7 @@ def guard_texture_path(cs, device):
 
     from compute_renderer_torch import _build
     from compute_renderer_torch.backends import (
-        binning, front, micro, raster, texture,
+        binning, common, front, micro, raster, texture,
     )
 
     program, f = texture_path_frame(device)
@@ -429,7 +436,7 @@ def guard_texture_path(cs, device):
     ktable = ktable.as_strided((T, row_stride), (row_stride, 1))
     out0, key0 = raster.cleared_outputs(mode, L, Hp, Wp, device,
                                         no_id=raster.PAIR_IDX_CLEAR)
-    words0, arrivals0 = micro.merge_scratch(device, Hp, Wp)
+    words0, arrivals0 = common.merge_scratch(device, Hp, Wp)
     n_pairs = bins["pair_tri"].shape[0]
 
     poisoned = {}  # canary -> the G-buffer, its key-clear pixels unwritten
@@ -535,7 +542,7 @@ def longest_acc(device):
 
     acc = torch.zeros((binning.ACC_WORDS,), dtype=torch.int64,
                       device=device)
-    acc[6] = 1
+    acc[7] = 1
     return acc
 
 
@@ -612,9 +619,11 @@ def guard_tile_texture_path(cs, device):
     each kernel's C entry guarded twice (``guarded_twice``):
     ``mip_rows_kernel<3>``; at each of the tuner's tile shapes the flat
     layout's bin sort with the accumulator (``bin_sort_scan_kernel``'s
-    fold, the longest-list word included) and ``raster_kernel<4>`` on
-    the flat pair list; then ``texture_tail_mip_kernel<3>`` on the
-    G-buffer, poisoned where the key is clear."""
+    fold, the longest-list and span words included) and its span list,
+    and ``raster_kernel<4>`` and ``<0>`` on the flat pair list with the
+    span list, the merge scratch left clear; then
+    ``texture_tail_mip_kernel<3>`` on the G-buffer, poisoned where the
+    key is clear."""
     import torch
 
     from compute_renderer_torch import _build
@@ -679,67 +688,98 @@ def guard_tile_texture_path(cs, device):
 
         def flat_sort(g):
             out, acc = bin_sort_call(g, device, keys, tris, total, num_tiles,
-                                     1, cap, meta, ntx, acc=start)
+                                     1, cap, meta, ntx, acc=start,
+                                     spans=True)
             return ([out["pair_tri"][:n]] + [out[k] for k in arrays]
-                    + [torch.stack([out[k] for k in scalars]), acc])
+                    + [torch.stack([out[k] for k in scalars]), acc,
+                       out["spans"]])
 
         tag = f"bin_sort flat structured_tex_aniso {shape}"
         got = guarded_twice(cs, device, tag, flat_sort)
         want = binning.bin_sort_plain(keys, tris, total, num_tiles, cap=cap,
-                                      exact=exact)
+                                      exact=exact, spans=True)
         require_bitwise(cs, f"{tag} pair_tri", got[0], want["pair_tri"][:n])
         for k, a in zip(arrays, got[1:4]):
             require_bitwise(cs, f"{tag} {k}", a, want[k])
         require_bitwise(cs, f"{tag} scal", got[4],
                         torch.stack([want[k] for k in scalars]))
         require_fold(cs, tag, got[5], start, want)
+        require_bitwise(cs, f"{tag} spans", got[6], want["spans"])
         cs.require(int(want["most"]) == cap,
                    f"guard {tag}: longest list {int(want['most'])}, the "
                    f"rects' count {cap}")
-        print(f"[memcheck] guard {tag}: {n} pairs, longest list {cap}, the "
-              "fold equal to the twin's, canaries intact, bitwise")
+        print(f"[memcheck] guard {tag}: {n} pairs, longest list {cap}, "
+              f"{int(want['spans'][0])} spans past the tiles' "
+              "first, the fold and the span list equal to the twin's, "
+              "canaries intact, bitwise")
 
         bins = binning.bin_sort(keys, tris, total, num_tiles, cap=cap,
-                                meta=meta, ntx=ntx)
+                                meta=meta, ntx=ntx, spans=True)
         ktable, row_stride = raster.kernel_table(table)
         ktable = ktable.as_strided((T, row_stride), (row_stride, 1))
-        out0, key0 = raster.cleared_outputs(mode, L, Hp, Wp, device)
+        for rmode in (mode, "base"):  # base reads the table's first 32
+            out0, key0 = raster.cleared_outputs(rmode, L, Hp, Wp, device)
 
-        def tile_raster(g):
-            out = g.new(out0.numel(), torch.float32).view(out0.shape)
-            key = g.like(key0)
-            fn = _build.entry("raster", "raster_shade_tiles", pointers=10,
-                              ints=10)
-            _build.check(fn(
-                g.like(ktable).data_ptr(), g.like(bins["pair_tri"]).data_ptr(),
-                g.like(bins["seg_start"]).data_ptr(),
-                g.like(bins["seg_count"]).data_ptr(),
-                g.like(bins["worklist"]).data_ptr(),
-                g.like(bins["k"].reshape(1)).data_ptr(),
-                g.like(params).data_ptr(), g.like(lights).data_ptr(),
-                out.data_ptr(), key.data_ptr(), raster.MODES[mode],
-                row_stride, num_tiles, L, ntx, th, tw, Wp, 0, 0, stream),
-                "raster_shade_tiles")
-            clear = out.view(torch.int32)[:, key == -1]
-            cs.require(clear.numel() > 0 and bool((clear == g.canary).all()),
-                       f"guard raster {shape}: the key-clear pixels do not "
-                       "all hold the canary")
-            if (th, tw) == cuda.TILE_CANDIDATES[0]:
-                poisoned[g.canary] = out.clone()
-            return [raster.defined_planes(out, key), key.clone()]
+            def tile_raster(g):
+                out = (g.new(out0.numel(), torch.float32).view(out0.shape)
+                       if out0.dim() == 3 else g.like(out0))
+                key = g.like(key0)
+                # The span merge's words (all ones) and counters (zero),
+                # as common.merge_scratch makes them.
+                merge = g.new(2 * Hp * Wp).fill_(-1)
+                arrivals = g.new(Hp * Wp).zero_()
+                fn = _build.entry("raster", "raster_shade_tiles",
+                                  pointers=13, ints=11)
+                _build.check(fn(
+                    g.like(ktable).data_ptr(),
+                    g.like(bins["pair_tri"]).data_ptr(),
+                    g.like(bins["seg_start"]).data_ptr(),
+                    g.like(bins["seg_count"]).data_ptr(),
+                    g.like(bins["worklist"]).data_ptr(),
+                    g.like(bins["k"].reshape(1)).data_ptr(),
+                    g.like(params).data_ptr(), g.like(lights).data_ptr(),
+                    out.data_ptr(), key.data_ptr(),
+                    g.like(bins["spans"]).data_ptr(), merge.data_ptr(),
+                    arrivals.data_ptr(), raster.MODES[rmode], row_stride,
+                    num_tiles, L, ntx, th, tw, Wp, 0, 0,
+                    bins["spans"].shape[0] // 2, stream),
+                    "raster_shade_tiles")
+                torch.cuda.synchronize()
+                cs.require(bool((merge == -1).all())
+                           and not bool(arrivals.any()),
+                           f"guard raster {rmode} {shape}: the span merge's "
+                           "words and counters are not left clear")
+                if out0.dim() == 3:
+                    clear = out.view(torch.int32)[:, key == -1]
+                    cs.require(clear.numel() > 0
+                               and bool((clear == g.canary).all()),
+                               f"guard raster {shape}: the key-clear pixels "
+                               "do not all hold the canary")
+                    if (th, tw) == cuda.TILE_CANDIDATES[0]:
+                        poisoned[g.canary] = out.clone()
+                return [raster.defined_planes(out, key), key.clone()]
 
-        tag = f"raster_shade_tiles texf_mip flat {shape}"
-        gbuf, key = guarded_twice(cs, device, tag, tile_raster)
-        want_gbuf, want_key = raster.raster_shade_tiles(
-            table, bins["pair_tri"], bins["seg_start"], bins["seg_count"],
-            f["eff"], f["vpos"], f["lwp"], f["lc"], f["li"],
-            height_padded=Hp, width_padded=Wp, tile_h=th, tile_w=tw,
-            layout="flat", mode=mode, worklist=(bins["worklist"], bins["k"]))
-        require_bitwise(cs, tag, gbuf,
-                        raster.defined_planes(want_gbuf, want_key))
-        require_bitwise(cs, f"{tag} key", key, want_key.view(torch.int32))
-        print(f"[memcheck] guard {tag}: {int(bins['k'])} occupied tiles, "
-              "canaries intact, bitwise")
+            tag = f"raster_shade_tiles {rmode} flat {shape}"
+            gbuf, key = guarded_twice(cs, device, tag, tile_raster)
+            want_gbuf, want_key = raster.raster_shade_tiles(
+                table if rmode == mode else table[:, :32], bins["pair_tri"],
+                bins["seg_start"], bins["seg_count"], f["eff"], f["vpos"],
+                f["lwp"], f["lc"], f["li"], height_padded=Hp,
+                width_padded=Wp, tile_h=th, tile_w=tw, layout="flat",
+                mode=rmode, worklist=(bins["worklist"], bins["k"]),
+                spans=bins["spans"])
+            if rmode == mode:
+                want_gbuf = raster.defined_planes(want_gbuf, want_key)
+            require_bitwise(cs, tag, gbuf, want_gbuf.view(gbuf.dtype))
+            require_bitwise(cs, f"{tag} key", key,
+                            want_key.view(torch.int32))
+            print(f"[memcheck] guard {tag}: {int(bins['k'])} occupied tiles"
+                  f", {int(bins['spans'][0])} span blocks past "
+                  "the tiles' first, the merge scratch left clear, "
+                  "canaries intact, bitwise")
+            if rmode == mode:
+                keep = (want_gbuf, want_key)
+        want_gbuf, want_key = keep
         if (th, tw) == cuda.TILE_CANDIDATES[0]:
             # The tail's input: this shape's G-buffer and key (both tile
             # shapes pad 1024x768 alike).

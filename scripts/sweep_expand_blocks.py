@@ -219,7 +219,9 @@ def main() -> int:
     from compute_renderer_torch.backends import cuda, expand, front
 
     device = torch.device("cuda:0")
-    card = cs.card_line()
+    from compute_renderer_torch.bench.profiling import card_line
+
+    card = card_line()
     print(f"[device] {torch.cuda.get_device_name(0)} | {card}")
     sources = {f"{threads}x{items}_{min_blocks}_{loads}": expand_variant(
         threads, items, min_blocks, loads)

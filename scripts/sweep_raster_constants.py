@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Times the two rasters' source constants on one NVIDIA GPU.
 
-    python3 scripts/sweep_raster_constants.py [--probe]
+    python3 scripts/sweep_raster_constants.py [--probe | --short]
 
-Builds copies of csrc/raster.cu (SUB_H x SUB_W blocks, WARPS, MIN_BLOCKS) and
+Builds copies of csrc/raster.cu (the 16-row tiles' SUB_H_TALL x SUB_W_TALL
+blocks, WARPS, MIN_BLOCKS) and
 csrc/micro.cu (SPAN, WARPS) with their constants replaced, one nvcc
 each and all at once, into build/sweep/, then for each variant: checks it
 against the twin (keys and outputs bitwise) and prints its device time
@@ -11,11 +12,15 @@ against the twin (keys and outputs bitwise) and prints its device time
 order and then reversed. The inputs are chip_smoke.py's: the tile raster
 on structured_scene_tex.obj (mat mode, flat) and bench.py's Suzanne frame
 (base, dense), the micro raster on structured_scene.obj (mat mode), all at
-1024x768. Writes chiprun_out/sweep_raster_constants.json. The constants in
+1024x768; the 8-row tiles' blocks (SHORT_VARIANTS; alone with --short)
+on the structured_tex_aniso.batch cell's frame. The span length is
+csrc/tile_span.cuh's, which the bin sort shares, and is not varied.
+Writes chiprun_out/sweep_raster_constants.json. The constants in
 csrc/ are the ones this run prefers; the script changes no source. Then
 (alone with --probe) the csrc/ kernels on cut-down lists (``probe``) and
 a stamped copy of the tile raster (``timeline``): what sets each raster's
-time.
+time; the probe also times the structured_tex_aniso.batch cell's frame
+(texf_mip, anisotropic, flat, 8x128).
 """
 
 import json
@@ -27,9 +32,12 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TILE_VARIANTS = [  # (SUB_H, SUB_W, WARPS, MIN_BLOCKS)
+TILE_VARIANTS = [  # (SUB_H_TALL, SUB_W_TALL, WARPS, MIN_BLOCKS)
     (16, 32, 8, 4), (8, 16, 8, 4), (8, 32, 8, 4), (8, 8, 8, 4),
     (16, 16, 8, 4), (16, 32, 16, 2), (8, 16, 4, 8), (8, 8, 4, 8)]
+# The 8-row tiles' blocks (timed on the 8x128 frame alone; with --short,
+# these variants alone): (SUB_W_SHORT, WARPS, MIN_BLOCKS).
+SHORT_VARIANTS = [(32, 8, 4), (16, 8, 4), (64, 8, 4), (32, 4, 8)]
 MICRO_VARIANTS = [  # (SPAN, WARPS)
     (128, 4), (64, 4), (256, 4), (128, 8)]
 
@@ -68,7 +76,8 @@ def build_variant(name, tag, values):
 
     report = chip_smoke.ptxas_report(proc.stdout + proc.stderr)
     return tag, lib, "; ".join(f"{k} {v}" for k, v in sorted(report.items())
-                               if k.endswith("<1>") or k.endswith("<0>"))
+                               if k.endswith("<1>") or k.endswith("<0>")
+                               or k.startswith("raster_kernel<4"))
 
 
 def install(name, symbol, lib, pointers, ints):
@@ -86,12 +95,14 @@ def install(name, symbol, lib, pointers, ints):
 
 def probe(cases, run):
     """What sets each raster's time, with the source's own constants: the
-    same launch on lists cut down (the work list is rebuilt from the
-    counts, so a tile or cell counted 0 is left out). Tile raster: the
-    heaviest tile alone, every tile but the four heaviest, every list cut
-    to its first 256 triangles. Micro raster: every cell cut to SPAN pairs
-    (no spans), the cells over SPAN pairs alone, every cell cut to 16
-    pairs."""
+    same launch on lists cut down (the work list and the span list are
+    rebuilt from the counts, so a tile or cell counted 0 is left out).
+    Tile raster: the heaviest tile alone, every tile but the four
+    heaviest, every list cut to its first 256 triangles and to its first
+    (the blocks' fixed cost), and no tile at all (the launch and the
+    exiting blocks). Micro raster:
+    every cell cut to SPAN pairs (no spans), the cells over SPAN pairs
+    alone, every cell cut to 16 pairs."""
     import torch
 
     import chip_smoke as cs
@@ -110,7 +121,9 @@ def probe(cases, run):
                         == top[0], counts, 0),
                     "all but the 4 heaviest": counts.index_fill(
                         0, top[:4], 0),
-                    "lists cut to 256": counts.clamp(max=256)}
+                    "lists cut to 256": counts.clamp(max=256),
+                    "lists cut to 1": counts.clamp(max=1),
+                    "no tile": torch.zeros_like(counts)}
         else:
             span = micro.SPAN
             cuts = {"cells cut to SPAN (no spans)": counts.clamp(max=span),
@@ -135,7 +148,8 @@ def probe(cases, run):
 
 # Where the timeline copy of raster.cu stamps %globaltimer: (text in the
 # kernel, stamp inserted after it). Round c's four stamps are 2 + 4 c to
-# 5 + 4 c: staged, culled, items listed, walked.
+# 5 + 4 c: staged, culled, items listed, walked; the last, a whole list's
+# pixels emitted or a span's words folded.
 STAMPS = [
     ("  const int ti = tile / ntx;\n", "STAMP(0)"),
     ("warp_rects[warp] = patch;\n  }\n  __syncthreads();\n", "STAMP(1)"),
@@ -145,17 +159,20 @@ STAMPS = [
      "STAMP(4 + 4 * c)"),
     ("    __syncthreads();  // round c is consumed before its buffer is "
      "refilled\n", "STAMP(5 + 4 * c)"),
-    ("                            num_lights, out, key, o, plane);\n  }\n",
+    ("        emit(p, j, r, cl, words[p * 64 + lane + 32 * j]);\n    }\n",
+     "STAMP(1023)"),
+    ("    if (v != WORD_CLEAR) atomicMin(global_word(r, cl), v);\n  }\n",
      "STAMP(1023)"),
 ]
 
 
 def timeline(cases):
     """The heaviest tile's first block, stamped: a copy of csrc/raster.cu
-    in which thread 0 of sub-rectangle 0 of a tile of at least the
-    heaviest list's count records %globaltimer at the kernel's start, after
-    the set-up barrier, after each round's four barriers and at its end;
-    printed as microseconds per step."""
+    in which thread 0 of sub-rectangle 0 of span 0 of a tile of at least
+    the heaviest list's count records %globaltimer at the kernel's start,
+    after the set-up barrier, after each round's four barriers and after
+    its words are folded (a span block's epilogue waits on the last span
+    to arrive); printed as microseconds per step."""
     import ctypes
 
     import torch
@@ -172,7 +189,8 @@ def timeline(cases):
         text = text.replace(anchor, anchor + f"  {stamp};\n")
     text = text.replace("namespace {\n", f"""namespace {{
 __device__ unsigned long long probe_stamp[1024];
-#define STAMP(i) if (threadIdx.x == 0 && sub == 0 && count >= {heaviest}) \\
+#define STAMP(i) \\
+    if (threadIdx.x == 0 && sub == 0 && lo == 0 && count >= {heaviest}) \\
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(probe_stamp[(i)]))
 """, 1)
     text += """
@@ -191,18 +209,19 @@ extern "C" int read_probe(void* dst) {
          lib, src], capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"nvcc timeline:\n{proc.stdout}{proc.stderr}")
-    install("raster", "raster_shade_tiles", lib, 10, 10)
+    install("raster", "raster_shade_tiles", lib, 13, 11)
     read = ctypes.CDLL(lib).read_probe
     read.argtypes = [ctypes.c_void_p]
     stamps = torch.zeros(1024, dtype=torch.int64)
     for _ in range(3):  # the last of three launches
         raster._raster_cuda(*args, worklist=binning.occupied_worklist(
-            args[3]), **kw)
+            args[3]), spans=binning.span_list_plain(args[3],
+                                                    args[1].shape[0]), **kw)
     torch.cuda.synchronize()
     if read(stamps.data_ptr()) != 0:
         raise SystemExit("timeline: read_probe failed")
     t = stamps.tolist()
-    rounds = -(-heaviest // 256)
+    rounds = -(-min(heaviest, binning.TILE_SPAN) // 256)
     us = lambda a, b: (t[b] - t[a]) / 1e3
     print(f"[timeline] heaviest tile ({heaviest} triangles, {rounds} rounds)"
           f", block 0: set-up {us(0, 1):.2f} us, epilogue "
@@ -228,13 +247,22 @@ def main() -> int:
     from compute_renderer_torch.backends import binning, cuda, micro, raster
 
     device = torch.device("cuda:0")
-    card = cs.card_line()
+    from compute_renderer_torch.bench.profiling import card_line
+
+    card = card_line()
     print(f"[device] {card}")
+    short = "--short" in sys.argv
     jobs = [("raster", f"{h}x{w}_w{n}_b{b}",
-             {"SUB_H": h, "SUB_W": w, "WARPS": n, "MIN_BLOCKS": b})
+             {"SUB_H_TALL": h, "SUB_W_TALL": w, "WARPS": n,
+              "MIN_BLOCKS": b})
             for h, w, n, b in TILE_VARIANTS]
     jobs += [("micro", f"span{s}_w{w}", {"SPAN": s, "WARPS": w})
              for s, w in MICRO_VARIANTS]
+    if short:
+        jobs = []
+    jobs += [("raster", f"8x{w}_w{n}_b{b}",
+              {"SUB_W_SHORT": w, "WARPS": n, "MIN_BLOCKS": b})
+             for w, n, b in SHORT_VARIANTS]
     if "--probe" in sys.argv:
         jobs = []
     t0 = time.perf_counter()
@@ -260,6 +288,25 @@ def main() -> int:
     cases["tile structured_tex mat"] = ("raster", (
         table, bins["pair_tri"], bins["seg_start"],
         bins["seg_count"], params, lights), tkw)
+    # The structured_tex_aniso.batch cell's frame: the 36k scene at its
+    # spawn, texf_mip under the anisotropic filter, the flat layout at the
+    # tuner's 8x128.
+    x = cs.frame_inputs(cs.scene_copy(scenes["structured_tex+textures"]),
+                        device, tex_filter="anisotropic")
+    table, meta = cs.check_front("structured_tex", x, False, {},
+                                 tile=(8, 128), mode="texf_mip")
+    ntx8, nty8 = (cs.W + 127) // 128, (cs.H + 7) // 8
+    setup = binning.setup_from_meta(meta)
+    need = binning.exact_tile_counts(setup, ntx8, nty8)
+    bins = binning.bin_triangles_sort(setup, ntx8, nty8, int(need.sum()),
+                                      int(need.max()))
+    params, lights = raster.shading_inputs(x["eff"], x["vpos"], x["lwp"],
+                                           x["lc"], x["li"])
+    cases["tile structured_tex texf_mip 8x128"] = ("raster", (
+        table, bins["pair_tri"], bins["seg_start"], bins["seg_count"],
+        params, lights), dict(height_padded=nty8 * 8,
+                              width_padded=ntx8 * 128, tile_h=8,
+                              tile_w=128, layout="flat", mode="texf_mip"))
     x = cs.frame_inputs(cs.bench_scene(), device)
     table, meta = cs.check_front("suzanne", x, False, {})
     setup = binning.setup_from_meta(meta)
@@ -289,9 +336,12 @@ def main() -> int:
         dict(height_padded=mty * 8, width_padded=mtx * 128, mode="mat"))
 
     def run(kind, args, kw):
-        if kind == "raster":
+        if kind == "raster":  # with the flat layout's span list
+            spans = None
+            if kw["layout"] == "flat":
+                spans = binning.span_list_plain(args[3], args[1].shape[0])
             wl = binning.occupied_worklist(args[3])
-            return raster._raster_cuda(*args, worklist=wl, **kw)
+            return raster._raster_cuda(*args, worklist=wl, spans=spans, **kw)
         return micro._micro_cuda(*args, **kw)
 
     def twin(kind, args, kw):
@@ -305,16 +355,18 @@ def main() -> int:
         for name, tag, lib, ptxas in order:
             symbol = ("raster_shade_tiles" if name == "raster"
                       else "raster_shade_micro")
-            install(name, symbol, lib, *((10, 10) if name == "raster"
+            install(name, symbol, lib, *((13, 11) if name == "raster"
                                          else (14, 7)))
+            tall = not tag.startswith("8x") or name != "raster"
             for case, (kind, args, kw) in cases.items():
-                if kind != name:
+                if kind != name or (kw.get("tile_h") == 8) == tall:
                     continue
                 out, key = run(kind, args, kw)
                 ref_out, ref_key = expected[case]
-                same = (torch.equal(key, ref_key)
-                        and torch.equal(out.view(torch.int32),
-                                        ref_out.view(torch.int32)))
+                same = (torch.equal(key, ref_key) and torch.equal(
+                    raster.defined_planes(out, key).view(torch.int32),
+                    raster.defined_planes(ref_out, ref_key).view(
+                        torch.int32)))
                 if not same:
                     raise SystemExit(f"{name} {tag} differs from the twin "
                                      f"on {case}")
@@ -324,8 +376,9 @@ def main() -> int:
                     "ptxas": ptxas, "ms": []})["ms"].append(ms)
                 print(f"[sweep] {case:24s} {tag:12s} {ms:.6f} ms "
                       f"(bitwise with the twin) | {ptxas}")
-    probe(cases, run)
-    timeline(cases)
+    if not short:
+        probe(cases, run)
+        timeline(cases)
     print(f"[sweep] card: {card}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out",

@@ -456,10 +456,10 @@ def test_merge_scratch_made_before_capture_stays_clear_on_card(
                                path="micro")
     hp, wp = (H + 7) // 8 * 8, (W + 127) // 128 * 128
     r.render(ts.update(DT))  # the eager warm-up makes it, then the capture
-    words, arrivals = port.micro.merge_scratch(cuda_device, hp, wp)
+    words, arrivals = port.common.merge_scratch(cuda_device, hp, wp)
     r.render_batch_device(_advance(ts, 4))
     port.torch.cuda.synchronize()
-    again = port.micro.merge_scratch(cuda_device, hp, wp)
+    again = port.common.merge_scratch(cuda_device, hp, wp)
     assert again[0].data_ptr() == words.data_ptr()
     assert bool((words == -1).all()) and not bool(arrivals.any())
 

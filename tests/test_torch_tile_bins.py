@@ -20,20 +20,27 @@ package, and ``cuda.render_frame``'s tile path through them.
   contract of tests/torch_parity.py (XLA:CPU contracts mul+add).
 
 The longest bin list (``most``, folded by max into the accumulator's
-seventh word) equals a direct count of the bins: each tile's alive
+last word) equals a direct count of the bins: each tile's alive
 rects, on the dense and the flat layout (the flat one under pair
 overflow too), and each micro cell's pairs.
 
+The flat layout's span list (``spans``: its count, then a (tile, k)
+entry for each of the tile raster's spans past a tile's first) and its
+count in the accumulator's seventh word equal a loop over the tiles'
+counts, with long, capped and pair-overflowing lists; the dense and
+micro layouts write none.
+
 The CUDA kernels (``csrc/bins.cu``, and ``csrc/sort.cu`` for the longest
-list) are held to the twins on the same cases only where a card
-exists."""
+list and the span list) are held to the twins on the same cases only
+where a card exists."""
 
 import numpy as np
 import pytest
 
 from tests.torch_bin_cases import (
     BIN_KEYS, META_CASES, MICRO_SORT_CASES, NTX, NTX_T, NTY, NTY_T,
-    _random_meta, meta_case, shading_case, sort_case, sort_pairs,
+    SPAN_CASES, _random_meta, meta_case, shading_case, sort_case, span_case,
+    sort_pairs,
 )
 from tests.torch_parity import (  # noqa: F401 (fixtures)
     W, H, assert_frames_match, cuda_device, pixel_budget, port, tpu,
@@ -246,7 +253,7 @@ def test_render_frame_tile_chunks_vs_jax(port, tpu, suzanne, tri_chunk):
 
 
 # ---------------------------------------------------------------------------
-# The longest bin list: the seventh word of the accumulator
+# The longest bin list: the last word of the accumulator
 # ---------------------------------------------------------------------------
 
 LONGEST_LAYOUTS = ["dense", "flat", "flat_pair_overflow"]
@@ -272,7 +279,7 @@ def _direct_longest(meta, ntx, nty):
 def _longest_acc(port, device="cpu"):
     acc = port.torch.zeros((port.binning.ACC_WORDS,),
                            dtype=port.torch.int64, device=device)
-    acc[6] = EARLIER
+    acc[7] = EARLIER
     return acc
 
 
@@ -300,7 +307,7 @@ def test_longest_list_is_the_largest_tile_count(port, monkeypatch, layout,
     assert bins["layout"] == layout.split("_")[0]
     want = _direct_longest(meta, ntx, nty)
     assert int(bins["most"]) == want
-    assert int(acc[6]) == max(EARLIER, want)
+    assert int(acc[7]) == max(EARLIER, want)
     if case == "tile_over_cap":
         assert want == int(bins["tile_needed"]) > tile_cap
     assert (int(bins["pair_needed"]) > 0) == (int(meta[3].sum()) > pair_cap)
@@ -325,9 +332,56 @@ def test_longest_list_is_the_largest_cell_count(port, name):
     bins = port.binning.bin_cells_sort_meta(*rows, NTX_T, NTY_T, pair_cap,
                                             acc)
     assert int(bins["most"]) == want
-    assert int(acc[6]) == max(EARLIER, want)
+    assert int(acc[7]) == max(EARLIER, want)
     if name == "long":
         assert want > EARLIER
+
+
+def _direct_spans(seg_count, span):
+    """The span list's (tile, k) entries from the counts, tile by tile in
+    Python: one for each k >= 1 with k span below the count."""
+    return [(t, k) for t, c in enumerate(seg_count.tolist())
+            for k in range(1, -(-c // span))]
+
+
+@pytest.mark.parametrize("name", SPAN_CASES)
+def test_span_list_is_the_long_tiles_windows(port, monkeypatch, name):
+    # Tolerance: none; integers. The counts are the clamped ones.
+    monkeypatch.setattr(port.binning, "DENSE_BINNING_OP_LIMIT", 0)
+    meta, ntx, nty, pair_cap, tile_cap = span_case(name)
+    acc = _longest_acc(port)
+    acc[6] = 3  # an earlier frame's spans
+    bins = port.binning.bin_tiles_meta(port.torch.from_numpy(meta), ntx,
+                                       nty, pair_cap, tile_cap, acc)
+    span = port.binning.TILE_SPAN
+    want = _direct_spans(bins["seg_count"], span)
+    extra = len(want)
+    assert bins["layout"] == "flat"
+    assert bins["spans"].dtype == port.torch.int32
+    # The count, the entries by tile and span, then zeros up to the list's
+    # room, ceil(pair_cap / span) entries.
+    assert bins["spans"].tolist() == [extra] + [v for e in want for v in e] \
+        + [0] * (2 * -(-pair_cap // span) - 2 * extra)
+    assert int(acc[6]) == 3 + extra
+    assert extra >= 2
+    if name == "long":
+        assert int(bins["seg_count"].max()) > 3 * span
+    if name == "long_capped":
+        assert int(bins["tile_needed"]) > tile_cap
+    if name == "long_pair_overflow":
+        assert int(bins["pair_needed"]) > pair_cap
+
+
+def test_dense_and_micro_layouts_write_no_spans(port):
+    meta, ntx, nty, pair_cap, tile_cap = span_case("long")
+    acc = _longest_acc(port)
+    bins = port.binning.bin_tiles_meta(port.torch.from_numpy(meta), ntx,
+                                       nty, pair_cap, tile_cap, acc)
+    assert bins["layout"] == "dense" and "spans" not in bins
+    rows, cap, _ = _micro_rows(port, "long")
+    bins = port.binning.bin_cells_sort_meta(*rows, NTX_T, NTY_T, cap, acc)
+    assert "spans" not in bins
+    assert int(acc[6]) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -414,3 +468,28 @@ def test_card_longest_cell_list_matches_twin(port, cuda_device, name):
                                           want)
     assert int(bk["most"]) == int(bp["most"]) == most
     assert got.cpu().tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPAN_CASES)
+def test_card_span_list_matches_twin(port, cuda_device, monkeypatch, name):
+    # bin_sort_scan_kernel writes the span list in the sort's cleared
+    # scratch and adds its entries to the seventh word, as the twin; the
+    # micro layout writes none.
+    monkeypatch.setattr(port.binning, "DENSE_BINNING_OP_LIMIT", 0)
+    meta, ntx, nty, pair_cap, tile_cap = span_case(name)
+    got, want = _longest_acc(port, cuda_device), _longest_acc(port)
+    for _ in range(2):  # a second call finds the scratch written before
+        bk = port.binning.bin_tiles_meta(
+            port.torch.from_numpy(meta).to(cuda_device), ntx, nty, pair_cap,
+            tile_cap, got)
+    for _ in range(2):
+        bp = port.binning.bin_tiles_meta(port.torch.from_numpy(meta), ntx,
+                                         nty, pair_cap, tile_cap, want)
+    assert bk["spans"].cpu().tolist() == bp["spans"].tolist()
+    assert got.cpu().tolist() == want.tolist()
+    assert int(want[6]) > 0
+    rows, cap, _ = _micro_rows(port, "long", cuda_device)
+    got = _longest_acc(port, cuda_device)
+    micro = port.binning.bin_cells_sort_meta(*rows, NTX_T, NTY_T, cap, got)
+    assert "spans" not in micro and int(got[6]) == 0

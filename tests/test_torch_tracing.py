@@ -141,13 +141,16 @@ def test_span_under_a_session_is_a_record_function(port):
 def _expected(reports, samples=0):
     """The fold of per-frame (or per-chunk) bin dicts: needs maxed, pairs
     and occupied tiles summed; then the micro raster's ``samples``, no
-    textured pixels (no frame here runs the mip texture tail), and the
-    longest bin list maxed."""
+    textured pixels (no frame here runs the mip texture tail), the flat
+    layout's span list entries summed (none in the dense and micro
+    layouts), and the longest bin list maxed."""
     need = np.max([r["overflow"].numpy() for r in reports], axis=0)
     pairs = sum(int(r["total_pairs"]) for r in reports)
     tiles = sum(int(r["k"]) for r in reports)
     most = max(int(r["most"]) for r in reports)
-    return [int(need[0]), int(need[1]), pairs, tiles, samples, 0, most]
+    spans = sum(int(r["spans"][0]) for r in reports if "spans" in r)
+    return [int(need[0]), int(need[1]), pairs, tiles, samples, 0, spans,
+            most]
 
 
 def _metas(port, scene, n, tile, width=W, height=H):
@@ -298,13 +301,52 @@ def test_batch_frame_counts_while_recording(port, monkeypatch):
     with _profile():
         r.render_batch_device(batch, check=False)
         r.render_batch_device(batch[:1], check=False)
-    _, _, pairs, tiles, _, _, _ = _expected(reports)
+    _, _, pairs, tiles, _, _, spans, _ = _expected(reports)
     assert tr.frame_counts() == {"frames": 4, "pairs": pairs, "tiles": tiles,
-                                 "samples": 0}
+                                 "samples": 0, "textured": 0,
+                                 "spans": spans}
     assert not r.flush_overflow()
     tr.reset()
     assert tr.frame_counts()["frames"] == 0
     assert "samples" not in tr.frame_counts()
+
+
+def test_batch_spans_while_recording(port, monkeypatch):
+    # A traced tile batch on the flat layout adds its span blocks (the
+    # span list's entries, here at a span of 4 so that the 64x48 frame's
+    # lists split) to frame_counts()["spans"]; a traced micro batch adds
+    # no "spans" key.
+    tr = port.tracing
+    b = port.binning
+    monkeypatch.setattr(b, "DENSE_BINNING_OP_LIMIT", 0)
+    monkeypatch.setattr(b, "TILE_SPAN", 4)
+    s = _scene(port)
+    r = port.renderer.Renderer(s.mesh, W, H, device="cpu", path="tile",
+                               **s.renderer_options())
+    batch = _advance(s, 3)
+    r.render_batch_device(batch)  # the capacities settle
+    fn, reports = b.bin_tiles_meta, []
+
+    def recorded(*args, **kwargs):
+        reports.append(fn(*args, **kwargs))
+        return reports[-1]
+
+    monkeypatch.setattr(b, "bin_tiles_meta", recorded)
+    tr.reset()
+    with _profile():
+        r.render_batch_device(batch, check=False)
+    assert {x["layout"] for x in reports} == {"flat"}
+    spans = _expected(reports)[6]
+    assert tr.frame_counts()["spans"] == spans > 0
+    tr.reset()
+    assert "spans" not in tr.frame_counts()
+    m = port.renderer.Renderer(s.mesh, W, H, device="cpu", path="micro",
+                               **s.renderer_options())
+    m.render_batch_device(batch)
+    with _profile():
+        m.render_batch_device(batch, check=False)
+    assert tr.frame_counts()["frames"] == 3
+    assert "spans" not in tr.frame_counts()
 
 
 def test_micro_batch_samples_engage_the_cull(port, monkeypatch):
@@ -397,7 +439,7 @@ def test_batch_frame_peaks_while_recording(port, monkeypatch, layout):
                                           nty).max())
                   for m, ntx, nty in grids)
     assert tr.frame_peaks() == {"list": longest} and longest > 0
-    assert longest == _expected(reports)[6]
+    assert longest == _expected(reports)[7]
     assert not r.flush_overflow()
     tr.reset()
 

@@ -217,9 +217,19 @@ def test_mirrors_use_the_kernels_constants(port):
             return int(re.search(rf"constexpr int {symbol} = (\d+);",
                                  fh.read()).group(1))
 
-    assert (port.raster.SUB_H, port.raster.SUB_W, port.raster.PATCH) == (
-        const("raster.cu", "SUB_H"), const("raster.cu", "SUB_W"),
-        const("raster.cu", "PATCH"))
+    assert port.raster.SUB_TALL == (const("raster.cu", "SUB_H_TALL"),
+                                    const("raster.cu", "SUB_W_TALL"))
+    assert port.raster.SUB_SHORT == (const("raster.cu", "SUB_H_SHORT"),
+                                     const("raster.cu", "SUB_W_SHORT"))
+    assert port.raster.PATCH == const("raster.cu", "PATCH")
+    # The bin sort and the raster share one span length, the twins'.
+    assert port.binning.TILE_SPAN == const("tile_span.cuh", "TILE_SPAN")
+    for name in ("raster.cu", "sort.cu"):
+        with open(os.path.join(ROOT, "compute_renderer_torch", "csrc",
+                               name)) as fh:
+            assert '#include "tile_span.cuh"' in fh.read()
+    assert port.raster.sub_shape(16) == port.raster.SUB_TALL
+    assert port.raster.sub_shape(8) == port.raster.SUB_SHORT
     assert port.micro.SPAN == const("micro.cu", "SPAN")
     assert port.micro.WIDE == const("micro.cu", "WIDE")
 
@@ -303,6 +313,39 @@ def test_subtiles_equal_tile_twin(port, mode, effect, tile, layout):
 
 
 @pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("effect,tile,layout,span", [
+    ("none", (8, 128), "flat", 3), ("mirage", (8, 128), "flat", 1),
+    ("voxelize", (16, 256), "flat", 5), ("none", (16, 256), "dense", 2),
+    ("edge_melt", (8, 128), "dense", 4), ("none", (24, 40), "flat", 2),
+])
+def test_subtile_spans_equal_tile_twin(port, monkeypatch, mode, effect,
+                                       tile, layout, span):
+    # Lists cut into spans of a few entries (the kernel's 256 never binds
+    # on these frames): the flat layout's tiles split, each span walks its
+    # positions and the spans merge by the packed (key, position) minimum;
+    # the dense layout walks every list whole. Both sub-rectangle shapes.
+    base, bins, params, lights, (hp, wp) = _port_chain(port, effect, tile,
+                                                       layout)
+    table = _mode_table(port, base, mode, np.random.default_rng(9))
+    data = bins["bin_rows" if layout == "dense" else "pair_tri"]
+    args = (table, data, bins["seg_start"], bins["seg_count"], params,
+            lights)
+    kw = dict(height_padded=hp, width_padded=wp, tile_h=tile[0],
+              tile_w=tile[1], layout=layout, mode=mode)
+    stats = {}
+    monkeypatch.setattr(port.binning, "TILE_SPAN", span)
+    sub = port.raster.raster_shade_subtiles_plain(*args, stats=stats, **kw)
+    assert _equal(port, sub, port.raster.raster_shade_tiles_plain(*args,
+                                                                  **kw))
+    assert int((sub[1] != -1).sum()) > 0
+    assert (stats["spans"] > 0) == (layout == "flat")
+    if layout == "flat":
+        # The twin's span list counts the same spans at its own length.
+        assert stats["spans"] == int(port.binning.span_list_plain(
+            bins["seg_count"], data.shape[0])[0])
+
+
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("effect,span", [("none", 1), ("mirage", 4),
                                          ("voxelize", 3), ("none", 256)])
 def test_micro_spans_equal_micro_twin(port, mode, effect, span):
@@ -343,6 +386,30 @@ def test_stress_cases_on_mirrors(port, kind):
             *args, mode=mode, span=4, **kw))
         assert int((plain[1] != -1).sum()) > 0
     assert x["densest"] > 4
+
+
+@pytest.mark.parametrize("tile", [(8, 128), (16, 256)])
+@pytest.mark.parametrize("kind", ["duplicates", "nan_zero", "edges+mirage"])
+def test_stress_spans_on_tile_mirror(port, monkeypatch, kind, tile):
+    # The phase-13 cases at both tile shapes, the lists cut at spans of 4:
+    # the duplicates' equal keys straddle every span border, and the
+    # lowest list position must win across the merge.
+    smoke = _smoke()
+    x = smoke.stress_inputs(kind, "cpu", 4, tile=tile)
+    kw = dict(height_padded=smoke.STRESS_H, width_padded=smoke.STRESS_W,
+              tile_h=tile[0], tile_w=tile[1])
+    monkeypatch.setattr(port.binning, "TILE_SPAN", 4)
+    for mode in MODES:
+        for layout, (data, starts, counts) in x["tile"].items():
+            args = (x["tables"][mode], data, starts, counts, x["params"],
+                    x["light_rows"])
+            stats = {}
+            sub = port.raster.raster_shade_subtiles_plain(
+                *args, layout=layout, mode=mode, stats=stats, **kw)
+            assert _equal(port, sub, port.raster.raster_shade_tiles_plain(
+                *args, layout=layout, mode=mode, **kw))
+            assert (stats["spans"] > 0) == (layout == "flat")
+    assert x["longest"] > 4 * 4
 
 
 def test_micro_spans_vs_pallas(port, tpu):
@@ -404,7 +471,106 @@ def test_stress_cases_on_card(port, cuda_device, kind):
                 mode=mode, **kw)
             smoke.compare_outputs(f"{kind} micro {mode}", mode, rk, kk, rp,
                                   kp)
-        words, arrivals = port.micro.merge_scratch(
+        words, arrivals = port.common.merge_scratch(
             t.device(cuda_device), smoke.STRESS_H, smoke.STRESS_W)
         assert bool((words == -1).all()) and not bool(arrivals.any())
     assert x["densest"] > 20 * port.micro.SPAN or kind != "duplicates"
+
+
+# Per stress case, the span argument of its triangles that gives 8x128
+# tile lists of 3-6 kernel spans (duplicates, nan_zero) and the edges'
+# fixed lists, which run along the 8x32 and 16x16 block borders. The
+# 4x64 tiles are cut by 8x32 sub-rectangles that reach past the tile.
+CARD_SPAN_CASES = {"duplicates": 50, "nan_zero": 300, "edges": 4,
+                   "edges+mirage": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(8, 128), (16, 256), (4, 64)])
+@pytest.mark.parametrize("kind", list(CARD_SPAN_CASES))
+def test_stress_spans_on_card(port, cuda_device, kind, tile):
+    # The tile kernel against the unchanged twin with the flat layout's
+    # span list: every mode bitwise (RGBA within 1 LSB), twice, the merge
+    # words and counters left clear after each launch.
+    t = port.torch
+    smoke = _smoke()
+    x = smoke.stress_inputs(kind, cuda_device, CARD_SPAN_CASES[kind],
+                            tile=tile)
+    kw = dict(height_padded=smoke.STRESS_H, width_padded=smoke.STRESS_W,
+              tile_h=tile[0], tile_w=tile[1])
+    data, starts, counts = x["tile"]["flat"]
+    spans = port.binning.span_list_plain(counts, data.shape[0])
+    extra = int(spans[0])
+    if kind in ("duplicates", "nan_zero") and tile != (4, 64):
+        span = port.binning.TILE_SPAN
+        assert 3 * span <= x["longest"] <= 6 * span
+        assert extra > 0
+    for mode in MODES:
+        table = x["tables"][mode]
+        for _ in range(2):
+            rk, kk = port.raster.raster_shade_tiles(
+                table, data, starts, counts, x["effect"], x["vpos"],
+                *x["lights"], layout="flat", mode=mode,
+                worklist=port.binning.occupied_worklist(counts),
+                spans=spans, **kw)
+            rp, kp = port.raster.raster_shade_tiles_plain(
+                table, data, starts, counts, x["params"], x["light_rows"],
+                layout="flat", mode=mode, **kw)
+            smoke.compare_outputs(f"{kind} tile {tile} {mode} spans", mode,
+                                  rk, kk, rp, kp)
+            words, arrivals = port.common.merge_scratch(
+                t.device(cuda_device), smoke.STRESS_H, smoke.STRESS_W)
+            assert bool((words == -1).all()) and not bool(arrivals.any())
+
+
+def _cell_frame(port, device):
+    """The structured_tex_aniso.batch cell's first frame through the
+    front on the card: the 36k textured scene at its spawn, texf_mip
+    under the anisotropic filter, binned flat at 8x128 (table, bins,
+    params, lights, frame size)."""
+    smoke = _smoke()
+    from compute_renderer_torch import CameraConfig, Scene, SceneConfig
+    from compute_renderer_torch.io import objgen
+
+    objgen.ensure_textured_scene()
+    scene = Scene.from_config(SceneConfig(
+        model_path=objgen.STRUCTURED_TEX_NAME, enable_textures=True,
+        camera_config=CameraConfig.first_person(smoke.STRUCTURED_EYE)),
+        smoke.W, smoke.H)
+    x = smoke.frame_inputs(scene, device, tex_filter="anisotropic")
+    table, meta = port.front.front_end(
+        x["pos_soa"], x["nrm_soa"], x["vp"], x["eff"], width=smoke.W,
+        height=smoke.H, tile_h=8, tile_w=128,
+        **smoke.front_modes(x, "texf_mip"))
+    ntx, nty = smoke.W // 128, smoke.H // 8
+    need = port.binning.exact_tile_counts(
+        port.binning.setup_from_meta(meta), ntx, nty)
+    bins = port.binning.bin_tiles_meta(meta, ntx, nty, int(need.sum()),
+                                       int(need.max()))
+    params, lights = port.raster.shading_inputs(x["eff"], x["vpos"],
+                                                x["lwp"], x["lc"], x["li"])
+    return table, bins, params, lights, x, (nty * 8, ntx * 128)
+
+
+@pytest.mark.cuda
+def test_cell_frame_spans_on_card(port, cuda_device):
+    # The cell's frame (its longest list several spans long) through the
+    # kernel with the bin sort's span list, against the twin: keys and
+    # the defined G-buffer planes bitwise, in texf_mip and base.
+    table, bins, params, lights, x, (hp, wp) = _cell_frame(port,
+                                                           cuda_device)
+    assert bins["layout"] == "flat"
+    assert int(bins["seg_count"].max()) > 3 * port.binning.TILE_SPAN
+    assert int(bins["spans"][0]) > 0
+    kw = dict(height_padded=hp, width_padded=wp, tile_h=8, tile_w=128,
+              layout="flat")
+    args = (bins["pair_tri"], bins["seg_start"], bins["seg_count"])
+    smoke = _smoke()
+    for mode, tab in (("texf_mip", table), ("base", table[:, :32])):
+        rk, kk = port.raster.raster_shade_tiles(
+            tab, *args, x["eff"], x["vpos"], x["lwp"], x["lc"], x["li"],
+            mode=mode, worklist=(bins["worklist"], bins["k"]),
+            spans=bins["spans"], **kw)
+        rp, kp = port.raster.raster_shade_tiles_plain(
+            tab, *args, params, lights, mode=mode, **kw)
+        smoke.compare_outputs(f"cell frame {mode}", mode, rk, kk, rp, kp)

@@ -154,3 +154,24 @@ def sort_pairs(meta, ntx, num_bins, pair_cap):
     n = min(tri.shape[0], pair_cap)
     keys[:n], tris[:n] = key[:n], tri[:n]
     return keys, tris, int(c.sum())
+
+
+# Flat tile layouts whose lists the tile raster cuts into spans: a block
+# of triangles over tiles (0..1, 0..2), more over tile (3, 5) alone, among
+# scattered ones; (meta, ntx, nty, pair_cap, tile_cap). "long_capped"
+# clamps the longest lists at the tile cap, "long_pair_overflow" cuts the
+# pair list inside them.
+SPAN_CASES = ["long", "long_capped", "long_pair_overflow"]
+
+
+def span_case(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    meta = _random_meta(rng, 3000, NTX, NTY)
+    block = rng.choice(3000, 1900, replace=False)
+    meta[0, block[:1100]], meta[1, block[:1100]] = 0, 0
+    meta[2, block[:1100]], meta[3, block[:1100]] = 2, 6
+    meta[0, block[1100:]], meta[1, block[1100:]] = 3, 5
+    meta[2, block[1100:]], meta[3, block[1100:]] = 1, 1
+    pair_cap = 2500 if name == "long_pair_overflow" else 16384
+    tile_cap = 700 if name == "long_capped" else 4096
+    return meta, NTX, NTY, pair_cap, tile_cap
